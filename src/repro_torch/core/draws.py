@@ -6,14 +6,22 @@ calls a torch sampler itself. It asks a *draw source* (any object with the
 methods of ``Draws``) and mirrors the JAX key tree through ``split``: a
 source that replays ``jax.random`` (the parity tests carry one) gives the
 port exactly the reference's numbers, while the two sources here draw
-sequentially and ignore the tree (``split`` hands back the same source).
+sequentially and ignore the tree (``split`` and ``fold_in`` hand back
+the same source).
 
 The draws the loop makes:
   * the initial chain thetas (``normal``);
   * per SGLD step of every chain: the minibatch indices in [0, hi) and the
     Langevin noise (``sgld(...).step``), all chains of a step at once;
   * per tick: the BTL uniforms (``uniform``) and, on the geometric delay
-    path, the lag uniforms.
+    path, the lag uniforms;
+  * Gumbel noise (``gumbel``) for uniform random pairs over active arms
+    (``model_pool.masked_pair_choice``) and Plackett-Luce rankings;
+  * a uniform distinct pair per row over a fixed arm count
+    (``distinct_pair``), the static baselines' ``jax.random.choice(...,
+    replace=False)``;
+  * ``fold_in(i)``, a derived source, where the reference folds a
+    constant into its key.
 
 ``hi`` is passed at call time (a Python int or a 0-d device tensor), so a
 ring that fills data-dependently still replays exactly, and a CUDA run
@@ -36,8 +44,13 @@ class SgldDraws(Protocol):
 
 class Draws(Protocol):
     def split(self, n: int) -> list["Draws"]: ...
+    def fold_in(self, i: int) -> "Draws": ...
     def normal(self, shape: tuple, device) -> torch.Tensor: ...
     def uniform(self, shape: tuple, device) -> torch.Tensor: ...
+    def gumbel(self, shape: tuple, device) -> torch.Tensor: ...
+    def distinct_pair(self, b: int, n: int, device) -> torch.Tensor:
+        """(b, 2) int64: per row an ordered pair of distinct ints in
+        [0, n), uniform."""
     def sgld(self, n_chains: int, n_steps: int) -> SgldDraws: ...
 
 
@@ -55,8 +68,15 @@ class _Sequential:
     def split(self, n: int):
         return [self] * n
 
+    def fold_in(self, i: int):
+        return self
+
     def randint(self, shape, hi, device):
         return scaled_index(self.uniform(shape, device), hi)
+
+    def distinct_pair(self, b: int, n: int, device):
+        """Gumbel top-2: a uniform ordered pair without replacement."""
+        return torch.topk(self.gumbel((b, n), device), 2, dim=-1).indices
 
     def sgld(self, n_chains: int, n_steps: int):
         return _SequentialSgld(self, n_chains)
@@ -87,6 +107,10 @@ class TorchDraws(_Sequential):
         return torch.rand(shape, generator=self.gen, device=self.device,
                           dtype=torch.float32).to(device)
 
+    def gumbel(self, shape, device):
+        e = torch.empty(shape, device=self.device, dtype=torch.float32)
+        return -torch.log(e.exponential_(generator=self.gen)).to(device)
+
 
 class HostDraws(_Sequential):
     """Draws made on the host by a seeded numpy generator and copied to
@@ -102,4 +126,8 @@ class HostDraws(_Sequential):
 
     def uniform(self, shape, device):
         v = self.rng.random(shape, dtype=np.float32)
+        return torch.from_numpy(v).to(device)
+
+    def gumbel(self, shape, device):
+        v = self.rng.gumbel(size=shape).astype(np.float32)
         return torch.from_numpy(v).to(device)

@@ -115,6 +115,20 @@ def retire_arm(pool: ModelPool, slot) -> ModelPool:
                          generation=pool.generation + 1)
 
 
+def masked_pair_choice(draws, active: torch.Tensor, b: int):
+    """Uniform random distinct pair among active arms for B rows, by
+    Gumbel top-2 (``draws.gumbel``). ``active`` is (K,) or (B, K) per-row
+    eligibility; a row with a single eligible arm duels (k, k)."""
+    act2 = torch.atleast_2d(active)
+    g = draws.gumbel((b, active.shape[-1]), active.device)
+    g = torch.where(act2, g, -torch.inf)
+    top2 = torch.topk(g, 2, dim=-1).indices
+    a1 = top2[:, 0].to(torch.int32)
+    n_act = act2.sum(dim=-1)
+    a2 = torch.where(n_act > 1, top2[:, 1].to(torch.int32), a1)
+    return a1, a2
+
+
 class PoolSchedule(NamedTuple):
     """E membership events for ``env.run``: at step ``step[e]`` slot
     ``slot[e]`` is activated with ``emb[e]``/``cost[e]`` or retired."""

@@ -3,17 +3,24 @@
 Each wrapper dispatches on the device of its tensors (CPU: plain PyTorch;
 CUDA: the kernel, or an error) and counts its kernel launches in a plain
 integer attribute ``launches``. Nothing is compiled at import: see
-``_build``.
+``_build``. (The ``dueling_score`` function is reached through its module,
+``kernels.dueling_score.dueling_score``, whose name it would shadow here.)
 """
-from .dueling_score import dueling_select, mask_fallback_pair
-from .sgld_update import (potential_grad_rows, potential_rows,
-                          resolve_sgld_backend, sgld_potential)
+from . import dueling_score as _scores
+from .dueling_score import dueling_select, mask_fallback_pair, posterior_scores
+from .sgld_update import (mixed_potential_grad_rows, mixed_potential_rows,
+                          potential_grad_rows, potential_rows,
+                          resolve_sgld_backend, sgld_mixed_potential,
+                          sgld_potential)
 
 # name -> wrapper, for reading and resetting the launch counts
 WRAPPERS = {
     "dueling_select": dueling_select,
     "sgld_potential_fwd": potential_rows,
     "sgld_potential_grad": potential_grad_rows,
+    "dueling_score": _scores.dueling_score,
+    "sgld_mixed_fwd": mixed_potential_rows,
+    "sgld_mixed_grad": mixed_potential_grad_rows,
 }
 
 
@@ -26,6 +33,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "dueling_select", "launch_counts", "mask_fallback_pair",
-           "potential_grad_rows", "potential_rows", "reset_launch_counts",
-           "resolve_sgld_backend", "sgld_potential"]
+__all__ = ["WRAPPERS", "dueling_select", "launch_counts",
+           "mask_fallback_pair", "mixed_potential_grad_rows",
+           "mixed_potential_rows", "posterior_scores", "potential_grad_rows",
+           "potential_rows", "reset_launch_counts", "resolve_sgld_backend",
+           "sgld_mixed_potential", "sgld_potential"]

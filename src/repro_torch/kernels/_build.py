@@ -35,6 +35,10 @@ SIGNATURES = {
         # mask_stride, distinct, stream
         "dueling_select_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
+    "dueling_score": {
+        # x, a, thetas, out, B, K, d, J, stream
+        "dueling_score_launch": [P, P, P, P, I, I, I, I, P],
+    },
     "sgld_potential": {
         # theta, x, a1, a2, y, pref, rows, valid, a_emb, mask, costs, g,
         # partials, out, C, m, K, d, j, eta, mu, stream
@@ -42,6 +46,12 @@ SIGNATURES = {
                                       P, I, I, I, I, I, F, F, P],
         "sgld_potential_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
                                        P, I, I, I, I, I, F, F, P],
+        # theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g, partials,
+        # out, C, m, d, eta, stream
+        "sgld_mixed_fwd_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                  F, P],
+        "sgld_mixed_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I,
+                                   I, F, P],
     },
 }
 

@@ -1,18 +1,23 @@
-"""Batched duel-pair selection: the router's serving hot path.
+"""Dueling scores and batched duel-pair selection (counterpart of
+``repro/kernels/dueling_score.py``).
 
-Counterpart of ``repro/kernels/dueling_score.py::dueling_select``. For a
-batch of queries x (B,d), the arm table A (K,d) and two posterior samples
-thetas (2,d), each query's scores are
+For a batch of queries x (B,d), the arm table A (K,d) and posterior samples
+thetas (J,d), the scores are
 
-    s_j[k] = ((x*theta_j) . a_k) / sqrt(max((x*x) . (a_k*a_k), 1e-24)) - tilt[k]
+    s_j[b,k] = ((x_b*theta_j) . a_k) / sqrt(max((x_b*x_b) . (a_k*a_k), 1e-24))
 
-with inactive arms at -inf; a1 = argmax s_1, a2 = argmax s_2 (without a1
-when ``distinct``), and (a1, a1) when no candidate of a2 is left.
+``dueling_score`` returns them all, (J,B,K); ``posterior_scores`` drives it
+with the all-ones query, (C,K) = theta_c . a_k / ||a_k||, the autopilot's
+dominance readout. ``dueling_select`` (J = 2) reduces each query's scores,
+minus a tilt and with inactive arms at -inf, to the routed pair: a1 =
+argmax s_1, a2 = argmax s_2 (without a1 when ``distinct``), and (a1, a1)
+when no candidate of a2 is left.
 
-Dispatch goes by the device of ``x``: a CPU tensor runs the plain PyTorch
-version, a CUDA tensor the hand-written kernel ``csrc/dueling_select.cu``
-(or raises). The kernel streams K with a running argmax, so it has no K
-ceiling and needs no large-K fallback.
+Dispatch goes by the device of ``x`` (``a`` for ``posterior_scores``): a
+CPU tensor runs the plain PyTorch version, a CUDA tensor the hand-written
+kernel (``csrc/dueling_score.cu``, ``csrc/dueling_select.cu``) or raises.
+The select kernel streams K with a running argmax, so it has no K ceiling
+and needs no large-K fallback.
 """
 from __future__ import annotations
 
@@ -29,19 +34,80 @@ def mask_fallback_pair(s2: torch.Tensor, a1: torch.Tensor,
     return torch.where(s2.amax(dim=-1) == -torch.inf, a1, a2)
 
 
+def _same_device(x: torch.Tensor, **ops) -> None:
+    for name, v in ops.items():
+        if v is not None and v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+
+
+def dueling_score_plain(x: torch.Tensor, a: torch.Tensor,
+                        thetas: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: (J,B,K) scores by the reference kernel's
+    identity, one denominator matmul and one numerator matmul per sample."""
+    den = torch.sqrt(torch.clamp_min((x * x) @ (a * a).T, 1e-24))
+    return torch.stack([((x * thetas[j][None, :]) @ a.T) / den
+                        for j in range(thetas.shape[0])])
+
+
+def dueling_score(x: torch.Tensor, a: torch.Tensor,
+                  thetas: torch.Tensor) -> torch.Tensor:
+    """Scores (J,B,K) float32 of x (B,d), a (K,d), thetas (J,d). CPU
+    tensors take the plain version; CUDA tensors launch the kernel and
+    count the launch in ``dueling_score.launches``."""
+    if x.device.type == "cpu":
+        return dueling_score_plain(x, a, thetas)
+    if x.device.type != "cuda":
+        raise ValueError(f"dueling_score runs on cpu or cuda, not {x.device}")
+    b, d = x.shape
+    k, j = a.shape[0], thetas.shape[0]
+    if a.shape != (k, d) or thetas.shape != (j, d):
+        raise ValueError(f"shapes x {tuple(x.shape)}, a {tuple(a.shape)}, "
+                         f"thetas {tuple(thetas.shape)} do not agree")
+    _same_device(x, a=a, thetas=thetas)
+    f32 = torch.float32
+    x_c, a_c, th_c = (v.to(f32).contiguous() for v in (x, a, thetas))
+    out = torch.empty((j, b, k), dtype=f32, device=x.device)
+    lib = _build.library("dueling_score")
+    P = _build.ptr
+    with torch.cuda.device(x.device):
+        code = lib.dueling_score_launch(P(x_c), P(a_c), P(th_c), P(out), b, k,
+                                        d, j, _build.stream(x.device))
+    _build.check(code, "dueling_score")
+    dueling_score.launches += 1
+    return out
+
+
+dueling_score.launches = 0
+
+
+def _ones_query(a: torch.Tensor) -> torch.Tensor:
+    return torch.ones((1, a.shape[1]), dtype=torch.float32, device=a.device)
+
+
+def posterior_scores(a: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+    """Context-free arm scores (C,K) = theta_c . a_k / ||a_k|| of a (K,d)
+    and thetas (C,d): ``dueling_score`` on the all-ones query (phi(1, a) =
+    a / ||a||), as the reference drives its score kernel."""
+    return dueling_score(_ones_query(a), a, thetas)[:, 0, :]
+
+
+def posterior_scores_plain(a: torch.Tensor,
+                           thetas: torch.Tensor) -> torch.Tensor:
+    """``posterior_scores`` through the plain version on any device."""
+    return dueling_score_plain(_ones_query(a), a, thetas)[:, 0, :]
+
+
 def dueling_select_plain(x: torch.Tensor, a: torch.Tensor,
                          thetas: torch.Tensor, *,
                          tilt: torch.Tensor | None = None,
                          mask: torch.Tensor | None = None,
                          distinct: bool = False):
-    """The plain PyTorch version: two matmuls per sample, then argmax.
+    """The plain PyTorch version: the two samples' scores, then argmax.
 
     ``torch.argmax`` returns the first index on ties and 0 on an all -inf
     row, as ``jnp.argmax`` does."""
     k = a.shape[0]
-    den = torch.sqrt(torch.clamp_min((x * x) @ (a * a).T, 1e-24))
-    s = torch.stack([((x * thetas[j][None, :]) @ a.T) / den
-                     for j in range(2)])                       # (2, B, K)
+    s = dueling_score_plain(x, a, thetas)                      # (2, B, K)
     if tilt is not None:
         s = s - torch.atleast_2d(tilt)[None]
     if mask is not None:
@@ -84,10 +150,7 @@ def dueling_select(x: torch.Tensor, a: torch.Tensor, thetas: torch.Tensor, *,
     if a.shape != (k, d) or thetas.shape != (2, d):
         raise ValueError(f"shapes x {tuple(x.shape)}, a {tuple(a.shape)}, "
                          f"thetas {tuple(thetas.shape)} do not agree")
-    for name, v in (("a", a), ("thetas", thetas), ("tilt", tilt),
-                    ("mask", mask)):
-        if v is not None and v.device != x.device:
-            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+    _same_device(x, a=a, thetas=thetas, tilt=tilt, mask=mask)
     t_stride = _row_stride(tilt, b, k, "tilt")
     m_stride = _row_stride(mask, b, k, "mask")
     f32 = torch.float32

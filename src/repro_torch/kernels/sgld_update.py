@@ -1,7 +1,7 @@
-"""The FGTS minibatch potential of SGLD chains and its theta-gradient.
+"""The minibatch potential of SGLD chains and its theta-gradient.
 
-Counterpart of ``repro/kernels/sgld_update.py`` ("fgts" mode). For C chains
-theta (C,d) and a minibatch of m replayed duels per chain,
+Counterpart of ``repro/kernels/sgld_update.py``, in its two modes. "fgts":
+for C chains theta (C,d) and a minibatch of m replayed duels per chain,
 
     U_c = sum_i valid_ci * [eta*softplus(-y_i (s_i,a1 - s_i,a2))
           - mu_i * (max_{k live}(s_ik - pref_i cost_k) - (s_i,opp - pref_i cost_opp))]
@@ -12,21 +12,28 @@ gradient is g_c * sum_i x_i * ((W_i / den_i) @ A), W holding the logistic
 slope on a1 and a2, the tie-split one-hot of the feel-good max and +mu_i
 on the opponent.
 
+"mixed" (``sgld_mixed_potential``, the mixed duel + click estimator): duel
+rows (is_duel > 0) take eta*softplus(-y_i (s_i,a1 - s_i,a2)), click rows
+eta*softplus(-s_i,a1) when y_i > 0.5 and eta*softplus(s_i,a1) otherwise;
+no feel-good term, so only the one or two scored arms enter and the
+gradient is x_i * (w1/den1 a_a1 + w2/den2 a_a2), O(m d) whatever K is.
+
 The row-level entry points (``potential_rows``, ``potential_grad_rows``)
 take the minibatch as ring-row indices ``rows`` (C,m) into tables x (N,d),
 a1/a2/y/pref (N,): the SGLD loop hands them the replay ring and its drawn
 indices, and the CUDA kernel (``csrc/sgld_potential.cu``) gathers the rows
-itself. Dispatch goes by the device of ``theta``: CPU -> the plain PyTorch
-version, CUDA -> the kernel (or an error). ``sgld_potential`` is the
-``torch.autograd.Function`` form, whose backward is the gradient kernel.
+itself; ``mixed_potential_rows``/``mixed_potential_grad_rows`` are the
+mixed mode's, with an ``is_duel`` (N,) table beside ``y``. Dispatch goes
+by the device of ``theta``: CPU -> the plain PyTorch version, CUDA -> the
+kernel (or an error). ``sgld_potential`` and ``sgld_mixed_potential`` are
+the ``torch.autograd.Function`` forms, whose backward is the gradient
+kernel.
 
 Backends (``resolve_sgld_backend``): "auto" and "fused" dispatch by device
 as above, "xla" forces the plain version on any device, "autodiff" is
 ``torch.autograd`` through ``core.fgts.likelihood_batch``.
 """
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import torch
 
@@ -40,14 +47,6 @@ def resolve_sgld_backend(backend: str = "auto") -> str:
     if backend not in SGLD_BACKENDS:
         raise ValueError(f"sgld_backend {backend!r} not in {SGLD_BACKENDS}")
     return "fused" if backend == "auto" else backend
-
-
-class PotentialSpec(NamedTuple):
-    """Static parameters of one potential evaluation."""
-    j: int              # which posterior sample (opponent = a^{3-j})
-    eta: float
-    mu: float
-    plain: bool = False  # force the plain version (the "xla" backend)
 
 
 def softplus(v: torch.Tensor) -> torch.Tensor:
@@ -79,6 +78,54 @@ def _live(mask, k, device):
 
 def _pick(v, idx):
     return torch.gather(v, -1, idx[..., None])[..., 0]
+
+
+def _arm_scores(xt, xx, a_emb, arms):
+    """Scores (C,m), den (C,m) and gathered rows (C,m,d) of one arm per
+    row: the two sums of the identity over d, nothing over K."""
+    ag = a_emb[arms]
+    den = torch.sqrt(torch.clamp_min(torch.sum(xx * (ag * ag), dim=-1),
+                                     1e-24))
+    return torch.sum(xt * ag, dim=-1) / den, den, ag
+
+
+def _mixed_gathered(theta, x, a1, a2, y, is_duel, rows, a_emb):
+    r = rows.long()
+    xg = x[r]                                              # (C, m, d)
+    xt, xx = xg * theta[:, None, :], xg * xg
+    ia1, ia2 = a1[r].long(), a2[r].long()
+    return (xg, _arm_scores(xt, xx, a_emb, ia1),
+            _arm_scores(xt, xx, a_emb, ia2), y[r], is_duel[r] > 0,
+            ia1 == ia2)
+
+
+def mixed_potential_rows_plain(theta, x, a1, a2, y, is_duel, rows, valid,
+                               a_emb, *, eta: float) -> torch.Tensor:
+    """(C,) mixed potentials; mirrors ``_tile_terms``' "mixed" branch."""
+    _, (s1, _, _), (s2, _, _), yg, duel, _ = _mixed_gathered(
+        theta, x, a1, a2, y, is_duel, rows, a_emb)
+    pref_ll = eta * softplus(-(yg * (s1 - s2)))
+    click = eta * torch.where(yg > 0.5, softplus(-s1), softplus(s1))
+    return torch.sum(torch.where(duel, pref_ll, click) * valid, dim=-1)
+
+
+def mixed_potential_grad_rows_plain(theta, x, a1, a2, y, is_duel, rows,
+                                    valid, a_emb, g=None, *,
+                                    eta: float) -> torch.Tensor:
+    """(C,d) gradients g_c * dU_c/dtheta_c of the mixed potentials;
+    mirrors ``_tile_grad``' "mixed" branch (a self-duel's one-hot
+    difference cancels: weight 0)."""
+    xg, (s1, den1, ag1), (s2, den2, ag2), yg, duel, self_duel = \
+        _mixed_gathered(theta, x, a1, a2, y, is_duel, rows, a_emb)
+    z = yg * (s1 - s2)
+    dz = eta * (-torch.sigmoid(-z)) * yg
+    dclick = eta * torch.where(yg > 0.5, -torch.sigmoid(-s1),
+                               torch.sigmoid(s1))
+    w1 = torch.where(duel, torch.where(self_duel, 0.0, dz), dclick) * valid
+    w2 = torch.where(duel & ~self_duel, -dz, 0.0) * valid
+    r = (w1 / den1)[..., None] * ag1 + (w2 / den2)[..., None] * ag2
+    grad = torch.sum(xg * r, dim=1)
+    return grad if g is None else g[:, None] * grad
 
 
 def potential_rows_plain(theta, x, a1, a2, y, pref, rows, valid, a_emb,
@@ -130,8 +177,14 @@ def potential_grad_rows_plain(theta, x, a1, a2, y, pref, rows, valid, a_emb,
 # kernel launch
 # ---------------------------------------------------------------------------
 
-def _launch(fn_name, theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
-            costs, g, *, j, eta, mu):
+def _launch(fn_name, grad, theta, rows, valid, x, a_emb, per_row, per_arm,
+            g, scalars):
+    """Check the operands of a row kernel, launch it (grid over minibatch
+    blocks and chains, then the ordered partials reduction) and return
+    (C,d) for a gradient, (C,) for a potential. ``per_row`` and
+    ``per_arm``: (name, tensor or None, dtype) of the (N,) and (K,) tables,
+    in the C entry point's order after x; ``scalars``: its trailing ints
+    and floats after the partials and out pointers."""
     dev = theta.device
     c, d = theta.shape
     m = rows.shape[1]
@@ -143,38 +196,57 @@ def _launch(fn_name, theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
             f"shapes theta {tuple(theta.shape)}, x {tuple(x.shape)}, rows "
             f"{tuple(rows.shape)}, valid {tuple(valid.shape)}, a_emb "
             f"{tuple(a_emb.shape)} do not agree")
-    ops = dict(theta=theta, x=x, a1=a1, a2=a2, y=y, pref=pref, rows=rows,
-               valid=valid, a_emb=a_emb, mask=mask, costs=costs, g=g)
-    for name, v in ops.items():
+    f32 = torch.float32
+    ops = [("theta", theta, f32, (c, d)), ("x", x, f32, (n, d))]
+    ops += [(nm, v, dt, (n,)) for nm, v, dt in per_row]
+    ops += [("rows", rows, torch.int64, (c, m)), ("valid", valid, f32, (c, m)),
+            ("a_emb", a_emb, f32, (k, d))]
+    ops += [(nm, v, dt, (k,)) for nm, v, dt in per_arm]
+    ops.append(("g", g, f32, (c,)))
+    args = []
+    for name, v, dtype, shape in ops:
         if v is not None and v.device != dev:
             raise ValueError(f"{name} is on {v.device}, theta on {dev}")
-    for name, v, shape in (("a1", a1, (n,)), ("a2", a2, (n,)), ("y", y, (n,)),
-                           ("pref", pref, (n,)), ("mask", mask, (k,)),
-                           ("costs", costs, (k,)), ("g", g, (c,))):
         if v is not None and tuple(v.shape) != shape:
             raise ValueError(f"{name} shape {tuple(v.shape)} is not {shape}")
-    f32 = torch.float32
-
-    def cont(v, dtype):
-        return None if v is None else v.to(dtype).contiguous()
-
-    args = [cont(theta, f32), cont(x, f32), cont(a1, torch.int32),
-            cont(a2, torch.int32), cont(y, f32), cont(pref, f32),
-            cont(rows, torch.int64), cont(valid, f32), cont(a_emb, f32),
-            cont(mask, torch.bool), cont(costs, f32), cont(g, f32)]
-    grad = fn_name == "sgld_potential_grad_launch"
+        args.append(None if v is None else v.to(dtype).contiguous())
     width = d if grad else 1
-    nblk = -(-m // 8)
-    partials = torch.empty((c, nblk, width), dtype=f32, device=dev)
+    partials = torch.empty((c, -(-m // 8), width), dtype=f32, device=dev)
     out = torch.empty((c, width), dtype=f32, device=dev)
     lib = _build.library("sgld_potential")
     P = _build.ptr
     with torch.cuda.device(dev):
         code = getattr(lib, fn_name)(
-            *[P(v) for v in args], P(partials), P(out), c, m, k, d, int(j),
-            float(eta), float(mu), _build.stream(dev))
+            *[P(v) for v in args], P(partials), P(out), *scalars,
+            _build.stream(dev))
     _build.check(code, fn_name)
     return out if grad else out[:, 0]
+
+
+def _fgts_launch(grad, theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
+                 costs, g, *, j, eta, mu):
+    i32 = torch.int32
+    c, m = rows.shape
+    return _launch(
+        "sgld_potential_grad_launch" if grad else "sgld_potential_fwd_launch",
+        grad, theta, rows, valid, x, a_emb,
+        [("a1", a1, i32), ("a2", a2, i32), ("y", y, torch.float32),
+         ("pref", pref, torch.float32)],
+        [("mask", mask, torch.bool), ("costs", costs, torch.float32)], g,
+        (c, m, a_emb.shape[0], theta.shape[1], int(j), float(eta),
+         float(mu)))
+
+
+def _mixed_launch(grad, theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g,
+                  *, eta):
+    f32, i32 = torch.float32, torch.int32
+    c, m = rows.shape
+    return _launch(
+        "sgld_mixed_grad_launch" if grad else "sgld_mixed_fwd_launch",
+        grad, theta, rows, valid, x, a_emb,
+        [("a1", a1, i32), ("a2", a2, i32), ("y", y, f32),
+         ("is_duel", is_duel, f32)], [], g,
+        (c, m, theta.shape[1], float(eta)))
 
 
 def _dispatch(theta, plain, what):
@@ -195,8 +267,8 @@ def potential_rows(theta, x, a1, a2, y, pref, rows, valid, a_emb, mask=None,
     if _dispatch(theta, plain, "potential_rows"):
         return potential_rows_plain(theta, x, a1, a2, y, pref, rows, valid,
                                     a_emb, mask, costs, j=j, eta=eta, mu=mu)
-    out = _launch("sgld_potential_fwd_launch", theta, x, a1, a2, y, pref,
-                  rows, valid, a_emb, mask, costs, None, j=j, eta=eta, mu=mu)
+    out = _fgts_launch(False, theta, x, a1, a2, y, pref, rows, valid, a_emb,
+                       mask, costs, None, j=j, eta=eta, mu=mu)
     potential_rows.launches += 1
     return out
 
@@ -211,37 +283,90 @@ def potential_grad_rows(theta, x, a1, a2, y, pref, rows, valid, a_emb,
         return potential_grad_rows_plain(theta, x, a1, a2, y, pref, rows,
                                          valid, a_emb, mask, costs, g, j=j,
                                          eta=eta, mu=mu)
-    out = _launch("sgld_potential_grad_launch", theta, x, a1, a2, y, pref,
-                  rows, valid, a_emb, mask, costs, g, j=j, eta=eta, mu=mu)
+    out = _fgts_launch(True, theta, x, a1, a2, y, pref, rows, valid, a_emb,
+                       mask, costs, g, j=j, eta=eta, mu=mu)
     potential_grad_rows.launches += 1
+    return out
+
+
+def mixed_potential_rows(theta, x, a1, a2, y, is_duel, rows, valid, a_emb, *,
+                         eta: float, plain: bool = False) -> torch.Tensor:
+    """(C,) mixed potentials of the chains theta (C,d) on the minibatch
+    ``rows`` (C,m) of the tables x (N,d), a1/a2/y/is_duel (N,). CUDA
+    tensors launch the mixed forward kernel
+    (``mixed_potential_rows.launches``)."""
+    if _dispatch(theta, plain, "mixed_potential_rows"):
+        return mixed_potential_rows_plain(theta, x, a1, a2, y, is_duel, rows,
+                                          valid, a_emb, eta=eta)
+    out = _mixed_launch(False, theta, x, a1, a2, y, is_duel, rows, valid,
+                        a_emb, None, eta=eta)
+    mixed_potential_rows.launches += 1
+    return out
+
+
+def mixed_potential_grad_rows(theta, x, a1, a2, y, is_duel, rows, valid,
+                              a_emb, g=None, *, eta: float,
+                              plain: bool = False) -> torch.Tensor:
+    """(C,d) gradients g_c * dU_c/dtheta_c of the mixed potentials; all
+    chains in one launch on CUDA (``mixed_potential_grad_rows.launches``)."""
+    if _dispatch(theta, plain, "mixed_potential_grad_rows"):
+        return mixed_potential_grad_rows_plain(theta, x, a1, a2, y, is_duel,
+                                               rows, valid, a_emb, g,
+                                               eta=eta)
+    out = _mixed_launch(True, theta, x, a1, a2, y, is_duel, rows, valid,
+                        a_emb, g, eta=eta)
+    mixed_potential_grad_rows.launches += 1
     return out
 
 
 potential_rows.launches = 0
 potential_grad_rows.launches = 0
+mixed_potential_rows.launches = 0
+mixed_potential_grad_rows.launches = 0
 
 
-class _Potential(torch.autograd.Function):
-    """Forward: the potentials (C,); backward: the gradient kernel's
-    theta-gradient. Every other operand gets a None gradient."""
+class _RowsPotential(torch.autograd.Function):
+    """Forward: a row entry point's potentials (C,); backward: its gradient
+    entry point's theta-gradient (the gradient kernel on CUDA). ``fns`` is
+    the (forward, gradient) pair, ``kw`` their keyword arguments; every
+    operand but theta gets a None gradient."""
 
     @staticmethod
-    def forward(ctx, theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
-                costs, spec: PotentialSpec):
-        ctx.save_for_backward(theta, x, a1, a2, y, pref, rows, valid, a_emb,
-                              mask, costs)
-        ctx.spec = spec
-        return potential_rows(theta, x, a1, a2, y, pref, rows, valid, a_emb,
-                              mask, costs, j=spec.j, eta=spec.eta,
-                              mu=spec.mu, plain=spec.plain)
+    def forward(ctx, fns, kw, theta, *ops):
+        ctx.save_for_backward(theta, *ops)
+        ctx.fns, ctx.kw = fns, kw
+        return fns[0](theta, *ops, **kw)
 
     @staticmethod
     def backward(ctx, g):
-        spec = ctx.spec
-        dtheta = potential_grad_rows(*ctx.saved_tensors, g.contiguous(),
-                                     j=spec.j, eta=spec.eta, mu=spec.mu,
-                                     plain=spec.plain)
-        return (dtheta,) + (None,) * 11
+        saved = ctx.saved_tensors
+        dtheta = ctx.fns[1](*saved, g.contiguous(), **ctx.kw)
+        return (None, None, dtheta) + (None,) * (len(saved) - 1)
+
+
+def _chain_rows(theta, x, valid, *per_row):
+    """theta (d,) or (C,d), x shared (m,d) or per chain (C,m,d): the
+    chains (C,d), the flat row tables, rows (C,m) and valid (C,m)."""
+    th = theta[None] if theta.dim() == 1 else theta
+    c = th.shape[0]
+    if x.dim() == 3:
+        m = x.shape[1]
+        flat = lambda v: None if v is None else v.reshape(c * m, *v.shape[2:])
+        x, per_row = flat(x), [flat(v) for v in per_row]
+        rows = torch.arange(c * m, device=x.device).reshape(c, m)
+    else:
+        m = x.shape[0]
+        rows = torch.arange(m, device=x.device).expand(c, m)
+    valid = valid.to(torch.float32).expand(c, m) if valid.dim() == 1 \
+        else valid.to(torch.float32)
+    return th, x, per_row, rows, valid
+
+
+def _kernel_backend(backend):
+    if backend not in ("fused", "xla"):
+        raise ValueError(f"sgld kernel backend {backend!r} (use "
+                         f"resolve_sgld_backend for 'auto'/'autodiff')")
+    return backend == "xla"
 
 
 def sgld_potential(theta, x, a1, a2, y, valid, a_emb, arm_mask=None, *,
@@ -253,23 +378,28 @@ def sgld_potential(theta, x, a1, a2, y, valid, a_emb, arm_mask=None, *,
     JAX function does; theta (C,d) gives (C,) potentials, with x either
     shared (m,d) or per chain (C,m,d) (and its rows (C,m)). ``backend`` is
     "fused" (kernel on CUDA, plain on CPU) or "xla" (plain, forced)."""
-    if backend not in ("fused", "xla"):
-        raise ValueError(f"sgld kernel backend {backend!r} (use "
-                         f"resolve_sgld_backend for 'auto'/'autodiff')")
-    single = theta.dim() == 1
-    th = theta[None] if single else theta
-    c = th.shape[0]
-    if x.dim() == 3:
-        m = x.shape[1]
-        flat = lambda v: None if v is None else v.reshape(c * m, *v.shape[2:])
-        x, a1, a2, y, pref = map(flat, (x, a1, a2, y, pref))
-        rows = torch.arange(c * m, device=x.device).reshape(c, m)
-    else:
-        m = x.shape[0]
-        rows = torch.arange(m, device=x.device).expand(c, m)
-    valid = valid.to(torch.float32).expand(c, m) if valid.dim() == 1 \
-        else valid.to(torch.float32)
-    spec = PotentialSpec(j, float(eta), float(mu), backend == "xla")
-    out = _Potential.apply(th, x, a1, a2, y, pref, rows, valid, a_emb,
-                           arm_mask, costs, spec)
-    return out[0] if single else out
+    plain = _kernel_backend(backend)
+    th, x, (a1, a2, y, pref), rows, valid = _chain_rows(theta, x, valid, a1,
+                                                        a2, y, pref)
+    kw = dict(j=j, eta=float(eta), mu=float(mu), plain=plain)
+    out = _RowsPotential.apply((potential_rows, potential_grad_rows), kw, th,
+                               x, a1, a2, y, pref, rows, valid, a_emb,
+                               arm_mask, costs)
+    return out[0] if theta.dim() == 1 else out
+
+
+def sgld_mixed_potential(theta, x, a1, a2, y, is_duel, valid, a_emb, *,
+                         eta: float = 1.0,
+                         backend: str = "fused") -> torch.Tensor:
+    """Mixed duel + click data potential sum_i valid_i * term_i (no
+    feel-good), differentiable in theta; shapes and ``backend`` as for
+    ``sgld_potential``. Duel rows (is_duel > 0) take the BTL term on
+    (a1, a2), click rows the Bernoulli term on a1 with y in {0, 1}."""
+    plain = _kernel_backend(backend)
+    th, x, (a1, a2, y, is_duel), rows, valid = _chain_rows(
+        theta, x, valid, a1, a2, y, is_duel.to(torch.float32))
+    kw = dict(eta=float(eta), plain=plain)
+    out = _RowsPotential.apply((mixed_potential_rows,
+                                mixed_potential_grad_rows), kw, th, x, a1, a2,
+                               y, is_duel, rows, valid, a_emb)
+    return out[0] if theta.dim() == 1 else out

@@ -7,8 +7,9 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Pairs must be exact (the inputs are random, so near-ties are vanishingly
-rare at these sizes); potentials match to rtol 1e-5 and gradients to rtol
-1e-4 (fp32 with another summation order on the card).
+rare at these sizes); scores match to 1e-5 of their largest magnitude,
+duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
+rtol 1e-4 (fp32 with another summation order on the card).
 """
 import numpy as np
 import pytest
@@ -148,6 +149,113 @@ def test_autograd_backward_is_the_gradient_kernel(cuda_device):
     assert after["sgld_potential_grad"] == before["sgld_potential_grad"] + 1
     th2 = th.detach().requires_grad_(True)
     u2 = tsu.sgld_potential(th2, x, a1, a2, y, v, a, backend="xla")
+    u2.sum().backward()
+    np.testing.assert_allclose(th.grad.cpu().numpy(), th2.grad.cpu().numpy(),
+                               **GRAD_TOL)
+
+
+@pytest.mark.parametrize("b,k,d,j", [(1, 1, 64, 1), (130, 37, 100, 17),
+                                     (1, 16, 768, 16), (300, 130, 200, 2)])
+def test_dueling_score_kernel_matches_plain(cuda_device, b, k, d, j):
+    """Ragged tiles in every dimension, J odd and above one pair;
+    duplicated arms give bitwise equal columns; a zero query row and a zero
+    arm take the 1e-24 clamp."""
+    rng = np.random.default_rng(b + k + j)
+    on = lambda v: torch.from_numpy(v).to(cuda_device)
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    if k > 2:
+        a[k - 1] = a[0]
+        a[1] = 0.0
+    if b > 2:
+        x[2] = 0.0
+    th = on(rng.standard_normal((j, d)).astype(np.float32))
+    x, a = on(x), on(a)
+    before = tds.dueling_score.launches
+    s = tds.dueling_score(x, a, th)
+    torch.cuda.synchronize()
+    assert tds.dueling_score.launches == before + 1
+    p = tds.dueling_score_plain(x, a, th)
+    scale = float(p.abs().max())
+    assert float((s - p).abs().max()) <= 1e-5 * scale
+    if k > 2:
+        assert torch.equal(s[..., k - 1], s[..., 0])
+        assert not bool(s[..., 1].any())
+    if b > 2:
+        assert not bool(s[:, 2].any())
+
+
+def test_posterior_scores_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.standard_normal((16, 768)).astype(np.float32))
+    th = torch.from_numpy(rng.standard_normal((16, 768)).astype(np.float32))
+    a, th = a.to(cuda_device), th.to(cuda_device)
+    s = tds.posterior_scores(a, th)
+    p = tds.posterior_scores_plain(a, th)
+    assert s.shape == (16, 16)
+    assert float((s - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+MIXED = ["half", "duels", "clicks", "invalid", "self_duels"]
+
+
+@pytest.mark.parametrize("variant", MIXED)
+@pytest.mark.parametrize("m,k,d", [(37, 11, 64), (300, 130, 200)])
+def test_sgld_mixed_kernels_match_plain(cuda_device, variant, m, k, d):
+    rng = np.random.default_rng(m + MIXED.index(variant))
+    c, n = 3, 500
+    on = lambda v: torch.from_numpy(np.asarray(v)).to(cuda_device)
+    a1 = rng.integers(0, k, n).astype(np.int32)
+    a2 = ((a1 + rng.integers(1, k, n)) % k).astype(np.int32)
+    if variant == "self_duels":
+        a2[::2] = a1[::2]
+    duel = {"duels": np.ones(n, bool), "clicks": np.zeros(n, bool)}.get(
+        variant, rng.random(n) < 0.5)
+    y = np.where(duel, np.where(rng.random(n) < 0.5, 1.0, -1.0),
+                 (rng.random(n) < 0.5).astype(np.float64)).astype(np.float32)
+    valid = (rng.random((c, m)) < 0.8).astype(np.float32)
+    if variant == "invalid":
+        valid[:, ::2] = 0.0
+    ops = (on(rng.standard_normal((c, d)).astype(np.float32)),
+           on(rng.standard_normal((n, d)).astype(np.float32)), on(a1), on(a2),
+           on(y), on(duel.astype(np.float32)), on(rng.integers(0, n, (c, m))),
+           on(valid), on(rng.standard_normal((k, d)).astype(np.float32)))
+    g = torch.rand(c, device=cuda_device) + 0.5
+    before = kernels.launch_counts()
+    u_k = tsu.mixed_potential_rows(*ops, eta=1.5)
+    g_k = tsu.mixed_potential_grad_rows(*ops, g, eta=1.5)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["sgld_mixed_fwd"] == before["sgld_mixed_fwd"] + 1
+    assert after["sgld_mixed_grad"] == before["sgld_mixed_grad"] + 1
+    u_p = tsu.mixed_potential_rows(*ops, eta=1.5, plain=True)
+    g_p = tsu.mixed_potential_grad_rows(*ops, g, eta=1.5, plain=True)
+    np.testing.assert_allclose(u_k.cpu().numpy(), u_p.cpu().numpy(),
+                               **POT_TOL)
+    np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(),
+                               **GRAD_TOL)
+
+
+def test_mixed_autograd_backward_is_the_gradient_kernel(cuda_device):
+    rng = np.random.default_rng(1)
+    on = lambda v: torch.from_numpy(np.asarray(v)).to(cuda_device)
+    th = on(rng.standard_normal((2, 32)).astype(np.float32))
+    th.requires_grad_(True)
+    x = on(rng.standard_normal((2, 20, 32)).astype(np.float32))
+    a1 = on(rng.integers(0, 6, (2, 20)).astype(np.int32))
+    a2 = on(((a1.cpu().numpy() + 1) % 6).astype(np.int32))
+    y = on(np.ones((2, 20), np.float32))
+    du = on((rng.random((2, 20)) < 0.5).astype(np.float32))
+    v = on(np.ones((2, 20), np.float32))
+    a = on(rng.standard_normal((6, 32)).astype(np.float32))
+    before = kernels.launch_counts()
+    u = tsu.sgld_mixed_potential(th, x, a1, a2, y, du, v, a)
+    u.sum().backward()
+    after = kernels.launch_counts()
+    assert after["sgld_mixed_fwd"] == before["sgld_mixed_fwd"] + 1
+    assert after["sgld_mixed_grad"] == before["sgld_mixed_grad"] + 1
+    th2 = th.detach().requires_grad_(True)
+    u2 = tsu.sgld_mixed_potential(th2, x, a1, a2, y, du, v, a, backend="xla")
     u2.sum().backward()
     np.testing.assert_allclose(th.grad.cpu().numpy(), th2.grad.cpu().numpy(),
                                **GRAD_TOL)

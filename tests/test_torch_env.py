@@ -3,7 +3,10 @@ the same draws.
 
 ``JaxDraws`` below is a draw source (``repro_torch.core.draws``) that
 replays the reference's key tree with ``jax.random``: ``split`` is
-``jax.random.split``, and ``sgld(C, steps)`` hands out, per SGLD step, the
+``jax.random.split`` (``fold_in`` and ``gumbel`` replay the calls of the
+same names, ``distinct_pair`` the static baselines' per-row
+``jax.random.choice(..., replace=False)``), and ``sgld(C, steps)`` hands
+out, per SGLD step, the
 ``randint``/``normal`` draws of every chain exactly as ``policy._act`` ->
 ``sgld_sample`` -> ``sgld_loop`` derive them. So the port sees the
 reference's numbers, and routed pairs must match exactly and the
@@ -56,6 +59,14 @@ class JaxSgldDraws:
         return t(idx).long().to(device), t(noise).to(device)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _distinct_pairs(key, b, n):
+    """Per row ``jax.random.choice(k, n, (2,), replace=False)`` over
+    ``split(key, b)``, as the static baselines draw."""
+    return jax.vmap(lambda k: jax.random.choice(k, n, (2,), replace=False))(
+        jax.random.split(key, b))
+
+
 class JaxDraws:
     """Draw source replaying ``jax.random`` under one key."""
 
@@ -65,11 +76,20 @@ class JaxDraws:
     def split(self, n):
         return [JaxDraws(k) for k in jax.random.split(self.key, n)]
 
+    def fold_in(self, i):
+        return JaxDraws(jax.random.fold_in(self.key, i))
+
     def normal(self, shape, device):
         return t(jax.random.normal(self.key, shape)).to(device)
 
     def uniform(self, shape, device):
         return t(jax.random.uniform(self.key, shape)).to(device)
+
+    def gumbel(self, shape, device):
+        return t(jax.random.gumbel(self.key, shape)).to(device)
+
+    def distinct_pair(self, b, n, device):
+        return t(_distinct_pairs(self.key, b, n)).long().to(device)
 
     def sgld(self, n_chains, n_steps):
         return JaxSgldDraws(self.key, n_chains, n_steps)

@@ -1,15 +1,16 @@
 """Parity of the port's kernel modules with the JAX package.
 
 The same numpy inputs (seeded) go through the JAX function, run as its own
-tests run it on the CPU (``dueling_select`` in Pallas interpret mode,
-``sgld_potential(backend="xla")`` — the Pallas lowering — and ``jax.grad``
-through it), and through the port on CPU tensors, where each wrapper takes
-its plain PyTorch version.
+tests run it on the CPU (``dueling_select``, ``dueling_score`` and
+``posterior_scores`` in Pallas interpret mode, ``sgld_potential`` and
+``sgld_mixed_potential`` with ``backend="xla"`` — the Pallas lowering — and
+``jax.grad`` through them), and through the port on CPU tensors, where each
+wrapper takes its plain PyTorch version.
 
-Tolerances: routed pairs are exact. Potentials match to rtol 1e-5 / atol
-1e-6 and gradients to rtol 1e-4 / atol 1e-5: both sides compute in fp32,
-but the matmuls and row sums add in different orders, and the gradient is a
-longer chain of such sums.
+Tolerances: routed pairs are exact. Scores match to rtol = atol = 1e-5.
+Potentials match to rtol 1e-5 / atol 1e-6 and gradients to rtol 1e-4 /
+atol 1e-5: both sides compute in fp32, but the matmuls and row sums add in
+different orders, and the gradient is a longer chain of such sums.
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``, which imports no JAX.
@@ -22,7 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.dueling_score import dueling_score as jax_score
 from repro.kernels.dueling_score import dueling_select as jax_select
+from repro.kernels.dueling_score import posterior_scores as jax_post_scores
+from repro.kernels.sgld_update import sgld_mixed_potential as jax_mixed
 from repro.kernels.sgld_update import sgld_potential as jax_potential
 from repro_torch import kernels as tk
 from repro_torch.core import fgts as tfgts
@@ -135,6 +139,44 @@ def test_dueling_score_ref_matches_identity():
     den = torch.sqrt(torch.clamp_min((xt * xt) @ (at * at).T, 1e-24))
     ident = torch.stack([((xt * t(th[j])) @ at.T) / den for j in range(2)])
     np.testing.assert_allclose(s.numpy(), ident.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# dueling_score and posterior_scores
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,k,d,j", [(100, 11, 384, 2), (7, 3, 64, 2),
+                                     (130, 40, 256, 2), (9, 5, 32, 1),
+                                     (9, 5, 32, 17)])
+def test_dueling_score_matches_jax(b, k, d, j):
+    """(J,B,K) scores against the Pallas kernel (interpret mode) and the
+    explicit-feature oracle, J a runtime size."""
+    rng = np.random.default_rng(b + k + j)
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    th = rng.standard_normal((j, d)).astype(np.float32)
+    want = np.asarray(jax_score(x, a, th, interpret=True))
+    got = tds.dueling_score(t(x), t(a), t(th))
+    assert got.shape == (j, b, k) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if j == 2:
+        ref = dueling_score_ref(t(x), t(a), t(th[0]), t(th[1]))
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("k,c,d", [(4, 2, 32), (11, 6, 64), (40, 3, 128)])
+def test_posterior_scores_matches_jax(k, c, d):
+    """The all-ones query reduction: theta . a / ||a||, zero arm included
+    (the 1e-24 clamp)."""
+    rng = np.random.default_rng(k * c)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    a[1] = 0.0
+    th = rng.standard_normal((c, d)).astype(np.float32)
+    want = np.asarray(jax_post_scores(a, th, interpret=True))
+    for fn in (tds.posterior_scores, tds.posterior_scores_plain):
+        np.testing.assert_allclose(fn(t(a), t(th)).numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +301,86 @@ def test_sgld_potential_single_theta_and_shared_rows():
     np.testing.assert_allclose(uc[0].numpy(), u1.numpy(), **POT_TOL)
 
 
+# ---------------------------------------------------------------------------
+# the mixed mode: duel and click rows
+# ---------------------------------------------------------------------------
+
+MIXED_VARIANTS = ["half", "duels", "clicks", "self_duels", "invalid"]
+
+
+def _mixed_inputs(m, k, variant, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((C, m, D)).astype(np.float32)
+    a1 = rng.integers(0, k, (C, m)).astype(np.int32)
+    a2 = ((a1 + rng.integers(1, k, (C, m))) % k).astype(np.int32)
+    duel = {"duels": np.ones((C, m), bool), "clicks": np.zeros((C, m), bool)
+            }.get(variant, rng.random((C, m)) < 0.5)
+    if variant == "self_duels":
+        a2[:, ::2] = a1[:, ::2]
+    y = np.where(duel, np.where(rng.random((C, m)) < 0.5, 1.0, -1.0),
+                 (rng.random((C, m)) < 0.5).astype(np.float64))
+    valid = (rng.random((C, m)) < 0.8).astype(np.float32)
+    if variant == "invalid":
+        valid[:, :m // 2] = 0.0
+    a_emb = rng.standard_normal((k, D)).astype(np.float32)
+    theta = rng.standard_normal((C, D)).astype(np.float32)
+    return (theta, x, a1, a2, y.astype(np.float32),
+            duel.astype(np.float32), valid, a_emb)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mixed_fns(eta):
+    def pot(th, x, a1, a2, y, du, v, a):
+        return jax_mixed(th, x, a1, a2, y, du, v, a, eta=eta, backend="xla")
+    axes = (0,) * 7 + (None,)
+    return jax.jit(jax.vmap(pot, axes)), jax.jit(jax.vmap(jax.grad(pot),
+                                                          axes))
+
+
+@pytest.mark.parametrize("variant", MIXED_VARIANTS)
+def test_sgld_mixed_potential_matches_jax(variant):
+    """Forward and hand gradient of the mixed mode's plain version (through
+    ``sgld_mixed_potential``'s autograd) against JAX's Pallas lowering and
+    jax.grad: C = 3 chains, ragged m, duels and clicks mixed, all duels,
+    all clicks, self-duels, invalid rows."""
+    ins = _mixed_inputs(37, 11, variant, MIXED_VARIANTS.index(variant))
+    fwd, grad = _jax_mixed_fns(1.5)
+    ref_u, ref_g = np.asarray(fwd(*ins)), np.asarray(grad(*ins))
+    theta, x, a1, a2, y, duel, valid, a_emb = ins
+    th = t(theta).requires_grad_(True)
+    u = tsu.sgld_mixed_potential(th, t(x), t(a1), t(a2), t(y), t(duel),
+                                 t(valid), t(a_emb), eta=1.5)
+    (g,) = torch.autograd.grad(u.sum(), th)
+    np.testing.assert_allclose(u.detach().numpy(), ref_u, **POT_TOL)
+    np.testing.assert_allclose(g.numpy(), ref_g, **GRAD_TOL)
+    u1 = tsu.sgld_mixed_potential(t(theta[0]), t(x[0]), t(a1[0]), t(a2[0]),
+                                  t(y[0]), t(duel[0] > 0), t(valid[0]),
+                                  t(a_emb), eta=1.5, backend="xla")
+    assert u1.dim() == 0
+    np.testing.assert_allclose(u1.numpy(), ref_u[0], **POT_TOL)
+
+
+def test_mixed_rows_match_port_autodiff():
+    """The mixed rows' hand gradient equals torch.autograd through the
+    port's phi-feature terms (the "autodiff" backend's oracle), with g."""
+    from repro_torch.core.extensions import _mixed_terms_autodiff
+    theta, x, a1, a2, y, duel, valid, a_emb = _mixed_inputs(29, 9, "half", 9)
+    th = t(theta).requires_grad_(True)
+    terms = _mixed_terms_autodiff(th, t(x), t(a1).long(), t(a2).long(), t(y),
+                                  t(duel) > 0, t(a_emb), 1.3)
+    g_in = torch.tensor([0.5, 1.0, 2.0])
+    u_ref = torch.sum(terms * t(valid), dim=-1)
+    (g_ref,) = torch.autograd.grad((u_ref * g_in).sum(), th)
+    rows = torch.arange(C * 29).reshape(C, 29)
+    flat = lambda v: t(v).reshape(C * 29, *v.shape[2:])
+    ops = (t(theta), flat(x), flat(a1), flat(a2), flat(y), flat(duel), rows,
+           t(valid), t(a_emb))
+    u = tsu.mixed_potential_rows(*ops, eta=1.3)
+    g = tsu.mixed_potential_grad_rows(*ops, g_in, eta=1.3)
+    np.testing.assert_allclose(u.numpy(), u_ref.detach().numpy(), **POT_TOL)
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), **GRAD_TOL)
+
+
 def test_backend_resolution():
     assert tsu.resolve_sgld_backend("auto") == "fused"
     for b in ("fused", "xla", "autodiff"):
@@ -281,6 +403,15 @@ def test_cpu_tensors_never_count_launches():
     th = t(theta).requires_grad_(True)
     u = tsu.sgld_potential(th, t(xs), t(a1), t(a2), t(y), t(valid), t(a_emb))
     u.sum().backward()
+    tds.dueling_score(t(x), t(a), t(th.detach()))
+    tk.posterior_scores(t(a), t(th.detach()))
+    ins = _mixed_inputs(8, 5, "half", seed=3)
+    thm = t(ins[0]).requires_grad_(True)
+    u = tsu.sgld_mixed_potential(thm, *map(t, ins[1:]))
+    u.sum().backward()
     assert tk.launch_counts() == {"dueling_select": 0,
                                   "sgld_potential_fwd": 0,
-                                  "sgld_potential_grad": 0}
+                                  "sgld_potential_grad": 0,
+                                  "dueling_score": 0,
+                                  "sgld_mixed_fwd": 0,
+                                  "sgld_mixed_grad": 0}

@@ -82,6 +82,13 @@ def test_other_devices_raise():
         kernels.potential_rows(
             torch.zeros((1, 4), device="meta"), x, None, None, None, None,
             None, None, None, j=1, eta=1.0, mu=0.2)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kernels.posterior_scores(torch.zeros((3, 4), device="meta"),
+                                 torch.zeros((2, 4), device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kernels.mixed_potential_grad_rows(
+            torch.zeros((1, 4), device="meta"), x, None, None, None, None,
+            None, None, None, eta=1.0)
 
 
 def test_import_builds_nothing(tmp_path):
@@ -109,3 +116,19 @@ def test_scaled_index_stays_in_range():
     host = draws.HostDraws(3)
     a = host.randint((100,), 5, "cpu")
     assert a.dtype == torch.int64 and int(a.min()) >= 0 and int(a.max()) < 5
+
+
+@pytest.mark.parametrize("src", ["host", "torch"])
+def test_sequential_sources_draw_gumbel_and_distinct_pairs(src):
+    """Both standalone sources give Gumbel noise of the asked shape, a
+    distinct in-range pair per row, and ``fold_in`` hands back a source
+    (they ignore the key tree)."""
+    d = draws.HostDraws(1) if src == "host" else draws.TorchDraws(1, "cpu")
+    g = d.gumbel((3, 5), "cpu")
+    assert g.shape == (3, 5) and g.dtype == torch.float32
+    assert bool(torch.isfinite(g).all())
+    pairs = d.fold_in(1).distinct_pair(400, 4, "cpu")
+    assert pairs.shape == (400, 2) and pairs.dtype == torch.int64
+    assert bool((pairs[:, 0] != pairs[:, 1]).all())
+    assert int(pairs.min()) >= 0 and int(pairs.max()) < 4
+    assert len({tuple(p) for p in pairs.tolist()}) == 12   # every ordered pair

@@ -10,15 +10,23 @@ line per phase (phase 2 prints one per path):
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K = 16 pool slots with 11 live RouterBench
    arms, d = 768, B = 256; SGLD m = 64 rows, C = 8 chains; the autopilot's
-   posterior scores of 16 chains) and at the top row of the SGLD bench
-   (K = 1024, m = 1024, C = 8; scores and selection B = 4096), plus edge
-   cases. Pairs must agree outside near-ties (top-two gap below 1e-5 *
-   max|s|, counted but not failures); scores to 1e-5 of max|s|, with
-   duplicated arms bitwise equal and dominance matrices equal outside
-   near-tied arm pairs; potentials to rtol 1e-5 and gradients to rtol 1e-4
-   of the largest magnitude. Times are medians of CUDA-event-timed calls
-   after a warm-up; the bound is the larger of the bytes over 3.35 TB/s and
-   the fp32 operations over 67 TFLOP/s (H100 SXM data sheet).
+   posterior scores of 16 chains; the encoder's attention, B 256, 4 heads
+   of 64, S = T = 64) and at the top row of the SGLD bench (K = 1024,
+   m = 1024, C = 8; scores and selection B = 4096), plus edge cases. Pairs
+   must agree outside near-ties (top-two gap below 1e-5 * max|s|, counted
+   but not failures); scores to 1e-5 of max|s|, with duplicated arms
+   bitwise equal and dominance matrices equal outside near-tied arm pairs;
+   potentials to rtol 1e-5 and gradients to rtol 1e-4 of the largest
+   magnitude. The attn family holds ``flash_attention`` to rtol = atol =
+   2e-5 (fp32) and 2e-2 (bf16) on the reference's five test shapes in both
+   types, rows with no live key (they must be the mean of v), the
+   encoder's heads, qwen2-7b's (H 28, KV 4, D 128, causal, S = T = 2048,
+   fp32 and bf16) and gemma2-9b's (H 16, KV 8, D 256, soft cap 50, window
+   4096, S = T = 8192, bf16). Times are medians of CUDA-event-timed calls
+   after a warm-up; the bound is the larger of the bytes over 3.35 TB/s
+   and the operations over 67 TFLOP/s in fp32 or 989 TFLOP/s in bf16 (H100
+   SXM data sheet); attention's library yardstick is
+   ``scaled_dot_product_attention`` where it computes the same function.
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
    8 chains, minibatch 64):
    - slice: ``env.run`` with the FGTS.CDB policy on a pooled ``ModelPool``
@@ -29,17 +37,25 @@ line per phase (phase 2 prints one per path):
      dominated overpriced arm and one arrival at tick 4;
    - mixed: ``mixed_feedback_policy`` for 16 ticks of act -> BTL feedback
      -> update -> ``inject_clicks`` on half of each batch, with the mixed
-     energy trace.
+     energy trace;
+   - ccft: query tokens -> ``EncoderConfig()`` (random weights from a
+     seed) -> the RouterBench model embeddings in all four weightings and
+     the online env (4096 queries, d = 256 + 14) -> ``env.run`` over FGTS;
+     then MixInstruct (1200 queries) -> eq. 6 embeddings -> ``env.run``.
+     The encoder alone is timed per 256-query batch.
    Each run resets the launch counts just before it and reads them just
-   after: every kernel of its path must have launched. Two more ticks of
-   each path run under ``torch.profiler`` (device activity only) for the
-   device busy time per tick, its idle share against the unprofiled run's
-   ms per tick and the kernels per tick.
+   after: every kernel of its path must have launched (attention exactly
+   once per layer per encode batch). Two more ticks of each loop (and two
+   encode batches) run under ``torch.profiler`` (device activity only) for
+   the device busy time per tick, its idle share against the unprofiled
+   run's ms per tick and the kernels per tick.
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
-   versions) from one numpy-made draw set, for the FGTS slice and for the
-   autopilot (a control tick every 2 acts); routed pairs equal outside
-   near-ties, final chains to rtol 1e-4, controller counters and flags
-   equal, lambda and the cost EMA to rtol 1e-5.
+   versions) from one numpy-made draw set, for the FGTS slice, for the
+   autopilot (a control tick every 2 acts) and for the ccft path (whose
+   embeddings, from the same weights and tokens, must agree to atol 1e-5
+   first); routed pairs equal outside near-ties, final chains to rtol
+   1e-4, controller counters and flags equal, lambda and the cost EMA to
+   rtol 1e-5.
 
 Before the last line it prints the kernels line and the card's name and
 power limit; the last line is the device record. Any failed check exits
@@ -57,6 +73,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM, bf16 tensor cores, dense
 NEAR_TIE = 1e-5
 # the kernels of the FGTS slice's path (the sync and delay2_pref runs)
 SLICE_KERNELS = ("dueling_select", "sgld_potential_fwd", "sgld_potential_grad")
@@ -75,8 +92,8 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -440,6 +457,107 @@ def mixed_case(name, c, m, k, d, n, gen, dev, *, kind="half", timed=False):
     return out
 
 
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+# SDPA against the kernel: loose enough for a TF32 or bf16-P backend; a
+# wrong mask or scale would be off by 0.1 or more
+LIB_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
+
+
+def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
+              causal=True, window=0, cap=0.0, timed=False):
+    """One ``flash_attention`` case against the plain version on the card:
+    |kernel - plain| <= atol + rtol * |plain| elementwise (fp32 2e-5, bf16
+    2e-2). Timed cases add the bound (4 D operations per live (row, key)
+    pair, counted from the mask; q, k, v and o moved once; bf16 against
+    the bf16 tensor-core peak) and, where no soft cap or window is set,
+    the time of ``scaled_dot_product_attention`` on the same inputs as the
+    library yardstick (within ``LIB_TOL`` of the kernel: the same
+    function)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, kv, t, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, kv, t, d), generator=gen, device=dev).to(dt)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o_k = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_p = fa.flash_attention_plain(q, k, v, **kw)
+    rtol, atol = ATTN_TOL[dtype]
+    diff = (o_k.float() - o_p.float()).abs()
+    out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, dtype=dtype,
+               causal=causal, window=window, softcap=cap,
+               max_abs_err=float(diff.max()))
+    check(bool(torch.isfinite(o_k.float()).all()),
+          f"attn {name}: non-finite kernel output")
+    check(bool((diff <= atol + rtol * o_p.float().abs()).all()),
+          f"attn {name}: off by {out['max_abs_err']}")
+    if window and s > t + window - 1:
+        dead = o_k[:, :, t + window - 1:].float()
+        mean_v = v.float().mean(dim=2).repeat_interleave(h // kv, dim=1)
+        out["dead_rows"] = s - (t + window - 1)
+        out["dead_rows_max_abs_err"] = float(
+            (dead - mean_v[:, :, None]).abs().max())
+        check(out["dead_rows_max_abs_err"] <= atol + rtol,
+              f"attn {name}: a row with no live key is not the mean of v")
+    del o_p, diff
+    if timed:
+        live = int(fa.live_mask(s, t, causal=causal, window=window,
+                                device=dev).sum())
+        nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
+        peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
+        kern = lambda: fa.flash_attention(q, k, v, **kw)
+        plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+        out["ms"], out["plain_ms"] = time_ms(kern), time_ms(plain)
+        out["device_ms"], out["plain_device_ms"] = (device_ms(kern),
+                                                    device_ms(plain))
+        out["bound_ms"], out["bound_by"] = bound(
+            nbytes, 4.0 * b * h * live * d, peak)
+        out["library_ms"] = None
+        if not cap and not window:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=h != kv)
+            o_l = sdpa()
+            out["library_max_abs_err"] = float((o_l.float()
+                                                - o_k.float()).abs().max())
+            check(out["library_max_abs_err"] <= LIB_TOL[dtype],
+                  f"attn {name}: SDPA computes another function")
+            out["library_ms"] = time_ms(sdpa)
+            out["library_device_ms"] = device_ms(sdpa)
+    return out
+
+
+def attn_cases(gen, dev):
+    """The attn family: the reference's five test shapes in fp32 and bf16,
+    rows with no live key, then the path's and the LM configs' heads."""
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for i, (b, h, kv, s, t, d, causal, window, cap) in enumerate([
+                (2, 4, 2, 256, 256, 64, True, 0, 0.0),
+                (1, 4, 1, 200, 200, 64, True, 64, 0.0),
+                (2, 2, 2, 128, 384, 128, False, 0, 50.0),
+                (1, 8, 8, 64, 64, 128, True, 0, 30.0),
+                (1, 2, 1, 384, 130, 64, True, 0, 0.0)]):
+            cases.append(attn_case(f"ref{i}_{dtype}", b, h, kv, s, t, d, gen,
+                                   dev, dtype=dtype, causal=causal,
+                                   window=window, cap=cap))
+    cases += [
+        attn_case("no_live_key_rows", 1, 2, 1, 300, 100, 64, gen, dev,
+                  causal=True, window=4),
+        # the encoder's attention at the ccft path's batch: EncoderConfig()
+        attn_case("main", 256, 4, 4, 64, 64, 64, gen, dev, causal=False,
+                  timed=True),
+        # qwen2-7b's heads
+        attn_case("bench", 1, 28, 4, 2048, 2048, 128, gen, dev, timed=True),
+        attn_case("qwen2_bf16", 1, 28, 4, 2048, 2048, 128, gen, dev,
+                  dtype="bfloat16", timed=True),
+        # gemma2-9b's heads: soft cap, and a window that bites
+        attn_case("gemma2_bf16", 1, 16, 8, 8192, 8192, 256, gen, dev,
+                  dtype="bfloat16", window=4096, cap=50.0),
+    ]
+    return cases
+
+
 def phase_kernels(dev, seed):
     import torch
     gen = torch.Generator(device=dev)
@@ -490,7 +608,7 @@ def phase_kernels(dev, seed):
         mixed_case("self_duels_ragged", 3, 37, 5, 100, 500, gen, dev,
                    kind="self"),
     ]
-    return sel, sg, sc, mx
+    return sel, sg, sc, mx, attn_cases(gen, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -604,11 +722,12 @@ def short_env(envd, ticks):
     return env.EnvData(envd.x[:ticks * BATCH], envd.utils[:ticks * BATCH])
 
 
-def profile_ticks(run, ms_per_tick, sgld_steps, ticks=2):
+def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2):
     """Device busy time and kernel launches per tick from ``torch.profiler``
     (device activity only) over ``run(ticks)``, a few ticks of a path's
-    loop. The idle share is taken against the path's unprofiled ms per
-    tick, since the profiler slows the host."""
+    loop (or a few batches of the encoder). The idle share is taken against
+    the path's unprofiled ms per tick, since the profiler slows the
+    host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -625,7 +744,8 @@ def profile_ticks(run, ms_per_tick, sgld_steps, ticks=2):
                 device_busy_ms_per_tick=busy_ms,
                 device_idle_share=1.0 - busy_ms / ms_per_tick,
                 device_kernels_per_tick=launches,
-                device_kernels_per_sgld_step=launches / sgld_steps,
+                device_kernels_per_sgld_step=(launches / sgld_steps
+                                              if sgld_steps else None),
                 top_kernels_ms_per_tick=[[k[:60], us / 1e3 / ticks, n / ticks]
                                          for k, us, n in kern[:6]])
 
@@ -756,6 +876,193 @@ def mixed_ticks(pol, envd, cfg, seed, dev, n_ticks):
         regrets.append(regret.instant_regret(ub, a1, a2,
                                              active=state.pool.active))
     return state, energy, regrets
+
+
+def ccft_setup(seed, dev, t_online):
+    """The CCFT embedding path's inputs from one CPU generator seeded with
+    ``seed``: ``EncoderConfig()`` with random weights, a RouterBench split
+    (``CorpusConfig(seq_len=64)``, the encoder's max_len; 5 offline queries
+    per benchmark; ``t_online`` online queries) and a MixInstruct dataset
+    (``MixInstructConfig()``, 1200 queries). A card run and a CPU run get
+    the same weights and tokens."""
+    import torch
+    from repro_torch.data import mixinstruct as mi, routerbench as rb, synth
+    from repro_torch.encoder import EncoderConfig, init_encoder
+    enc_cfg = EncoderConfig()
+    corpus = synth.CorpusConfig(seq_len=enc_cfg.max_len)
+    gen = torch.Generator().manual_seed(seed)
+    params = init_encoder(gen, enc_cfg, device=dev)
+    split = rb.make_split(gen, corpus, t_online=t_online, device=dev)
+    data = mi.make_dataset(gen, corpus, mi.MixInstructConfig(), device=dev)
+    return enc_cfg, params, split, data
+
+
+def ccft_fgts_cfg(dim):
+    """The paper-run FGTS settings (``benchmarks/common.py:79-86``) with the
+    phase-2 chains, over the 11 RouterBench / MixInstruct LLMs."""
+    from repro_torch.core import fgts
+    return fgts.FGTSConfig(n_models=11, dim=dim, horizon=HORIZON, eta=8.0,
+                           mu=0.2, sgld_steps=20, sgld_eps=5e-4,
+                           sgld_minibatch=64, n_chains=8, force_distinct=True)
+
+
+def routerbench_embeddings(enc_cfg, params, split):
+    """The four weightings' model embeddings (metadata appended) and the
+    RouterBench env (online queries, ones appended)."""
+    from repro_torch.core import ccft
+    from repro_torch.data import pipeline
+    embs = {w: pipeline.routerbench_model_embeddings(params, enc_cfg, split,
+                                                     w)
+            for w in ccft.WEIGHTINGS}
+    return embs, pipeline.routerbench_env(params, enc_cfg, split)
+
+
+def phase_ccft(dev, seed):
+    """The CCFT embedding path at ``EncoderConfig()`` width: query tokens
+    -> encoder (attention on the flash kernel) -> model and query
+    embeddings -> ``env.run`` over FGTS.CDB, for RouterBench (routing over
+    the excel_perf_cost embeddings, d = 256 + 14) and for MixInstruct
+    (eq. 6 embeddings, d = 256). Each is one run with the launch counts
+    reset just before it and read just after."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import env, policy, regret
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.data import pipeline
+    enc_cfg, params, split, data = ccft_setup(seed, dev, HORIZON)
+    eb = pipeline.ENCODE_BATCH
+    n_batches = HORIZON // eb
+
+    def encode_online(n):
+        return pipeline._batched_encode(params, split.online_tokens[:n * eb],
+                                        split.online_mask[:n * eb], enc_cfg)
+    encode_online(1)                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_alone = encode_online(n_batches)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t0) / n_batches
+    enc_prof = profile_ticks(encode_online, enc_ms)
+
+    out = {}
+    for name in ("routerbench", "mixinstruct"):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "routerbench":
+            embs, envd = routerbench_embeddings(enc_cfg, params, split)
+            a = embs["excel_perf_cost"]
+            n_encoded = [split.offline_tokens.shape[0]] * len(embs) + [
+                split.online_tokens.shape[0]]
+            n_meta = 2 * len(split.benchmarks)
+        else:
+            envd, a = pipeline.mixinstruct_env_and_embeddings(
+                params, enc_cfg, data)
+            embs = {"label_proportion": a}
+            n_encoded, n_meta = [data["tokens"].shape[0]], 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cfg = ccft_fgts_cfg(a.shape[1])
+        pol = policy.fgts_policy(a, cfg)
+        cum, _ = env.run(TorchDraws(seed, dev), envd, pol, batch=BATCH)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = kernels.launch_counts()
+        batches = sum(-(-q // eb) for q in n_encoded)
+        check(counts["flash_attention"] == enc_cfg.n_layers * batches,
+              f"ccft {name}: {counts['flash_attention']} attention launches "
+              f"for {batches} encode batches of {enc_cfg.n_layers} layers")
+        for k in ("dueling_select", "sgld_potential_grad"):
+            check(counts[k] > 0, f"ccft {name}: {k} never launched: {counts}")
+        d = enc_cfg.d_model + n_meta
+        for w, e in embs.items():
+            check(e.shape == (11, d) and bool(torch.isfinite(e).all()),
+                  f"ccft {name}: {w} embeddings {tuple(e.shape)} / not finite")
+        x = envd.x
+        norms = torch.linalg.vector_norm(x[:, :enc_cfg.d_model], dim=-1)
+        check(bool(torch.isfinite(x).all()) and x.shape[1] == d and bool(
+            ((norms - 1.0).abs() < 1e-4).all()),
+            f"ccft {name}: query embeddings not unit-norm / wrong shape")
+        if n_meta:
+            check(bool((x[:, enc_cfg.d_model:] == 1.0).all()),
+                  f"ccft {name}: metadata slots of x are not ones")
+            check(float((x[:, :enc_cfg.d_model] - x_alone).abs().max())
+                  <= 1e-6, f"ccft {name}: encode is not repeatable")
+        n_ticks = x.shape[0] // BATCH
+        check(bool(torch.isfinite(cum).all())
+              and cum.shape == (n_ticks * BATCH,),
+              f"ccft {name}: regret curve not finite / wrong shape")
+        ms_per_tick = 1e3 * (t2 - t1) / n_ticks
+        out[name] = dict(
+            queries_encoded=sum(n_encoded), encode_batches=batches,
+            pipeline_s=t1 - t0, ticks=n_ticks, ms_per_tick=ms_per_tick,
+            queries_per_s=n_ticks * BATCH / (t2 - t1), dim=d,
+            final_regret=float(cum[-1]), slope_ratio=regret.slope_ratio(cum),
+            launches=counts,
+            flash_launches_per_encode_batch=counts["flash_attention"]
+            / batches)
+        if name == "routerbench":
+            out[name]["profile"] = profile_ticks(
+                lambda t: env.run(TorchDraws(seed, dev), short_env(envd, t),
+                                  pol, batch=BATCH),
+                ms_per_tick, 2 * cfg.sgld_steps)
+    out["encode"] = dict(batch=eb, ms_per_batch=enc_ms,
+                         queries_per_s=1e3 * eb / enc_ms, profile=enc_prof)
+    return out
+
+
+def phase_ccft_card_vs_cpu(dev, seed):
+    """The CCFT path on the card and on the CPU from the same weights and
+    tokens: every embedding (the four weightings' model embeddings, the
+    RouterBench queries, the MixInstruct queries and eq. 6 embeddings) to
+    atol 1e-5; then 4 RouterBench ticks of ``env.run`` from one HostDraws
+    set: pairs equal outside near-ties, final chains to rtol 1e-4."""
+    import torch
+    from repro_torch.core import env, policy
+    from repro_torch.core.draws import HostDraws
+    from repro_torch.data import pipeline
+    ticks = 4
+
+    def run(where):
+        enc_cfg, params, split, data = ccft_setup(seed, where, BATCH * ticks)
+        embs, envd = routerbench_embeddings(enc_cfg, params, split)
+        menv, m_a = pipeline.mixinstruct_env_and_embeddings(params, enc_cfg,
+                                                            data)
+        pol = policy.fgts_policy(embs["excel_perf_cost"],
+                                 ccft_fgts_cfg(envd.x.shape[1]))
+
+        def aux(state, a1, a2):
+            return (a1, a2, state.theta1.mean(0), state.theta2.mean(0))
+        _, state, trace = env.run(HostDraws(seed), envd, pol, batch=BATCH,
+                                  aux_fn=aux)
+        named = dict({f"a_{w}": e for w, e in embs.items()},
+                     routerbench_x=envd.x, mixinstruct_x=menv.x,
+                     mixinstruct_a=m_a)
+        return named, envd, state, trace
+    g_emb, _, g_state, g_trace = run(dev)
+    c_emb, envd, c_state, (c1, c2, th1, th2) = run(torch.device("cpu"))
+    errs = {}
+    for k, c in c_emb.items():
+        errs[k] = float((g_emb[k].cpu() - c).abs().max())
+        check(errs[k] <= 1e-5, f"ccft card vs cpu: {k} differs by {errs[k]}")
+    a = c_emb["a_excel_perf_cost"]
+    bad = ties = 0
+    for s in range(ticks):
+        x = envd.x[s * BATCH:(s + 1) * BATCH]
+        b, t_, _ = compare_pairs(
+            x, a, torch.stack([th1[s], th2[s]]), None, None, True,
+            (g_trace[0][s].cpu(), g_trace[1][s].cpu()), (c1[s], c2[s]))
+        bad, ties = bad + b, ties + t_
+    check(bad == 0, f"ccft card vs cpu: {bad} pair mismatches outside "
+                    f"near-ties")
+    for f in ("theta1", "theta2"):
+        gc, cc = getattr(g_state, f).cpu(), getattr(c_state, f)
+        err = (gc - cc).abs()
+        errs[f] = float(err.max())
+        check(bool((err <= 1e-5 + 1e-4 * cc.abs()).all()),
+              f"ccft card vs cpu: {f} differs by {errs[f]}")
+    return dict(ticks=ticks, pair_mismatches=bad, near_ties=ties,
+                max_abs_err=errs)
 
 
 def gate_logged_draws(seed, log):
@@ -921,13 +1228,16 @@ KERNELS = [
      "mixed", "fwd_", "mixed"),
     ("sgld_mixed_grad", SGLD_SRC, "src/repro/kernels/sgld_update.py:272",
      "mixed", "grad_", "mixed"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:99", "attn", "", "ccft"),
 ]
 
 
 def kernels_line(cases, launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
-    counts of each path run by its name. ``library_ms`` is null for every
-    kernel: no one PyTorch call computes any of these functions. The two
+    counts of each path run by its name. ``library_ms`` is the time of
+    ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs)
+    and null for the others: no one PyTorch call computes them. The two
     forward kernels are reached on their paths only through the energy
     trace the runs here add (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies'
@@ -943,7 +1253,8 @@ def kernels_line(cases, launches):
             max_abs_err=max(r[pre + "max_abs_err"] for r in fam_cases),
             ms=m[pre + "ms"], plain_ms=m[pre + "plain_ms"],
             bound_ms=m[pre + "bound_ms"], bound_by=m[pre + "bound_by"],
-            library_ms=None, device_ms=m[pre + "device_ms"],
+            library_ms=m.get(pre + "library_ms"),
+            device_ms=m[pre + "device_ms"],
             plain_device_ms=m[pre + "plain_device_ms"],
             bench_ms=bch[pre + "ms"], bench_plain_ms=bch[pre + "plain_ms"],
             bench_device_ms=bch[pre + "device_ms"],
@@ -979,10 +1290,10 @@ def main() -> int:
                            libraries=sorted(_build.SIGNATURES))
     emit(record["build"])
 
-    sel, sg, sc, mx = phase_kernels(dev, args.seed)
+    sel, sg, sc, mx, at = phase_kernels(dev, args.seed)
     record["kernels"] = dict(phase="kernels", dueling_select=sel,
                              sgld_potential=sg, dueling_score=sc,
-                             sgld_mixed=mx)
+                             sgld_mixed=mx, flash_attention=at)
     emit(record["kernels"])
 
     runs = phase_slice(dev, args.seed)
@@ -993,17 +1304,21 @@ def main() -> int:
     emit(record["autopilot"])
     record["mixed"] = dict(phase="mixed", **phase_mixed(dev, args.seed))
     emit(record["mixed"])
+    record["ccft"] = dict(phase="ccft", **phase_ccft(dev, args.seed))
+    emit(record["ccft"])
 
     record["card_vs_cpu"] = dict(
         phase="card_vs_cpu", **phase_card_vs_cpu(dev, args.seed),
-        autopilot=phase_autopilot_card_vs_cpu(dev, args.seed))
+        autopilot=phase_autopilot_card_vs_cpu(dev, args.seed),
+        ccft=phase_ccft_card_vs_cpu(dev, args.seed))
     emit(record["card_vs_cpu"])
 
     line = kernels_line(
-        dict(select=sel, sgld=sg, score=sc, mixed=mx),
+        dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at),
         dict(sync=runs["sync"]["launches"],
              autopilot=record["autopilot"]["launches"],
-             mixed=record["mixed"]["launches"]))
+             mixed=record["mixed"]["launches"],
+             ccft=record["ccft"]["routerbench"]["launches"]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

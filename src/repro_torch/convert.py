@@ -1,8 +1,9 @@
 """Carry weights and state between the JAX package and the port as numpy.
 
-The arm table (``ModelPool``) is this system's weights; the replay ring and
-the SGLD chains (``FGTSState``), the mixed ring (``MixedHistory``), the
-baselines' estimates and the autopilot's ``ControllerState`` its state. The
+The arm table (``ModelPool``) and the query encoder's parameters are this
+system's weights; the replay ring and the SGLD chains (``FGTSState``), the
+mixed ring (``MixedHistory``), the baselines' estimates and the
+autopilot's ``ControllerState`` its state. The
 reference's arrays come out with ``jax.device_get`` (or ``numpy.asarray``);
 these functions build the port's NamedTuples from them on a given device,
 and back. Floats are cast to float32 and integers to int32 on the way in,
@@ -102,6 +103,15 @@ def mixed_state_from_numpy(h: dict, theta, pool: dict | None = None,
                    as_f32(theta, resolve_device(device)))
     return s if pool is None else PooledState(
         s, pool_from_numpy(**pool, device=device))
+
+
+def encoder_params_from_numpy(params: dict, device=None) -> dict:
+    """The reference's encoder parameters (a nested dict of arrays, as
+    ``jax.device_get`` returns them) as the port's: the same nested dict of
+    float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: encoder_params_from_numpy(v, dev) if isinstance(v, dict)
+            else as_f32(v, dev) for k, v in params.items()}
 
 
 def state_to_numpy(state):

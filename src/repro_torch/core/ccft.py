@@ -7,6 +7,8 @@
     excel_mask      a_k = xi mask^tau(s_k) / tau               (eq. 5)
 
 ``top``/``mask`` rank each category column across models by dense rank.
+The score-free label-proportion embedding (eq. 6) serves MixInstruct-style
+data; metadata is appended to a_k (and ones to x) as in §5.1.
 phi(x, a) = (x*a)/||x*a||, scored through the two-matmul identity.
 """
 from __future__ import annotations
@@ -67,6 +69,31 @@ def category_embeddings(query_emb: torch.Tensor, categories: torch.Tensor,
     sums = onehot.T @ query_emb
     counts = torch.clamp_min(onehot.sum(dim=0)[:, None], 1.0)
     return (sums / counts).T
+
+
+def label_proportion_embeddings(query_emb: torch.Tensor, labels: torch.Tensor,
+                                n_models: int) -> torch.Tensor:
+    """Eq. 6: a_k = mean of the offline query embeddings labelled k
+    (Prop. 1). query_emb (N, d), labels (N,) in [0, K) -> (K, d)."""
+    onehot = torch.nn.functional.one_hot(labels.long(), n_models)
+    onehot = onehot.to(query_emb.dtype)
+    sums = onehot.T @ query_emb
+    counts = torch.clamp_min(onehot.sum(dim=0)[:, None], 1.0)
+    return sums / counts
+
+
+def append_metadata(a: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
+    """§5.1: the perf/cost metadata of each model appended to a_k.
+    a (K, d), metadata (K, m) -> (K, d+m)."""
+    return torch.cat([a, metadata], dim=-1)
+
+
+def pad_queries(x: torch.Tensor, n_meta: int) -> torch.Tensor:
+    """Ones in the metadata slots of each query, so that phi's Hadamard
+    product passes the metadata through scaled only by theta."""
+    ones = torch.ones(x.shape[:-1] + (n_meta,), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, ones], dim=-1)
 
 
 def phi(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 # C signatures: library -> {function: argtypes}; every function returns int
@@ -52,6 +53,12 @@ SIGNATURES = {
                                   F, P],
         "sgld_mixed_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I,
                                    I, F, P],
+    },
+    "flash_attention": {
+        # q, k, v, o, B, H, KV, S, T, D, (batch, head, seq) strides of q,
+        # k, v and o, scale, softcap, causal, window, is_bf16, stream
+        "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, *[L] * 12,
+                                   F, F, I, I, I, P],
     },
 }
 

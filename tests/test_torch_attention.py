@@ -1,0 +1,171 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+* The plain flash version (``repro_torch.kernels.flash_attention``) against
+  the JAX Pallas kernel in interpret mode, at the five shapes of
+  ``tests/test_kernels.py::test_flash_attention``: fp32 to rtol = atol =
+  2e-5, bf16 to 2e-2 (the same tolerances as the reference's own test).
+* Rows with no live key (S > T with a causal window): the port gives the
+  dense oracle's value, the mean of v over the T keys, on every row; the
+  JAX kernel agrees on the rows that have a live key and gives a value
+  that depends on its tiling on the others (a reference caveat).
+* ``models.attention.full_attention`` for modes bidir / causal / local
+  (GQA, with and without a soft cap) against the reference's from the same
+  parameters, to 2e-5.
+
+Inputs are made with numpy from a seed and handed to both sides.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.models import attention as jattn
+from repro.models import config as jconfig
+from repro_torch import kernels
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.models import attention as tattn
+from repro_torch.models import config as tconfig
+
+torch.set_num_threads(2)
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SHAPES = [
+    # b, h, kv, s, t, d, causal, window, cap (tests/test_kernels.py:23-29)
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0),
+    (1, 4, 1, 200, 200, 64, True, 64, 0.0),
+    (2, 2, 2, 128, 384, 128, False, 0, 50.0),
+    (1, 8, 8, 64, 64, 128, True, 0, 30.0),
+    (1, 2, 1, 384, 130, 64, True, 0, 0.0),
+]
+
+
+def qkv(b, h, kv, s, t, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, s, d), dtype=np.float32),
+            rng.standard_normal((b, kv, t, d), dtype=np.float32),
+            rng.standard_normal((b, kv, t, d), dtype=np.float32))
+
+
+def both(arrays, dtype):
+    """The same numpy inputs as JAX arrays and torch tensors of ``dtype``
+    (both round float32 to bf16 to nearest even)."""
+    return ([jnp.asarray(a, getattr(jnp, dtype)) for a in arrays],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", SHAPES)
+def test_plain_flash_matches_jax_kernel(b, h, kv, s, t, d, causal, window,
+                                        cap, dtype):
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(b, h, kv, s, t, d), dtype)
+    want = jax_flash(jq, jk, jv, causal=causal, window=window, softcap=cap)
+    got = tfa.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              softcap=cap)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, s, d)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
+
+
+def test_rows_without_live_key_take_the_mean_of_v():
+    """S 300, T 100, causal, window 4: rows i >= T + window - 1 = 103 have
+    no live key. The port gives the oracle's mean of v there and matches
+    the oracle on every row; the JAX kernel matches on rows 0-102 only."""
+    b, h, kv, s, t, d, window = 1, 2, 1, 300, 100, 64, 4
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(b, h, kv, s, t, d, seed=3),
+                                      "float32")
+    got = f32(tfa.flash_attention(tq, tk, tv, causal=True, window=window))
+    oracle = f32(jref.attention_ref(jq, jk, jv, causal=True, window=window))
+    kern = f32(jax_flash(jq, jk, jv, causal=True, window=window))
+    np.testing.assert_allclose(got, oracle, **TOL["float32"])
+    live = t + window - 1
+    np.testing.assert_allclose(got[:, :, :live], kern[:, :, :live],
+                               **TOL["float32"])
+    mean_v = f32(tv).mean(axis=2)                       # (b, kv, d)
+    np.testing.assert_allclose(got[0, :, live:],
+                               np.broadcast_to(mean_v[0, 0],
+                                               (h, s - live, d)),
+                               **TOL["float32"])
+    # the reference caveat: the TPU kernel's value there is not the mean
+    assert np.abs(kern[:, :, live:] - got[:, :, live:]).max() > 0.05
+
+
+def test_plain_flash_counts_no_launch_and_keeps_dtype():
+    kernels.reset_launch_counts()
+    _, (tq, tk, tv) = both(qkv(1, 2, 1, 8, 8, 32), "bfloat16")
+    out = tfa.flash_attention(tq, tk, tv, causal=False)
+    assert out.dtype == torch.bfloat16
+    assert kernels.launch_counts()["flash_attention"] == 0
+
+
+def port_config(jc):
+    """The port's ``ModelConfig`` from the reference's, field for field."""
+    fields = {f.name: getattr(jc, f.name)
+              for f in dataclasses.fields(jconfig.ModelConfig)}
+    for f in ("pattern", "remainder", "enc_pattern"):
+        fields[f] = tuple(tconfig.LayerSpec(s.mixer, s.ffn)
+                          for s in fields[f])
+    return tconfig.ModelConfig(**fields)
+
+
+def attn_config(cap):
+    return jconfig.ModelConfig(
+        name="attn-test", family="dense", d_model=96, n_heads=4,
+        n_kv_heads=2, head_dim=32, d_ff=0, vocab_size=8,
+        pattern=(jconfig.LayerSpec(jconfig.MIXER_GLOBAL_ATTN,
+                                   jconfig.FFN_MLP),),
+        n_units=1, window=5, attn_softcap=cap, dtype="float32")
+
+
+def attn_params(cfg, seed):
+    rng = np.random.default_rng(seed)
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = dict(wq=(d, h, hd), wk=(d, kv, hd), wv=(d, kv, hd),
+                  wo=(h, hd, d))
+    return {k: (rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("cap", [0.0, 20.0])
+@pytest.mark.parametrize("mode", ["bidir", "causal", "local"])
+def test_full_attention_matches_reference(mode, cap):
+    jc = attn_config(cap)
+    tc = port_config(jc)
+    assert tc.hd == jc.hd == 32
+    params = attn_params(jc, seed=7)
+    rng = np.random.default_rng(8)
+    b, s = 2, 24
+    x = rng.standard_normal((b, s, jc.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    want = jattn.full_attention({k: jnp.asarray(v) for k, v in params.items()},
+                                jnp.asarray(x), jnp.asarray(pos), jc,
+                                mode=mode, window=jc.window)
+    got = tattn.full_attention({k: torch.from_numpy(v)
+                                for k, v in params.items()},
+                               torch.from_numpy(x), torch.from_numpy(pos),
+                               tc, mode=mode, window=tc.window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
+
+
+def test_full_attention_raises_for_later_slices():
+    tc = port_config(attn_config(0.0))
+    p = {k: torch.from_numpy(v) for k, v in attn_params(tc, 0).items()}
+    x = torch.zeros((1, 4, tc.d_model))
+    pos = torch.arange(4)[None]
+    with pytest.raises(NotImplementedError):
+        tattn.full_attention(p, x, pos, tc, mode="cross", kv_src=x)
+    with pytest.raises(NotImplementedError):
+        tattn.full_attention(p, x, pos,
+                             dataclasses.replace(tc, attn_q_chunk=2),
+                             mode="causal")
+    with pytest.raises(ValueError, match="window"):
+        tattn.full_attention(p, x, pos, tc, mode="local", window=0)

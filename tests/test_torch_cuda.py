@@ -9,14 +9,19 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 Pairs must be exact (the inputs are random, so near-ties are vanishingly
 rare at these sizes); scores match to 1e-5 of their largest magnitude,
 duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
-rtol 1e-4 (fp32 with another summation order on the card).
+rtol 1e-4 (fp32 with another summation order on the card). Attention
+matches to rtol = atol = 2e-5 in fp32 and 2e-2 in bf16 (the reference's
+own kernel tolerances); the encoder on the card matches its CPU run to
+atol 1e-5.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.encoder import model as tenc
 from repro_torch.kernels import dueling_score as tds
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import sgld_update as tsu
 
 POT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -259,3 +264,86 @@ def test_mixed_autograd_backward_is_the_gradient_kernel(cuda_device):
     u2.sum().backward()
     np.testing.assert_allclose(th.grad.cpu().numpy(), th2.grad.cpu().numpy(),
                                **GRAD_TOL)
+
+
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+ATTN_CASES = [
+    # b, h, kv, s, t, d, causal, window, cap: tests/test_kernels.py:23-29,
+    # rows with no live key, the encoder's heads, head dims 32 and 256
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0),
+    (1, 4, 1, 200, 200, 64, True, 64, 0.0),
+    (2, 2, 2, 128, 384, 128, False, 0, 50.0),
+    (1, 8, 8, 64, 64, 128, True, 0, 30.0),
+    (1, 2, 1, 384, 130, 64, True, 0, 0.0),
+    (1, 2, 1, 300, 100, 64, True, 4, 0.0),
+    (16, 4, 4, 64, 64, 64, False, 0, 0.0),
+    (1, 4, 2, 100, 70, 32, False, 16, 0.0),
+    (1, 4, 2, 300, 300, 256, True, 96, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, h, kv, s, t,
+                                              d, causal, window, cap, dtype):
+    rng = np.random.default_rng(s + t + d)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device, dtype)
+    q, k, v = on(b, h, s, d), on(b, kv, t, d), on(b, kv, t, d)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = tfa.flash_attention.launches
+    o = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == (b, h, s, d)
+    p = tfa.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               p.float().cpu().numpy(), **ATTN_TOL[dtype])
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda_device):
+    """(B,S,H,D) tensors passed as transpose(1, 2) views, as the model
+    passes its projections: no copy, the output in q's layout."""
+    rng = np.random.default_rng(5)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    q, k, v = on(3, 50, 4, 64), on(3, 50, 2, 64), on(3, 50, 2, 64)
+    o = tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False)
+    assert o.transpose(1, 2).is_contiguous()
+    p = tfa.flash_attention_plain(q.transpose(1, 2).contiguous(),
+                                  k.transpose(1, 2).contiguous(),
+                                  v.transpose(1, 2).contiguous(),
+                                  causal=False)
+    np.testing.assert_allclose(o.cpu().numpy(), p.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_run(cuda_device):
+    x = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(x, x, x)
+    y = torch.zeros((1, 2, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        tfa.flash_attention(y, y.half(), y.half())
+
+
+def test_encode_on_the_card_matches_the_cpu(cuda_device):
+    """``EncoderConfig()`` from one CPU generator, 8 queries with padded
+    tails: one attention launch per layer, embeddings to atol 1e-5."""
+    cfg = tenc.EncoderConfig()
+    params = tenc.init_encoder(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    rng = np.random.default_rng(6)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 64)))
+    mask = torch.ones((8, 64))
+    mask[3, 40:] = 0.0
+    want = tenc.encode(params, tok, mask, cfg)
+    card = tenc.tree_map(lambda w: w.to(cuda_device), params)
+    before = tfa.flash_attention.launches
+    got = tenc.encode(card, tok.to(cuda_device), mask.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=0)

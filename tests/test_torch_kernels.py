@@ -31,6 +31,7 @@ from repro.kernels.sgld_update import sgld_potential as jax_potential
 from repro_torch import kernels as tk
 from repro_torch.core import fgts as tfgts
 from repro_torch.kernels import dueling_score as tds
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import sgld_update as tsu
 from repro_torch.kernels.ref import dueling_score_ref
 
@@ -409,9 +410,12 @@ def test_cpu_tensors_never_count_launches():
     thm = t(ins[0]).requires_grad_(True)
     u = tsu.sgld_mixed_potential(thm, *map(t, ins[1:]))
     u.sum().backward()
+    q = t(np.ones((1, 2, 4, 32), np.float32))
+    tfa.flash_attention(q, q[:, :1], q[:, :1], causal=True, window=2)
     assert tk.launch_counts() == {"dueling_select": 0,
                                   "sgld_potential_fwd": 0,
                                   "sgld_potential_grad": 0,
                                   "dueling_score": 0,
                                   "sgld_mixed_fwd": 0,
-                                  "sgld_mixed_grad": 0}
+                                  "sgld_mixed_grad": 0,
+                                  "flash_attention": 0}

@@ -86,6 +86,11 @@ def test_other_devices_raise():
         kernels.posterior_scores(torch.zeros((3, 4), device="meta"),
                                  torch.zeros((2, 4), device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
+        kernels.WRAPPERS["flash_attention"](
+            torch.zeros((1, 1, 2, 32), device="meta"),
+            torch.zeros((1, 1, 2, 32), device="meta"),
+            torch.zeros((1, 1, 2, 32), device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
         kernels.mixed_potential_grad_rows(
             torch.zeros((1, 4), device="meta"), x, None, None, None, None,
             None, None, None, eta=1.0)
@@ -96,6 +101,7 @@ def test_import_builds_nothing(tmp_path):
     loading a kernel library."""
     code = (
         "import repro_torch, repro_torch.convert, repro_torch.core.env\n"
+        "import repro_torch.data.pipeline, repro_torch.checkpoint\n"
         "from repro_torch.kernels import _build\n"
         "import sys\n"
         "assert _build._libs == {}, _build._libs\n"

@@ -22,7 +22,15 @@ line per phase (phase 2 prints one per path):
    types, rows with no live key (they must be the mean of v), the
    encoder's heads, qwen2-7b's (H 28, KV 4, D 128, causal, S = T = 2048,
    fp32 and bf16) and gemma2-9b's (H 16, KV 8, D 256, soft cap 50, window
-   4096, S = T = 8192, bf16). Times are medians of CUDA-event-timed calls
+   4096, S = T = 8192, bf16) and recurrentgemma-9b's at the lm path's
+   prefill (B 2, H 16, KV 1, D 256, window 2048, S = T = 4096, bf16). The
+   ssd family holds ``ssd_scan`` to rtol = atol = 2e-4 and the rglru
+   family ``rglru_scan`` to 1e-5 (the reference's tolerances) on the
+   reference's test shapes, ragged S,
+   S < chunk, S = 1, h0, bf16 x/B/C and strided column slices, at the LM
+   path's shapes (mamba2-1.3b: B 2, S 4096, H 64, P 64, N 128, chunk 128;
+   recurrentgemma-9b: B 2, S 4096, D 4096) and at the prefill_32k length
+   (B 1 and B 4, S 32768). Times are medians of CUDA-event-timed calls
    after a warm-up; the bound is the larger of the bytes over 3.35 TB/s
    and the operations over 67 TFLOP/s in fp32 or 989 TFLOP/s in bf16 (H100
    SXM data sheet); attention's library yardstick is
@@ -42,7 +50,15 @@ line per phase (phase 2 prints one per path):
      seed) -> the RouterBench model embeddings in all four weightings and
      the online env (4096 queries, d = 256 + 14) -> ``env.run`` over FGTS;
      then MixInstruct (1200 queries) -> eq. 6 embeddings -> ``env.run``.
-     The encoder alone is timed per 256-query batch.
+     The encoder alone is timed per 256-query batch;
+   - lm: mamba2-1.3b and recurrentgemma-9b at their full configs (bf16,
+     random weights made on the card from the seed): B 2 prompts of
+     S 4096 random tokens -> ``lm.prefill`` -> 8 greedy
+     ``lm.decode_step``s. The launch counts must be exact per prefill
+     (48 ``ssd_scan``; 26 ``rglru_scan`` and 12 ``flash_attention``) and
+     untouched by decode; one more prefill and two more decode steps run
+     under the profiler for the idle share, kernels per prefill or token
+     and each kernel's share of the prefill.
    Each run resets the launch counts just before it and reads them just
    after: every kernel of its path must have launched (attention exactly
    once per layer per encode batch). Two more ticks of each loop (and two
@@ -55,7 +71,11 @@ line per phase (phase 2 prints one per path):
    embeddings, from the same weights and tokens, must agree to atol 1e-5
    first); routed pairs equal outside near-ties, final chains to rtol
    1e-4, controller counters and flags equal, lambda and the cost EMA to
-   rtol 1e-5.
+   rtol 1e-5. Then each LM at full width in fp32 at a cut depth (mamba2
+   2 layers, recurrentgemma 3), B 2 x S 500, prefill and 4 decode steps:
+   logits within 1e-4 of max |logit|, greedy tokens equal outside
+   near-ties, cache leaves within 1e-4 of their largest magnitude,
+   ``slot_pos`` equal.
 
 Before the last line it prints the kernels line and the card's name and
 power limit; the last line is the device record. Any failed check exits
@@ -554,8 +574,149 @@ def attn_cases(gen, dev):
         # gemma2-9b's heads: soft cap, and a window that bites
         attn_case("gemma2_bf16", 1, 16, 8, 8192, 8192, 256, gen, dev,
                   dtype="bfloat16", window=4096, cap=50.0),
+        # recurrentgemma-9b's local layers at the lm path's prefill
+        attn_case("recurrentgemma_bf16", 2, 16, 1, 4096, 4096, 256, gen, dev,
+                  dtype="bfloat16", window=2048, timed=True),
     ]
     return cases
+
+
+SSD_TOL, RGLRU_TOL = 2e-4, 1e-5       # the reference's kernel tolerances
+
+
+def within(got, want, tol):
+    """max |got - want| and whether every element is within tol + tol *
+    |want| (rtol = atol = tol, as the reference's assert_allclose)."""
+    diff = (got.float() - want.float()).abs()
+    return float(diff.max()), bool((diff <= tol + tol * want.float().abs())
+                                   .all())
+
+
+def ssd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
+             h0=False, strided=False, timed=False):
+    """One ``ssd_scan`` case against the plain version on the card (y and
+    h_last to rtol = atol = 2e-4). Inputs as the reference's test makes
+    them: x, B, C normal, dt = softplus(normal), log_a = -0.1 dt.
+    ``strided`` passes x, B and C as column slices of one (B,S,H*P+2N)
+    tensor, as the model does. Timed cases add the bound: the operations
+    the function needs, for a chunk of l live steps l (l + 1) N for the
+    causal half of C.B^T once per (batch, chunk) (B and C are shared by
+    the heads), and per (batch*head, chunk) l (l + 1) P for the causal
+    W x plus 2 l N P each for C.state and the state update; bytes: x, B,
+    C, log_a, dt and h0 read once, y and h_last written once."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    dt_ = getattr(torch, dtype)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if strided:
+        xbc = rn(b, s, h * p + 2 * n).to(dt_)
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        bt, ct = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        x, bt, ct = (rn(b, s, h, p).to(dt_), rn(b, s, n).to(dt_),
+                     rn(b, s, n).to(dt_))
+    dt = torch.nn.functional.softplus(rn(b, s, h))
+    log_a = -0.1 * dt
+    hh = rn(b, h, p, n) if h0 else None
+    args = (x, bt, ct, log_a, dt, hh)
+    y, hl = ss.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    py, phl = ss.ssd_scan_plain(*args, chunk=chunk)
+    ey, oky = within(y, py, SSD_TOL)
+    eh, okh = within(hl, phl, SSD_TOL)
+    out = dict(case=name, B=b, S=s, H=h, P=p, N=n, chunk=chunk, dtype=dtype,
+               h0=h0, strided=strided, max_abs_err=max(ey, eh),
+               h_last_max_abs_err=eh)
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(hl).all()),
+          f"ssd {name}: non-finite kernel output")
+    check(oky and okh, f"ssd {name}: off by {ey} (y), {eh} (h_last)")
+    del py, phl
+    if timed:
+        lens = [min(chunk, s - c) for c in range(0, s, chunk)]
+        flops = float(sum(b * l * (l + 1) * n
+                          + b * h * (l * (l + 1) * p + 4 * l * n * p)
+                          for l in lens))
+        el = x.element_size()
+        nbytes = (el * (b * s * h * p + 2 * b * s * n) + 4 * 2 * b * s * h
+                  + 4 * b * s * h * p + 4 * b * h * p * n * (1 + bool(h0)))
+        kern = lambda: ss.ssd_scan(*args, chunk=chunk)
+        plain = lambda: ss.ssd_scan_plain(*args, chunk=chunk)
+        out["ms"], out["device_ms"] = time_ms(kern), device_ms(kern)
+        out["plain_ms"] = time_ms(plain, runs=3, calls=2, warmup=1)
+        out["plain_device_ms"] = device_ms(plain, calls=2)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+        out["library_ms"] = None
+    return out
+
+
+def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False):
+    """One ``rglru_scan`` case against the plain version on the card (h
+    and h_last to rtol = atol = 1e-5); log_a = -0.1 |normal| and x normal,
+    as the reference's test. Timed cases add the bound: 12 bytes per
+    element (log_a and x read, h written) plus h0 and h_last, against ~8
+    operations per element."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    log_a = -0.1 * torch.randn((b, s, d), generator=gen, device=dev).abs()
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    hh = torch.randn((b, d), generator=gen, device=dev) if h0 else None
+    h, hl = rg.rglru_scan(log_a, x, hh)
+    torch.cuda.synchronize()
+    ph, phl = rg.rglru_scan_plain(log_a, x, hh)
+    e1, ok1 = within(h, ph, RGLRU_TOL)
+    e2, ok2 = within(hl, phl, RGLRU_TOL)
+    out = dict(case=name, B=b, S=s, D=d, h0=h0, max_abs_err=max(e1, e2))
+    check(bool(torch.isfinite(h).all()), f"rglru {name}: non-finite output")
+    check(ok1 and ok2, f"rglru {name}: off by {e1} (h), {e2} (h_last)")
+    del ph, phl
+    if timed:
+        nbytes = 12 * b * s * d + 4 * b * d * (1 + bool(h0))
+        kern = lambda: rg.rglru_scan(log_a, x, hh)
+        plain = lambda: rg.rglru_scan_plain(log_a, x, hh)
+        out["ms"], out["device_ms"] = time_ms(kern), device_ms(kern)
+        out["plain_ms"] = time_ms(plain, runs=3, calls=1, warmup=1)
+        out["plain_device_ms"] = device_ms(plain, calls=1)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 8.0 * b * s * d)
+        out["library_ms"] = None
+    return out
+
+
+def scan_cases(gen, dev):
+    """The ssd and rglru families: the reference's test shapes
+    (``tests/test_kernels.py:43-67``), the edges (ragged S, S < chunk,
+    S = 1, h0, bf16 x/B/C, strided views), then the LM path's shapes
+    (``main``: mamba2-1.3b's and recurrentgemma-9b's B 2 x S 4096 prefill,
+    in the path's bf16 for the SSD, and in fp32 as ``main_fp32``) and the
+    prefill_32k length (``bench``)."""
+    ssd = [ssd_case(f"ref{i}", b, s, h, p, n, c, gen, dev, h0=h0)
+           for i, (b, s, h, p, n, c, h0) in enumerate([
+               (2, 200, 4, 64, 32, 64, True), (1, 256, 2, 32, 64, 128, False),
+               (2, 96, 8, 64, 128, 32, True)])]
+    ssd += [
+        ssd_case("ragged_h0_bf16", 2, 300, 8, 64, 128, 128, gen, dev,
+                 dtype="bfloat16", h0=True),
+        ssd_case("s_below_chunk_strided", 2, 100, 8, 64, 128, 128, gen, dev,
+                 strided=True),
+        ssd_case("s1_h0", 2, 1, 4, 64, 128, 128, gen, dev, h0=True),
+        # the path's dtype: mamba2-1.3b's bf16 conv output, sliced
+        ssd_case("main", 2, 4096, 64, 64, 128, 128, gen, dev,
+                 dtype="bfloat16", strided=True, timed=True),
+        ssd_case("main_fp32", 2, 4096, 64, 64, 128, 128, gen, dev,
+                 strided=True, timed=True),
+        ssd_case("bench", 1, 32768, 64, 64, 128, 128, gen, dev,
+                 dtype="bfloat16", strided=True, timed=True),
+    ]
+    rgl = [rglru_case(f"ref{i}", b, s, d, gen, dev, h0=h0)
+           for i, (b, s, d, h0) in enumerate([
+               (2, 200, 512, True), (1, 128, 512, False),
+               (3, 65, 1024, True)])]
+    rgl += [
+        rglru_case("d96_ragged", 2, 77, 96, gen, dev),
+        rglru_case("s1_h0", 2, 1, 4096, gen, dev, h0=True),
+        rglru_case("main", 2, 4096, 4096, gen, dev, timed=True),
+        rglru_case("bench", 4, 32768, 4096, gen, dev, timed=True),
+    ]
+    return ssd, rgl
 
 
 def phase_kernels(dev, seed):
@@ -608,7 +769,7 @@ def phase_kernels(dev, seed):
         mixed_case("self_duels_ragged", 3, 37, 5, 100, 500, gen, dev,
                    kind="self"),
     ]
-    return sel, sg, sc, mx, attn_cases(gen, dev)
+    return (sel, sg, sc, mx, attn_cases(gen, dev)) + scan_cases(gen, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1211,6 +1372,222 @@ def phase_card_vs_cpu(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 2 and 3: the candidate LMs' generation path
+# ---------------------------------------------------------------------------
+
+LM_B, LM_S, LM_STEPS = 2, 4096, 8
+# the kernels of each model's prefill, with their launches per prefill
+LM_PATHS = {
+    "mamba2-1.3b": {"ssd_scan": 48},
+    "recurrentgemma-9b": {"rglru_scan": 26, "flash_attention": 12},
+}
+# each kernel's name in a profile
+KERNEL_SYMBOLS = {"ssd_scan": "ssd_kernel", "rglru_scan": "rglru_kernel",
+                  "flash_attention": "flash_attention_kernel"}
+
+
+def tree_leaves(tree):
+    out = []
+    from repro_torch.models.layers import tree_map
+    tree_map(out.append, tree)
+    return out
+
+
+def profile_prefill(run, prefill_ms, wrappers):
+    """One prefill under ``torch.profiler`` (device activity only): device
+    busy time, idle share against the unprofiled prefill, kernels per
+    prefill, and the share of busy time of each port kernel, of the GEMMs
+    (cuBLAS / CUTLASS kernels) and of the heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
+    busy = sum(us for _, us, _ in kern) / 1e3
+    share = lambda pred: (sum(us for k, us, _ in kern if pred(k)) / 1e3
+                          / busy if busy else None)
+    gemm = lambda k: any(w in k.lower()
+                         for w in ("gemm", "cutlass", "xmma", "nvjet"))
+    return dict(
+        device_busy_ms=busy, device_idle_share=1.0 - busy / prefill_ms,
+        device_kernels_per_prefill=sum(n for _, _, n in kern),
+        kernel_share={w: share(lambda k, w=w: KERNEL_SYMBOLS[w] in k)
+                      for w in wrappers},
+        gemm_share=share(gemm),
+        top_kernels=[[k[:70], us / 1e3, n] for k, us, n in kern[:8]])
+
+
+def greedy_steps(params, cache, logits, cfg, n):
+    """``n`` more greedy decode steps after ``logits`` (positions past the
+    timed run's; they write into ``cache``, which is not used after)."""
+    from repro_torch.models import lm
+    for i in range(n):
+        logits, cache = lm.decode_step(params, cache, logits.argmax(-1),
+                                       LM_S + LM_STEPS + i, cfg)
+
+
+def phase_lm(dev, seed):
+    """mamba2-1.3b and recurrentgemma-9b at their full configs (random bf16
+    weights from a generator on the card): B 2 prompts of S 4096 random
+    tokens, ``lm.prefill`` (cache_len S + 8), then 8 greedy
+    ``lm.decode_step``s, as ``examples/routed_serving_e2e.py::
+    greedy_decode`` does. One warm-up run first; then the launch counts
+    are reset, the path runs timed, and the counts are read after the
+    prefill and after the decode: each kernel of the model's prefill
+    exactly ``LM_PATHS`` times, nothing from decode. One more prefill and
+    two more decode steps run under the profiler (device activity only)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    out = {}
+    for name, per_prefill in LM_PATHS.items():
+        cfg = ARCHS[name]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        params = lm.init_params(gen, cfg, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=gen,
+                            device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = tree_leaves(params)
+        cache_len = LM_S + LM_STEPS
+        batch = {"tokens": tok}
+        last, cache = lm.prefill(params, batch, cfg, cache_len)  # warm-up
+        lm.decode_step(params, cache, last.argmax(-1), LM_S, cfg)
+        del last, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        last, cache = lm.prefill(params, batch, cfg, cache_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        per = kernels.launch_counts()
+        logits, generated = [last], []
+        nxt = last.argmax(-1)
+        for i in range(LM_STEPS):
+            generated.append(nxt)
+            lg, cache = lm.decode_step(params, cache, nxt, LM_S + i, cfg)
+            logits.append(lg)
+            nxt = lg.argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        for k, n in per.items():
+            want = per_prefill.get(k, 0)
+            check(n == want, f"lm {name}: {n} {k} launches per prefill, "
+                             f"want {want}")
+        check(counts == per, f"lm {name}: decode launched a kernel: "
+                             f"{counts} after the prefill's {per}")
+        lg = torch.stack(logits)
+        check(lg.shape == (LM_STEPS + 1, LM_B, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()),
+              f"lm {name}: logits {tuple(lg.shape)} / not finite")
+        toks = torch.stack(generated, dim=1)
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"lm {name}: generated tokens out of range")
+        prefill_ms = 1e3 * (t1 - t0)
+        out[name] = dict(
+            params=sum(t.numel() for t in leaves),
+            weights_gb=sum(t.numel() * t.element_size() for t in leaves)
+            / 1e9, init_s=init_s, batch=LM_B, prompt_len=LM_S,
+            decode_steps=LM_STEPS, prefill_ms=prefill_ms,
+            prompt_tokens_per_s=LM_B * LM_S / (t1 - t0),
+            decode_ms_per_token=1e3 * (t2 - t1) / LM_STEPS,
+            peak_memory_gb=peak / 1e9, launches_per_prefill=per,
+            launches=counts, generated=toks.tolist(),
+            profile=profile_prefill(
+                lambda: lm.prefill(params, batch, cfg, cache_len),
+                prefill_ms, per_prefill),
+            decode_profile=profile_ticks(
+                lambda n: greedy_steps(params, cache, logits[-1], cfg, n),
+                1e3 * (t2 - t1) / LM_STEPS))
+        del params, leaves, cache, logits, lg, last
+        torch.cuda.empty_cache()
+    return out
+
+
+# full width in fp32 at a smaller depth, for the card against the CPU
+LM_CPU_CUTS = {"mamba2-1.3b": dict(n_units=2),
+               "recurrentgemma-9b": dict(n_units=1, remainder=())}
+
+
+def phase_lm_card_vs_cpu(dev, seed):
+    """Each model at full width in fp32 (``LM_CPU_CUTS`` depth), weights
+    made once on the card from the seed and copied to the CPU; B 2 prompts
+    of S 500 (a ragged SSD tail), prefill and 4 decode steps on the card
+    and on the CPU, both fed the CPU's greedy tokens. Every step's logits
+    within 1e-4 of the largest |logit|, the card's greedy token equal to
+    the CPU's outside near-ties, every cache leaf within 1e-4 of its
+    largest magnitude, ``slot_pos`` equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+    b, s, steps = 2, 500, 4
+    cpu = torch.device("cpu")
+    out = {}
+    for name, cut in LM_CPU_CUTS.items():
+        cfg = dataclasses.replace(ARCHS[name], dtype="float32", **cut)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = lm.init_params(gen, cfg, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+        cparams = tree_map(lambda t: t.to(cpu), params)
+        g_last, g_cache = lm.prefill(params, {"tokens": tok}, cfg, s + steps)
+        c_last, c_cache = lm.prefill(cparams, {"tokens": tok.to(cpu)}, cfg,
+                                     s + steps)
+        pairs = [(g_last.to(cpu), c_last)]
+        nxt = c_last.argmax(-1)
+        for i in range(steps):
+            g_lg, g_cache = lm.decode_step(params, g_cache, nxt.to(dev),
+                                           s + i, cfg)
+            c_lg, c_cache = lm.decode_step(cparams, c_cache, nxt, s + i, cfg)
+            pairs.append((g_lg.to(cpu), c_lg))
+            nxt = c_lg.argmax(-1)
+        logit_err = bad = ties = 0
+        for g, c in pairs:
+            err = float((g - c).abs().max())
+            logit_err = max(logit_err, err / float(c.abs().max()))
+            check(err <= 1e-4 * float(c.abs().max()),
+                  f"lm card vs cpu {name}: logits differ by {err}")
+            miss = g.argmax(-1) != c.argmax(-1)
+            tie = top2_gap(c) <= NEAR_TIE * float(c.abs().max())
+            bad, ties = bad + int((miss & ~tie).sum()), ties + int(
+                (miss & tie).sum())
+        check(bad == 0, f"lm card vs cpu {name}: {bad} greedy tokens differ "
+                        f"outside near-ties")
+        cache_err = 0.0
+        for g, c in zip(tree_leaves(g_cache), tree_leaves(c_cache)):
+            g = g.to(cpu)
+            if c.dtype == torch.int32:
+                check(torch.equal(g, c), f"lm card vs cpu {name}: slot_pos "
+                                         f"differs")
+                continue
+            err = float((g - c).abs().max())
+            scale = max(float(c.abs().max()), 1e-30)
+            cache_err = max(cache_err, err / scale)
+            check(err <= 1e-4 * scale,
+                  f"lm card vs cpu {name}: a cache leaf differs by {err}")
+        out[name] = dict(n_layers=cfg.n_layers, batch=b, prompt_len=s,
+                         decode_steps=steps, max_rel_logit_err=logit_err,
+                         max_rel_cache_err=cache_err, token_mismatches=bad,
+                         near_ties=ties)
+        del params, cparams, g_cache, c_cache
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 SGLD_SRC = "src/repro_torch/kernels/csrc/sgld_potential.cu"
 # name, source, TPU kernel replaced (its pl.pallas_call), phase-1 cases,
@@ -1230,6 +1607,10 @@ KERNELS = [
      "mixed", "grad_", "mixed"),
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:99", "attn", "", "ccft"),
+    ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:109", "ssd", "", "mamba2-1.3b"),
+    ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+     "src/repro/kernels/rglru_scan.py:72", "rglru", "", "recurrentgemma-9b"),
 ]
 
 
@@ -1290,10 +1671,11 @@ def main() -> int:
                            libraries=sorted(_build.SIGNATURES))
     emit(record["build"])
 
-    sel, sg, sc, mx, at = phase_kernels(dev, args.seed)
+    sel, sg, sc, mx, at, ssd, rgl = phase_kernels(dev, args.seed)
     record["kernels"] = dict(phase="kernels", dueling_select=sel,
                              sgld_potential=sg, dueling_score=sc,
-                             sgld_mixed=mx, flash_attention=at)
+                             sgld_mixed=mx, flash_attention=at, ssd_scan=ssd,
+                             rglru_scan=rgl)
     emit(record["kernels"])
 
     runs = phase_slice(dev, args.seed)
@@ -1306,19 +1688,25 @@ def main() -> int:
     emit(record["mixed"])
     record["ccft"] = dict(phase="ccft", **phase_ccft(dev, args.seed))
     emit(record["ccft"])
+    record["lm"] = dict(phase="lm", **phase_lm(dev, args.seed))
+    emit(record["lm"])
 
     record["card_vs_cpu"] = dict(
         phase="card_vs_cpu", **phase_card_vs_cpu(dev, args.seed),
         autopilot=phase_autopilot_card_vs_cpu(dev, args.seed),
-        ccft=phase_ccft_card_vs_cpu(dev, args.seed))
+        ccft=phase_ccft_card_vs_cpu(dev, args.seed),
+        lm=phase_lm_card_vs_cpu(dev, args.seed))
     emit(record["card_vs_cpu"])
 
     line = kernels_line(
-        dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at),
+        dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at, ssd=ssd,
+             rglru=rgl),
         dict(sync=runs["sync"]["launches"],
              autopilot=record["autopilot"]["launches"],
              mixed=record["mixed"]["launches"],
-             ccft=record["ccft"]["routerbench"]["launches"]))
+             ccft=record["ccft"]["routerbench"]["launches"],
+             **{n: r["launches"] for n, r in record["lm"].items()
+                if n != "phase"}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

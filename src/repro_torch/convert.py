@@ -1,7 +1,8 @@
 """Carry weights and state between the JAX package and the port as numpy.
 
-The arm table (``ModelPool``) and the query encoder's parameters are this
-system's weights; the replay ring and the SGLD chains (``FGTSState``), the
+The arm table (``ModelPool``), the query encoder's parameters and the
+candidate LMs' parameters are this system's weights (the LMs' decode
+caches their state); the replay ring and the SGLD chains (``FGTSState``), the
 mixed ring (``MixedHistory``), the baselines' estimates and the
 autopilot's ``ControllerState`` its state. The
 reference's arrays come out with ``jax.device_get`` (or ``numpy.asarray``);
@@ -112,6 +113,36 @@ def encoder_params_from_numpy(params: dict, device=None) -> dict:
     dev = resolve_device(device)
     return {k: encoder_params_from_numpy(v, dev) if isinstance(v, dict)
             else as_f32(v, dev) for k, v in params.items()}
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """One LM leaf: bfloat16 stays bfloat16 (its bits carried over), other
+    floats become float32 (float64 too), integers int32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    if np.issubdtype(a.dtype, np.integer):
+        return _i32(a, device)
+    return as_f32(a, device)
+
+
+def lm_params_from_numpy(params: dict, device=None) -> dict:
+    """The reference's LM parameters (``models/lm.py::init_params``, a
+    nested dict of arrays as ``jax.device_get`` returns them, with the
+    stacked ``units``) as the port's: the same tree of tensors on
+    ``device``, bf16 leaves kept bf16 and the rest float32."""
+    dev = resolve_device(device)
+    return {k: lm_params_from_numpy(v, dev) if isinstance(v, dict)
+            else _leaf(v, dev) for k, v in params.items()}
+
+
+def lm_cache_from_numpy(cache: dict, device=None) -> dict:
+    """The reference's decode cache (``init_cache`` / ``prefill`` /
+    ``decode_step``) as the port's: floats keep bf16 or become float32,
+    ``slot_pos`` stays int32. The conversion is ``lm_params_from_numpy``'s;
+    this name stands beside it for the cache trees."""
+    return lm_params_from_numpy(cache, device)
 
 
 def state_to_numpy(state):

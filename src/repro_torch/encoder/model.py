@@ -21,7 +21,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.config import (FFN_MLP, MIXER_BIDIR_ATTN, LayerSpec,
                                        ModelConfig)
-from repro_torch.models.layers import init_embedding, rms_norm
+from repro_torch.models.layers import (init_embedding, rms_norm, stack_trees,
+                                       tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,20 +46,6 @@ class EncoderConfig:
         )
 
 
-def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _stack(trees: list):
-    """Stack the leaves of equally shaped nested dicts along a new axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init_encoder(gen: torch.Generator, cfg: EncoderConfig,
                  device=None) -> dict:
     """Random weights from ``gen`` (drawn on the generator's device, then
@@ -69,7 +56,7 @@ def init_encoder(gen: torch.Generator, cfg: EncoderConfig,
     embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, f32, dev)
     layers = [blk.init_unit(gen, mc, mc.pattern, f32, dev)
               for _ in range(cfg.n_layers)]
-    return {"embed": embed, "units": _stack(layers),
+    return {"embed": embed, "units": stack_trees(layers),
             "final_norm": torch.zeros((cfg.d_model,), dtype=f32, device=dev)}
 
 

@@ -3,12 +3,15 @@
 Each wrapper dispatches on the device of its tensors (CPU: plain PyTorch;
 CUDA: the kernel, or an error) and counts its kernel launches in a plain
 integer attribute ``launches``. Nothing is compiled at import: see
-``_build``. (The ``dueling_score`` and ``flash_attention`` functions are
-reached through their modules, e.g. ``kernels.flash_attention.
-flash_attention``, whose names they would shadow here.)
+``_build``. (The ``dueling_score``, ``flash_attention``, ``ssd_scan`` and
+``rglru_scan`` functions are reached through their modules, e.g.
+``kernels.flash_attention.flash_attention``, whose names they would shadow
+here.)
 """
 from . import dueling_score as _scores
 from . import flash_attention as _flash
+from . import rglru_scan as _rglru
+from . import ssd_scan as _ssd
 from .dueling_score import dueling_select, mask_fallback_pair, posterior_scores
 from .sgld_update import (mixed_potential_grad_rows, mixed_potential_rows,
                           potential_grad_rows, potential_rows,
@@ -24,6 +27,8 @@ WRAPPERS = {
     "sgld_mixed_fwd": mixed_potential_rows,
     "sgld_mixed_grad": mixed_potential_grad_rows,
     "flash_attention": _flash.flash_attention,
+    "ssd_scan": _ssd.ssd_scan,
+    "rglru_scan": _rglru.rglru_scan,
 }
 
 

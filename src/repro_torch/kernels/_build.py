@@ -60,6 +60,17 @@ SIGNATURES = {
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, *[L] * 12,
                                    F, F, I, I, I, P],
     },
+    "ssd_scan": {
+        # x, bt, ct, log_a, dt, h0, y, h_last, B, S, H, P, N, chunk,
+        # (batch, seq, head) strides of x, (batch, seq) of bt and ct,
+        # (batch, seq, head) of log_a and dt, is_bf16, stream
+        "ssd_scan_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                            *[L] * 13, I, P],
+    },
+    "rglru_scan": {
+        # log_a, x, h0, h, h_last, B, S, D, stream
+        "rglru_scan_launch": [P, P, P, P, P, I, I, I, P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -18,9 +18,14 @@ outside any kernel. Two things follow from the kernel's interface:
   reference's einsum path casts p to the weights' type first).
 
 ``cfg.gqa_impl`` does not matter here: the kernel maps each query head to
-its kv head itself. Cross attention, ``cfg.attn_q_chunk`` and the decode
-path with its KV caches come with the LM substrate slice and raise
-``NotImplementedError`` until then.
+its kv head itself. One-token decode (``decode_attention``) is plain
+PyTorch, as the reference has no kernel there: a full-context cache for
+mode 'causal', a ring buffer of ``window`` slots for mode 'local', each
+slot's absolute position in ``slot_pos`` (-1 = empty). It writes the
+token into the given cache in place, where the reference's functional
+update makes a new one (eager PyTorch would copy every K/V cache on every
+token). Cross attention and ``cfg.attn_q_chunk`` raise
+``NotImplementedError``: they come with the encoder-decoder models.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .config import ModelConfig
-from .layers import apply_rope, normal
+from .layers import apply_rope, normal, softcap
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
@@ -70,6 +75,27 @@ def _mask(mode: str, window: int) -> tuple[bool, int]:
     raise ValueError(f"unknown attention mode {mode!r}")
 
 
+def self_attention_kv(params: dict, x: torch.Tensor,
+                      positions: torch.Tensor, cfg: ModelConfig, *,
+                      mode: str, window: int = 0):
+    """Self-attention of x (B,S,d) at ``positions`` (B,S) on the flash
+    wrapper. Returns (out (B,S,d), k, v): the roped keys and the values
+    (B,S,KV,hd) it attended to, which prefill writes into the cache."""
+    if cfg.attn_q_chunk:
+        raise NotImplementedError(
+            "attn_q_chunk is not ported: the flash kernel bounds the live "
+            "scores already")
+    causal, win = _mask(mode, window)
+    q, k, v = _project_qkv(params, x, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=win,
+                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
+    out = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+    return out, k, v
+
+
 def full_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, *, mode: str, window: int = 0,
                    kv_src: torch.Tensor | None = None,
@@ -78,25 +104,74 @@ def full_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     mode 'causal' | 'local' | 'bidir'. Returns (B,S,d)."""
     if mode == "cross" or kv_src is not None or kv_positions is not None:
         raise NotImplementedError(
-            "cross attention comes with the LM substrate slice of the port")
-    if cfg.attn_q_chunk:
+            "cross attention comes with the encoder-decoder models")
+    return self_attention_kv(params, x, positions, cfg, mode=mode,
+                             window=window)[0]
+
+
+def _gqa_scores(q, k):
+    """q: (B,S,H,hd) k: (B,T,KV,hd) -> (B,KV,H//KV,S,T)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    return torch.einsum("bskgh,btkh->bkgst",
+                        q.reshape(b, s, kvh, h // kvh, hd), k)
+
+
+def _gqa_out(p, v):
+    """p: (B,KV,H//KV,S,T) v: (B,T,KV,hd) -> (B,S,H,hd)."""
+    out = torch.einsum("bkgst,btkh->bskgh", p, v)
+    b, s, kvh, g, hd = out.shape
+    return out.reshape(b, s, kvh * g, hd)
+
+
+def init_kv_cache(batch: int, cache_len: int, cfg: ModelConfig, dtype,
+                  device) -> dict:
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    return {
+        "k": torch.zeros((batch, cache_len, kv, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, kv, hd), dtype=dtype,
+                         device=device),
+        # per-slot absolute position, -1 = empty (ring-buffer validity)
+        "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos,
+                     cfg: ModelConfig, *, mode: str, window: int = 0,
+                     enc_memory: torch.Tensor | None = None):
+    """One-token decode of x (B,1,d) at absolute position ``pos`` (an int
+    or a 0-d integer tensor). Mode 'causal': the cache holds the whole
+    context; mode 'local': a ring buffer, slot ``pos % cache_len``. The
+    token's K/V and position are written into ``cache`` in place.
+    Returns (out (B,1,d), cache)."""
+    if mode not in ("causal", "local"):
         raise NotImplementedError(
-            "attn_q_chunk comes with the LM substrate slice of the port")
-    causal, win = _mask(mode, window)
-    q, k, v = _project_qkv(params, x, x, cfg)
+            f"decode mode {mode!r}: cross attention comes with the "
+            f"encoder-decoder models")
+    b = x.shape[0]
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int64, device=x.device)
+    pos = pos.to(device=x.device, dtype=torch.int64).reshape(())
+    positions = pos.expand(b, 1)
+    q, k1, v1 = _project_qkv(params, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=win,
-                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
-    return torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+    k1 = apply_rope(k1, positions, cfg.rope_theta)
 
+    cache_len = cache["k"].shape[1]
+    slot = (pos % cache_len if mode == "local" else pos).reshape(1)
+    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    k.index_copy_(1, slot, k1.to(k.dtype))
+    v.index_copy_(1, slot, v1.to(v.dtype))
+    slot_pos.index_copy_(0, slot, pos.reshape(1).to(torch.int32))
 
-def init_kv_cache(*args, **kwargs):
-    raise NotImplementedError(
-        "KV caches come with the LM substrate slice of the port")
-
-
-def decode_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "one-token decode comes with the LM substrate slice of the port")
+    scores = _gqa_scores(q, k).to(torch.float32) * (cfg.hd ** -0.5)
+    scores = softcap(scores, cfg.attn_softcap)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if mode == "local":
+        valid &= slot_pos > pos - window
+    scores = torch.where(valid, scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bshk,hkd->bsd", _gqa_out(p, v), params["wo"])
+    return out, cache

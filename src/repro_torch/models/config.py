@@ -2,10 +2,10 @@
 
 ``LayerSpec`` and ``ModelConfig`` keep the reference's field names and
 defaults, so a reference configuration builds a port object field for
-field. The port runs only the attention and gated-MLP layers so far (the
-encoder's ``(MIXER_BIDIR_ATTN, FFN_MLP)`` stack); the other mixers and
-FFNs are named here and raise in ``models/blocks.py`` until the LM
-substrate slice.
+field, and ``reduced()`` and ``param_count()`` give what the reference's
+give. The port runs the attention mixers (global, local, bidirectional),
+the RG-LRU and SSD mixers and the gated MLP; cross attention and the MoE
+FFNs are named here and raise in ``models/blocks.py``.
 """
 from __future__ import annotations
 
@@ -102,5 +102,102 @@ class ModelConfig:
     def n_layers(self) -> int:
         return self.n_units * len(self.pattern) + len(self.remainder)
 
+    @property
+    def n_enc_layers(self) -> int:
+        return self.enc_n_units * len(self.enc_pattern)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_n_units > 0
+
+    @property
+    def d_rnn(self) -> int:
+        return self.rnn_width if self.rnn_width else self.d_model
+
+    @property
+    def d_inner(self) -> int:          # Mamba-2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def all_specs(self) -> Tuple[LayerSpec, ...]:
         return self.pattern * self.n_units + self.remainder
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no decoder layer needs a full-context KV cache. Cross-
+        attention decoder blocks carry full causal self-attention, so
+        enc-dec stacks count as quadratic too."""
+        return all(s.mixer not in (MIXER_GLOBAL_ATTN, MIXER_CROSS_ATTN)
+                   for s in self.all_specs())
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + decoder + encoder),
+        counted as the reference counts it."""
+        d, hd = self.d_model, self.hd
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for spec in self.all_specs() + self.enc_pattern * self.enc_n_units:
+            p = 2 * d  # norms
+            if spec.mixer in (MIXER_GLOBAL_ATTN, MIXER_LOCAL_ATTN,
+                              MIXER_BIDIR_ATTN, MIXER_CROSS_ATTN):
+                n_att = 2 if spec.mixer == MIXER_CROSS_ATTN else 1
+                p += n_att * (d * self.n_heads * hd
+                              + 2 * d * self.n_kv_heads * hd
+                              + self.n_heads * hd * d)
+            elif spec.mixer == MIXER_RGLRU:
+                dr = self.d_rnn
+                p += 2 * d * dr + dr * d + 2 * dr * dr + self.conv_width * dr
+            elif spec.mixer == MIXER_SSD:
+                di = self.d_inner
+                p += d * (2 * di + 2 * self.ssm_state + self.ssm_heads) + di * d
+            if spec.ffn == FFN_MLP:
+                p += 3 * d * self.d_ff
+            elif spec.ffn in (FFN_MOE, FFN_MOE_DENSE):
+                p += d * self.n_experts + self.n_experts * 3 * d * self.d_ff
+                if spec.ffn == FFN_MOE_DENSE:
+                    p += 3 * d * self.dense_residual_ff
+            total += p
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only top_k experts count)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        n_moe = sum(1 for s in self.all_specs()
+                    if s.ffn in (FFN_MOE, FFN_MOE_DENSE))
+        inactive = (n_moe * (self.n_experts - self.top_k) * 3 * self.d_model
+                    * self.d_ff)
+        return self.param_count() - inactive
+
+    def reduced(self, d_model: int = 256, max_units: int = 1,
+                n_experts: int = 4, vocab: int = 512) -> "ModelConfig":
+        """Smoke-test variant: a unit or two, d_model <= 512, <= 4 experts,
+        fp32 (the reference's ``reduced``, field for field)."""
+        n_heads = max(2, min(4, self.n_heads))
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=max(1, min(self.n_kv_heads, n_heads)),
+            head_dim=d_model // n_heads,
+            d_ff=4 * d_model if self.d_ff else 0,
+            vocab_size=vocab,
+            n_units=min(self.n_units, max_units),
+            remainder=self.remainder[:1],
+            enc_n_units=min(self.enc_n_units, max_units),
+            n_experts=min(self.n_experts, n_experts) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            dense_residual_ff=2 * d_model if self.dense_residual_ff else 0,
+            ssm_state=min(self.ssm_state, 64) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else 64,
+            ssm_chunk=32,
+            rnn_width=d_model if self.rnn_width else 0,
+            window=min(self.window, 128) if self.window else 0,
+            n_frontend_tokens=min(self.n_frontend_tokens, 16),
+            enc_frames=min(self.enc_frames, 32),
+            dtype="float32",
+            fsdp=False,
+        )

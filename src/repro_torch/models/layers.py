@@ -1,4 +1,5 @@
-"""Shared primitive layers: RMSNorm, RoPE, gated MLP, embeddings
+"""Shared primitive layers: RMSNorm, RoPE, gated MLP, embeddings, the
+depthwise causal conv of the recurrent blocks
 (counterpart of ``repro/models/layers.py``).
 
 Initializers draw from an explicit ``torch.Generator`` on the generator's
@@ -77,3 +78,38 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def causal_conv(w: torch.Tensor, u: torch.Tensor,
+                conv_state: torch.Tensor | None = None):
+    """Depthwise causal conv of width W = ``w.shape[0]`` over u (B,S,C) in
+    float32, its taps summed in the order k = 0..W-1 as the reference sums
+    them; ``conv_state`` holds the W-1 inputs before u (zeros when None).
+    Returns (out (B,S,C) float32, the last W-1 inputs in u's dtype)."""
+    width = w.shape[0]
+    wf = w.to(torch.float32)
+    uf = u.to(torch.float32)
+    if conv_state is None:
+        pad = uf.new_zeros((u.shape[0], width - 1, u.shape[-1]))
+    else:
+        pad = conv_state.to(torch.float32)
+    up = torch.cat([pad, uf], dim=1)                   # (B, S+W-1, C)
+    s = u.shape[1]
+    out = up[:, 0:s] * wf[0]
+    for k in range(1, width):
+        out = out + up[:, k:k + s] * wf[k]
+    return out, up[:, -(width - 1):].to(u.dtype)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_trees(trees: list):
+    """Stack the leaves of equally shaped nested dicts along a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)

@@ -1,0 +1,177 @@
+"""Decoder-only LM: full-sequence forward, prefill and one-token decode
+(counterpart of ``repro/models/lm.py``).
+
+The parameter tree is the reference's: ``units`` holds the pattern's
+blocks with every leaf stacked over a leading ``n_units`` axis (the
+reference scans that axis; here a Python loop takes views ``t[i]``),
+then ``remainder``, ``final_norm`` and the head (``embed`` when tied). The
+caches stack the same way. So the reference's parameters and caches map
+onto the port's leaf for leaf (``convert.lm_params_from_numpy``,
+``convert.lm_cache_from_numpy``). ``decode_step`` updates the cache in
+place rather than returning a new one, as the reference's functional
+update does.
+
+The embedding is scaled by sqrt(d_model) rounded to the weights' type
+first, as ``jnp.asarray(d_model ** 0.5, dtype)`` is (45.25 for d_model
+2048 in bf16, not 45.2548). Training (``loss_fn``) comes with the training
+slice; the vision front end and the encoder-decoder models raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import blocks as blk
+from .config import ModelConfig
+from .layers import init_embedding, rms_norm, softcap, stack_trees, tree_map
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check(cfg: ModelConfig) -> None:
+    if cfg.frontend == "vision" or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the vision front end and the encoder-decoder "
+            f"models are not ported yet")
+
+
+def _stacked_unit_init(gen, cfg, specs, n_units, dtype, device):
+    """``n_units`` units stacked leaf by leaf, written into the stack one
+    unit at a time (the peak is the stack plus one unit)."""
+    first = blk.init_unit(gen, cfg, specs, dtype, device)
+    out = tree_map(lambda t: t.new_empty((n_units, *t.shape)), first)
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+    put(out, first, 0)
+    for i in range(1, n_units):
+        put(out, blk.init_unit(gen, cfg, specs, dtype, device), i)
+    return out
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
+    """Random weights from ``gen``, drawn on the generator's device (a
+    generator on the card draws a 9 B-parameter model in seconds) and
+    moved to ``device``."""
+    _check(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    p: dict = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "units": _stacked_unit_init(gen, cfg, cfg.pattern, cfg.n_units,
+                                    dtype, dev),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=dev),
+    }
+    if cfg.remainder:
+        p["remainder"] = blk.init_unit(gen, cfg, cfg.remainder, dtype, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                      dev)
+    return p
+
+
+def _embed(params, tokens, cfg):
+    """Token embeddings times sqrt(d_model) in the weights' type."""
+    emb = params["embed"]
+    # a fill on the device: a tensor made from a Python number would be
+    # copied from the host and wait for the card on every decode step
+    scale = torch.full((), cfg.d_model ** 0.5, dtype=_dtype(cfg),
+                       device=emb.device)
+    return emb[tokens.long()] * scale
+
+
+def _embed_inputs(params, batch, cfg):
+    """The decoder input sequence and its positions from the batch."""
+    _check(cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    return x, positions
+
+
+def _units(params):
+    n = params["units"]["0"]["norm1"].shape[0]
+    return [tree_map(lambda t: t[i], params["units"]) for i in range(n)]
+
+
+def _logits(params, x, cfg):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return softcap((x @ head.T).to(torch.float32), cfg.logit_softcap)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig):
+    """Full-sequence logits. Returns (logits (B,S,V) float32, aux_loss)."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = [(u[str(i)], spec) for u in _units(params)
+              for i, spec in enumerate(cfg.pattern)]
+    layers += [(params["remainder"][str(i)], spec)
+               for i, spec in enumerate(cfg.remainder)]
+    for lp, spec in layers:
+        x, a = blk.block_fwd(lp, x, positions, cfg, spec)
+        aux = aux + a
+    return _logits(params, x, cfg), aux
+
+
+def init_cache(batch: int, cfg: ModelConfig, cache_len: int,
+               device=None) -> dict:
+    _check(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    cache: dict = {"units": stack_trees([
+        blk.init_unit_cache(batch, cfg, cfg.pattern, cache_len, dtype, dev)
+        for _ in range(cfg.n_units)])}
+    if cfg.remainder:
+        cache["remainder"] = blk.init_unit_cache(batch, cfg, cfg.remainder,
+                                                 cache_len, dtype, dev)
+    return cache
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int):
+    """Full-context prefill. Returns (last_logits (B,V), cache)."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    caches = []
+    for u in _units(params):
+        c = {}
+        for i, spec in enumerate(cfg.pattern):
+            x, c[str(i)] = blk.block_prefill(u[str(i)], x, positions, cfg,
+                                             spec, cache_len)
+        caches.append(c)
+    cache: dict = {"units": stack_trees(caches)}
+    if cfg.remainder:
+        rc = {}
+        for i, spec in enumerate(cfg.remainder):
+            x, rc[str(i)] = blk.block_prefill(params["remainder"][str(i)], x,
+                                              positions, cfg, spec, cache_len)
+        cache["remainder"] = rc
+    return _logits(params, x[:, -1], cfg), cache
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
+                cfg: ModelConfig):
+    """One-token decode. tokens: (B,) integer; pos: the absolute position
+    (an int or a 0-d integer tensor). The step is written into ``cache``
+    in place, through views ``t[i]`` of its stacked leaves (the reference
+    returns a new cache; here that would copy every cache leaf on every
+    token). Returns (logits (B,V), cache)."""
+    _check(cfg)
+    x = _embed(params, tokens, cfg)[:, None]
+    for i, u in enumerate(_units(params)):
+        uc = tree_map(lambda t: t[i], cache["units"])
+        for j, spec in enumerate(cfg.pattern):
+            x, _ = blk.block_step(u[str(j)], x, uc[str(j)], pos, cfg, spec)
+    for j, spec in enumerate(cfg.remainder):
+        x, _ = blk.block_step(params["remainder"][str(j)], x,
+                              cache["remainder"][str(j)], pos, cfg, spec)
+    return _logits(params, x[:, 0], cfg), cache

@@ -12,17 +12,24 @@ duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
 rtol 1e-4 (fp32 with another summation order on the card). Attention
 matches to rtol = atol = 2e-5 in fp32 and 2e-2 in bf16 (the reference's
 own kernel tolerances); the encoder on the card matches its CPU run to
-atol 1e-5.
+atol 1e-5. The SSD scan matches to rtol = atol = 2e-4 and the RG-LRU scan
+to 1e-5 (the reference's kernel tolerances); a reduced mamba2-1.3b and
+recurrentgemma-9b prefill and decode on the card match their CPU run to
+2e-4.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs import ARCHS
 from repro_torch.encoder import model as tenc
 from repro_torch.kernels import dueling_score as tds
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import sgld_update as tsu
+from repro_torch.kernels import ssd_scan as tss
+from repro_torch.models import lm as tlm
 
 POT_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -347,3 +354,150 @@ def test_encode_on_the_card_matches_the_cpu(cuda_device):
     assert tfa.flash_attention.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
                                rtol=0)
+
+
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+RG_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _ssd_inputs(b, s, h, p, n, with_h0, dev, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev)
+    dt = torch.nn.functional.softplus(f(b, s, h))
+    return dict(x=f(b, s, h, p), bt=f(b, s, n), ct=f(b, s, n),
+                log_a=-0.1 * dt, dt=dt, h0=f(b, h, p, n) if with_h0 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
+    (2, 200, 4, 64, 32, 64, True),
+    (1, 256, 2, 32, 64, 128, False),
+    (2, 96, 8, 64, 128, 32, True),
+    (2, 300, 3, 64, 128, 128, True),    # ragged tail, mamba2's P, N, L
+    (1, 50, 2, 48, 16, 128, False),     # S < chunk, P not a tile multiple
+    (2, 1, 2, 32, 8, 32, True),         # S = 1
+])
+def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
+                                       with_h0, dtype):
+    inp = _ssd_inputs(b, s, h, p, n, with_h0, cuda_device, s + p + n)
+    for k in ("x", "bt", "ct"):
+        inp[k] = inp[k].to(dtype)
+    before = tss.ssd_scan.launches
+    y, hl = tss.ssd_scan(**inp, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tss.ssd_scan.launches == before + 1
+    assert y.dtype == hl.dtype == torch.float32
+    py, phl = tss.ssd_scan_plain(**inp, chunk=chunk)
+    np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **SSD_TOL)
+    np.testing.assert_allclose(hl.cpu().numpy(), phl.cpu().numpy(),
+                               **SSD_TOL)
+
+
+def test_ssd_scan_kernel_reads_strided_column_slices(cuda_device):
+    """x, B and C as column slices of one (B,S,di+2n) tensor, as the
+    model hands them over: read through their strides."""
+    rng = np.random.default_rng(7)
+    b, s, h, p, n = 2, 140, 4, 32, 64
+    di = h * p
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, s, di + 2 * n), dtype=np.float32)).to(cuda_device)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, h), dtype=np.float32)).to(cuda_device))
+    x = xbc[..., :di].reshape(b, s, h, p)
+    bt, ct = xbc[..., di:di + n], xbc[..., di + n:]
+    assert not bt.is_contiguous()
+    y, hl = tss.ssd_scan(x, bt, ct, -0.1 * dt, dt, chunk=32)
+    py, phl = tss.ssd_scan_plain(x.contiguous(), bt.contiguous(),
+                                 ct.contiguous(), -0.1 * dt, dt, chunk=32)
+    np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **SSD_TOL)
+    np.testing.assert_allclose(hl.cpu().numpy(), phl.cpu().numpy(),
+                               **SSD_TOL)
+
+
+@pytest.mark.parametrize("b,s,d,with_h0", [
+    (2, 200, 512, True), (1, 128, 512, False), (3, 65, 1024, True),
+    (2, 77, 96, False), (2, 1, 96, True), (1, 40, 4100, True),
+])
+def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, with_h0):
+    rng = np.random.default_rng(s + d)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    log_a, x = -f(b, s, d).abs() * 0.1, f(b, s, d)
+    h0 = f(b, d) if with_h0 else None
+    before = trg.rglru_scan.launches
+    h, hl = trg.rglru_scan(log_a, x, h0)
+    torch.cuda.synchronize()
+    assert trg.rglru_scan.launches == before + 1
+    ph, phl = trg.rglru_scan_plain(log_a, x, h0)
+    np.testing.assert_allclose(h.cpu().numpy(), ph.cpu().numpy(), **RG_TOL)
+    np.testing.assert_allclose(hl.cpu().numpy(), phl.cpu().numpy(),
+                               **RG_TOL)
+
+
+def test_scan_kernels_refuse_what_they_cannot_run(cuda_device):
+    inp = _ssd_inputs(1, 40, 2, 32, 16, False, cuda_device, 0)
+    with pytest.raises(ValueError, match="chunk"):
+        tss.ssd_scan(**inp, chunk=40)
+    with pytest.raises(ValueError, match="N"):
+        big = _ssd_inputs(1, 40, 2, 32, 160, False, cuda_device, 0)
+        tss.ssd_scan(**big, chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        tss.ssd_scan(**dict(inp, dt=inp["dt"].double()), chunk=32)
+    with pytest.raises(ValueError, match="dtypes"):
+        tss.ssd_scan(**dict(inp, bt=inp["bt"].half()), chunk=32)
+    x = torch.zeros((1, 4, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        trg.rglru_scan(x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="h0"):
+        trg.rglru_scan(x, x, torch.zeros((1, 9), device=cuda_device))
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda_device,
+                                                         name):
+    """A reduced fp32 model from one CPU generator: prefill of 200 tokens
+    (past the reduced window) and 2 greedy decode steps, logits and every
+    cache leaf to 2e-4; one scan launch per recurrent layer, attention
+    once per local layer, none from decode."""
+    cfg = ARCHS[name].reduced(max_units=2)
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    card = tenc.tree_map(lambda w: w.to(cuda_device), params)
+    tok = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 200)))
+    runs = {}
+    for where, p in ((torch.device("cpu"), params), (cuda_device, card)):
+        kernels.reset_launch_counts()
+        last, cache = tlm.prefill(p, {"tokens": tok.to(where)}, cfg,
+                                  cache_len=210)
+        counts = kernels.launch_counts()
+        logits = [last]
+        nxt = last.argmax(-1).cpu()
+        for step in range(2):
+            lg, cache = tlm.decode_step(p, cache, nxt.to(where), 200 + step,
+                                        cfg)
+            logits.append(lg)
+            nxt = lg.argmax(-1).cpu()
+        assert kernels.launch_counts() == counts
+        runs[where.type] = (logits, cache, counts)
+    torch.cuda.synchronize()
+    specs = cfg.all_specs()
+    counts = runs["cuda"][2]
+    assert counts["ssd_scan"] == sum(s.mixer == "ssd" for s in specs)
+    assert counts["rglru_scan"] == sum(s.mixer == "rglru" for s in specs)
+    assert counts["flash_attention"] == sum(s.mixer == "lattn"
+                                            for s in specs)
+    assert all(n == 0 for n in runs["cpu"][2].values())
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    flat_g, flat_c = [], []
+    tenc.tree_map(flat_g.append, runs["cuda"][1])
+    tenc.tree_map(flat_c.append, runs["cpu"][1])
+    for g, c in zip(flat_g, flat_c):
+        if c.dtype == torch.int32:
+            assert torch.equal(g.cpu(), c)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
+                                       atol=2e-4)

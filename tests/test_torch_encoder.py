@@ -102,14 +102,23 @@ def test_block_fwd_matches(mixer):
     assert float(aux) == 0.0
 
 
-def test_block_fwd_raises_for_later_slices():
+@pytest.mark.parametrize("mixer,ffn,match", [
+    (tconfig.MIXER_CROSS_ATTN, tconfig.FFN_MLP, "encoder-decoder"),
+    (tconfig.MIXER_GLOBAL_ATTN, tconfig.FFN_MOE, "MoE"),
+])
+def test_block_fwd_raises_for_later_slices(mixer, ffn, match):
+    """The layers no slice has ported yet (cross attention, MoE FFNs)."""
+    spec = tconfig.LayerSpec(mixer, ffn)
     tc = tconfig.ModelConfig(
-        name="ssd", family="ssm", d_model=8, n_heads=1, n_kv_heads=1,
-        d_ff=0, vocab_size=8, n_units=1,
-        pattern=(tconfig.LayerSpec(tconfig.MIXER_SSD, tconfig.FFN_NONE),))
+        name="later", family="moe", d_model=8, n_heads=1, n_kv_heads=1,
+        d_ff=8, vocab_size=8, n_units=1, pattern=(spec,))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="LM substrate"):
-        tblocks.init_block(gen, tc, tc.pattern[0], torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        tblocks.init_block(gen, tc, spec, torch.float32, "cpu")
+    x = torch.zeros((1, 2, 8))
+    with pytest.raises(NotImplementedError, match=match):
+        tblocks.block_fwd({}, x, torch.zeros((1, 2), dtype=torch.int32), tc,
+                          spec)
 
 
 def _tokens(cfg, b, seed):

@@ -412,10 +412,16 @@ def test_cpu_tensors_never_count_launches():
     u.sum().backward()
     q = t(np.ones((1, 2, 4, 32), np.float32))
     tfa.flash_attention(q, q[:, :1], q[:, :1], causal=True, window=2)
+    z = torch.zeros
+    tk.WRAPPERS["ssd_scan"](z((1, 5, 2, 8)), z((1, 5, 4)), z((1, 5, 4)),
+                            z((1, 5, 2)), z((1, 5, 2)), chunk=16)
+    tk.WRAPPERS["rglru_scan"](z((1, 5, 8)), z((1, 5, 8)))
     assert tk.launch_counts() == {"dueling_select": 0,
                                   "sgld_potential_fwd": 0,
                                   "sgld_potential_grad": 0,
                                   "dueling_score": 0,
                                   "sgld_mixed_fwd": 0,
                                   "sgld_mixed_grad": 0,
-                                  "flash_attention": 0}
+                                  "flash_attention": 0,
+                                  "ssd_scan": 0,
+                                  "rglru_scan": 0}

@@ -102,6 +102,7 @@ def test_import_builds_nothing(tmp_path):
     code = (
         "import repro_torch, repro_torch.convert, repro_torch.core.env\n"
         "import repro_torch.data.pipeline, repro_torch.checkpoint\n"
+        "import repro_torch.models.lm, repro_torch.configs\n"
         "from repro_torch.kernels import _build\n"
         "import sys\n"
         "assert _build._libs == {}, _build._libs\n"

@@ -1,0 +1,134 @@
+"""The port's scan kernels' plain versions against the JAX package, on the
+CPU.
+
+* ``ssd_scan_plain`` (the chunked arithmetic of the Pallas SSD kernel)
+  against the JAX ``ssd_scan`` in interpret mode and the sequential oracle
+  ``ref.ssd_ref``: the reference's three test shapes
+  (``tests/test_kernels.py::test_ssd_scan``), S not a multiple of the
+  chunk, S < chunk, S = 1, with and without h0, and bf16 x/B/C.
+* ``rglru_scan_plain`` (the sequential recurrence) against the JAX
+  ``rglru_scan`` in interpret mode and ``ref.rglru_ref``: the reference's
+  three test shapes, D = 96 (which the TPU kernel's 512-wide blocks do not
+  divide), S = 1, with and without h0.
+* The wrappers run the plain versions on CPU tensors and count no launch.
+
+Tolerances are the reference's own: 2e-4 for the SSD, 1e-5 for the RG-LRU.
+Inputs are made with numpy from a seed and handed to both sides.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.rglru_scan import rglru_scan as jax_rglru
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd
+from repro_torch import kernels
+from repro_torch.kernels import rglru_scan as trg
+from repro_torch.kernels import ssd_scan as tss
+
+torch.set_num_threads(2)
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+RG_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def ssd_inputs(b, s, h, p, n, with_h0, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    dt = np.logaddexp(f(b, s, h), 0.0).astype(np.float32)
+    return dict(x=f(b, s, h, p), bt=f(b, s, n), ct=f(b, s, n),
+                log_a=(-0.1 * dt).astype(np.float32), dt=dt,
+                h0=f(b, h, p, n) if with_h0 else None)
+
+
+def rglru_inputs(b, s, d, with_h0, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    return dict(log_a=(-np.abs(f(b, s, d)) * 0.1).astype(np.float32),
+                x_in=f(b, s, d), h0=f(b, d) if with_h0 else None)
+
+
+def as_jax(d):
+    return {k: None if v is None else jnp.asarray(v) for k, v in d.items()}
+
+
+def as_torch(d):
+    return {k: None if v is None else torch.from_numpy(v)
+            for k, v in d.items()}
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
+    (2, 200, 4, 64, 32, 64, True),      # tests/test_kernels.py:62-66
+    (1, 256, 2, 32, 64, 128, False),
+    (2, 96, 8, 64, 128, 32, True),
+    (1, 130, 3, 32, 64, 32, False),     # ragged tail
+    (2, 50, 2, 32, 16, 128, True),      # S < chunk
+    (1, 1, 2, 16, 8, 32, True),         # S = 1
+])
+def test_ssd_plain_matches_jax_kernel_and_oracle(b, s, h, p, n, chunk,
+                                                 with_h0):
+    inp = ssd_inputs(b, s, h, p, n, with_h0)
+    y, hl = tss.ssd_scan_plain(**as_torch(inp), chunk=chunk)
+    assert y.shape == (b, s, h, p) and hl.shape == (b, h, p, n)
+    assert y.dtype == hl.dtype == torch.float32
+    jy, jhl = jax_ssd(**as_jax(inp), chunk=chunk)
+    ry, rhl = jref.ssd_ref(**as_jax(inp))
+    for want, got in ((jy, y), (jhl, hl), (ry, y), (rhl, hl)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **SSD_TOL)
+
+
+def test_ssd_plain_widens_bf16_inputs_as_the_jax_kernel():
+    """bf16 x, B and C, widened to float32 on load on both sides."""
+    inp = ssd_inputs(2, 100, 2, 32, 32, True, seed=3)
+    jin = as_jax(inp)
+    tin = as_torch(inp)
+    for k in ("x", "bt", "ct"):
+        jin[k] = jin[k].astype(jnp.bfloat16)
+        tin[k] = tin[k].to(torch.bfloat16)
+    y, hl = tss.ssd_scan_plain(**tin, chunk=32)
+    jy, jhl = jax_ssd(**jin, chunk=32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SSD_TOL)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(jhl), **SSD_TOL)
+
+
+@pytest.mark.parametrize("b,s,d,with_h0", [
+    (2, 200, 512, True),                # tests/test_kernels.py:43-45
+    (1, 128, 512, False),
+    (3, 65, 1024, True),
+    (2, 77, 96, False),                 # D = 96: no 512-wide block divides
+    (2, 1, 96, True),                   # S = 1
+])
+def test_rglru_plain_matches_jax_kernel_and_oracle(b, s, d, with_h0):
+    inp = rglru_inputs(b, s, d, with_h0)
+    h, hl = trg.rglru_scan_plain(**as_torch(inp))
+    assert h.shape == (b, s, d) and hl.shape == (b, d)
+    rh, rhl = jref.rglru_ref(**as_jax(inp))
+    np.testing.assert_allclose(h.numpy(), np.asarray(rh), **RG_TOL)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(rhl), **RG_TOL)
+    if d % min(512, d) == 0:
+        jh, jhl = jax_rglru(**as_jax(inp))
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), **RG_TOL)
+        np.testing.assert_allclose(hl.numpy(), np.asarray(jhl), **RG_TOL)
+
+
+def test_wrappers_run_plain_on_cpu_and_count_nothing():
+    kernels.reset_launch_counts()
+    ti = as_torch(ssd_inputs(1, 70, 2, 16, 8, True))
+    y, hl = tss.ssd_scan(**ti, chunk=32)
+    py, phl = tss.ssd_scan_plain(**ti, chunk=32)
+    assert torch.equal(y, py) and torch.equal(hl, phl)
+    ri = as_torch(rglru_inputs(2, 9, 40, True))
+    h, hl = trg.rglru_scan(**ri)
+    ph, phl = trg.rglru_scan_plain(**ri)
+    assert torch.equal(h, ph) and torch.equal(hl, phl)
+    assert kernels.launch_counts()["ssd_scan"] == 0
+    assert kernels.launch_counts()["rglru_scan"] == 0
+
+
+def test_scan_wrappers_refuse_other_devices():
+    m = lambda *shape: torch.zeros(shape, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tss.ssd_scan(m(1, 4, 2, 8), m(1, 4, 8), m(1, 4, 8), m(1, 4, 2),
+                     m(1, 4, 2))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        trg.rglru_scan(m(1, 4, 8), m(1, 4, 8))

@@ -18,12 +18,15 @@ line per phase (phase 2 prints one per path):
    bitwise equal and dominance matrices equal outside near-tied arm pairs;
    potentials to rtol 1e-5 and gradients to rtol 1e-4 of the largest
    magnitude. The attn family holds ``flash_attention`` to rtol = atol =
-   2e-5 (fp32) and 2e-2 (bf16) on the reference's five test shapes in both
-   types, rows with no live key (they must be the mean of v), the
-   encoder's heads, qwen2-7b's (H 28, KV 4, D 128, causal, S = T = 2048,
-   fp32 and bf16) and gemma2-9b's (H 16, KV 8, D 256, soft cap 50, window
-   4096, S = T = 8192, bf16) and recurrentgemma-9b's at the lm path's
-   prefill (B 2, H 16, KV 1, D 256, window 2048, S = T = 4096, bf16). The
+   2e-5 (fp32, the SIMT kernel) and 2e-2 (bf16, the Hopper kernel) on the
+   reference's five test shapes in both types, rows with no live key in
+   both types (they must be the mean of v), bf16 ``transpose(1, 2)`` views
+   of (B,S,H,D) tensors (with a window and soft cap at D 256), ragged S/T
+   at D 256, D 32 with GQA, the encoder's heads, qwen2-7b's (H 28, KV 4,
+   D 128, causal, S = T = 2048, fp32 and bf16) and gemma2-9b's (H 16,
+   KV 8, D 256, soft cap 50, window 4096, S = T = 8192, bf16) and
+   recurrentgemma-9b's at the lm path's prefill (B 2, H 16, KV 1, D 256,
+   window 2048, S = T = 4096, bf16). The
    ssd family holds ``ssd_scan`` to rtol = atol = 2e-4 and the rglru
    family ``rglru_scan`` to 1e-5 (the reference's tolerances) on the
    reference's test shapes, ragged S,
@@ -34,7 +37,8 @@ line per phase (phase 2 prints one per path):
    after a warm-up; the bound is the larger of the bytes over 3.35 TB/s
    and the operations over 67 TFLOP/s in fp32 or 989 TFLOP/s in bf16 (H100
    SXM data sheet); attention's library yardstick is
-   ``scaled_dot_product_attention`` where it computes the same function.
+   ``scaled_dot_product_attention`` where it computes the same function
+   (no soft cap; a window as a dense boolean mask).
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
    8 chains, minibatch 64):
    - slice: ``env.run`` with the FGTS.CDB policy on a pooled ``ModelPool``
@@ -484,21 +488,27 @@ LIB_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
 
 
 def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
-              causal=True, window=0, cap=0.0, timed=False):
+              causal=True, window=0, cap=0.0, strided=False, timed=False):
     """One ``flash_attention`` case against the plain version on the card:
     |kernel - plain| <= atol + rtol * |plain| elementwise (fp32 2e-5, bf16
-    2e-2). Timed cases add the bound (4 D operations per live (row, key)
-    pair, counted from the mask; q, k, v and o moved once; bf16 against
-    the bf16 tensor-core peak) and, where no soft cap or window is set,
-    the time of ``scaled_dot_product_attention`` on the same inputs as the
-    library yardstick (within ``LIB_TOL`` of the kernel: the same
-    function)."""
+    2e-2). ``strided`` passes q, k, v as ``transpose(1, 2)`` views of
+    (B,S,H,D) tensors, as the model does. Timed cases add the bound (4 D
+    operations per live (row, key) pair, counted from the mask; q, k, v and
+    o moved once; bf16 against the bf16 tensor-core peak) and, where no
+    soft cap is set, the time of ``scaled_dot_product_attention`` on the
+    same inputs as the library yardstick (within ``LIB_TOL`` of the kernel:
+    the same function), with a window as a dense boolean mask from
+    ``live_mask``."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
-    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
-    k = torch.randn((b, kv, t, d), generator=gen, device=dev).to(dt)
-    v = torch.randn((b, kv, t, d), generator=gen, device=dev).to(dt)
+    q_shape, kv_shape = (((b, s, h, d), (b, t, kv, d)) if strided
+                         else ((b, h, s, d), (b, kv, t, d)))
+    q = torch.randn(q_shape, generator=gen, device=dev).to(dt)
+    k = torch.randn(kv_shape, generator=gen, device=dev).to(dt)
+    v = torch.randn(kv_shape, generator=gen, device=dev).to(dt)
+    if strided:
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     kw = dict(causal=causal, window=window, softcap=cap)
     o_k = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -506,7 +516,7 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
     rtol, atol = ATTN_TOL[dtype]
     diff = (o_k.float() - o_p.float()).abs()
     out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, dtype=dtype,
-               causal=causal, window=window, softcap=cap,
+               causal=causal, window=window, softcap=cap, strided=strided,
                max_abs_err=float(diff.max()))
     check(bool(torch.isfinite(o_k.float()).all()),
           f"attn {name}: non-finite kernel output")
@@ -522,8 +532,8 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
               f"attn {name}: a row with no live key is not the mean of v")
     del o_p, diff
     if timed:
-        live = int(fa.live_mask(s, t, causal=causal, window=window,
-                                device=dev).sum())
+        mask = fa.live_mask(s, t, causal=causal, window=window, device=dev)
+        live = int(mask.sum())
         nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
         peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
         kern = lambda: fa.flash_attention(q, k, v, **kw)
@@ -534,14 +544,19 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
         out["bound_ms"], out["bound_by"] = bound(
             nbytes, 4.0 * b * h * live * d, peak)
         out["library_ms"] = None
-        if not cap and not window:
+        if not cap:
+            sdpa_kw = (dict(is_causal=causal) if not window
+                       else dict(attn_mask=mask))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=h != kv)
+                q, k, v, enable_gqa=h != kv, **sdpa_kw)
             o_l = sdpa()
             out["library_max_abs_err"] = float((o_l.float()
                                                 - o_k.float()).abs().max())
             check(out["library_max_abs_err"] <= LIB_TOL[dtype],
                   f"attn {name}: SDPA computes another function")
+            del o_l
+            out["library_mask"] = ("dense bool" if window else
+                                   "is_causal" if causal else "none")
             out["library_ms"] = time_ms(sdpa)
             out["library_device_ms"] = device_ms(sdpa)
     return out
@@ -549,7 +564,8 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
 
 def attn_cases(gen, dev):
     """The attn family: the reference's five test shapes in fp32 and bf16,
-    rows with no live key, then the path's and the LM configs' heads."""
+    rows with no live key, bf16 strided views, ragged S/T at D 256, D 32
+    with GQA, then the path's and the LM configs' heads."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         for i, (b, h, kv, s, t, d, causal, window, cap) in enumerate([
@@ -561,22 +577,33 @@ def attn_cases(gen, dev):
             cases.append(attn_case(f"ref{i}_{dtype}", b, h, kv, s, t, d, gen,
                                    dev, dtype=dtype, causal=causal,
                                    window=window, cap=cap))
+    bf = dict(dtype="bfloat16")
     cases += [
         attn_case("no_live_key_rows", 1, 2, 1, 300, 100, 64, gen, dev,
                   causal=True, window=4),
+        attn_case("no_live_key_rows_bf16", 1, 4, 2, 300, 100, 256, gen, dev,
+                  causal=True, window=4, **bf),
+        attn_case("strided_bf16", 2, 8, 2, 300, 300, 128, gen, dev,
+                  strided=True, **bf),
+        attn_case("strided_window_cap_bf16", 2, 16, 8, 300, 300, 256, gen,
+                  dev, window=100, cap=50.0, strided=True, **bf),
+        attn_case("ragged_d256_bf16", 1, 4, 2, 300, 130, 256, gen, dev, **bf),
+        attn_case("ragged_d256_window_bf16", 2, 4, 1, 300, 130, 256, gen,
+                  dev, causal=False, window=64, **bf),
+        attn_case("d32_gqa_bf16", 1, 8, 2, 300, 300, 32, gen, dev, **bf),
         # the encoder's attention at the ccft path's batch: EncoderConfig()
         attn_case("main", 256, 4, 4, 64, 64, 64, gen, dev, causal=False,
                   timed=True),
         # qwen2-7b's heads
         attn_case("bench", 1, 28, 4, 2048, 2048, 128, gen, dev, timed=True),
         attn_case("qwen2_bf16", 1, 28, 4, 2048, 2048, 128, gen, dev,
-                  dtype="bfloat16", timed=True),
+                  timed=True, **bf),
         # gemma2-9b's heads: soft cap, and a window that bites
         attn_case("gemma2_bf16", 1, 16, 8, 8192, 8192, 256, gen, dev,
-                  dtype="bfloat16", window=4096, cap=50.0),
+                  window=4096, cap=50.0, **bf),
         # recurrentgemma-9b's local layers at the lm path's prefill
         attn_case("recurrentgemma_bf16", 2, 16, 1, 4096, 4096, 256, gen, dev,
-                  dtype="bfloat16", window=2048, timed=True),
+                  window=2048, timed=True, **bf),
     ]
     return cases
 
@@ -1614,15 +1641,21 @@ KERNELS = [
 ]
 
 
+# the bf16 cases of flash_attention timed beside its fp32 main and bench
+ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16")
+
+
 def kernels_line(cases, launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs)
-    and null for the others: no one PyTorch call computes them. The two
-    forward kernels are reached on their paths only through the energy
-    trace the runs here add (``fgts.chain_energy`` on the slice runs,
-    ``extensions.mixed_chain_energy`` on the mixed run): the policies'
-    own act and update launch the gradient kernels alone."""
+    and null for the others: no one PyTorch call computes them. The
+    ``flash_attention`` row also carries its timed bf16 cases (the Hopper
+    kernel) under ``bf16``. The two forward kernels are reached on their
+    paths only through the energy trace the runs here add
+    (``fgts.chain_energy`` on the slice runs,
+    ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
+    act and update launch the gradient kernels alone."""
     rows = []
     for name, src, replaces, fam, pre, run in KERNELS:
         fam_cases = cases[fam]
@@ -1642,6 +1675,12 @@ def kernels_line(cases, launches):
             bench_plain_device_ms=bch[pre + "plain_device_ms"],
             bench_bound_ms=bch[pre + "bound_ms"],
             bench_bound_by=bch[pre + "bound_by"]))
+        if name == "flash_attention":
+            rows[-1]["bf16"] = {
+                r["case"]: {k: r.get(k) for k in (
+                    "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms", "plain_ms", "plain_device_ms")}
+                for r in fam_cases if r["case"] in ATTN_BF16_TIMED}
     return {"kernels": rows}
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file is one shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds). Libraries are built on first
 use, never at import, into ``build/repro_torch_kernels/`` at the root of
-the checkout; a library newer than its source is reused. ``build_all``
+the checkout; a library newer than its source and the shared headers
+(``csrc/*.cuh``) is reused. ``build_all``
 starts one ``nvcc`` per source at once.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
@@ -56,9 +57,11 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, o, B, H, KV, S, T, D, (batch, head, seq) strides of q,
-        # k, v and o, scale, softcap, causal, window, is_bf16, stream
+        # k, v and o, scale, softcap, causal, window, stream; fp32 / bf16
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, *[L] * 12,
-                                   F, F, I, I, I, P],
+                                   F, F, I, I, P],
+        "flash_attention_sm90_launch": [P, P, P, P, I, I, I, I, I, I,
+                                        *[L] * 12, F, F, I, I, P],
     },
     "ssd_scan": {
         # x, bt, ct, log_a, dt, h0, y, h_last, B, S, H, P, N, chunk,
@@ -90,9 +93,14 @@ def _target(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """No library yet, or one older than its source or any shared header
+    (``csrc/*.cuh``)."""
     out = _target(name)
-    src = CSRC / f"{name}.cu"
-    return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
+    if not out.exists():
+        return True
+    built = out.stat().st_mtime
+    return any(built < src.stat().st_mtime
+               for src in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
 
 
 def _compile(names: list[str]) -> None:

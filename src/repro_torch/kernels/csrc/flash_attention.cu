@@ -1,7 +1,7 @@
 // flash_attention: online-softmax attention with GQA, causal and sliding
 // window masks and a logit soft cap, forward only.
 //
-// Replaces the Pallas kernel _attn_kernel of
+// Replaces the Pallas kernel _attn_kernel (:23) of
 // src/repro/kernels/flash_attention.py (flash_attention, pallas_call at
 // :99).
 //
@@ -14,17 +14,26 @@
 // its -1e30 fill gives it. (The TPU kernel's value there depends on its
 // tiling; see the port's notes.)
 //
-// What bounds it on the card: 4*D operations per live (row, key) pair on
-// the CUDA cores in fp32 at the encoder's and the LM heads' shapes; the
-// bytes of q, k, v and o only for very short rows.
+// What bounds it on the card: 4*D operations per live (row, key) pair (two
+// products), at 67 TFLOP/s on the CUDA cores in fp32 or 989 TFLOP/s on the
+// bf16 tensor cores; the bytes of q, k, v and o only for very short rows.
 //
-// Why this first design is simple: no tensor cores, no wgmma or TMA. A
-// block owns 64 query rows of one (b, h) and keeps them in shared memory;
-// it walks the kv tiles that hold a live key for any of its rows (tiles
-// wholly masked for the block are skipped, as the TPU kernel skips them),
-// staging BK keys and values in shared memory (fp32, whatever the input
-// type: bf16 is widened on load). Three phases per tile, 256 threads on a
-// 16 x 16 grid:
+// Two kernels, by input type:
+//
+// * fp32: flash_attention_kernel, the parity path: fp32 FMAs on the CUDA
+//   cores (no tensor cores, by the port's numerics rule), described here.
+// * bf16: flash_attention_kernel_sm90 (after the fp32 kernel): wgmma on
+//   the tensor cores for both products, fed by TMA through an mbarrier
+//   ring; its design notes stand beside it. Q.K^T of bf16 inputs is exact
+//   in the fp32 accumulator, as the reference's fp32 product is; the one
+//   new rounding is p to bf16 before P.V (FlashAttention-2/3 and SDPA's
+//   flash backend do the same).
+//
+// The fp32 kernel is simple: a block owns 64 query rows of one (b, h) and
+// keeps them in shared memory; it walks the kv tiles that hold a live key
+// for any of its rows (tiles wholly masked for the block are skipped, as
+// the TPU kernel skips them), staging BK keys and values in shared memory.
+// Three phases per tile, 256 threads on a 16 x 16 grid:
 //   1. scores: each thread a 4 x (BK/16) block of S = q k^T, fmaf over D
 //      in order, then scale, soft cap and mask (masked -> -inf);
 //   2. online softmax: one warp per row, running max m and sum l in fp32,
@@ -44,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -69,13 +80,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 __device__ __forceinline__ bool live_key(long long i, long long j, int T,
                                          int causal, int window) {
@@ -248,61 +253,399 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KV, int S, int Tn, const Strides& st,
                    float scale, float cap, int causal, int window,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * Tile<D>::kSmemFloats;
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tn, H / KV, st, scale,
-      cap, causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Tn, H / KV,
+      st, scale, cap, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bf16: flash_attention_kernel_sm90 (wgmma, TMA, an mbarrier ring)
+// ---------------------------------------------------------------------------
+//
+// Work per block: 128 query rows of one (b, h). Three warpgroups: two
+// consumers of 64 rows each, and a producer whose first thread issues every
+// TMA load (its other warps return at once; the warpgroup hands its
+// registers to the consumers with setmaxnreg). The grid is 1-D and walks
+// the q tiles last to first across all (b, h): under a causal mask the
+// tiles that carry the most live keys start first and the light ones fill
+// the tail.
+//
+// Loads: the Q tile once; K and V tiles of BK keys through a ring of
+// kStages slots (full barrier: the TMA bytes have landed; empty barrier:
+// all 256 consumer threads are done with the slot). Only the kv tiles in
+// [k_lo, k_hi) are walked, as in the fp32 kernel. Rows and keys out of
+// range arrive as zeros and the index mask decides what is live; padded
+// query rows are never stored.
+//
+// Per tile and consumer warpgroup: S = Q.K^T (wgmma m64nBKk16, both
+// operands K-major in shared memory, D/16 steps); then per score, in
+// registers: scale, soft cap (tanhf), the index mask only where the tile
+// straddles an edge, and p = exp2 of the score in log2 units against the
+// running row max (0 while every key of the row so far is masked, as in
+// the fp32 kernel), the row max reduced over the 4 threads that share a
+// row by shuffles; O is rescaled, and P, rounded to bf16 in registers,
+// feeds O += P.V (wgmma m64nDk16, A from registers, V MN-major from shared
+// memory, trans-b). The row sums stay per thread (fp32, unrounded p) until
+// the end. O stays in registers for the whole walk. A warpgroup skips the
+// products of a tile masked for all of its rows, but still waits for the
+// slot and releases it (the ring's phases count every tile).
+//
+// Tiles: BK = 128 for D <= 128, 64 at D = 256, where Q is 64 KB and each
+// K + V stage 64 KB (192 KB in all) and the O accumulator 128 fp32
+// registers a thread: the consumers take 232 registers, the producer 40.
+// TMA needs the base address and every stride 16-byte aligned; the wrapper
+// checks it.
+
+namespace tc {
+
+constexpr int kBQ = 128;               // query rows per block
+constexpr int kThreads = 384;          // consumers 0-255, producer 256-383
+constexpr int kConsumerThreads = 256;
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D >= 256 ? 64 : 128;   // keys per kv tile
+  static constexpr int W = D >= 64 ? 64 : D;       // columns per slab
+  static constexpr int RB = 2 * W;                 // bytes per slab row
+  static constexpr int kSlabs = D / W;
+  static constexpr int kKPerSlab = W / 16;         // k16 steps per slab
+  static constexpr int kLayout = sm90::layout_of(RB);
+  static constexpr uint32_t kQSlab = kBQ * RB;
+  static constexpr uint32_t kKVSlab = BK * RB;
+  static constexpr uint32_t kQBytes = kQSlab * kSlabs;
+  static constexpr uint32_t kKVBytes = kKVSlab * kSlabs;  // K (or V), 1 slot
+  static constexpr int kBarBytes = 64;
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes +
+                                  kBarBytes + 2 * D * sizeof(float);
+};
+
+struct Params {
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  int S, T, H, group, BH, n_q;
+  long long vb, vh, vs, ob, oh, os;
+  float scale, scale_log2, cap;
+  int causal, window;
+};
+
+// scale, soft cap and mask of one tile's scores, in log2 units; the row
+// maxima of this thread's two rows
+template <int N, bool kCap, bool kMask>
+__device__ __forceinline__ void score_tile(float (&s)[N], float (&mx)[2],
+                                           const Params& p, int row0, int k0,
+                                           int lane) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int r = (e >> 1) & 1;
+    float x;
+    if (kCap) {
+      x = s[e] * p.scale;
+      x = p.cap * tanhf(x / p.cap) * kLog2e;
+    } else {
+      x = s[e] * p.scale_log2;
+    }
+    if (kMask) {
+      const int i = row0 + 8 * r;
+      const int j = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+      if (!live_key(i, j, p.T, p.causal, p.window)) x = -INFINITY;
+    }
+    s[e] = x;
+    mx[r] = fmaxf(mx[r], x);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_sm90(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + C::kQBytes;               // [kStages] K slots
+  uint8_t* sV = sK + kStages * C::kKVBytes;    // [kStages] V slots
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * C::kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  float* mean_v = reinterpret_cast<float*>(q_full + C::kBarBytes / 8);
+
+  const int L = blockIdx.x;
+  const int q0 = (p.n_q - 1 - L / p.BH) * kBQ;
+  const int h = L % p.BH % p.H, b = L % p.BH / p.H, kvh = h / p.group;
+  // keys live for some row of this block: [k_lo, k_hi)
+  const int q_last = min(q0 + kBQ, p.S) - 1;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int k_hi = p.causal ? min(p.T, q_last + 1) : p.T;
+  const int n_lo = k_lo / BK;
+  const int n_tiles = k_hi > k_lo ? (k_hi + BK - 1) / BK - n_lo : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerThreads);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer
+    sm90::regs_dec<40>();
+    if (threadIdx.x == kConsumerThreads && n_tiles > 0) {
+      sm90::tma_prefetch(&tq);
+      sm90::tma_prefetch(&tk);
+      sm90::tma_prefetch(&tv);
+      sm90::mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int s = 0; s < C::kSlabs; ++s)
+        sm90::tma_load_4d(sQ + s * C::kQSlab, &tq, q_full, s * C::W, q0, h,
+                          b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        sm90::mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[st], 2 * C::kKVBytes);
+        const int k0 = (n_lo + it) * BK;
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s) {
+          sm90::tma_load_4d(sK + st * C::kKVBytes + s * C::kKVSlab, &tk,
+                            &full[st], s * C::W, k0, kvh, b);
+          sm90::tma_load_4d(sV + st * C::kKVBytes + s * C::kKVSlab, &tv,
+                            &full[st], s * C::W, k0, kvh, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63
+    sm90::regs_inc<232>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int ra = q0 + 64 * wg;                  // first row of the group
+    const int rb = min(ra + 63, p.S - 1);         // last row that is stored
+    const int row0 = ra + 16 * warp + lane / 4;   // this thread's rows: +0, +8
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint64_t dq = sm90::desc(sQ + 64 * wg * C::RB, 16, 8 * C::RB,
+                                   C::kLayout);
+    if (n_tiles > 0) sm90::mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const int k0 = (n_lo + it) * BK;
+      const int k1 = k0 + BK - 1;
+      // no live pair for this group's rows / every pair live
+      const bool skip = ra > rb || k0 >= p.T || (p.causal && k0 > rb) ||
+                        (p.window > 0 && k1 <= ra - p.window);
+      const bool all_live = k1 < p.T && (!p.causal || k1 <= ra) &&
+                            (p.window <= 0 || k0 > rb - p.window);
+      sm90::mbar_wait(&full[st], (it / kStages) & 1);
+      if (!skip) {
+        const uint64_t dk = sm90::desc(sK + st * C::kKVBytes, 16, 8 * C::RB,
+                                       C::kLayout);
+        float s[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) s[e] = 0.f;
+        sm90::fence_regs(s);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % C::kKPerSlab) * 32;   // bytes in the row
+          sm90::wgmma_ss<0>(
+              s, dq + (((kk / C::kKPerSlab) * C::kQSlab + off) >> 4),
+              dk + (((kk / C::kKPerSlab) * C::kKVSlab + off) >> 4), kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (p.cap != 0.f) {
+          if (all_live) score_tile<BK / 2, true, false>(s, mx, p, row0, k0, lane);
+          else score_tile<BK / 2, true, true>(s, mx, p, row0, k0, lane);
+        } else {
+          if (all_live) score_tile<BK / 2, false, false>(s, mx, p, row0, k0, lane);
+          else score_tile<BK / 2, false, true>(s, mx, p, row0, k0, lane);
+        }
+        float ref[2], alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          ref[r] = m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = exp2f(m[r] - ref[r]);
+          m[r] = m_new;
+        }
+        uint32_t pa[BK / 16][4];
+        float ls[2] = {0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 8 * kk + 2 * u, r = u & 1;
+            const float p0 = exp2f(s[e] - ref[r]);
+            const float p1 = exp2f(s[e + 1] - ref[r]);
+            ls[r] += p0 + p1;
+            pa[kk][u] = sm90::pack_bf16(p0, p1);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+        const uint64_t dv = sm90::desc(sV + st * C::kKVBytes, C::kKVSlab,
+                                       8 * C::RB, C::kLayout);
+        sm90::fence_regs(o);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          sm90::wgmma_rs<1>(o, pa[kk], dv + ((kk * 16 * C::RB) >> 4), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+      }
+      sm90::mbar_arrive(&empty[st]);
+    }
+
+    // rows with no live key (i >= T + window - 1) take the mean of v
+    const long long dead_from =
+        p.window > 0 ? (long long)p.T + p.window - 1 : (long long)p.S;
+    const bool any_dead = p.window > 0 && ra <= rb && rb >= dead_from;
+    float* mv = mean_v + wg * D;
+    if (any_dead) {
+      const __nv_bfloat16* vp = p.v + b * p.vb + kvh * p.vh;
+      for (int c = t; c < D; c += 128) {
+        float sum = 0.f;
+        for (int j = 0; j < p.T; ++j) sum += __bfloat162float(vp[j * p.vs + c]);
+        mv[c] = sum / (float)p.T;
+      }
+      sm90::bar_sync(1 + wg, 128);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    __nv_bfloat16* op = p.o + b * p.ob + h * p.oh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + 8 * r;
+      if (i >= p.S) continue;
+      const bool dead = any_dead && i >= dead_from;
+      const float inv_l = dead ? 0.f : 1.f / l[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * (lane & 3);
+        const float x0 = dead ? mv[c] : o[4 * j + 2 * r] * inv_l;
+        const float x1 = dead ? mv[c + 1] : o[4 * j + 2 * r + 1] * inv_l;
+        *reinterpret_cast<__nv_bfloat162*>(op + i * p.os + c) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int H, int KV, int S, int Tn, const Strides& st,
+                   float scale, float cap, int causal, int window,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  constexpr cuuint64_t E = sizeof(__nv_bfloat16);
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t dq[4] = {D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dkv[4] = {D, (cuuint64_t)Tn, (cuuint64_t)KV,
+                             (cuuint64_t)B};
+  const cuuint64_t sq[3] = {st.qs * E, st.qh * E, st.qb * E};
+  const cuuint64_t sk[3] = {st.ks * E, st.kh * E, st.kb * E};
+  const cuuint64_t sv[3] = {st.vs * E, st.vh * E, st.vb * E};
+  cudaError_t err = sm90::encode_bf16_4d(&tq, q, dq, sq, C::W, kBQ);
+  if (err == cudaSuccess)
+    err = sm90::encode_bf16_4d(&tk, k, dkv, sk, C::W, C::BK);
+  if (err == cudaSuccess)
+    err = sm90::encode_bf16_4d(&tv, v, dkv, sv, C::W, C::BK);
+  if (err != cudaSuccess) return err;
+  auto kern = flash_attention_kernel_sm90<D>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const Params p{static_cast<const __nv_bfloat16*>(v),
+                 static_cast<__nv_bfloat16*>(o), S, Tn, H, H / KV, B * H, n_q,
+                 st.vb, st.vh, st.vs, st.ob, st.oh, st.os, scale,
+                 scale * kLog2e, cap, causal, window};
+  kern<<<n_q * B * H, kThreads, C::kSmem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <bool kBf16>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* o, int B, int H, int KV, int S, int Tn,
                      const Strides& st, float scale, float cap, int causal,
                      int window, cudaStream_t stream) {
+#define FA_CASE(DIM)                                                       \
+  case DIM:                                                                \
+    return kBf16 ? tc::launch<DIM>(q, k, v, o, B, H, KV, S, Tn, st, scale, \
+                                   cap, causal, window, stream)            \
+                 : launch<DIM>(q, k, v, o, B, H, KV, S, Tn, st, scale,     \
+                               cap, causal, window, stream);
   switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, S, Tn, st, scale, cap,
-                           causal, window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, S, Tn, st, scale, cap,
-                           causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, S, Tn, st, scale, cap,
-                            causal, window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KV, S, Tn, st, scale, cap,
-                            causal, window, stream);
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // namespace
 
+// fp32 q, k, v, o: the SIMT kernel
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int Tn, int D, long long qb, long long qh, long long qs,
     long long kb, long long kh, long long ks, long long vb, long long vh,
     long long vs, long long ob, long long oh, long long os, float scale,
-    float cap, int causal, int window, int is_bf16, void* stream) {
+    float cap, int causal, int window, void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, S, Tn, st,
-                                        scale, cap, causal, window, s)
-              : launch_d<float>(D, q, k, v, o, B, H, KV, S, Tn, st, scale,
-                                cap, causal, window, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_d<false>(
+      D, q, k, v, o, B, H, KV, S, Tn, st, scale, cap, causal, window,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 q, k, v, o: the Hopper kernel (base addresses and strides 16-byte
+// aligned, the head dim contiguous)
+extern "C" int flash_attention_sm90_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KV, int S, int Tn, int D, long long qb, long long qh, long long qs,
+    long long kb, long long kh, long long ks, long long vb, long long vh,
+    long long vs, long long ob, long long oh, long long os, float scale,
+    float cap, int causal, int window, void* stream) {
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  return static_cast<int>(launch_d<true>(
+      D, q, k, v, o, B, H, KV, S, Tn, st, scale, cap, causal, window,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -12,12 +12,20 @@ mean of v over the T keys, as the dense oracle's uniform softmax over its
 not copied).
 
 Dispatch goes by the device of ``q``: a CPU tensor runs the plain version,
-a CUDA tensor the hand-written kernel (``csrc/flash_attention.cu``) or an
-error. The kernel takes fp32 or bf16, accumulates in fp32 and returns the
-input type; head dims 32, 64, 128 and 256. It reads every tensor through
-its batch, head and sequence strides (the head dim must be contiguous), so
-the model's (B,S,H,D) projections go in as ``transpose(1, 2)`` views
-without a copy, and the output takes q's layout.
+a CUDA tensor a hand-written kernel of ``csrc/flash_attention.cu`` or an
+error, chosen by dtype; head dims 32, 64, 128 and 256. Both kernels count
+their launches in ``flash_attention.launches`` and read every tensor
+through its batch, head and sequence strides (the head dim must be
+contiguous), so the model's (B,S,H,D) projections go in as
+``transpose(1, 2)`` views without a copy, and the output takes q's layout.
+
+* fp32: the parity path, fp32 FMAs on the CUDA cores, accumulating in
+  fp32 (within 2e-5 of the dense oracle).
+* bf16: the Hopper kernel (wgmma for both products, fed by TMA through an
+  mbarrier ring); scores and sums in fp32, p rounded to bf16 before P.V.
+  TMA needs q, k and v each at a 16-byte aligned address with batch, head
+  and sequence strides that are multiples of 16 bytes (8 elements); a
+  tensor that breaks the rule raises ``ValueError`` (there is no fallback).
 """
 from __future__ import annotations
 
@@ -71,13 +79,34 @@ def _inner_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _outer_strides(x: torch.Tensor, tma: bool) -> list[int]:
+    """Batch, head and sequence strides in elements. TMA reads the stride
+    of a size-1 axis only through coordinate 0, so there it is given the
+    head dim, which keeps the tensor map's 16-byte rule."""
+    st = list(x.stride()[:3])
+    if tma:
+        st = [s if n > 1 else x.shape[-1] for s, n in zip(st, x.shape[:3])]
+    return st
+
+
+def _check_tma(name: str, x: torch.Tensor) -> None:
+    size = x.element_size()
+    if x.data_ptr() % 16 or any(s * size % 16 for s, n in
+                                zip(x.stride()[:3], x.shape[:3]) if n > 1):
+        raise ValueError(
+            f"bf16 {name} at address {x.data_ptr():#x} with strides "
+            f"{tuple(x.stride())}: the bf16 kernel loads through TMA, which "
+            f"needs a 16-byte aligned address and batch, head and sequence "
+            f"strides of a multiple of 8 elements")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
                     scale: float | None = None) -> torch.Tensor:
     """Attention (B,H,S,D) of q (B,H,S,D) over k, v (B,KV,T,D). CPU tensors
-    take the plain version; CUDA tensors launch the kernel and count the
-    launch in ``flash_attention.launches``."""
+    take the plain version; CUDA tensors launch the fp32 or the bf16 kernel
+    and count the launch in ``flash_attention.launches``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
@@ -104,17 +133,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     q, k, v = (_inner_contiguous(x) for x in (q, k, v))
+    tma = q.dtype == torch.bfloat16
+    if tma:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, x)
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
     lib = _build.library("flash_attention")
+    launch = (lib.flash_attention_sm90_launch if tma
+              else lib.flash_attention_launch)
     P = _build.ptr
     strides = [ctypes.c_longlong(st) for x in (q, k, v, out)
-               for st in x.stride()[:3]]
+               for st in _outer_strides(x, tma)]
     with torch.cuda.device(q.device):
-        code = lib.flash_attention_launch(
-            P(q), P(k), P(v), P(out), b, h, kvh, s, t, d, *strides,
-            float(scale), float(softcap), int(bool(causal)), int(window),
-            int(q.dtype == torch.bfloat16), _build.stream(q.device))
+        code = launch(P(q), P(k), P(v), P(out), b, h, kvh, s, t, d, *strides,
+                      float(scale), float(softcap), int(bool(causal)),
+                      int(window), _build.stream(q.device))
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
     return out

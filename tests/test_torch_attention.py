@@ -8,6 +8,12 @@
   dense oracle's value, the mean of v over the T keys, on every row; the
   JAX kernel agrees on the rows that have a live key and gives a value
   that depends on its tiling on the others (a reference caveat).
+* The arithmetic of the card's bf16 kernel, emulated here (kv tiles of
+  128 keys, 64 at D 256; online softmax in fp32; p rounded to bf16 before
+  P.V; a row whose keys are all masked so far takes 0 as its reference),
+  against the JAX kernel in interpret mode in bf16 at the five shapes and
+  at D 256 with a window and with a soft cap, to the bf16 tolerance: the
+  rounding of p fits the tolerance the card tests hold the kernel to.
 * ``models.attention.full_attention`` for modes bidir / causal / local
   (GQA, with and without a soft cap) against the reference's from the same
   parameters, to 2e-5.
@@ -104,6 +110,68 @@ def test_plain_flash_counts_no_launch_and_keeps_dtype():
     out = tfa.flash_attention(tq, tk, tv, causal=False)
     assert out.dtype == torch.bfloat16
     assert kernels.launch_counts()["flash_attention"] == 0
+
+
+def bf16_p_attention(q, k, v, *, causal, window, softcap):
+    """The bf16 kernel's arithmetic (``csrc/flash_attention.cu``,
+    ``flash_attention_kernel_sm90``) on the CPU, in fp32 on bf16 inputs:
+    scores per kv tile, then scale, soft cap and the index mask; running
+    max and sum in fp32 (the sum of the unrounded p); p rounded to bf16
+    for P.V, accumulated in fp32; rows with no live key the mean of v."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    g = h // kvh
+    bk = 64 if d >= 256 else 128
+    q, k, v = q.float(), k.float().repeat_interleave(g, 1), \
+        v.float().repeat_interleave(g, 1)
+    mask = tfa.live_mask(s, t, causal=causal, window=window, device="cpu")
+    m = torch.full((b, h, s), -torch.inf)
+    l = torch.zeros((b, h, s))
+    o = torch.zeros((b, h, s, d))
+    for k0 in range(0, t, bk):
+        sc = torch.einsum("bhsd,bhtd->bhst", q, k[:, :, k0:k0 + bk]) \
+            * d ** -0.5
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        sc = torch.where(mask[:, k0:k0 + bk], sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1))
+        ref = torch.where(m_new == -torch.inf, 0.0, m_new)
+        p = torch.exp(sc - ref[..., None])
+        alpha = torch.exp(m - ref)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhst,bhtd->bhsd", p.to(torch.bfloat16).float(),
+            v[:, :, k0:k0 + bk])
+        m = m_new
+    out = o / l[..., None]
+    dead = ~mask.any(-1)
+    out[:, :, dead] = v.mean(dim=2)[:, :, None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", SHAPES + [
+    (1, 4, 2, 300, 300, 256, True, 96, 0.0),
+    (1, 4, 2, 200, 260, 256, False, 0, 50.0)])
+def test_bf16_kernel_numerics_plan_fits_the_bf16_tolerance(b, h, kv, s, t,
+                                                           d, causal,
+                                                           window, cap):
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(b, h, kv, s, t, d, seed=d + s),
+                                      "bfloat16")
+    want = jax_flash(jq, jk, jv, causal=causal, window=window, softcap=cap)
+    got = bf16_p_attention(tq, tk, tv, causal=causal, window=window,
+                           softcap=cap)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL["bfloat16"])
+
+
+def test_bf16_numerics_plan_gives_dead_rows_the_mean_of_v():
+    """S 300, T 100, window 4: the emulation's rows with no live key are
+    the oracle's mean of v, and every row matches the oracle in bf16."""
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(1, 2, 1, 300, 100, 64, seed=3),
+                                      "bfloat16")
+    got = f32(bf16_p_attention(tq, tk, tv, causal=True, window=4,
+                               softcap=0.0))
+    oracle = f32(jref.attention_ref(jq, jk, jv, causal=True, window=4))
+    np.testing.assert_allclose(got, oracle, **TOL["bfloat16"])
 
 
 def port_config(jc):

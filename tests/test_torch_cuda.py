@@ -10,9 +10,10 @@ Pairs must be exact (the inputs are random, so near-ties are vanishingly
 rare at these sizes); scores match to 1e-5 of their largest magnitude,
 duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
 rtol 1e-4 (fp32 with another summation order on the card). Attention
-matches to rtol = atol = 2e-5 in fp32 and 2e-2 in bf16 (the reference's
-own kernel tolerances); the encoder on the card matches its CPU run to
-atol 1e-5. The SSD scan matches to rtol = atol = 2e-4 and the RG-LRU scan
+matches to rtol = atol = 2e-5 in fp32 (the SIMT kernel) and 2e-2 in bf16
+(the Hopper kernel; the reference's own kernel tolerances), bf16 rows with
+no live key are the mean of v, and a bf16 tensor that TMA cannot load
+raises; the encoder on the card matches its CPU run to atol 1e-5. The SSD scan matches to rtol = atol = 2e-4 and the RG-LRU scan
 to 1e-5 (the reference's kernel tolerances); a reduced mamba2-1.3b and
 recurrentgemma-9b prefill and decode on the card match their CPU run to
 2e-4.
@@ -287,6 +288,10 @@ ATTN_CASES = [
     (16, 4, 4, 64, 64, 64, False, 0, 0.0),
     (1, 4, 2, 100, 70, 32, False, 16, 0.0),
     (1, 4, 2, 300, 300, 256, True, 96, 50.0),
+    # ragged S and T at D 256 (the bf16 kernel's 64-key tiles), GQA at D 32
+    (1, 4, 2, 300, 130, 256, True, 0, 0.0),
+    (2, 4, 1, 300, 130, 256, False, 64, 30.0),
+    (1, 8, 2, 300, 300, 32, True, 0, 0.0),
 ]
 
 
@@ -334,6 +339,145 @@ def test_flash_attention_kernel_refuses_what_it_cannot_run(cuda_device):
     y = torch.zeros((1, 2, 8, 64), device=cuda_device)
     with pytest.raises(ValueError, match="dtypes"):
         tfa.flash_attention(y, y.half(), y.half())
+
+
+def _kernel_names(fn):
+    """Names of the flash kernels ``fn`` launches, from ``torch.profiler``
+    (taken again, up to 3 times, if a profile records no device kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if "flash_attention_kernel" in e.key]
+        if names:
+            break
+    return names
+
+
+def test_flash_attention_dispatches_by_dtype(cuda_device):
+    """fp32 launches the SIMT kernel and still matches the plain version to
+    2e-5; bf16 launches the Hopper kernel. One launch count each."""
+    rng = np.random.default_rng(11)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    q, k, v = on(2, 4, 200, 128), on(2, 2, 200, 128), on(2, 2, 200, 128)
+    for dtype, kernel in ((torch.float32, "flash_attention_kernel<float"),
+                          (torch.bfloat16, "flash_attention_kernel_sm90")):
+        x = [t.to(dtype) for t in (q, k, v)]
+        before = tfa.flash_attention.launches
+        names = _kernel_names(lambda: tfa.flash_attention(*x, window=50))
+        assert tfa.flash_attention.launches == before + 1
+        assert names and all(kernel in n for n in names), names
+    o = tfa.flash_attention(q, k, v, window=50)
+    p = tfa.flash_attention_plain(q, k, v, window=50)
+    np.testing.assert_allclose(o.cpu().numpy(), p.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("d,window,cap", [(64, 0, 0.0), (128, 0, 0.0),
+                                          (256, 40, 0.0), (256, 0, 50.0)])
+def test_flash_attention_bf16_kernel_reads_strided_views(cuda_device, d,
+                                                         window, cap):
+    """bf16 (B,S,H,D) tensors passed as transpose(1, 2) views, as the model
+    passes its projections: TMA reads them in place (4-D tensor maps over
+    (D, S, H, B)), the output takes q's layout."""
+    rng = np.random.default_rng(d + window)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = on(2, 150, 8, d), on(2, 150, 2, d), on(2, 150, 2, d)
+    kw = dict(causal=True, window=window, softcap=cap)
+    o = tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), **kw)
+    assert o.transpose(1, 2).is_contiguous()
+    p = tfa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), **kw)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               p.float().cpu().numpy(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_bf16_rows_without_live_key_are_mean_of_v(
+        cuda_device, d):
+    """S 300, T 100, causal, window 4: rows i >= 103 have no live key (two
+    whole 128-row q tiles among them); they are the mean of v over the T
+    keys of their kv head."""
+    rng = np.random.default_rng(d)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = on(1, 4, 300, d), on(1, 2, 100, d), on(1, 2, 100, d)
+    o = tfa.flash_attention(q, k, v, causal=True, window=4).float()
+    live = 100 + 4 - 1
+    mean_v = v[0].float().mean(dim=1).repeat_interleave(2, dim=0)  # (H, D)
+    np.testing.assert_allclose(
+        o[0, :, live:].cpu().numpy(),
+        mean_v[:, None].expand(4, 300 - live, d).cpu().numpy(),
+        **ATTN_TOL[torch.bfloat16])
+    p = tfa.flash_attention_plain(q, k, v, causal=True, window=4)
+    np.testing.assert_allclose(o.cpu().numpy(), p.float().cpu().numpy(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+def test_flash_attention_bf16_refuses_misaligned_tensors(cuda_device):
+    """TMA needs 16-byte aligned addresses and strides: a view whose base is
+    one element off, or whose sequence stride is not a multiple of 8
+    elements, raises ValueError and launches nothing."""
+    buf = torch.zeros(2 * 4 * 64 * 64 + 1, device=cuda_device,
+                      dtype=torch.bfloat16)
+    off = buf[1:].view(2, 4, 64, 64)
+    ok = torch.zeros((2, 4, 64, 64), device=cuda_device, dtype=torch.bfloat16)
+    padded = torch.zeros((2, 4, 64, 68), device=cuda_device,
+                         dtype=torch.bfloat16)[..., :64]
+    before = tfa.flash_attention.launches
+    for q, k, v in ((off, ok, ok), (ok, off, ok), (ok, ok, off),
+                    (padded, ok, ok)):
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before
+    # the same values, aligned, run
+    o = tfa.flash_attention(off.clone(), ok, ok)
+    assert tfa.flash_attention.launches == before + 1
+    assert bool(torch.isfinite(o.float()).all())
+
+
+@pytest.mark.parametrize("name,mode", [("recurrentgemma-9b", "local"),
+                                       ("qwen2-7b", "causal"),
+                                       ("gemma2-9b", "local")])
+def test_model_attention_passes_the_tma_rule(cuda_device, monkeypatch, name,
+                                             mode):
+    """``models.attention.self_attention_kv`` at the model's full widths in
+    bf16 hands the flash wrapper q, k and v that meet the bf16 kernel's
+    alignment rule, and the kernel matches the plain version there."""
+    from repro_torch.models import attention as tattn
+    cfg = ARCHS[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = tattn.init_attn(gen, cfg, torch.bfloat16, cuda_device)
+    x = torch.randn((2, 260, cfg.d_model), generator=gen,
+                    device=cuda_device).bfloat16()
+    pos = torch.arange(260, device=cuda_device)[None].expand(2, 260)
+    seen = []
+
+    def spy(q, k, v, **kw):
+        for t in (q, k, v):
+            assert t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+            assert all(st * 2 % 16 == 0 for st in t.stride()[:3]), t.stride()
+        o = tfa.flash_attention(q, k, v, **kw)
+        p = tfa.flash_attention_plain(q, k, v, **kw)
+        seen.append(float((o.float() - p.float()).abs().max()))
+        np.testing.assert_allclose(o.float().cpu().numpy(),
+                                   p.float().cpu().numpy(),
+                                   **ATTN_TOL[torch.bfloat16])
+        return o
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    before = tfa.flash_attention.launches
+    out, _, _ = tattn.self_attention_kv(params, x, pos, cfg, mode=mode,
+                                        window=cfg.window)
+    assert tfa.flash_attention.launches == before + 1 and len(seen) == 1
+    assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
 
 
 def test_encode_on_the_card_matches_the_cpu(cuda_device):

@@ -6,7 +6,9 @@
   ``device="cpu"`` opt-in: there is no silent CPU fallback.
 * CPU tensors run the plain versions and never count a kernel launch;
   tensors on another device raise.
-* Importing the package builds nothing (kernels compile on first launch).
+* Importing the package builds nothing (kernels compile on first launch);
+  a built library goes stale when its source or a shared header
+  (``csrc/*.cuh``) is newer.
 """
 import ast
 import subprocess
@@ -47,6 +49,37 @@ def test_port_imports_neither_jax_nor_reference():
 def test_kernel_sources_present_for_every_library():
     for name in _build.SIGNATURES:
         assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("touched", ["source", "header", "nothing", "none"])
+def test_library_is_stale_when_source_or_header_is_newer(tmp_path,
+                                                         monkeypatch,
+                                                         touched):
+    """``_stale`` on a temporary source and build directory: a library
+    older than its ``.cu`` or than any ``.cuh`` beside it is rebuilt; one
+    newer than both is reused; a missing one is built."""
+    import os
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, hdr = csrc / "k.cu", csrc / "sm90.cuh"
+    src.write_text("// kernel\n")
+    hdr.write_text("// header\n")
+    (csrc / "other.cu").write_text("// another library's source\n")
+    os.utime(src, (1000, 1000))
+    os.utime(hdr, (1000, 1000))
+    os.utime(csrc / "other.cu", (5000, 5000))
+    if touched != "none":
+        lib = build / "libk.so"
+        lib.write_bytes(b"")
+        os.utime(lib, (2000, 2000))
+    if touched == "source":
+        os.utime(src, (3000, 3000))
+    elif touched == "header":
+        os.utime(hdr, (3000, 3000))
+    assert _build._stale("k") == (touched != "nothing")
 
 
 def test_default_device_raises_without_card(monkeypatch):

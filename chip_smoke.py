@@ -22,7 +22,9 @@ line per phase (phase 2 prints one per path):
    reference's five test shapes in both types, rows with no live key in
    both types (they must be the mean of v), bf16 ``transpose(1, 2)`` views
    of (B,S,H,D) tensors (with a window and soft cap at D 256), ragged S/T
-   at D 256, D 32 with GQA, the encoder's heads, qwen2-7b's (H 28, KV 4,
+   at D 256, D 32 with GQA, fp32 across the SIMT kernel's double-buffered
+   kv tiles (ragged S/T at D 64, 128 and 256) and through its 4-byte copies
+   (unaligned views), the encoder's heads, qwen2-7b's (H 28, KV 4,
    D 128, causal, S = T = 2048, fp32 and bf16) and gemma2-9b's (H 16,
    KV 8, D 256, soft cap 50, window 4096, S = T = 8192, bf16) and
    recurrentgemma-9b's at the lm path's prefill (B 2, H 16, KV 1, D 256,
@@ -30,13 +32,16 @@ line per phase (phase 2 prints one per path):
    ssd family holds ``ssd_scan`` to rtol = atol = 2e-4 and the rglru
    family ``rglru_scan`` to 1e-5 (the reference's tolerances) on the
    reference's test shapes, ragged S,
-   S < chunk, S = 1, h0, bf16 x/B/C and strided column slices, at the LM
+   S < chunk, S = 1, h0, bf16 x/B/C and strided column slices (bf16 at
+   P 64, N 128, chunk 128 on the Hopper kernels, other bf16 shapes and
+   fp32 on the SIMT kernel; misaligned bf16 slices must raise), at the LM
    path's shapes (mamba2-1.3b: B 2, S 4096, H 64, P 64, N 128, chunk 128;
    recurrentgemma-9b: B 2, S 4096, D 4096) and at the prefill_32k length
    (B 1 and B 4, S 32768). Times are medians of CUDA-event-timed calls
    after a warm-up; the bound is the larger of the bytes over 3.35 TB/s
    and the operations over 67 TFLOP/s in fp32 or 989 TFLOP/s in bf16 (H100
-   SXM data sheet); attention's library yardstick is
+   SXM data sheet; bf16 attention and SSD inputs take the bf16 rate, as
+   their kernels run on the tensor cores); attention's library yardstick is
    ``scaled_dot_product_attention`` where it computes the same function
    (no soft cap; a window as a dense boolean mask).
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
@@ -488,11 +493,14 @@ LIB_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
 
 
 def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
-              causal=True, window=0, cap=0.0, strided=False, timed=False):
+              causal=True, window=0, cap=0.0, strided=False, unaligned=False,
+              timed=False):
     """One ``flash_attention`` case against the plain version on the card:
     |kernel - plain| <= atol + rtol * |plain| elementwise (fp32 2e-5, bf16
     2e-2). ``strided`` passes q, k, v as ``transpose(1, 2)`` views of
-    (B,S,H,D) tensors, as the model does. Timed cases add the bound (4 D
+    (B,S,H,D) tensors, as the model does; ``unaligned`` (fp32) as views one
+    element off a 16-byte boundary, which the SIMT kernel loads with 4-byte
+    copies. Timed cases add the bound (4 D
     operations per live (row, key) pair, counted from the mask; q, k, v and
     o moved once; bf16 against the bf16 tensor-core peak) and, where no
     soft cap is set, the time of ``scaled_dot_product_attention`` on the
@@ -509,6 +517,13 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
     v = torch.randn(kv_shape, generator=gen, device=dev).to(dt)
     if strided:
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if unaligned:
+        def off(x):
+            buf = x.new_empty(x.numel() + 1)
+            y = buf[1:].view(x.shape)
+            y.copy_(x)
+            return y
+        q, k, v = off(q), off(k), off(v)
     kw = dict(causal=causal, window=window, softcap=cap)
     o_k = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -517,7 +532,7 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
     diff = (o_k.float() - o_p.float()).abs()
     out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, dtype=dtype,
                causal=causal, window=window, softcap=cap, strided=strided,
-               max_abs_err=float(diff.max()))
+               unaligned=unaligned, max_abs_err=float(diff.max()))
     check(bool(torch.isfinite(o_k.float()).all()),
           f"attn {name}: non-finite kernel output")
     check(bool((diff <= atol + rtol * o_p.float().abs()).all()),
@@ -579,6 +594,18 @@ def attn_cases(gen, dev):
                                    window=window, cap=cap))
     bf = dict(dtype="bfloat16")
     cases += [
+        # the fp32 kernel's double buffer over many kv tiles, ragged S/T,
+        # 16-key tiles at D 128, and its 4-byte copies for unaligned views
+        attn_case("fp32_double_buffer_ragged", 2, 4, 2, 333, 517, 64, gen,
+                  dev, causal=False),
+        attn_case("fp32_d128_ragged_window", 1, 4, 2, 300, 461, 128, gen,
+                  dev, window=100),
+        attn_case("fp32_d256_cap", 1, 2, 2, 70, 90, 256, gen, dev,
+                  causal=False, window=40, cap=30.0),
+        attn_case("fp32_unaligned", 2, 4, 2, 90, 150, 64, gen, dev,
+                  causal=False, window=30, unaligned=True),
+    ]
+    cases += [
         attn_case("no_live_key_rows", 1, 2, 1, 300, 100, 64, gen, dev,
                   causal=True, window=4),
         attn_case("no_live_key_rows_bf16", 1, 4, 2, 300, 100, 256, gen, dev,
@@ -630,7 +657,10 @@ def ssd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
     causal half of C.B^T once per (batch, chunk) (B and C are shared by
     the heads), and per (batch*head, chunk) l (l + 1) P for the causal
     W x plus 2 l N P each for C.state and the state update; bytes: x, B,
-    C, log_a, dt and h0 read once, y and h_last written once."""
+    C, log_a, dt and h0 read once, y and h_last written once; bf16 inputs
+    against the bf16 tensor-core peak (the Hopper kernel's route), fp32
+    against the CUDA cores'. ``kernel`` records which kernel the wrapper's
+    rule picked."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     dt_ = getattr(torch, dtype)
@@ -652,8 +682,9 @@ def ssd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
     ey, oky = within(y, py, SSD_TOL)
     eh, okh = within(hl, phl, SSD_TOL)
     out = dict(case=name, B=b, S=s, H=h, P=p, N=n, chunk=chunk, dtype=dtype,
-               h0=h0, strided=strided, max_abs_err=max(ey, eh),
-               h_last_max_abs_err=eh)
+               h0=h0, strided=strided,
+               kernel="sm90" if ss.uses_sm90(dt_, p, n, chunk) else "simt",
+               max_abs_err=max(ey, eh), h_last_max_abs_err=eh)
     check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(hl).all()),
           f"ssd {name}: non-finite kernel output")
     check(oky and okh, f"ssd {name}: off by {ey} (y), {eh} (h_last)")
@@ -671,9 +702,34 @@ def ssd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
         out["ms"], out["device_ms"] = time_ms(kern), device_ms(kern)
         out["plain_ms"] = time_ms(plain, runs=3, calls=2, warmup=1)
         out["plain_device_ms"] = device_ms(plain, calls=2)
-        out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+        peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
+        out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peak)
         out["library_ms"] = None
     return out
+
+
+def ssd_refuses_misaligned(dev):
+    """The Hopper kernels load bf16 x, B and C through TMA: slices of a
+    (B,S,H*P+2N) tensor one element off a 16-byte boundary, or with a row
+    stride that is not a multiple of 8 elements, raise ValueError and
+    launch nothing."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    b, s, h, p, n = 1, 64, 2, 64, 128
+    width = h * p + 2 * n
+    xbc = torch.zeros((b, s, width + 4), device=dev, dtype=torch.bfloat16)
+    dt = torch.ones((b, s, h), device=dev)
+    before, refused = ss.ssd_scan.launches, 0
+    for t in (xbc[..., 1:1 + width], xbc[..., :width]):
+        x = t[..., :h * p].unflatten(-1, (h, p))
+        try:
+            ss.ssd_scan(x, t[..., h * p:h * p + n], t[..., h * p + n:],
+                        -0.1 * dt, dt)
+        except ValueError:
+            refused += 1
+    check(refused == 2 and ss.ssd_scan.launches == before,
+          "ssd: a misaligned bf16 slice was not refused")
+    return refused
 
 
 def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False):
@@ -719,12 +775,25 @@ def scan_cases(gen, dev):
            for i, (b, s, h, p, n, c, h0) in enumerate([
                (2, 200, 4, 64, 32, 64, True), (1, 256, 2, 32, 64, 128, False),
                (2, 96, 8, 64, 128, 32, True)])]
+    ssd_refuses_misaligned(dev)
+    bf = dict(dtype="bfloat16")
     ssd += [
         ssd_case("ragged_h0_bf16", 2, 300, 8, 64, 128, 128, gen, dev,
-                 dtype="bfloat16", h0=True),
+                 h0=True, **bf),
         ssd_case("s_below_chunk_strided", 2, 100, 8, 64, 128, 128, gen, dev,
                  strided=True),
         ssd_case("s1_h0", 2, 1, 4, 64, 128, 128, gen, dev, h0=True),
+        # the Hopper kernels' edges: S < chunk, S = 1, the ring turning
+        # over many chunks with h0 and strided slices
+        ssd_case("s_below_chunk_strided_bf16", 2, 100, 8, 64, 128, 128, gen,
+                 dev, strided=True, **bf),
+        ssd_case("s1_h0_bf16", 2, 1, 4, 64, 128, 128, gen, dev, h0=True,
+                 **bf),
+        ssd_case("ring_h0_strided_bf16", 1, 1000, 4, 64, 128, 128, gen, dev,
+                 h0=True, strided=True, **bf),
+        # bf16 outside the Hopper kernels' tile: the SIMT kernel
+        ssd_case("simt_bf16", 2, 200, 4, 64, 32, 64, gen, dev, h0=True,
+                 **bf),
         # the path's dtype: mamba2-1.3b's bf16 conv output, sliced
         ssd_case("main", 2, 4096, 64, 64, 128, 128, gen, dev,
                  dtype="bfloat16", strided=True, timed=True),
@@ -1641,8 +1710,10 @@ KERNELS = [
 ]
 
 
-# the bf16 cases of flash_attention timed beside its fp32 main and bench
+# the bf16 cases of flash_attention timed beside its fp32 main and bench,
+# and the fp32 case of ssd_scan (the SIMT kernel) beside its bf16 ones
 ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16")
+SSD_FP32_TIMED = ("main_fp32",)
 
 
 def kernels_line(cases, launches):
@@ -1651,7 +1722,8 @@ def kernels_line(cases, launches):
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs)
     and null for the others: no one PyTorch call computes them. The
     ``flash_attention`` row also carries its timed bf16 cases (the Hopper
-    kernel) under ``bf16``. The two forward kernels are reached on their
+    kernel) under ``bf16``, the ``ssd_scan`` row its timed fp32 case (the
+    SIMT kernel) under ``fp32``. The two forward kernels are reached on their
     paths only through the energy trace the runs here add
     (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
@@ -1675,12 +1747,14 @@ def kernels_line(cases, launches):
             bench_plain_device_ms=bch[pre + "plain_device_ms"],
             bench_bound_ms=bch[pre + "bound_ms"],
             bench_bound_by=bch[pre + "bound_by"]))
-        if name == "flash_attention":
-            rows[-1]["bf16"] = {
+        extra = dict(flash_attention=("bf16", ATTN_BF16_TIMED),
+                     ssd_scan=("fp32", SSD_FP32_TIMED)).get(name)
+        if extra:
+            rows[-1][extra[0]] = {
                 r["case"]: {k: r.get(k) for k in (
                     "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
                     "library_device_ms", "plain_ms", "plain_device_ms")}
-                for r in fam_cases if r["case"] in ATTN_BF16_TIMED}
+                for r in fam_cases if r["case"] in extra[1]}
     return {"kernels": rows}
 
 

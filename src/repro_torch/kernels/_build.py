@@ -69,6 +69,10 @@ SIGNATURES = {
         # (batch, seq, head) of log_a and dt, is_bf16, stream
         "ssd_scan_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             *[L] * 13, I, P],
+        # x, bt, ct, log_a, dt, h0, y, h_last, cb scratch, B, S, H, the
+        # same 13 strides, stream; bf16 at P 64, N 128, chunk 128
+        "ssd_scan_sm90_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
+                                 *[L] * 13, P],
     },
     "rglru_scan": {
         # log_a, x, h0, h, h_last, B, S, D, stream

@@ -16,7 +16,8 @@
 //
 // What bounds it on the card: 4*D operations per live (row, key) pair (two
 // products), at 67 TFLOP/s on the CUDA cores in fp32 or 989 TFLOP/s on the
-// bf16 tensor cores; the bytes of q, k, v and o only for very short rows.
+// bf16 tensor cores; the bytes of q, k, v and o for short rows (the
+// encoder's S = T = 64 is bound by bytes).
 //
 // Two kernels, by input type:
 //
@@ -29,23 +30,37 @@
 //   new rounding is p to bf16 before P.V (FlashAttention-2/3 and SDPA's
 //   flash backend do the same).
 //
-// The fp32 kernel is simple: a block owns 64 query rows of one (b, h) and
-// keeps them in shared memory; it walks the kv tiles that hold a live key
-// for any of its rows (tiles wholly masked for the block are skipped, as
-// the TPU kernel skips them), staging BK keys and values in shared memory.
-// Three phases per tile, 256 threads on a 16 x 16 grid:
-//   1. scores: each thread a 4 x (BK/16) block of S = q k^T, fmaf over D
-//      in order, then scale, soft cap and mask (masked -> -inf);
-//   2. online softmax: one warp per row, running max m and sum l in fp32,
-//      p = expf(s - m) (a row whose keys are all masked so far uses 0 as
-//      its reference, so masked keys add exactly 0);
-//   3. output: each thread a 4 x (D/16) block of o, rescaled by
-//      expf(m_old - m_new) and accumulated with p v.
-// expf and tanhf, not the fast intrinsics, so that fp32 results stay
-// within 2e-5 of the dense oracle. K rows and Q rows are padded by one
-// float in shared memory, so a warp's column reads hit distinct banks.
-// Tiles per head dim: BK = 64 up to D = 128, 32 at D = 256 (140 KB of
-// shared memory: Q 64 x 257, K 32 x 257, V 32 x 256 and P 64 x 33 floats).
+// The fp32 kernel: a block of 128 threads owns 64 query rows of one (b, h)
+// and walks the kv tiles that hold a live key for any of its rows (tiles
+// wholly masked for the block are skipped, as the TPU kernel skips them).
+// Thread (ty, tx) = (tid / 8, tid % 8) owns rows 4 ty .. 4 ty + 3: their
+// scores for keys tx + 8 k of each tile and their output columns
+// 4 (tx + 8 m) .. + 3, so the eight threads of a row group are eight
+// neighbouring lanes of one warp.
+//   * Loads: 16-byte cp.async (4-byte where an address or stride is not
+//     16-byte aligned) of Q once and of K and V per tile, double-buffered:
+//     tile n + 1 is in flight while tile n computes. Rows out of range are
+//     zero-filled by the copy.
+//   * Scores: a 4 x (BK / 8) register tile, fmaf over D in order, from
+//     16-byte shared loads (Q rows broadcast to the row group; Q and K rows
+//     XOR-swizzled by 16-byte chunk, so the four row groups of a warp, and
+//     the eight keys of a row group, read distinct banks): one shared load
+//     per 8 FMAs (per 5 at D 256).
+//   * Softmax in registers: scale, soft cap (tanhf) and the index mask,
+//     then the row max over the row group by three xor shuffles; running
+//     max m and this thread's share of the running sum l in fp32, p =
+//     expf(s - m) (a row whose keys are all masked so far uses 0 as its
+//     reference, so masked keys add exactly 0); the shares of l are summed
+//     by shuffles at the end.
+//   * P.V: p goes once through shared memory (key-major, swizzled), read
+//     back as one 16-byte load per key for the thread's four rows, with
+//     D / 32 16-byte loads of V per key: at most one shared load per 4
+//     FMAs. O stays in registers, rescaled by expf(m_old - m_new).
+// Two barriers per tile besides the one that releases the tile's buffers.
+// expf and tanhf, not the fast intrinsics, so that fp32 results stay within
+// 2e-5 of the dense oracle. Tiles (BK keys; shared memory; blocks per SM):
+// D 32: 32, 32 KB; D 64: 32, 56 KB, 4 blocks; D 128: 32, 104 KB, 2 blocks;
+// D 256: 16, 132 KB, 1 block.
 // Strides are passed for every tensor's batch, head and sequence axes (the
 // head dim is contiguous), so the (B,S,H,D) projections of the model need
 // no copy.
@@ -58,53 +73,89 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSide = 16;            // threads per side of the 16 x 16 grid
+constexpr int kThreads = 128;
 constexpr int kBQ = 64;              // query rows per block
-constexpr int kRows = kBQ / kSide;   // query rows per thread
-constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;             // query rows per thread
+constexpr int kGroup = 8;            // threads per row group
 
 template <int D>
 struct Tile {
-  static constexpr int BK = D >= 256 ? 32 : 64;   // keys per kv tile
-  static constexpr int kCols = BK / kSide;        // score columns per thread
-  static constexpr int kDims = D / kSide;         // output dims per thread
-  static constexpr int kLane = BK / 32;           // scores per lane, phase 2
+  static constexpr int BK = D <= 128 ? 32 : 16;   // keys per kv tile
+  static constexpr int kKeys = BK / kGroup;       // score columns per thread
+  static constexpr int kDimChunks = D / 32;       // output chunks per thread
+  static constexpr int kMinBlocks = D <= 64 ? 4 : D == 128 ? 2 : 1;
   static constexpr size_t kSmemFloats =
-      size_t(kBQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
-      size_t(kBQ) * (BK + 1) + 3 * kBQ;
+      size_t(kBQ) * D + 4 * size_t(BK) * D + size_t(BK) * kBQ;
 };
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-
 __device__ __forceinline__ bool live_key(long long i, long long j, int T,
                                          int causal, int window) {
   return j < T && (!causal || j <= i) && (window <= 0 || j > i - window);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int Tn, int group, Strides st, float scale,
-    float cap, int causal, int window) {
-  using Tl = Tile<D>;
-  constexpr int BK = Tl::BK;
-  extern __shared__ float smem[];
-  float* Qs = smem;                         // [kBQ][D + 1]
-  float* Ks = Qs + kBQ * (D + 1);           // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);            // [BK][D]
-  float* Ps = Vs + BK * D;                  // [kBQ][BK + 1]: scores, then p
-  float* Ms = Ps + kBQ * (BK + 1);          // running max per row
-  float* Ls = Ms + kBQ;                     // running sum per row
-  float* As = Ls + kBQ;                     // this tile's rescale per row
+// 16 bytes (or, unaligned, four 4-byte copies) global -> shared, zeros
+// when !in
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool in,
+                                       bool vec) {
+  const uint32_t d = sm90::smem_u32(dst);
+  const int n = in ? 16 : 0;
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       d + 4 * u),
+                   "l"(src + (in ? u : 0)), "r"(n / 4)
+                   : "memory");
+  }
+}
 
-  const int tid = threadIdx.x, tx = tid % kSide, ty = tid / kSide;
-  const int warp = tid / 32, lane = tid % 32;
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + n) of a (rows, D) tensor into shared memory, row r at
+// dst + r * D, its 16-byte chunk c at chunk c ^ ((r >> shift) % 8)
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int row0, int n,
+                                          int limit, int shift, bool vec) {
+  constexpr int C = D / 4;
+  for (int e = threadIdx.x; e < n * C; e += kThreads) {
+    const int r = e / C, c = e % C, i = row0 + r;
+    const bool in = i < limit;
+    copy16(dst + r * D + 4 * (c ^ ((r >> shift) & 7)),
+           in ? src + i * stride + 4 * c : src, in, vec);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
+    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o, int S,
+                           int Tn, int group, Strides st, float scale,
+                           float cap, int causal, int window, int vec) {
+  using Tl = Tile<D>;
+  constexpr int BK = Tl::BK, KK = Tl::kKeys, DC = Tl::kDimChunks;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [kBQ][D]
+  float* Ks = Qs + kBQ * D;                     // [2][BK][D], swizzled
+  float* Vs = Ks + 2 * BK * D;                  // [2][BK][D], swizzled
+  float* Ps = Vs + 2 * BK * D;                  // [BK][kBQ]: p, key-major
+
+  const int tid = threadIdx.x, tx = tid % kGroup, ty = tid / kGroup;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const T* qp = q + b * st.qb + h * st.qh;
@@ -112,120 +163,143 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const T* vp = v + b * st.vb + kvh * st.vh;
   T* op = o + b * st.ob + h * st.oh;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D, i = q0 + r;
-    Qs[r * (D + 1) + c] = i < S ? widen(qp[i * st.qs + c]) : 0.f;
-  }
-  if (tid < kBQ) {
-    Ms[tid] = -INFINITY;
-    Ls[tid] = 0.f;
-  }
-
   // keys live for some row of this block: [k_lo, k_hi)
   const int q_last = min(q0 + kBQ, S) - 1;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_hi = causal ? min(Tn, q_last + 1) : Tn;
+  const int n_lo = k_lo / BK;
+  const int n_tiles = k_hi > k_lo ? (k_hi + BK - 1) / BK - n_lo : 0;
 
-  float acc[kRows][Tl::kDims];
+  // groups: {Q, tile 0}, {tile 1}, then one per tile (some empty), so that
+  // tile n has landed once at most one later group is pending
+  if (n_tiles > 0) {
+    load_rows<D>(Qs, qp, st.qs, q0, kBQ, S, 2, vec);
+    load_rows<D>(Ks, kp, st.ks, n_lo * BK, BK, Tn, 0, vec);
+    load_rows<D>(Vs, vp, st.vs, n_lo * BK, BK, Tn, 0, vec);
+  }
+  copy_commit();
+  if (n_tiles > 1) {
+    load_rows<D>(Ks + BK * D, kp, st.ks, (n_lo + 1) * BK, BK, Tn, 0, vec);
+    load_rows<D>(Vs + BK * D, vp, st.vs, (n_lo + 1) * BK, BK, Tn, 0, vec);
+  }
+  copy_commit();
+
+  float acc[kRows][4 * DC];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < Tl::kDims; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
 
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the Q load, or the last tile's readers, are done
-    for (int e = tid; e < BK * D; e += kThreads) {
-      const int r = e / D, c = e % D, j = k0 + r;
-      const bool in = j < Tn;
-      Ks[r * (D + 1) + c] = in ? widen(kp[j * st.ks + c]) : 0.f;
-      Vs[r * D + c] = in ? widen(vp[j * st.vs + c]) : 0.f;
-    }
-    __syncthreads();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1, k0 = (n_lo + it) * BK;
+    const float* Kt = Ks + buf * BK * D;
+    const float* Vt = Vs + buf * BK * D;
+    copy_wait<1>();
+    __syncthreads();  // tile it (and Q) have landed for every thread
 
-    // 1. scores
-    float s[kRows][Tl::kCols];
+    // scores: rows 4 ty + i, keys tx + 8 c; Q row 4 ty + i keeps chunk d
+    // at d ^ (ty % 8), K row tx + 8 c at d ^ tx
+    float s[kRows][KK];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < Tl::kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[Tl::kCols];
+      for (int c = 0; c < KK; ++c) s[i][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D / 4; ++d) {
+      float4 qv[kRows], kv[KK];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty + kSide * i) * (D + 1) + d];
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * D +
+                                                 4 * (d ^ (ty & 7)));
 #pragma unroll
-      for (int j = 0; j < Tl::kCols; ++j) kv[j] = Ks[(tx + kSide * j) * (D + 1) + d];
+      for (int c = 0; c < KK; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(Kt + (tx + 8 * c) * D +
+                                                 4 * (d ^ tx));
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < Tl::kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int c = 0; c < KK; ++c) {
+          s[i][c] = fmaf(qv[i].x, kv[c].x, s[i][c]);
+          s[i][c] = fmaf(qv[i].y, kv[c].y, s[i][c]);
+          s[i][c] = fmaf(qv[i].z, kv[c].z, s[i][c]);
+          s[i][c] = fmaf(qv[i].w, kv[c].w, s[i][c]);
+        }
     }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < Tl::kCols; ++j) {
-        const int r = ty + kSide * i, c = tx + kSide * j;
-        float x = s[i][j] * scale;
-        if (cap != 0.f) x = cap * tanhf(x / cap);  // as `if softcap:`
-        Ps[r * (BK + 1) + c] =
-            live_key(q0 + r, k0 + c, Tn, causal, window) ? x : -INFINITY;
-      }
-    __syncthreads();
 
-    // 2. online softmax, one warp per row
-    for (int r = warp; r < kBQ; r += kWarps) {
-      float sv[Tl::kLane];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < Tl::kLane; ++u) {
-        sv[u] = Ps[r * (BK + 1) + lane + 32 * u];
-        mx = fmaxf(mx, sv[u]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_ref = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < Tl::kLane; ++u) {
-        const float p = expf(sv[u] - m_ref);
-        Ps[r * (BK + 1) + lane + 32 * u] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_ref);
-        As[r] = alpha;
-        Ls[r] = Ls[r] * alpha + sum;
-        Ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 3. o = o * alpha + p v
+    // scale, soft cap, mask; online softmax over the row group
+    float alpha[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const float alpha = As[ty + kSide * i];
+      const int row = q0 + 4 * ty + i;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < Tl::kDims; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < KK; ++c) {
+        float x = s[i][c] * scale;
+        if (cap != 0.f) x = cap * tanhf(x / cap);  // as `if softcap:`
+        s[i][c] = live_key(row, k0 + tx + 8 * c, Tn, causal, window)
+                      ? x : -INFINITY;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int off = 1; off < kGroup; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float ref = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = expf(m[i] - ref);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KK; ++c) {
+        s[i][c] = expf(s[i][c] - ref);
+        sum += s[i][c];
+      }
+      l[i] = l[i] * alpha[i] + sum;
+      m[i] = m_new;
     }
+    // p, key-major: key tx + 8 c keeps its rows' chunk ty at ty ^ tx
+#pragma unroll
+    for (int c = 0; c < KK; ++c)
+      *reinterpret_cast<float4*>(Ps + (tx + 8 * c) * kBQ + 4 * (ty ^ tx)) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * DC; ++j) acc[i][j] *= alpha[i];
+    __syncthreads();  // p is complete
+
+    // o += p v: key c's p for rows 4 ty.. at chunk ty ^ (c % 8); V row c
+    // keeps chunk tx + 8 j at (tx + 8 j) ^ (c % 8)
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
-      float pv[kRows], vv[Tl::kDims];
+      const float4 pv = *reinterpret_cast<const float4*>(
+          Ps + c * kBQ + 4 * (ty ^ (c & 7)));
+      const float pr[kRows] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty + kSide * i) * (BK + 1) + c];
+      for (int j = 0; j < DC; ++j) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vt + c * D + 4 * ((tx + 8 * j) ^ (c & 7)));
 #pragma unroll
-      for (int j = 0; j < Tl::kDims; ++j) vv[j] = Vs[c * D + tx + kSide * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < Tl::kDims; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int i = 0; i < kRows; ++i) {
+          acc[i][4 * j] = fmaf(pr[i], vv.x, acc[i][4 * j]);
+          acc[i][4 * j + 1] = fmaf(pr[i], vv.y, acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(pr[i], vv.z, acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(pr[i], vv.w, acc[i][4 * j + 3]);
+        }
+      }
     }
+    __syncthreads();  // this tile's K, V and p are read
+    if (it + 2 < n_tiles) {
+      load_rows<D>(Ks + buf * BK * D, kp, st.ks, k0 + 2 * BK, BK, Tn, 0, vec);
+      load_rows<D>(Vs + buf * BK * D, vp, st.vs, k0 + 2 * BK, BK, Tn, 0, vec);
+    }
+    copy_commit();
   }
+  copy_wait<0>();
   __syncthreads();
 
   // rows with no live key (i >= T + window - 1) take the mean of v
@@ -234,23 +308,50 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   if (any_dead) {
     for (int c = tid; c < D; c += kThreads) {
       float sum = 0.f;
-      for (int j = 0; j < Tn; ++j) sum += widen(vp[j * st.vs + c]);
+      for (int j = 0; j < Tn; ++j) sum += vp[j * st.vs + c];
       Ks[c] = sum / (float)Tn;
     }
     __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kSide * i, qi = q0 + r;
+#pragma unroll
+    for (int off = 1; off < kGroup; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int qi = q0 + 4 * ty + i;
     if (qi >= S) continue;
     const bool dead = any_dead && qi >= dead_from;
-    const float inv_l = dead ? 0.f : 1.f / Ls[r];
+    const float inv_l = dead ? 0.f : 1.f / l[i];
 #pragma unroll
-    for (int j = 0; j < Tl::kDims; ++j) {
-      const int c = tx + kSide * j;
-      put(op + qi * st.os + c, dead ? Ks[c] : acc[i][j] * inv_l);
+    for (int j = 0; j < DC; ++j) {
+      const int c = 4 * (tx + 8 * j);
+      float4 out = make_float4(acc[i][4 * j] * inv_l, acc[i][4 * j + 1] * inv_l,
+                               acc[i][4 * j + 2] * inv_l,
+                               acc[i][4 * j + 3] * inv_l);
+      if (dead) out = make_float4(Ks[c], Ks[c + 1], Ks[c + 2], Ks[c + 3]);
+      T* dst = op + qi * st.os + c;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = out;
+      } else {
+        dst[0] = out.x;
+        dst[1] = out.y;
+        dst[2] = out.z;
+        dst[3] = out.w;
+      }
     }
   }
+}
+
+// every address and stride a multiple of 16 bytes: 16-byte copies
+inline bool aligned16(const void* q, const void* k, const void* v,
+                      const void* o, const Strides& st) {
+  const long long s[12] = {st.qb, st.qh, st.qs, st.kb, st.kh, st.ks,
+                           st.vb, st.vh, st.vs, st.ob, st.oh, st.os};
+  for (long long x : s)
+    if (x % 4) return false;
+  for (const void* p : {q, k, v, o})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 template <int D>
@@ -262,12 +363,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   auto kern = flash_attention_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, Tn, H / KV,
-      st, scale, cap, causal, window);
+      st, scale, cap, causal, window, aligned16(q, k, v, o, st));
   return cudaGetLastError();
 }
 

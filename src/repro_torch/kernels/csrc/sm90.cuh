@@ -169,6 +169,27 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// generic-proxy writes to shared memory (st.shared) are visible to a later
+// wgmma or TMA (the async proxy) once the writer has fenced and the readers
+// have passed a barrier after it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8m..8m+7
+// give the addresses of matrix m's eight 16-byte rows; r[m] of lane l holds
+// matrix m's elements (row 2(l % 4), column l / 4) and (row 2(l % 4) + 1,
+// column l / 4), the first in the low half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row_addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row_addr))
+      : "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // descriptor of a swizzled tile at `smem` (see the top of this file)
@@ -206,6 +227,25 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Two fp32 values as three packed bf16 pieces hi + mid + lo: each piece is
+// the bf16 rounding of what the pieces before it leave, and the residuals
+// are exact in fp32, so the pieces sum to the values exactly (fp32's 24-bit
+// significand in three 8-bit ones) and a product of each piece with a bf16
+// operand is exact in an fp32 accumulator.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  const float2 h = unpack_bf16(hi);
+  const float ra = a - h.x, rb = b - h.y;
+  mid = pack_bf16(ra, rb);
+  const float2 m = unpack_bf16(mid);
+  lo = pack_bf16(ra - m.x, rb - m.y);
 }
 
 // The instructions, bf16 x bf16 -> fp32, scale_d = 0 overwrites d. "ss":

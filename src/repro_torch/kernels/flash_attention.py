@@ -79,25 +79,31 @@ def _inner_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
-def _outer_strides(x: torch.Tensor, tma: bool) -> list[int]:
-    """Batch, head and sequence strides in elements. TMA reads the stride
-    of a size-1 axis only through coordinate 0, so there it is given the
-    head dim, which keeps the tensor map's 16-byte rule."""
-    st = list(x.stride()[:3])
+def _outer_strides(x: torch.Tensor, tma: bool, axes: int = 3) -> list[int]:
+    """The strides of the ``axes`` outer axes in elements (batch, head and
+    sequence here). TMA reads the stride of a size-1 axis only through
+    coordinate 0, so there it is given the last dim, which keeps the
+    tensor map's 16-byte rule."""
+    st = list(x.stride()[:axes])
     if tma:
-        st = [s if n > 1 else x.shape[-1] for s, n in zip(st, x.shape[:3])]
+        st = [s if n > 1 else x.shape[-1]
+              for s, n in zip(st, x.shape[:axes])]
     return st
 
 
-def _check_tma(name: str, x: torch.Tensor) -> None:
+def _check_tma(name: str, x: torch.Tensor, axes: int = 3) -> None:
+    """Raise unless TMA can load ``x``: a 16-byte aligned address and
+    strides of its ``axes`` outer axes (those longer than 1) of a multiple
+    of 16 bytes."""
     size = x.element_size()
     if x.data_ptr() % 16 or any(s * size % 16 for s, n in
-                                zip(x.stride()[:3], x.shape[:3]) if n > 1):
+                                zip(x.stride()[:axes], x.shape[:axes])
+                                if n > 1):
         raise ValueError(
             f"bf16 {name} at address {x.data_ptr():#x} with strides "
             f"{tuple(x.stride())}: the bf16 kernel loads through TMA, which "
-            f"needs a 16-byte aligned address and batch, head and sequence "
-            f"strides of a multiple of 8 elements")
+            f"needs a 16-byte aligned address and outer (batch, head, "
+            f"sequence) strides of a multiple of 8 elements")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

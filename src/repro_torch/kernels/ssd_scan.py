@@ -13,16 +13,31 @@ S have log_a = dt = 0: no decay, no increment):
 Returns y (B,S,H,P) and h_last (B,H,P,N), both float32.
 
 Dispatch goes by the device of ``x``: a CPU tensor runs the plain version,
-a CUDA tensor the hand-written kernel (``csrc/ssd_scan.cu``) or an error.
-The kernel replaces the TPU kernel at ``repro/kernels/ssd_scan.py:109``
+a CUDA tensor a hand-written kernel of ``csrc/ssd_scan.cu`` or an error.
+The kernels replace the TPU kernel at ``repro/kernels/ssd_scan.py:109``
 (``_ssd_kernel``), whose sequential chunk axis carries the state in VMEM.
-It is bound by operations (~5.25 MFLOP per (batch*head, chunk) and
-2.1 MFLOP of C.B^T per (batch, chunk) at mamba2-1.3b's shape); the source
-says how its grid and shared memory are laid out. x, B and C may be float32 or bfloat16 (one type for the three,
-widened on load) and are read through their batch and sequence strides, so
-the model's column slices of its conv output go in without a copy; log_a,
-dt and h0 are float32. The kernel takes chunks of 16 to 128 steps in
-multiples of 16 and N <= 128.
+The function is bound by operations (~5.25 MFLOP per (batch*head, chunk)
+and 2.1 MFLOP of C.B^T per (batch, chunk) at mamba2-1.3b's shape); the
+source says how each kernel's grid and shared memory are laid out. x, B and
+C may be float32 or bfloat16 (one type for the three) and are read through
+their batch and sequence strides, so the model's column slices of its conv
+output go in without a copy; log_a, dt and h0 are float32. The kernel is
+chosen by a rule on dtype and shape:
+
+* bf16 x/B/C with P 64, N 128 and chunk 128 (mamba2-1.3b's prefill): the
+  Hopper kernels (``ssd_kernel_cb_sm90`` computes C.B^T once per (batch,
+  chunk) into a scratch, then ``ssd_kernel_sm90`` walks the chunks of one
+  (batch, head) on wgmma, fed by TMA). Every product with an fp32 operand
+  (W, the state, x * dec) takes three bf16 pieces of it, so the products
+  stay exact and only the fp32 summation order differs from the plain
+  version. TMA needs x, B and C at 16-byte aligned addresses with batch,
+  sequence (and for x head) strides of a multiple of 8 elements; a tensor
+  that breaks the rule raises ``ValueError`` (there is no fallback).
+* everything else (fp32, other widths or chunks): the SIMT kernel on the
+  CUDA cores (bf16 widened on load), chunks of 16 to 128 steps in
+  multiples of 16 and N <= 128.
+
+One wrapper call counts one launch, whichever kernels it runs.
 """
 from __future__ import annotations
 
@@ -31,12 +46,20 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import _inner_contiguous
+from .flash_attention import _check_tma, _inner_contiguous, _outer_strides
 
 DEFAULT_CHUNK = 128
 MAX_CHUNK = 128         # the kernel's shared-memory tiles
 MAX_STATE = 128
 DTYPES = (torch.float32, torch.bfloat16)
+SM90_TILE = (64, 128, 128)   # (P, N, chunk) of the bf16 Hopper kernels
+
+
+def uses_sm90(dtype, p: int, n: int, chunk: int) -> bool:
+    """Whether a CUDA call of these inputs runs the bf16 Hopper kernels
+    (else the SIMT kernel): the dispatch rule, by dtype and shape."""
+    return dtype == torch.bfloat16 and (p, n, chunk) == SM90_TILE
+
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -129,19 +152,32 @@ def ssd_scan(x: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor,
     x, bt, ct, log_a, dt = (_inner_contiguous(t)
                             for t in (x, bt, ct, log_a, dt))
     h0 = None if h0 is None else h0.contiguous()
+    sm90 = uses_sm90(x.dtype, p, n, chunk)
+    outer = []
+    for name, t, axes in (("x", x, 3), ("bt", bt, 2), ("ct", ct, 2)):
+        if sm90:
+            _check_tma(name, t, axes)
+        outer += _outer_strides(t, sm90, axes)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     L = ctypes.c_longlong
-    strides = [L(st) for st in (*x.stride()[:3], *bt.stride()[:2],
-                                *ct.stride()[:2], *log_a.stride()[:3],
+    strides = [L(st) for st in (*outer, *log_a.stride()[:3],
                                 *dt.stride()[:3])]
     lib = _build.library("ssd_scan")
     P = _build.ptr
     with torch.cuda.device(x.device):
-        code = lib.ssd_scan_launch(
-            P(x), P(bt), P(ct), P(log_a), P(dt), P(h0), P(y), P(h_last),
-            b, s, h, p, n, chunk, *strides, int(x.dtype == torch.bfloat16),
-            _build.stream(x.device))
+        if sm90:
+            cb = torch.empty((b, -(-s // chunk), chunk, chunk),
+                             dtype=torch.float32, device=x.device)
+            code = lib.ssd_scan_sm90_launch(
+                P(x), P(bt), P(ct), P(log_a), P(dt), P(h0), P(y),
+                P(h_last), P(cb), b, s, h, *strides,
+                _build.stream(x.device))
+        else:
+            code = lib.ssd_scan_launch(
+                P(x), P(bt), P(ct), P(log_a), P(dt), P(h0), P(y),
+                P(h_last), b, s, h, p, n, chunk, *strides,
+                int(x.dtype == torch.bfloat16), _build.stream(x.device))
     _build.check(code, "ssd_scan")
     ssd_scan.launches += 1
     return y, h_last

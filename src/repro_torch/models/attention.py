@@ -14,8 +14,12 @@ outside any kernel. Two things follow from the kernel's interface:
   consecutively (``arange(S)`` plus a per-row offset, kv positions equal
   to query positions), which is every full-sequence caller's case (the
   encoder, prefill from position 0);
-* softmax and the p @ v product stay in fp32 for bf16 weights too (the
-  reference's einsum path casts p to the weights' type first).
+* bf16 attention rounds p in three different places. The card's bf16
+  kernel rounds the unnormalised p to bf16 before P.V (fp32 scores, sums
+  and accumulator); the CPU plain version keeps p in fp32 throughout; the
+  reference's einsum path rounds the normalised p to the weights' type.
+  No test compares bf16 LM outputs across the three: the LM parity tests
+  and the card-vs-CPU phase run in fp32.
 
 ``cfg.gqa_impl`` does not matter here: the kernel maps each query head to
 its kv head itself. One-token decode (``decode_attention``) is plain
@@ -24,7 +28,11 @@ mode 'causal', a ring buffer of ``window`` slots for mode 'local', each
 slot's absolute position in ``slot_pos`` (-1 = empty). It writes the
 token into the given cache in place, where the reference's functional
 update makes a new one (eager PyTorch would copy every K/V cache on every
-token). Cross attention and ``cfg.attn_q_chunk`` raise
+token). Decoding at a position at or past the end of a full-context cache
+raises (``ValueError`` for an int position; for a tensor position an
+asynchronous assert, which needs no host sync: ``RuntimeError`` on the
+CPU, a device-side assert on the card); the reference clamps the slot and
+overwrites the last key. Cross attention and ``cfg.attn_q_chunk`` raise
 ``NotImplementedError``: they come with the encoder-decoder models.
 """
 from __future__ import annotations
@@ -138,6 +146,18 @@ def init_kv_cache(batch: int, cache_len: int, cfg: ModelConfig, dtype,
     }
 
 
+def _check_in_cache(pos, cache_len: int) -> None:
+    """Refuse a causal decode position at or past ``cache_len``: at once
+    for an int, without a host sync for a tensor (``torch._assert_async``:
+    raises on the CPU, trips a device-side assert on the card)."""
+    what = (f"decode position past the end of the full-context cache of "
+            f"{cache_len} slots: a position must be below cache_len")
+    if isinstance(pos, torch.Tensor):
+        torch._assert_async(pos < cache_len, what)
+    elif pos >= cache_len:
+        raise ValueError(f"{what}, got {pos}")
+
+
 def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos,
                      cfg: ModelConfig, *, mode: str, window: int = 0,
                      enc_memory: torch.Tensor | None = None):
@@ -151,6 +171,9 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos,
             f"decode mode {mode!r}: cross attention comes with the "
             f"encoder-decoder models")
     b = x.shape[0]
+    cache_len = cache["k"].shape[1]
+    if mode == "causal":
+        _check_in_cache(pos, cache_len)
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.int64, device=x.device)
     pos = pos.to(device=x.device, dtype=torch.int64).reshape(())
@@ -159,7 +182,6 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos,
     q = apply_rope(q, positions, cfg.rope_theta)
     k1 = apply_rope(k1, positions, cfg.rope_theta)
 
-    cache_len = cache["k"].shape[1]
     slot = (pos % cache_len if mode == "local" else pos).reshape(1)
     k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
     k.index_copy_(1, slot, k1.to(k.dtype))

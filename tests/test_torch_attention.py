@@ -17,6 +17,10 @@
 * ``models.attention.full_attention`` for modes bidir / causal / local
   (GQA, with and without a soft cap) against the reference's from the same
   parameters, to 2e-5.
+* ``decode_attention`` at a position past the end of a full-context cache
+  raises (the reference clamps the slot: a reference caveat, not copied),
+  for an int and for a tensor position, and leaves the cache untouched;
+  the local ring takes the same position.
 
 Inputs are made with numpy from a seed and handed to both sides.
 """
@@ -237,3 +241,29 @@ def test_full_attention_raises_for_later_slices():
                              mode="causal")
     with pytest.raises(ValueError, match="window"):
         tattn.full_attention(p, x, pos, tc, mode="local", window=0)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_decode_past_a_full_cache_raises(as_tensor):
+    """cache_len 4: positions 0-3 decode, position 4 raises one clear error
+    (ValueError for an int; the asynchronous assert's RuntimeError for a
+    tensor, on the CPU) before anything is written; mode 'local' wraps."""
+    tc = port_config(attn_config(0.0))
+    p = {k: torch.from_numpy(v) for k, v in attn_params(tc, 1).items()}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 1, tc.d_model)).astype(np.float32))
+    cache = tattn.init_kv_cache(2, 4, tc, torch.float32, "cpu")
+    at = (lambda i: torch.tensor(i)) if as_tensor else (lambda i: i)
+    for i in range(4):
+        out, cache = tattn.decode_attention(p, x, cache, at(i), tc,
+                                            mode="causal")
+        assert bool(torch.isfinite(out).all())
+    before = {k: v.clone() for k, v in cache.items()}
+    with pytest.raises(RuntimeError if as_tensor else ValueError,
+                       match="past the end"):
+        tattn.decode_attention(p, x, cache, at(4), tc, mode="causal")
+    assert all(torch.equal(cache[k], before[k]) for k in cache)
+    ring = tattn.init_kv_cache(2, 4, tc, torch.float32, "cpu")
+    _, ring = tattn.decode_attention(p, x, ring, at(4), tc, mode="local",
+                                     window=4)
+    assert ring["slot_pos"].tolist() == [4, -1, -1, -1]

@@ -10,13 +10,21 @@ Pairs must be exact (the inputs are random, so near-ties are vanishingly
 rare at these sizes); scores match to 1e-5 of their largest magnitude,
 duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
 rtol 1e-4 (fp32 with another summation order on the card). Attention
-matches to rtol = atol = 2e-5 in fp32 (the SIMT kernel) and 2e-2 in bf16
-(the Hopper kernel; the reference's own kernel tolerances), bf16 rows with
-no live key are the mean of v, and a bf16 tensor that TMA cannot load
-raises; the encoder on the card matches its CPU run to atol 1e-5. The SSD scan matches to rtol = atol = 2e-4 and the RG-LRU scan
-to 1e-5 (the reference's kernel tolerances); a reduced mamba2-1.3b and
-recurrentgemma-9b prefill and decode on the card match their CPU run to
-2e-4.
+matches to rtol = atol = 2e-5 in fp32 (the SIMT kernel, at the encoder's
+shape, across its double-buffered kv tiles with ragged S/T, and through
+its 4-byte copies for unaligned views) and 2e-2 in bf16 (the Hopper
+kernel; the reference's own kernel tolerances), bf16 rows with no live
+key are the mean of v, and a bf16 tensor that TMA cannot load raises; the
+encoder on the card matches its CPU run to atol 1e-5. The SSD scan
+matches to rtol = atol = 2e-4 and the RG-LRU scan to 1e-5 (the
+reference's kernel tolerances); each SSD case proves by the profiler's
+kernel names which kernel ran (bf16 at P 64, N 128, chunk 128: the Hopper
+kernels; the rest: the SIMT kernel), and a misaligned bf16 slice raises.
+A reduced mamba2-1.3b and recurrentgemma-9b prefill and decode on the
+card match their CPU run to 2e-4. Decoding past the end of a full-context
+cache raises ``ValueError`` for an int position; a tensor position trips
+the asynchronous assert, which poisons the CUDA context, so that case runs
+in a subprocess.
 """
 import numpy as np
 import pytest
@@ -341,20 +349,62 @@ def test_flash_attention_kernel_refuses_what_it_cannot_run(cuda_device):
         tfa.flash_attention(y, y.half(), y.half())
 
 
-def _kernel_names(fn):
-    """Names of the flash kernels ``fn`` launches, from ``torch.profiler``
-    (taken again, up to 3 times, if a profile records no device kernel)."""
+def _kernel_names(fn, family="flash_attention_kernel"):
+    """Names of the ``family`` kernels ``fn`` launches, from
+    ``torch.profiler`` (taken again, up to 3 times, if a profile records no
+    device kernel)."""
     from torch.profiler import ProfilerActivity, profile
     names = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if "flash_attention_kernel" in e.key]
+        names = [e.key for e in prof.key_averages() if family in e.key]
         if names:
             break
     return names
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", [
+    (256, 4, 4, 64, 64, 64, False, 0, 0.0),    # the encoder's shape
+    (2, 4, 2, 333, 517, 64, False, 0, 0.0),    # 17 kv tiles, ragged
+    (1, 4, 2, 300, 461, 128, True, 100, 0.0),  # D 128: 16-key tiles
+    (2, 2, 1, 97, 250, 32, False, 0, 30.0),
+    (1, 2, 2, 70, 90, 256, False, 40, 0.0),
+])
+def test_flash_attention_fp32_crosses_the_double_buffer(
+        cuda_device, b, h, kv, s, t, d, causal, window, cap):
+    """fp32 on the SIMT kernel: K and V tiles double-buffered over many kv
+    tiles with ragged S and T, the fp32 tolerance throughout."""
+    rng = np.random.default_rng(s * t + d)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    q, k, v = on(b, h, s, d), on(b, kv, t, d), on(b, kv, t, d)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    names = _kernel_names(lambda: tfa.flash_attention(q, k, v, **kw))
+    assert names and all("flash_attention_kernel<float" in n
+                         for n in names), names
+    o = tfa.flash_attention(q, k, v, **kw)
+    p = tfa.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(o.cpu().numpy(), p.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
+def test_flash_attention_fp32_reads_unaligned_views(cuda_device):
+    """fp32 views one element off a 16-byte boundary (and a sequence
+    stride of 67 floats) go through the kernel's 4-byte copies."""
+    rng = np.random.default_rng(4)
+    def off(*shape, pad=0):
+        n = int(np.prod(shape[:-1])) * (shape[-1] + pad)
+        buf = torch.from_numpy(rng.standard_normal(
+            n + 1, dtype=np.float32)).to(cuda_device)
+        return buf[1:].view(*shape[:-1], shape[-1] + pad)[..., :shape[-1]]
+    q, k, v = off(2, 4, 90, 64, pad=3), off(2, 2, 150, 64), off(2, 2, 150, 64)
+    assert q.data_ptr() % 16 and q.stride(2) == 67
+    o = tfa.flash_attention(q, k, v, causal=False, window=30)
+    p = tfa.flash_attention_plain(q, k, v, causal=False, window=30)
+    np.testing.assert_allclose(o.cpu().numpy(), p.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
 
 
 def test_flash_attention_dispatches_by_dtype(cuda_device):
@@ -513,6 +563,19 @@ def _ssd_inputs(b, s, h, p, n, with_h0, dev, seed):
                 log_a=-0.1 * dt, dt=dt, h0=f(b, h, p, n) if with_h0 else None)
 
 
+def _ssd_kernels_ran(fn, sm90):
+    """``fn``'s SSD kernels by their profiler names: the two Hopper kernels
+    when ``sm90``, else the SIMT kernel alone."""
+    names = _kernel_names(fn, family="ssd_kernel")
+    assert names, "no ssd kernel in the profile"
+    if sm90:
+        assert len(names) == 2, names
+        for kernel in ("ssd_kernel_cb_sm90(", "ssd_kernel_sm90("):
+            assert any(kernel in n for n in names), names
+    else:
+        assert all("sm90" not in n for n in names), names
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
     (2, 200, 4, 64, 32, 64, True),
@@ -521,12 +584,17 @@ def _ssd_inputs(b, s, h, p, n, with_h0, dev, seed):
     (2, 300, 3, 64, 128, 128, True),    # ragged tail, mamba2's P, N, L
     (1, 50, 2, 48, 16, 128, False),     # S < chunk, P not a tile multiple
     (2, 1, 2, 32, 8, 32, True),         # S = 1
+    (1, 100, 2, 64, 128, 128, False),   # S < chunk at mamba2's P, N, L
+    (2, 1, 3, 64, 128, 128, True),      # S = 1 at mamba2's P, N, L
+    (1, 640, 2, 64, 128, 128, True),    # 5 chunks: the ring turns twice
 ])
 def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
                                        with_h0, dtype):
     inp = _ssd_inputs(b, s, h, p, n, with_h0, cuda_device, s + p + n)
     for k in ("x", "bt", "ct"):
         inp[k] = inp[k].to(dtype)
+    _ssd_kernels_ran(lambda: tss.ssd_scan(**inp, chunk=chunk),
+                     tss.uses_sm90(dtype, p, n, chunk))
     before = tss.ssd_scan.launches
     y, hl = tss.ssd_scan(**inp, chunk=chunk)
     torch.cuda.synchronize()
@@ -538,25 +606,57 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
                                **SSD_TOL)
 
 
-def test_ssd_scan_kernel_reads_strided_column_slices(cuda_device):
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", [
+    (2, 140, 4, 32, 64, 32, torch.float32),
+    (2, 140, 4, 32, 64, 32, torch.bfloat16),
+    (2, 300, 4, 64, 128, 128, torch.bfloat16),   # mamba2's slices
+    (1, 130, 2, 64, 128, 128, torch.bfloat16),   # B 1: size-1 batch axis
+])
+def test_ssd_scan_kernel_reads_strided_column_slices(cuda_device, b, s, h,
+                                                     p, n, chunk, dtype):
     """x, B and C as column slices of one (B,S,di+2n) tensor, as the
-    model hands them over: read through their strides."""
+    model hands them over: read through their strides (through TMA's
+    tensor maps for the Hopper kernels)."""
     rng = np.random.default_rng(7)
-    b, s, h, p, n = 2, 140, 4, 32, 64
     di = h * p
     xbc = torch.from_numpy(rng.standard_normal(
-        (b, s, di + 2 * n), dtype=np.float32)).to(cuda_device)
+        (b, s, di + 2 * n), dtype=np.float32)).to(cuda_device, dtype)
     dt = torch.nn.functional.softplus(torch.from_numpy(
         rng.standard_normal((b, s, h), dtype=np.float32)).to(cuda_device))
     x = xbc[..., :di].reshape(b, s, h, p)
     bt, ct = xbc[..., di:di + n], xbc[..., di + n:]
     assert not bt.is_contiguous()
-    y, hl = tss.ssd_scan(x, bt, ct, -0.1 * dt, dt, chunk=32)
+    _ssd_kernels_ran(lambda: tss.ssd_scan(x, bt, ct, -0.1 * dt, dt,
+                                          chunk=chunk),
+                     tss.uses_sm90(dtype, p, n, chunk))
+    y, hl = tss.ssd_scan(x, bt, ct, -0.1 * dt, dt, chunk=chunk)
     py, phl = tss.ssd_scan_plain(x.contiguous(), bt.contiguous(),
-                                 ct.contiguous(), -0.1 * dt, dt, chunk=32)
+                                 ct.contiguous(), -0.1 * dt, dt, chunk=chunk)
     np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **SSD_TOL)
     np.testing.assert_allclose(hl.cpu().numpy(), phl.cpu().numpy(),
                                **SSD_TOL)
+
+
+def test_ssd_scan_bf16_refuses_misaligned_slices(cuda_device):
+    """The Hopper kernels load x, B and C through TMA: a bf16 slice at an
+    address off a 16-byte boundary, or with a sequence stride that is not a
+    multiple of 8 elements, raises ValueError and launches nothing."""
+    b, s, h, p, n = 1, 64, 2, 64, 128
+    width = h * p + 2 * n
+    rng = np.random.default_rng(9)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, h), dtype=np.float32)).to(cuda_device))
+    xbc = torch.zeros((b, s, width + 4), device=cuda_device,
+                      dtype=torch.bfloat16)
+    shifted = xbc[..., 1:1 + width]            # every base 2 bytes off
+    padded = xbc[..., :width]                  # row stride width + 4
+    before = tss.ssd_scan.launches
+    for t in (shifted, padded):
+        x = t[..., :h * p].unflatten(-1, (h, p))
+        with pytest.raises(ValueError, match="16-byte"):
+            tss.ssd_scan(x, t[..., h * p:h * p + n], t[..., h * p + n:],
+                         -0.1 * dt, dt)
+    assert tss.ssd_scan.launches == before
 
 
 @pytest.mark.parametrize("b,s,d,with_h0", [
@@ -645,3 +745,59 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda_device,
         else:
             np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
                                        atol=2e-4)
+
+
+def _decode_setup(dev):
+    from repro_torch.models import attention as tattn
+    cfg = ARCHS["qwen2-7b"].reduced()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tattn.init_attn(gen, cfg, torch.float32, dev)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev)
+    cache = tattn.init_kv_cache(2, 4, cfg, torch.float32, dev)
+    return tattn, cfg, params, x, cache
+
+
+def test_decode_past_a_full_cache_raises_on_the_card(cuda_device):
+    """cache_len 4: positions 0-3 decode on the card; the int position 4
+    raises ValueError before anything is written."""
+    tattn, cfg, params, x, cache = _decode_setup(cuda_device)
+    for i in range(4):
+        out, cache = tattn.decode_attention(params, x, cache, i, cfg,
+                                            mode="causal")
+    before = {k: v.clone() for k, v in cache.items()}
+    with pytest.raises(ValueError, match="past the end"):
+        tattn.decode_attention(params, x, cache, 4, cfg, mode="causal")
+    torch.cuda.synchronize()
+    assert all(torch.equal(cache[k], before[k]) for k in cache)
+    assert bool(torch.isfinite(out).all())
+
+
+def test_decode_past_a_full_cache_trips_the_device_assert(cuda_device):
+    """A tensor position on the card is checked without a host sync
+    (``torch._assert_async``): position 4 of a 4-slot cache trips a
+    device-side assert, which poisons the CUDA context, so the decode runs
+    in a subprocess that must fail with it; position 3 runs clean."""
+    import os
+    import subprocess
+    import sys
+    script = (
+        "import sys, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from test_torch_cuda import _decode_setup\n"
+        "dev = torch.device('cuda')\n"
+        "tattn, cfg, params, x, cache = _decode_setup(dev)\n"
+        "pos = torch.tensor(int(sys.argv[1]), device=dev)\n"
+        "tattn.decode_attention(params, x, cache, pos, cfg, mode='causal')\n"
+        "torch.cuda.synchronize()\n"
+        "print('clean')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    run = lambda pos: subprocess.run(
+        [sys.executable, "-c", script, str(pos)], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300)
+    ok = run(3)
+    assert ok.returncode == 0 and "clean" in ok.stdout, ok.stderr[-2000:]
+    bad = run(4)
+    assert bad.returncode != 0 and "clean" not in bad.stdout
+    assert "device-side assert" in bad.stderr or "past the end" in \
+        bad.stderr, bad.stderr[-2000:]

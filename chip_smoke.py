@@ -12,7 +12,10 @@ line per phase (phase 2 prints one per path):
    arms, d = 768, B = 256; SGLD m = 64 rows, C = 8 chains; the autopilot's
    posterior scores of 16 chains; the encoder's attention, B 256, 4 heads
    of 64, S = T = 64) and at the top row of the SGLD bench (K = 1024,
-   m = 1024, C = 8; scores and selection B = 4096), plus edge cases. Pairs
+   m = 1024, C = 8; scores and selection B = 4096), plus edge cases (the
+   SGLD potential also at K 1, K 33 and K 300 with duplicated arms tying
+   across its 256-arm tiles, m no multiple of its rows per block; each of
+   its cases must repeat bitwise on repeated calls). Pairs
    must agree outside near-ties (top-two gap below 1e-5 * max|s|, counted
    but not failures); scores to 1e-5 of max|s|, with duplicated arms
    bitwise equal and dominance matrices equal outside near-tied arm pairs;
@@ -32,7 +35,9 @@ line per phase (phase 2 prints one per path):
    ssd family holds ``ssd_scan`` to rtol = atol = 2e-4 and the rglru
    family ``rglru_scan`` to 1e-5 (the reference's tolerances) on the
    reference's test shapes, ragged S,
-   S < chunk, S = 1, h0, bf16 x/B/C and strided column slices (bf16 at
+   S < chunk, S = 1, h0, bf16 x/B/C and strided column slices (rglru:
+   D 96, S 1 with h0, B 1 with S no multiple of the ring's 32-step tile,
+   and D 98, which takes the first kernel; bf16 at
    P 64, N 128, chunk 128 on the Hopper kernels, other bf16 shapes and
    fp32 on the SIMT kernel; misaligned bf16 slices must raise), at the LM
    path's shapes (mamba2-1.3b: B 2, S 4096, H 64, P 64, N 128, chunk 128;
@@ -326,6 +331,12 @@ def sgld_case(name, c, m, k, d, n, gen, dev, *, j=1, ties=False,
           f"{name}: non-finite kernel output")
     check(du <= 1e-5 * su_ + 1e-6, f"{name}: potential off by {du}")
     check(dg <= 1e-4 * sg_ + 1e-5, f"{name}: gradient off by {dg}")
+    # one cluster launch per call, summed in a fixed order: bitwise the
+    # same from call to call
+    check(all(torch.equal(su.potential_rows(*ops, **kw), u_k) and
+              torch.equal(su.potential_grad_rows(*ops, g, **kw), g_k)
+              for _ in range(3)), f"{name}: repeated calls differ")
+    out["plan"] = su.fgts_plan(m, k, d)
     if timed:
         rows_bytes = c * m * (4 * d + 4 * 4 + 8 + 4)
         arm_bytes = 4 * k * d + 5 * k + 4 * c * d
@@ -748,7 +759,8 @@ def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False):
     ph, phl = rg.rglru_scan_plain(log_a, x, hh)
     e1, ok1 = within(h, ph, RGLRU_TOL)
     e2, ok2 = within(hl, phl, RGLRU_TOL)
-    out = dict(case=name, B=b, S=s, D=d, h0=h0, max_abs_err=max(e1, e2))
+    out = dict(case=name, B=b, S=s, D=d, h0=h0, max_abs_err=max(e1, e2),
+               kernel="sm90" if rg.uses_tma(log_a, x) else "simt")
     check(bool(torch.isfinite(h).all()), f"rglru {name}: non-finite output")
     check(ok1 and ok2, f"rglru {name}: off by {e1} (h), {e2} (h_last)")
     del ph, phl
@@ -809,6 +821,10 @@ def scan_cases(gen, dev):
     rgl += [
         rglru_case("d96_ragged", 2, 77, 96, gen, dev),
         rglru_case("s1_h0", 2, 1, 4096, gen, dev, h0=True),
+        # B 1, S not a multiple of the ring's 32-step tile; D 98 (no
+        # multiple of 4) takes the first kernel
+        rglru_case("b1_s_ragged", 1, 1001, 96, gen, dev, h0=True),
+        rglru_case("d98_simt", 2, 300, 98, gen, dev, h0=True),
         rglru_case("main", 2, 4096, 4096, gen, dev, timed=True),
         rglru_case("bench", 4, 32768, 4096, gen, dev, timed=True),
     ]
@@ -842,6 +858,14 @@ def phase_kernels(dev, seed):
         sgld_case("bench", 8, 1024, 1024, 768, 4096, gen, dev, timed=True),
         sgld_case("tied_maxima", 8, 64, 16, 768, 4096, gen, dev, ties=True),
         sgld_case("k1_ragged", 3, 37, 1, 100, 500, gen, dev),
+        # one arm past the Small tile; duplicated arms tying across the
+        # Large configuration's 256-arm tiles (150-299 copy 0-149), m not a
+        # multiple of the rows per block
+        sgld_case("k33_ragged", 3, 45, 33, 100, 500, gen, dev),
+        sgld_case("ties_across_tiles", 3, 301, 300, 64, 500, gen, dev,
+                  ties=True),
+        sgld_case("ties_across_tiles_j2", 3, 301, 300, 64, 500, gen, dev,
+                  ties=True, j=2),
     ]
     sc = [
         score_case("main", 1, K_MAX, DIM, 16, gen, dev, posterior=True,

@@ -43,11 +43,12 @@ SIGNATURES = {
     },
     "sgld_potential": {
         # theta, x, a1, a2, y, pref, rows, valid, a_emb, mask, costs, g,
-        # partials, out, C, m, K, d, j, eta, mu, stream
+        # scratch, out, C, m, K, d, j, eta, mu, configuration, cluster
+        # size, rows per block, stream
         "sgld_potential_fwd_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
-                                      P, I, I, I, I, I, F, F, P],
+                                      P, I, I, I, I, I, F, F, I, I, I, P],
         "sgld_potential_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
-                                       P, I, I, I, I, I, F, F, P],
+                                       P, I, I, I, I, I, F, F, I, I, I, P],
         # theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g, partials,
         # out, C, m, d, eta, stream
         "sgld_mixed_fwd_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
@@ -77,6 +78,7 @@ SIGNATURES = {
     "rglru_scan": {
         # log_a, x, h0, h, h_last, B, S, D, stream
         "rglru_scan_launch": [P, P, P, P, P, I, I, I, P],
+        "rglru_scan_sm90_launch": [P, P, P, P, P, I, I, I, P],
     },
 }
 

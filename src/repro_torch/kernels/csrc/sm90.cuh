@@ -1,8 +1,10 @@
 // sm90.cuh: Hopper (sm_90a) primitives for the port's hand-written kernels.
 //
-// Inline PTX only (no CUTLASS): TMA tensor maps and tile loads, mbarrier
-// rings, wgmma shared-memory descriptors and instructions, register
-// reallocation between warpgroups and named barriers. wgmma and setmaxnreg
+// Inline PTX only (no CUTLASS): TMA tensor maps (bf16 swizzled, fp32
+// plain) and tile loads, mbarrier rings, cp.async, thread-block cluster
+// barriers and distributed shared memory, wgmma shared-memory descriptors
+// and instructions, register reallocation between warpgroups and named
+// barriers. wgmma and setmaxnreg
 // exist only for sm_90a (`-gencode arch=compute_90a,code=sm_90a`).
 //
 // Layout of an operand tile in shared memory, as TMA writes it and wgmma
@@ -150,6 +152,104 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-D fp32 tensor map, unswizzled: dims[0] is the contiguous one,
+// strides[i] the byte stride of dims[i + 1] (each a multiple of 16, as the
+// base address); boxes of box0 x box1 x 1 x 1 (box0 * 4 a multiple of 16),
+// written to shared memory row after row as they lie in the box.
+inline cudaError_t encode_f32_4d(CUtensorMap* map, const void* base,
+                                 const cuuint64_t dims[4],
+                                 const cuuint64_t strides[3], uint32_t box0,
+                                 uint32_t box1) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t box[4] = {box0, box1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory by the bulk copy engine, completing them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- cp.async (Ampere's asynchronous copies, per thread) ------------------
+
+// 4 bytes from global to shared memory; src_bytes 0 writes a zero and reads
+// nothing
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 16 bytes (both addresses 16-byte aligned); src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's committed groups still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: shared-memory writes before it
+// are visible to reads (local or remote) after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of this block's shared variable `p` in block `rank` of the
+// cluster (distributed shared memory), for ld_cluster
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- warpgroups ----------------------------------------------------------

@@ -6,18 +6,23 @@ a_t = exp(log_a_t), over log_a and x (B,S,D) float32 and an optional h0
 (B,D). Returns h (B,S,D) and h_last (B,D), float32.
 
 Dispatch goes by the device of ``x_in``: a CPU tensor runs the plain
-version, a CUDA tensor the hand-written kernel (``csrc/rglru_scan.cu``) or
-an error. The kernel replaces the TPU kernel at
+version, a CUDA tensor a hand-written kernel (``csrc/rglru_scan.cu``) or
+an error. The kernels replace the TPU kernel at
 ``repro/kernels/rglru_scan.py:72`` (``_rglru_kernel``), which walks
 sequence blocks in grid order with the state in VMEM scratch. Here one
 thread owns one (batch, channel) and walks S in order with the state in a
-register; neighbouring threads take neighbouring channels, so every load
-and store is coalesced. The scan moves 12 bytes per element (log_a and x
-in, h out) and does a handful of operations, so it is bound by bytes; with
-only B * D threads in flight (8192 at recurrentgemma-9b's B 2, D 4096) a
-plain loop would wait on each load, so the kernel loads 16 steps ahead of
-the step it computes (loads do not depend on h). Any D works: there is no
-block divisibility.
+register. The scan moves 12 bytes per element (log_a and x in, h out) and
+does a handful of operations, so it is bound by bytes; with only B * D
+threads (8192 at recurrentgemma-9b's B 2, D 4096) the bytes must arrive
+without each thread waiting on its own loads.
+
+``uses_tma`` is the rule between the two kernels. Where it holds (D a
+multiple of 4 and both inputs 16-byte aligned, as TMA requires), the
+Hopper kernel runs: a producer warp streams (32 steps x 32 channels)
+tiles of log_a and x through TMA into a 4-stage shared-memory ring and one
+consumer warp per 32 channels walks them. Otherwise the first kernel runs,
+each thread loading 16 steps ahead of the step it computes. Any D works
+on either: there is no block divisibility.
 """
 from __future__ import annotations
 
@@ -41,11 +46,19 @@ def rglru_scan_plain(log_a: torch.Tensor, x_in: torch.Tensor,
     return torch.stack(hs, dim=1), h
 
 
+def uses_tma(log_a: torch.Tensor, x_in: torch.Tensor) -> bool:
+    """Whether a CUDA call of these contiguous (B,S,D) inputs runs the
+    Hopper kernel (TMA wants 16-byte row strides and bases), else the
+    first kernel: the dispatch rule."""
+    d = x_in.shape[-1]
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (log_a, x_in))
+
+
 def rglru_scan(log_a: torch.Tensor, x_in: torch.Tensor,
                h0: torch.Tensor | None = None):
     """(h (B,S,D), h_last (B,D)) of the RG-LRU recurrence. CPU tensors take
-    the plain version; CUDA tensors launch the kernel and count the launch
-    in ``rglru_scan.launches``."""
+    the plain version; CUDA tensors launch one kernel (``uses_tma``
+    chooses which) and count the launch in ``rglru_scan.launches``."""
     if x_in.device.type == "cpu":
         return rglru_scan_plain(log_a, x_in, h0)
     if x_in.device.type != "cuda":
@@ -73,9 +86,10 @@ def rglru_scan(log_a: torch.Tensor, x_in: torch.Tensor,
     lib = _build.library("rglru_scan")
     P = _build.ptr
     with torch.cuda.device(x_in.device):
-        code = lib.rglru_scan_launch(P(log_a), P(x_in), P(h0), P(h),
-                                     P(h_last), b, s, d,
-                                     _build.stream(x_in.device))
+        launch = (lib.rglru_scan_sm90_launch if uses_tma(log_a, x_in)
+                  else lib.rglru_scan_launch)
+        code = launch(P(log_a), P(x_in), P(h0), P(h), P(h_last), b, s, d,
+                      _build.stream(x_in.device))
     _build.check(code, "rglru_scan")
     rglru_scan.launches += 1
     return h, h_last

@@ -23,7 +23,12 @@ take the minibatch as ring-row indices ``rows`` (C,m) into tables x (N,d),
 a1/a2/y/pref (N,): the SGLD loop hands them the replay ring and its drawn
 indices, and the CUDA kernel (``csrc/sgld_potential.cu``) gathers the rows
 itself; ``mixed_potential_rows``/``mixed_potential_grad_rows`` are the
-mixed mode's, with an ``is_duel`` (N,) table beside ``y``. Dispatch goes
+mixed mode's, with an ``is_duel`` (N,) table beside ``y``. In fgts mode
+each call is one launch of one kernel: a thread-block cluster per chain
+sums its blocks' partials through distributed shared memory in a fixed
+order (``fgts_plan`` sizes it), so the result is bitwise the same from
+run to run; mixed mode launches its row kernel and an ordered reduction
+of its per-block partials. Dispatch goes
 by the device of ``theta``: CPU -> the plain PyTorch version, CUDA -> the
 kernel (or an error). ``sgld_potential`` and ``sgld_mixed_potential`` are
 the ``torch.autograd.Function`` forms, whose backward is the gradient
@@ -177,14 +182,66 @@ def potential_grad_rows_plain(theta, x, a1, a2, y, pref, rows, valid, a_emb,
 # kernel launch
 # ---------------------------------------------------------------------------
 
+# The fgts kernel's configurations, as ``csrc/sgld_potential.cu`` defines
+# them (Small, Large, Narrow): minibatch rows per group, arms per tile.
+# Small keeps all of A in shared memory; Large and Narrow stream arm tiles
+# through a ring of 2 chunks of 32 d-steps.
+FGTS_CONFIGS = ((8, 32), (16, 256), (4, 256))
+# dynamic shared memory a block may take: the H100's 227 KB, less 2 KB for
+# the kernel's static row state
+FGTS_SMEM_BYTES = 227 * 1024 - 2048
+MAX_CLUSTER = 8                  # the portable thread-block cluster size
+
+
+def fgts_smem(cfg: int, d: int) -> int:
+    """Dynamic shared memory (bytes) of configuration ``cfg`` at width d
+    (rounded up to 32, dp): the group's x*theta and x*x rows (Small: also
+    x; rows of dp + 4), theta and the block's partial; Small all of A
+    (rows of dp + 4) and its segments' partial sums, the others a ring of
+    two chunks of (arms, 32 + 4); the tile's scores and den, its arms'
+    costs and live flags."""
+    rb, at = FGTS_CONFIGS[cfg]
+    dp = -(-d // 32) * 32
+    rows, arms = ((3 * rb * (dp + 4), at * (dp + 4) + 2 * 8 * rb * at)
+                  if cfg == 0 else (2 * rb * dp, 2 * at * 36))
+    return 4 * (rows + arms + 2 * rb * at + 2 * dp + at) + at
+
+
+def fgts_order(cfg: int, k: int, d: int) -> tuple[int, int]:
+    """(segments, segment length) of the kernel's sums over d: Small splits
+    d (rounded up to 32) into 8 segments for K <= 16, else 4, each walked
+    in increasing t and then added in segment order; Large and Narrow walk
+    all of d in one chain."""
+    if cfg != 0:
+        return 1, d
+    n = 8 if k <= 16 else 4
+    return n, -(-d // 32) * 32 // n
+
+
+def fgts_plan(m: int, k: int, d: int) -> tuple[int, int, int]:
+    """(configuration, cluster size, rows per block) of an fgts-mode launch:
+    the first configuration whose shared memory fits (Small only for
+    K <= 32), one cluster of up to 8 blocks per chain, and the chain's m
+    rows split evenly over its blocks, in order. Raises ValueError for a d
+    no configuration fits (beyond 3680)."""
+    for cfg in ((0,) if k <= 32 else ()) + (1, 2):
+        if fgts_smem(cfg, d) <= FGTS_SMEM_BYTES:
+            break
+    else:
+        raise ValueError(f"sgld_potential: d {d} needs more shared memory "
+                         f"than a block has")
+    cl = max(1, min(MAX_CLUSTER, -(-m // FGTS_CONFIGS[cfg][0])))
+    return cfg, cl, -(-m // cl)
+
+
 def _launch(fn_name, grad, theta, rows, valid, x, a_emb, per_row, per_arm,
-            g, scalars):
-    """Check the operands of a row kernel, launch it (grid over minibatch
-    blocks and chains, then the ordered partials reduction) and return
-    (C,d) for a gradient, (C,) for a potential. ``per_row`` and
-    ``per_arm``: (name, tensor or None, dtype) of the (N,) and (K,) tables,
-    in the C entry point's order after x; ``scalars``: its trailing ints
-    and floats after the partials and out pointers."""
+            g, scalars, workspace):
+    """Check the operands of a row kernel, launch it and return (C,d) for a
+    gradient, (C,) for a potential. ``per_row`` and ``per_arm``: (name,
+    tensor or None, dtype) of the (N,) and (K,) tables, in the C entry
+    point's order after x; ``scalars``: its trailing ints and floats after
+    the workspace and out pointers; ``workspace``: the tensor (or None)
+    the entry point takes before out."""
     dev = theta.device
     c, d = theta.shape
     m = rows.shape[1]
@@ -211,13 +268,12 @@ def _launch(fn_name, grad, theta, rows, valid, x, a_emb, per_row, per_arm,
             raise ValueError(f"{name} shape {tuple(v.shape)} is not {shape}")
         args.append(None if v is None else v.to(dtype).contiguous())
     width = d if grad else 1
-    partials = torch.empty((c, -(-m // 8), width), dtype=f32, device=dev)
     out = torch.empty((c, width), dtype=f32, device=dev)
     lib = _build.library("sgld_potential")
     P = _build.ptr
     with torch.cuda.device(dev):
         code = getattr(lib, fn_name)(
-            *[P(v) for v in args], P(partials), P(out), *scalars,
+            *[P(v) for v in args], P(workspace), P(out), *scalars,
             _build.stream(dev))
     _build.check(code, fn_name)
     return out if grad else out[:, 0]
@@ -227,14 +283,19 @@ def _fgts_launch(grad, theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
                  costs, g, *, j, eta, mu):
     i32 = torch.int32
     c, m = rows.shape
+    k, d = a_emb.shape[0], theta.shape[1]
+    cfg, cl, rpb = fgts_plan(m, k, d)
+    # the tie pass's scores and den, when K spans more than one tile
+    scratch = (torch.empty((2, c, m, k), dtype=torch.float32,
+                           device=theta.device)
+               if grad and k > FGTS_CONFIGS[cfg][1] else None)
     return _launch(
         "sgld_potential_grad_launch" if grad else "sgld_potential_fwd_launch",
         grad, theta, rows, valid, x, a_emb,
         [("a1", a1, i32), ("a2", a2, i32), ("y", y, torch.float32),
          ("pref", pref, torch.float32)],
         [("mask", mask, torch.bool), ("costs", costs, torch.float32)], g,
-        (c, m, a_emb.shape[0], theta.shape[1], int(j), float(eta),
-         float(mu)))
+        (c, m, k, d, int(j), float(eta), float(mu), cfg, cl, rpb), scratch)
 
 
 def _mixed_launch(grad, theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g,
@@ -246,7 +307,9 @@ def _mixed_launch(grad, theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g,
         grad, theta, rows, valid, x, a_emb,
         [("a1", a1, i32), ("a2", a2, i32), ("y", y, f32),
          ("is_duel", is_duel, f32)], [], g,
-        (c, m, theta.shape[1], float(eta)))
+        (c, m, theta.shape[1], float(eta)),
+        torch.empty((c, -(-m // 8), theta.shape[1] if grad else 1),
+                    dtype=f32, device=theta.device))
 
 
 def _dispatch(theta, plain, what):

@@ -9,7 +9,10 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 Pairs must be exact (the inputs are random, so near-ties are vanishingly
 rare at these sizes); scores match to 1e-5 of their largest magnitude,
 duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
-rtol 1e-4 (fp32 with another summation order on the card). Attention
+rtol 1e-4 (fp32 with another summation order on the card); each fgts-mode
+SGLD call is one launch of one kernel and repeats bitwise, and duplicated
+arms that tie across its arm tiles split the gradient as the plain version
+does. Attention
 matches to rtol = atol = 2e-5 in fp32 (the SIMT kernel, at the encoder's
 shape, across its double-buffered kv tiles with ragged S/T, and through
 its 4-byte copies for unaligned views) and 2e-2 in bf16 (the Hopper
@@ -19,7 +22,9 @@ encoder on the card matches its CPU run to atol 1e-5. The SSD scan
 matches to rtol = atol = 2e-4 and the RG-LRU scan to 1e-5 (the
 reference's kernel tolerances); each SSD case proves by the profiler's
 kernel names which kernel ran (bf16 at P 64, N 128, chunk 128: the Hopper
-kernels; the rest: the SIMT kernel), and a misaligned bf16 slice raises.
+kernels; the rest: the SIMT kernel), and a misaligned bf16 slice raises;
+each RG-LRU case proves which kernel ran (the TMA kernel where
+``rglru_scan.uses_tma`` holds, else the first one).
 A reduced mamba2-1.3b and recurrentgemma-9b prefill and decode on the
 card match their CPU run to 2e-4. Decoding past the end of a full-context
 cache raises ``ValueError`` for an int position; a tensor position trips
@@ -108,16 +113,22 @@ def test_dueling_select_kernel_edges(cuda_device):
 VARIANTS = ["plain", "mask", "pref", "ties", "self_duels"]
 
 
-@pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("j", [1, 2])
-@pytest.mark.parametrize("m,k,d", [(37, 11, 64), (300, 130, 200)])
-def test_sgld_kernels_match_plain(cuda_device, j, variant, m, k, d):
-    rng = np.random.default_rng(j)
+# (37, 1) and (45, 33): K 1, and one arm past a Small tile; m not a
+# multiple of the rows per block; (301, 300): K past one Large tile of 256
+# arms, so the ``ties`` variant's duplicated arms (150-299 copy 0-149) tie
+# across tiles; d 37 (no multiple of 4): the 4-byte copies instead of the
+# bulk and 16-byte ones, in Small and Large
+SGLD_SHAPES = [(37, 11, 64), (300, 130, 200), (37, 1, 64), (45, 33, 100),
+               (301, 300, 64), (37, 11, 37), (70, 130, 37)]
+
+
+def _sgld_ops(variant, m, k, d, seed, dev):
+    rng = np.random.default_rng(seed)
     c, n = 3, 500
-    on = lambda v: torch.from_numpy(np.asarray(v)).to(cuda_device)
+    on = lambda v: torch.from_numpy(np.asarray(v)).to(dev)
     x = on(rng.standard_normal((n, d)).astype(np.float32))
     a1 = rng.integers(0, k, n).astype(np.int32)
-    a2 = ((a1 + rng.integers(1, k, n)) % k).astype(np.int32)
+    a2 = ((a1 + rng.integers(1, max(k, 2), n)) % k).astype(np.int32)
     if variant == "self_duels":
         a2[::3] = a1[::3]
     y = on(np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32))
@@ -132,8 +143,16 @@ def test_sgld_kernels_match_plain(cuda_device, j, variant, m, k, d):
         pref = on(rng.choice([0.0, 0.5, 2.0], n).astype(np.float32))
         costs = on(rng.random(k).astype(np.float32))
     theta = on(rng.standard_normal((c, d)).astype(np.float32))
-    ops = (theta, x, on(a1), on(a2), y, pref, rows, valid, on(a_emb), mask,
-           costs)
+    return (theta, x, on(a1), on(a2), y, pref, rows, valid, on(a_emb), mask,
+            costs)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("j", [1, 2])
+@pytest.mark.parametrize("m,k,d", SGLD_SHAPES)
+def test_sgld_kernels_match_plain(cuda_device, j, variant, m, k, d):
+    ops = _sgld_ops(variant, m, k, d, j, cuda_device)
+    c = ops[0].shape[0]
     g = torch.rand(c, device=cuda_device) + 0.5
     kw = dict(j=j, eta=1.5, mu=0.3)
     before = kernels.launch_counts()
@@ -149,6 +168,63 @@ def test_sgld_kernels_match_plain(cuda_device, j, variant, m, k, d):
                                **POT_TOL)
     np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(),
                                **GRAD_TOL)
+
+
+def _device_kernels(fn):
+    """(name, launches) of every device kernel ``fn`` runs, from
+    ``torch.profiler`` (taken again, up to 3 times, if a profile records
+    none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if out:
+            break
+    return out
+
+
+@pytest.mark.parametrize("m,k,d", [(64, 16, 768), (301, 300, 64)])
+def test_sgld_fgts_is_one_deterministic_launch(cuda_device, m, k, d):
+    """Each fgts entry point is one launch of one kernel, and repeated calls
+    give bitwise equal results (a fixed summation order, no atomics); the
+    ``ties`` data ties across arm tiles at (301, 300)."""
+    ops = _sgld_ops("ties", m, k, d, 5, cuda_device)
+    g = torch.rand(ops[0].shape[0], device=cuda_device) + 0.5
+    kw = dict(j=1, eta=1.5, mu=0.3)
+    fwd = lambda: tsu.potential_rows(*ops, **kw)
+    grad = lambda: tsu.potential_grad_rows(*ops, g, **kw)
+    for fn in (fwd, grad):
+        first = fn()
+        for _ in range(5):
+            assert torch.equal(fn(), first)
+        ran = _device_kernels(fn)
+        assert len(ran) == 1 and ran[0][1] == 1, ran
+        assert "fgts_kernel" in ran[0][0], ran
+
+
+def test_sgld_duplicate_arms_split_the_gradient(cuda_device):
+    """Duplicated arms across arm tiles (K 300: arms 150-299 copy 0-149)
+    make the feel-good max tie on most rows; the kernel's gradient splits
+    it as the plain version does."""
+    ops = _sgld_ops("ties", 301, 300, 64, 9, cuda_device)
+    theta, x, _, _, _, pref, rows, _, a_emb, _, costs = ops
+    s = (x[rows] * theta[:, None]) @ a_emb.T / torch.sqrt(torch.clamp_min(
+        (x[rows] ** 2) @ (a_emb ** 2).T, 1e-24))
+    tv = s - pref[rows][..., None] * costs
+    ties = (tv == tv.amax(-1, keepdim=True)).sum(-1)
+    assert int((ties > 1).sum()) > 0
+    g = torch.rand(theta.shape[0], device=cuda_device) + 0.5
+    for j in (1, 2):
+        kw = dict(j=j, eta=1.5, mu=0.3)
+        np.testing.assert_allclose(
+            tsu.potential_grad_rows(*ops, g, **kw).cpu().numpy(),
+            tsu.potential_grad_rows(*ops, g, **kw, plain=True).cpu().numpy(),
+            **GRAD_TOL)
 
 
 def test_autograd_backward_is_the_gradient_kernel(cuda_device):
@@ -659,9 +735,13 @@ def test_ssd_scan_bf16_refuses_misaligned_slices(cuda_device):
     assert tss.ssd_scan.launches == before
 
 
+# ragged S against the ring's 32-step tiles (200, 65, 77, 33, 40), D 96
+# (three 32-channel tiles), S 1 with h0, B 1, D 4100 (a ragged channel
+# tile); D 98 is no multiple of 4, so it runs the first kernel
 @pytest.mark.parametrize("b,s,d,with_h0", [
     (2, 200, 512, True), (1, 128, 512, False), (3, 65, 1024, True),
     (2, 77, 96, False), (2, 1, 96, True), (1, 40, 4100, True),
+    (1, 33, 96, True), (2, 50, 98, True),
 ])
 def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, with_h0):
     rng = np.random.default_rng(s + d)
@@ -674,6 +754,30 @@ def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, with_h0):
     torch.cuda.synchronize()
     assert trg.rglru_scan.launches == before + 1
     ph, phl = trg.rglru_scan_plain(log_a, x, h0)
+    np.testing.assert_allclose(h.cpu().numpy(), ph.cpu().numpy(), **RG_TOL)
+    np.testing.assert_allclose(hl.cpu().numpy(), phl.cpu().numpy(),
+                               **RG_TOL)
+    names = _kernel_names(lambda: trg.rglru_scan(log_a, x, h0),
+                          family="rglru_kernel")
+    assert len(names) == 1, names
+    assert ("rglru_kernel_sm90" in names[0]) == (d % 4 == 0), names
+
+
+def test_rglru_scan_misaligned_view_takes_the_first_kernel(cuda_device):
+    """A view 4 bytes off a 16-byte boundary breaks TMA's rule: the wrapper
+    runs the first kernel, and both agree with the plain version."""
+    rng = np.random.default_rng(3)
+    buf = torch.from_numpy(rng.standard_normal(
+        (2 * 64 * 128 + 1,), dtype=np.float32)).to(cuda_device)
+    x = buf[1:].view(2, 64, 128)
+    log_a = -0.1 * x.abs()
+    assert not trg.uses_tma(log_a, x)
+    assert trg.uses_tma(log_a, log_a)
+    names = _kernel_names(lambda: trg.rglru_scan(log_a, x),
+                          family="rglru_kernel")
+    assert len(names) == 1 and "sm90" not in names[0], names
+    h, hl = trg.rglru_scan(log_a, x)
+    ph, phl = trg.rglru_scan_plain(log_a, x)
     np.testing.assert_allclose(h.cpu().numpy(), ph.cpu().numpy(), **RG_TOL)
     np.testing.assert_allclose(hl.cpu().numpy(), phl.cpu().numpy(),
                                **RG_TOL)

@@ -303,6 +303,149 @@ def test_sgld_potential_single_theta_and_shared_rows():
 
 
 # ---------------------------------------------------------------------------
+# the fgts CUDA kernel's order of operations, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """fmaf in float32: the product exact in float64, one sum, then one
+    rounding to float32 (the double rounding can differ from fmaf in the
+    last place, rarely)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fold_blocks(rows_terms, m, cl, rpb):
+    """The kernel's reduction: each block sums its rows (rank b holds rows
+    b*rpb .. (b+1)*rpb - 1) in row order from 0, then the chain's result
+    is the blocks' partials summed in rank order from 0."""
+    out = torch.zeros_like(rows_terms[:, 0])
+    for b in range(cl):
+        acc = torch.zeros_like(rows_terms[:, 0])
+        for i in range(b * rpb, min(m, (b + 1) * rpb)):
+            acc = acc + rows_terms[:, i]
+        out = out + acc
+    return out
+
+
+def _emulated_fgts(theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
+                   costs, g, *, j, eta, mu):
+    """(U (C,), g * dU (C,d), scores (C,m,K)) in the order of
+    ``csrc/sgld_potential.cu``'s fgts kernel: each score's numerator and
+    denominator one fma per t in increasing t within each of
+    ``fgts_order``'s segments, the segments added in order, then the
+    running max with
+    its first index and tie count, the gradient rows fma'd on a1, a2 and
+    each tied maximum in arm order, and ``_fold_blocks`` over
+    ``fgts_plan``'s blocks."""
+    c, d = theta.shape
+    m, k = rows.shape[1], a_emb.shape[0]
+    cfg, cl, rpb = tsu.fgts_plan(m, k, d)
+    n_seg, seg_len = tsu.fgts_order(cfg, k, d)
+    r = rows.long()
+    xg = x[r]
+    xt, xx, aa = xg * theta[:, None, :], xg * xg, a_emb * a_emb
+    num = den = None
+    for s0 in range(0, n_seg * seg_len, seg_len):
+        sn = torch.zeros((c, m, k))
+        sd = torch.zeros((c, m, k))
+        for i in range(s0, min(s0 + seg_len, d)):
+            sn = _fma(xt[..., i, None], a_emb[:, i], sn)
+            sd = _fma(xx[..., i, None], aa[:, i], sd)
+        num = sn if num is None else num + sn
+        den = sd if den is None else den + sd
+    dn = torch.sqrt(torch.clamp_min(den, 1e-24))
+    s = num / dn
+    ia1, ia2, yv, v = a1[r].long(), a2[r].long(), y[r], valid
+    pr = torch.zeros_like(yv) if pref is None else pref[r]
+    cost = torch.zeros(k) if costs is None else costs
+    live = torch.ones(k, dtype=torch.bool) if mask is None else mask
+    tv = s - pr[..., None] * cost
+    smax = torch.where(live, tv, -torch.inf).amax(dim=-1)
+    eq = (tv == smax[..., None]) & live
+    cnt = eq.sum(dim=-1)
+    kmax = torch.argmax(eq.int(), dim=-1)
+    pick = lambda v_, idx: torch.gather(v_, -1, idx[..., None])[..., 0]
+    s1, s2, den1, den2 = pick(s, ia1), pick(s, ia2), pick(dn, ia1), \
+        pick(dn, ia2)
+    opp = ia2 if j == 1 else ia1
+    s_opp = (s2 if j == 1 else s1) - pr * cost[opp]
+    z = yv * (s1 - s2)
+    mu_row = mu / (1.0 + torch.clamp_min(pr, 0.0))
+    terms = (eta * tsu.softplus(-z) - mu_row * (smax - s_opp)) * v
+    u = _fold_blocks(terms, m, cl, rpb)
+
+    dz = (eta * (-1.0 / (1.0 + torch.exp(z)))) * yv
+    self_duel = ia1 == ia2
+    w1 = torch.where(self_duel, 0.0, dz)
+    w2 = torch.where(self_duel, 0.0, -dz)
+    if j == 1:
+        w2 = w2 + mu_row
+    else:
+        w1 = w1 + mu_row
+    c1, c2 = (w1 * v) / den1, (w2 * v) / den2
+    wt = (-mu_row / torch.clamp_min(cnt, 1).float()) * v
+    gr = _fma(c2[..., None], a_emb[ia2], (c1[..., None] * a_emb[ia1]))
+    one = (cnt == 1)[..., None]
+    gr = torch.where(one, _fma((wt / pick(dn, kmax))[..., None],
+                               a_emb[kmax], gr), gr)
+    for kk in range(k):
+        tied = ((cnt > 1) & eq[..., kk])[..., None]
+        gr = torch.where(tied, _fma((wt / dn[..., kk])[..., None], a_emb[kk],
+                                    gr), gr)
+    grad = _fold_blocks(xg * gr, m, cl, rpb)
+    return u, (grad if g is None else g[:, None] * grad), s
+
+
+@pytest.mark.parametrize("m,k", [(37, 11), (70, 40)])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("j", [1, 2])
+def test_sgld_kernel_order_matches_jax_and_plain(j, variant, m, k):
+    """The fgts kernel's order of operations (emulated) against the JAX
+    potential and its jax.grad, and against the plain version; duplicated
+    arms (the ``ties`` variant) score bitwise equal in it."""
+    eta, mu = 1.5, 0.3
+    ins = _sgld_inputs(m, k, variant, seed=31 * j + VARIANTS.index(variant))
+    theta, x, a1, a2, y, valid, a_emb, mask, pref, costs = ins
+    ref_u, ref_g = _jax_potential_and_grad(*ins, j, eta, mu)
+    rows = torch.arange(C * m).reshape(C, m)
+    flat = lambda v: None if v is None else t(v).reshape(C * m, *v.shape[2:])
+    ops = (t(theta), flat(x), flat(a1), flat(a2), flat(y), flat(pref), rows,
+           t(valid), t(a_emb), None if mask is None else t(mask),
+           None if costs is None else t(costs))
+    u, g, s = _emulated_fgts(*ops, None, j=j, eta=eta, mu=mu)
+    np.testing.assert_allclose(u.numpy(), ref_u, **POT_TOL)
+    np.testing.assert_allclose(g.numpy(), ref_g, **GRAD_TOL)
+    kw = dict(j=j, eta=eta, mu=mu)
+    np.testing.assert_allclose(u.numpy(), tsu.potential_rows(*ops, **kw),
+                               **POT_TOL)
+    gs = torch.rand(C) + 0.5
+    _, g2, _ = _emulated_fgts(*ops, gs, j=j, eta=eta, mu=mu)
+    np.testing.assert_allclose(g2.numpy(),
+                               tsu.potential_grad_rows(*ops, gs, **kw),
+                               **GRAD_TOL)
+    if variant == "ties":
+        h = k // 2
+        assert torch.equal(s[..., h:2 * h], s[..., :h])
+
+
+@pytest.mark.parametrize("m,k,d", [(64, 16, 768), (1024, 1024, 768),
+                                   (37, 1, 100), (300, 130, 200),
+                                   (37, 300, 64), (10, 5, 2600),
+                                   (5, 2000, 3680), (0, 4, 8)])
+def test_fgts_plan_fits_and_covers_every_row(m, k, d):
+    """Every configuration the plan picks fits a block's shared memory,
+    Small only for K <= 32; the cluster holds 1-8 blocks, each with rows,
+    and they cover the chain's m rows exactly."""
+    cfg, cl, rpb = tsu.fgts_plan(m, k, d)
+    assert tsu.fgts_smem(cfg, d) <= tsu.FGTS_SMEM_BYTES
+    assert (cfg == 0) == (k <= 32 and tsu.fgts_smem(0, d)
+                          <= tsu.FGTS_SMEM_BYTES)
+    assert 1 <= cl <= tsu.MAX_CLUSTER
+    assert cl * rpb >= m and (cl - 1) * rpb < max(m, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsu.fgts_plan(m, k, 3681)
+
+
+# ---------------------------------------------------------------------------
 # the mixed mode: duel and click rows
 # ---------------------------------------------------------------------------
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's timed attention and SSD cases in two checkouts, in turns.
+"""Time the port's timed kernel cases in two checkouts, in turns.
 
     python3 tools/ab_kernels.py --other DIR [--out FILE] [--prefill]
 
@@ -7,17 +7,29 @@
 commit unpacked with ``git archive`` into the ignored ``build/``). Four
 worker processes run one after another on the same card: other, this,
 this, other. Each builds its own checkout's kernels (into that checkout's
-``build/``), then times, with that checkout's ``chip_smoke.attn_case`` and
-``ssd_case``, the fp32 ``flash_attention`` cases ``main`` (the encoder:
-B 256, H = KV 4, S = T 64, D 64, bidirectional) and ``bench`` (qwen2-7b's
-heads in fp32, causal, S = T 2048) and the ``ssd_scan`` cases ``main``
-(mamba2-1.3b's prefill, bf16 strided), ``main_fp32`` and ``bench``
-(B 1, S 32768). With ``--prefill`` each worker also times mamba2-1.3b's
-``lm.prefill`` (random bf16 weights, B 2 x 4096 tokens; host clock around
-a synchronised call, median of 3) and the fp32 encoder
-(``EncoderConfig()``, one 256-query batch of 64 tokens; median of 20).
-Prints one JSON line per worker and a summary line; every record names the
-card and its power limit. Needs one CUDA card.
+``build/``), then times, with that checkout's ``chip_smoke`` case
+functions:
+
+- ``flash_attention`` fp32 ``main`` (the encoder: B 256, H = KV 4,
+  S = T 64, D 64, bidirectional) and ``bench`` (qwen2-7b's heads in fp32,
+  causal, S = T 2048);
+- ``ssd_scan`` ``main`` (mamba2-1.3b's prefill, bf16 strided),
+  ``main_fp32`` and ``bench`` (B 1, S 32768);
+- ``sgld_potential`` fgts mode, forward and gradient, ``main`` (the
+  routing loop's C 8 chains, m 64, K 16, d 768) and ``bench`` (m 1024,
+  K 1024);
+- ``rglru_scan`` ``main`` (recurrentgemma-9b's prefill, B 2, S 4096,
+  D 4096) and ``bench`` (B 4, S 32768);
+- ``sgld_mixed`` ``main``, forward and gradient (the control: nothing in
+  its kernel changes between the two checkouts being compared here).
+
+With ``--prefill`` each worker also times mamba2-1.3b's and
+recurrentgemma-9b's ``lm.prefill`` (random bf16 weights, B 2 x 4096
+tokens; host clock around a synchronised call, median of 3) and the fp32
+encoder (``EncoderConfig()``, one 256-query batch of 64 tokens; median of
+20). Prints one JSON line per worker and a summary line of every time
+(``*ms`` field) by checkout; every record names the card and its power
+limit. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -36,6 +48,8 @@ ATTN = {"main": (256, 4, 4, 64, 64, 64, dict(causal=False)),
 SSD = {"main": (2, 4096, 64, 64, 128, 128, dict(dtype="bfloat16")),
        "main_fp32": (2, 4096, 64, 64, 128, 128, dict()),
        "bench": (1, 32768, 64, 64, 128, 128, dict(dtype="bfloat16"))}
+SGLD = {"main": (8, 64, 16, 768, 4096), "bench": (8, 1024, 1024, 768, 4096)}
+RGLRU = {"main": (2, 4096, 4096), "bench": (4, 32768, 4096)}
 KEYS = ("ms", "device_ms", "bound_ms", "max_abs_err", "library_ms",
         "library_device_ms")
 
@@ -58,6 +72,16 @@ def worker(root: Path, prefill: bool) -> dict:
         r = cs.ssd_case(name, b, s, h, p, n, c, gen, dev, strided=True,
                         timed=True, **kw)
         out[f"ssd_{name}"] = {k: r.get(k) for k in KEYS}
+    for name, (c, m, k, d, n) in SGLD.items():
+        r = cs.sgld_case(name, c, m, k, d, n, gen, dev, timed=True)
+        out[f"sgld_{name}"] = {k: v for k, v in r.items()
+                               if k.endswith(("_ms", "_err"))}
+    for name, (b, s, d) in RGLRU.items():
+        r = cs.rglru_case(name, b, s, d, gen, dev, timed=True)
+        out[f"rglru_{name}"] = {k: r.get(k) for k in KEYS}
+    r = cs.mixed_case("main", 8, 64, 16, 768, 4096, gen, dev, timed=True)
+    out["mixed_main"] = {k: v for k, v in r.items()
+                         if k.endswith(("_ms", "_err"))}
     if prefill:
         out.update(prefill_times(dev))
     return out
@@ -68,20 +92,24 @@ def prefill_times(dev) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.encoder import model as enc
     from repro_torch.models import lm
-    cfg = ARCHS["mamba2-1.3b"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = lm.init_params(gen, cfg, device=dev)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4096),
-                                     generator=gen, device=dev)}
-    times = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lm.prefill(params, batch, cfg, 4096 + 8)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    del params
-    torch.cuda.empty_cache()
+    out = {}
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = ARCHS[arch]
+        params = lm.init_params(gen, cfg, device=dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4096),
+                                         generator=gen, device=dev)}
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.prefill(params, batch, cfg, 4096 + 8)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f"{arch.split('-')[0]}_prefill_ms"] = statistics.median(
+            times[1:])
+        del params
+        torch.cuda.empty_cache()
     ecfg = enc.EncoderConfig()
     eparams = enc.init_encoder(gen, ecfg, device=dev)
     tok = torch.randint(0, ecfg.vocab_size, (256, 64), generator=gen,
@@ -94,8 +122,7 @@ def prefill_times(dev) -> dict:
         enc.encode(eparams, tok, mask, ecfg)
         torch.cuda.synchronize()
         etimes.append(1e3 * (time.perf_counter() - t0))
-    return dict(mamba2_prefill_ms=statistics.median(times[1:]),
-                encode_batch_ms=statistics.median(etimes[1:]))
+    return dict(out, encode_batch_ms=statistics.median(etimes[1:]))
 
 
 def card() -> str:
@@ -139,7 +166,9 @@ def main() -> int:
     summary = {}
     for key in records[0]:
         if isinstance(records[0][key], dict):
-            for f in ("ms", "device_ms"):
+            for f in records[0][key]:
+                if not f.endswith("ms") or f.endswith("bound_ms"):
+                    continue
                 summary[f"{key}.{f}"] = {
                     lab: [r[key][f] for r in records if r["label"] == lab]
                     for lab in ("other", "this")}

@@ -14,10 +14,13 @@ line per phase (phase 2 prints one per path):
    of 64, S = T = 64) and at the top row of the SGLD bench (K = 1024,
    m = 1024, C = 8; scores and selection B = 4096), plus edge cases (the
    SGLD potential also at K 1, K 33 and K 300 with duplicated arms tying
-   across its 256-arm tiles, m no multiple of its rows per block; each of
-   its cases must repeat bitwise on repeated calls). Pairs
-   must agree outside near-ties (top-two gap below 1e-5 * max|s|, counted
-   but not failures); scores to 1e-5 of max|s|, with duplicated arms
+   across its 256-arm tiles, m no multiple of its rows per block; the
+   scores at B 170 and 171 (K 1024, J 1), the two sides of
+   ``score_plan``'s bound, and at d 100 and 98; the mixed SGLD kernels
+   at m 1, 3 and 45, C 1 and d 98; every SGLD, mixed and score case must
+   repeat bitwise on repeated calls). Pairs must agree outside
+   near-ties (top-two gap below 1e-5 * max|s|, counted but not
+   failures); scores to 1e-5 of max|s|, with duplicated arms
    bitwise equal and dominance matrices equal outside near-tied arm pairs;
    potentials to rtol 1e-5 and gradients to rtol 1e-4 of the largest
    magnitude. The attn family holds ``flash_attention`` to rtol = atol =
@@ -407,6 +410,11 @@ def score_case(name, b, k, d, j, gen, dev, *, posterior=False, live=None,
         check(not bool(s_k[..., 1].any()), f"{name}: zero arm scored")
         if not posterior:
             check(not bool(s_k[:, 0].any()), f"{name}: zero query scored")
+    # one launch, every output summed in one fixed order: bitwise the same
+    # from call to call
+    check(all(torch.equal(kern(), s_k) for _ in range(3)),
+          f"{name}: repeated calls differ")
+    out["plan"] = ds.score_plan(b, k, j, d)[0]
     if posterior:
         live = live or k
         dk = dominance.win_matrix(s_k[:, :live])
@@ -470,6 +478,13 @@ def mixed_case(name, c, m, k, d, n, gen, dev, *, kind="half", timed=False):
           f"mixed {name}: non-finite kernel output")
     check(du <= 1e-5 * su_ + 1e-6, f"mixed {name}: potential off by {du}")
     check(dg <= 1e-4 * sg_ + 1e-5, f"mixed {name}: gradient off by {dg}")
+    # one cluster launch per call, summed in a fixed order: bitwise the same
+    # from call to call
+    check(all(torch.equal(su.mixed_potential_rows(*ops, eta=8.0), u_k) and
+              torch.equal(su.mixed_potential_grad_rows(*ops, g, eta=8.0),
+                          g_k) for _ in range(3)),
+          f"mixed {name}: repeated calls differ")
+    out["plan"] = su.mixed_plan(m, d)
     if timed:
         # each gathered row once (x, four per-row scalars, its index and
         # valid flag), each arm it scores once, theta, and the output
@@ -876,6 +891,16 @@ def phase_kernels(dev, seed):
                    zeros=True),
         score_case("posterior_duplicate_zero_arm", 1, K_MAX, DIM, 16, gen,
                    dev, posterior=True, dup=True, zeros=True),
+        # the two sides of score_plan's cap on B*K*J*d (Small up to 2^27),
+        # and Small with ragged d: 16-byte loads at d 100, 4-byte at d 98
+        score_case("small_b170", 170, 1024, DIM, 1, gen, dev, dup=True,
+                   zeros=True),
+        score_case("large_b171", 171, 1024, DIM, 1, gen, dev, dup=True,
+                   zeros=True),
+        score_case("small_d100_dup_zero", 5, 37, 100, 3, gen, dev, dup=True,
+                   zeros=True),
+        score_case("small_d98_dup_zero", 5, 37, 98, 3, gen, dev, dup=True,
+                   zeros=True),
     ]
     mx = [
         mixed_case("main", 8, 64, K_MAX, DIM, 4096, gen, dev, timed=True),
@@ -888,6 +913,14 @@ def phase_kernels(dev, seed):
                    kind="invalid"),
         mixed_case("self_duels_ragged", 3, 37, 5, 100, 500, gen, dev,
                    kind="self"),
+        # mixed_plan's edges: one row, fewer rows than a cluster's blocks,
+        # rows per block no multiple of the group, one chain, and d 98 (the
+        # 4-byte loads; d 100 above takes the 16-byte loads)
+        mixed_case("m1", 8, 1, K_MAX, DIM, 4096, gen, dev),
+        mixed_case("m3", 8, 3, K_MAX, DIM, 4096, gen, dev),
+        mixed_case("m45", 8, 45, K_MAX, DIM, 4096, gen, dev),
+        mixed_case("c1", 1, 64, K_MAX, DIM, 4096, gen, dev),
+        mixed_case("d98_ragged", 3, 37, 5, 98, 500, gen, dev),
     ]
     return (sel, sg, sc, mx, attn_cases(gen, dev)) + scan_cases(gen, dev)
 

@@ -38,8 +38,9 @@ SIGNATURES = {
         "dueling_select_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
     "dueling_score": {
-        # x, a, thetas, out, B, K, d, J, stream
-        "dueling_score_launch": [P, P, P, P, I, I, I, I, P],
+        # x, a, thetas, out, B, K, d, J, configuration, grid x, y, z,
+        # stream
+        "dueling_score_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "sgld_potential": {
         # theta, x, a1, a2, y, pref, rows, valid, a_emb, mask, costs, g,
@@ -49,12 +50,12 @@ SIGNATURES = {
                                       P, I, I, I, I, I, F, F, I, I, I, P],
         "sgld_potential_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, P, P,
                                        P, I, I, I, I, I, F, F, I, I, I, P],
-        # theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g, partials,
-        # out, C, m, d, eta, stream
-        "sgld_mixed_fwd_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
-                                  F, P],
-        "sgld_mixed_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I,
-                                   I, F, P],
+        # theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g, out, C, m,
+        # d, eta, cluster size, rows per block, rows per group, stream
+        "sgld_mixed_fwd_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, F,
+                                  I, I, I, P],
+        "sgld_mixed_grad_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                   F, I, I, I, P],
     },
     "flash_attention": {
         # q, k, v, o, B, H, KV, S, T, D, (batch, head, seq) strides of q,

@@ -8,20 +8,32 @@
 //   s_j[b,k] = ((x_b*theta_j) . a_k) / sqrt(max((x_b*x_b) . (a_k*a_k), 1e-24))
 //
 // What bounds it on the card: at the autopilot's shapes (one all-ones
-// query, J = 16 chains, K = 16, d = 768) the ~0.1 MB it reads, so the
-// launch itself; at B = 4096, K = 1024, J = 2 the (J+1)*2*B*K*d fp32
+// query, J = 16 chains, K = 16, d = 768) the ~0.1 MB it reads, so latency
+// and the launch; at B = 4096, K = 1024, J = 2 the (J+1)*2*B*K*d fp32
 // operations of J numerators and one denominator.
 //
-// Why this first design is simple: a plain shared-memory tiled product,
-// no wgmma or TMA. A block owns a 64 x 64 tile of (b, k) and JB = 2
-// samples (grid z walks the samples in pairs, so J is a runtime size). It
-// stages 16-wide slices of d: x*theta_j and x*x of its rows, formed as the
-// slice is loaded, and a and a*a of its arms. Each thread holds a 4 x 4
-// register block of outputs with one denominator and JB numerator
-// accumulators. Every output element is accumulated by one thread over d
-// in increasing order with fmaf, wherever it sits in the tile, and every
-// sample pair recomputes the denominator in that same order, so duplicated
-// arms give bitwise equal columns (win_matrix scores them as exact ties).
+// Two configurations, chosen by the wrapper (dueling_score.score_plan):
+// - Small (few outputs: B*K*J*d <= 2^27, as posterior_scores' one query
+//   has; measured faster than Large up to ~1e8 on the H100): a warp per
+//   output (j, b, k), k fastest. Lane l loads its part of x_b, a_k and
+//   theta_j, the float4s l, l + 32, ... of d (elements l, l + 32, ...
+//   where d % 4 != 0 or a table is not 16-byte aligned), up to 1024
+//   elements per warp at a time, every load issued before the fma chain:
+//   one latency round where a d-slice walk paid one per slice. The lane sums go through one fixed
+//   xor tree. Every output, the denominator included, is computed in that
+//   same order wherever it sits, so duplicated arms give bitwise equal
+//   columns (win_matrix scores them as exact ties), and a zero arm or
+//   query scores 0 through the 1e-24 clamp.
+// - Large (any shape; the operations-bound ones): a plain shared-memory
+//   tiled product, no wgmma or TMA. A block owns a 64 x 64 tile of (b, k)
+//   and JB = 2 samples (grid z walks the samples in pairs, so J is a
+//   runtime size). It stages 16-wide slices of d: x*theta_j and x*x of its
+//   rows, formed as the slice is loaded, and a and a*a of its arms. Each
+//   thread holds a 4 x 4 register block of outputs with one denominator
+//   and JB numerator accumulators. Every output element is accumulated by
+//   one thread over d in increasing order with fmaf, wherever it sits in
+//   the tile, and every sample pair recomputes the denominator in that
+//   same order: duplicated arms again give bitwise equal columns.
 // fp32 on the CUDA cores, no TF32: win_matrix compares scores with strict
 // '>' and '=='.
 #include <cuda_runtime.h>
@@ -35,6 +47,8 @@ constexpr int kSide = 16;            // threads per tile side (16 x 16)
 constexpr int kReg = kTile / kSide;  // outputs per thread per side
 constexpr int kJ = 2;                // samples per block
 constexpr int kPad = kTile + 1;      // row stride in shared memory
+
+// ---- Large: the tiled product ----------------------------------------------
 
 __global__ void __launch_bounds__(kSide * kSide) dueling_score_kernel(
     const float* __restrict__ x, const float* __restrict__ a,
@@ -117,18 +131,97 @@ __global__ void __launch_bounds__(kSide * kSide) dueling_score_kernel(
   }
 }
 
+// ---- Small: a warp per output ---------------------------------------------
+
+constexpr int kSmallWarps = 2;       // outputs per block
+
+// W = 4: 16-byte loads (d % 4 == 0, tables 16-byte aligned), else 4-byte;
+// each lane holds U loads of x, a and theta at a time (1024 elements a lane
+// group)
+template <int W>
+__global__ void __launch_bounds__(32 * kSmallWarps) dueling_score_small(
+    const float* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ thetas, float* __restrict__ out, int B, int K,
+    int d, int J) {
+  constexpr int U = 32 / W;
+  const int64_t o = (int64_t)blockIdx.x * kSmallWarps + threadIdx.x / 32;
+  if (o >= (int64_t)J * B * K) return;         // the whole warp
+  const int lane = threadIdx.x % 32;
+  const int k = (int)(o % K);
+  const int64_t jb = o / K;
+  const int b = (int)(jb % B), j = (int)(jb / B);
+  const float* xr = x + (int64_t)b * d;
+  const float* ar = a + (int64_t)k * d;
+  const float* tr = thetas + (int64_t)j * d;
+  float n = 0.f, e = 0.f;
+  for (int t0 = 0; t0 < d; t0 += 32 * U * W) {
+    float xv[U][W], av[U][W], tv[U][W];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + (u * 32 + lane) * W;  // the lane's u-th load
+      const bool ok = t < d;                   // W = 4: all four or none
+      if constexpr (W == 4) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 xf = ok ? *reinterpret_cast<const float4*>(xr + t) : z;
+        const float4 af = ok ? *reinterpret_cast<const float4*>(ar + t) : z;
+        const float4 tf = ok ? *reinterpret_cast<const float4*>(tr + t) : z;
+        xv[u][0] = xf.x; xv[u][1] = xf.y; xv[u][2] = xf.z; xv[u][3] = xf.w;
+        av[u][0] = af.x; av[u][1] = af.y; av[u][2] = af.z; av[u][3] = af.w;
+        tv[u][0] = tf.x; tv[u][1] = tf.y; tv[u][2] = tf.z; tv[u][3] = tf.w;
+      } else {
+        xv[u][0] = ok ? xr[t] : 0.f;
+        av[u][0] = ok ? ar[t] : 0.f;
+        tv[u][0] = ok ? tr[t] : 0.f;
+      }
+    }
+    // past d every value is 0: adding 0 leaves a sum as it is
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const float xt = __fmul_rn(xv[u][i], tv[u][i]);
+        const float xx = __fmul_rn(xv[u][i], xv[u][i]);
+        n = fmaf(xt, av[u][i], n);
+        e = fmaf(xx, __fmul_rn(av[u][i], av[u][i]), e);
+      }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {           // the fixed xor tree
+    n = __fadd_rn(n, __shfl_xor_sync(0xffffffffu, n, s));
+    e = __fadd_rn(e, __shfl_xor_sync(0xffffffffu, e, s));
+  }
+  if (lane == 0) out[o] = __fdiv_rn(n, sqrtf(fmaxf(e, 1e-24f)));
+}
+
 }  // namespace
 
-// out: (J, B, K) floats
+// out: (J, B, K) floats. cfg 0 Small, 1 Large and its grid (gx, gy, gz),
+// from dueling_score.score_plan
 extern "C" int dueling_score_launch(const void* x, const void* a,
                                     const void* thetas, void* out, int B,
-                                    int K, int d, int J, void* stream) {
-  if (B > 0 && K > 0 && J > 0) {
-    const dim3 grid((K + kTile - 1) / kTile, (B + kTile - 1) / kTile,
-                    (J + kJ - 1) / kJ);
-    dueling_score_kernel<<<grid, kSide * kSide, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)a, (const float*)thetas, (float*)out,
-        B, K, d, J);
+                                    int K, int d, int J, int cfg, int gx,
+                                    int gy, int gz, void* stream) {
+  if (B <= 0 || K <= 0 || J <= 0) return (int)cudaGetLastError();
+  const dim3 grid(gx, gy, gz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* af = (const float*)a;
+  const float* tf = (const float*)thetas;
+  float* of = (float*)out;
+  if (cfg == 0) {
+    const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                     (uintptr_t)a % 16 == 0 && (uintptr_t)thetas % 16 == 0;
+    if (vec)
+      dueling_score_small<4><<<grid, 32 * kSmallWarps, 0, st>>>(
+          xf, af, tf, of, B, K, d, J);
+    else
+      dueling_score_small<1><<<grid, 32 * kSmallWarps, 0, st>>>(
+          xf, af, tf, of, B, K, d, J);
+  } else if (cfg == 1) {
+    dueling_score_kernel<<<grid, kSide * kSide, 0, st>>>(xf, af, tf, of, B,
+                                                         K, d, J);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -64,13 +64,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;            // minibatch rows per block (mixed mode)
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// every kernel of this file: 8 warps, one block per SM, a cluster per chain
+constexpr int kBlockWarps = 8;
+constexpr int kBlockThreads = 32 * kBlockWarps;
 
 __device__ __forceinline__ float softplus(float v) {      // logaddexp(v, 0)
   return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
@@ -79,9 +75,6 @@ __device__ __forceinline__ float softplus(float v) {      // logaddexp(v, 0)
 // ---------------------------------------------------------------------------
 // "fgts" mode
 // ---------------------------------------------------------------------------
-
-constexpr int kFgtsWarps = 8;
-constexpr int kFgtsThreads = 32 * kFgtsWarps;
 
 struct FgtsArgs {
   const float* theta;      // (C, d)
@@ -156,10 +149,10 @@ __device__ __forceinline__ void stage_rows_w(float* dst, int ld,
   };
   if (v >= 32) {                           // a warp per row: no division
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int q = warp; q < n; q += kFgtsWarps)
+    for (int q = warp; q < n; q += kBlockWarps)
       for (int j = lane; j < v; j += 32) copy(q, j * W);
   } else {
-    for (int e = threadIdx.x; e < n * v; e += kFgtsThreads) {
+    for (int e = threadIdx.x; e < n * v; e += kBlockThreads) {
       const int q = e / v;
       copy(q, (e - q * v) * W);
     }
@@ -183,7 +176,7 @@ __device__ __forceinline__ void bulk_rows(float* dst, int ld, const float* src,
       sm90::bulk_load(dst + q * ld, src + (int64_t)rows_of(q) * stride,
                       width * 4, bar);
   const int tail = cols - width;
-  for (int e = threadIdx.x; e < n * tail; e += kFgtsThreads)
+  for (int e = threadIdx.x; e < n * tail; e += kBlockThreads)
     dst[(e / tail) * ld + width + e % tail] = 0.f;
 }
 
@@ -372,7 +365,7 @@ __device__ __forceinline__ void add_rows(const FgtsArgs& p, float* part,
                                          const float* gr, int ld,
                                          const RowState* rs, int nrows) {
   if (GRAD) {
-    for (int t = threadIdx.x; t < p.d; t += kFgtsThreads) {
+    for (int t = threadIdx.x; t < p.d; t += kBlockThreads) {
       float acc = part[t];
       for (int q = 0; q < nrows; ++q) acc = __fadd_rn(acc, gr[q * ld + t]);
       part[t] = acc;
@@ -384,17 +377,20 @@ __device__ __forceinline__ void add_rows(const FgtsArgs& p, float* part,
   }
 }
 
-// the chain's result: the cluster's partials in rank order, times g_c,
-// each block writing a slice of d (distributed shared memory)
+// the chain's result (both modes): the cluster's partials (part: d floats
+// for a gradient, 1 for a potential) in rank order, times g_c (gs null:
+// 1), into out (C, d) or (C,), each block writing a slice of d through
+// distributed shared memory
 template <bool GRAD>
-__device__ __forceinline__ void reduce_cluster(const FgtsArgs& p,
-                                               const float* part, int c) {
+__device__ __forceinline__ void reduce_cluster(const float* gs, float* out,
+                                               int d, const float* part,
+                                               int c) {
   const uint32_t rank = sm90::cluster_rank(), ncl = gridDim.x;
-  const float g = p.g ? p.g[c] : 1.f;
+  const float g = gs ? gs[c] : 1.f;
   sm90::cluster_sync();
-  const int L = GRAD ? p.d : 1;
-  for (int t = (int)(rank * kFgtsThreads + threadIdx.x); t < L;
-       t += (int)ncl * kFgtsThreads) {
+  const int L = GRAD ? d : 1;
+  for (int t = (int)(rank * kBlockThreads + threadIdx.x); t < L;
+       t += (int)ncl * kBlockThreads) {
     float v[8];                          // every remote load in flight at once
 #pragma unroll
     for (int b = 0; b < 8; ++b)
@@ -403,7 +399,7 @@ __device__ __forceinline__ void reduce_cluster(const FgtsArgs& p,
 #pragma unroll
     for (int b = 0; b < 8; ++b)
       if (b < (int)ncl) acc = __fadd_rn(acc, v[b]);
-    p.out[(int64_t)c * L + t] = p.g ? __fmul_rn(g, acc) : acc;
+    out[(int64_t)c * L + t] = gs ? __fmul_rn(g, acc) : acc;
   }
   sm90::cluster_sync();   // no block leaves while its partial may be read
 }
@@ -444,7 +440,7 @@ inline size_t small_smem(int d) {
 
 // grid (cluster size, C), one cluster per chain, 256 threads
 template <bool GRAD>
-__global__ void __launch_bounds__(kFgtsThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
     fgts_kernel_small(FgtsArgs p) {
   extern __shared__ __align__(16) float sm[];
   __shared__ RowState rs[kSmallRows];
@@ -476,7 +472,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
   // a thread's arms ag + j * ng (j < 4), its row and its segment of d
   // (sgld_update.fgts_order's rule)
   const int rb = kSmallRows, ng = p.K <= 16 ? 4 : 8;
-  const int nseg = kFgtsThreads / (kSmallRows * ng), seg_len = dp / nseg;
+  const int nseg = kBlockThreads / (kSmallRows * ng), seg_len = dp / nseg;
   const int ag = tid % ng, row = tid / ng % kSmallRows;
   const int seg = tid / (ng * kSmallRows);
   const int i_end = min(p.m, (rank + 1) * p.rpb);
@@ -495,7 +491,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
     }
     bulk_rows(as, lda, p.a, p.d, p.d, kSmallArms, p.K, dp,
               [](int k) { return k; }, &bars[0]);
-    for (int t = p.d + tid; t < dp; t += kFgtsThreads) th[t] = 0.f;
+    for (int t = p.d + tid; t < dp; t += kBlockThreads) th[t] = 0.f;
   } else {
     stage_rows(th, dp, theta_c, p.d, p.d, 1, 1, dp, [](int) { return 0; },
                false);
@@ -503,7 +499,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
                [](int k) { return k; }, false);
     sm90::cp_async_commit();
   }
-  for (int t = tid; t < (GRAD ? p.d : 1); t += kFgtsThreads) part[t] = 0.f;
+  for (int t = tid; t < (GRAD ? p.d : 1); t += kBlockThreads) part[t] = 0.f;
   uint32_t x_phase = 0;
 
   for (int g0 = rank * p.rpb; g0 < i_end; g0 += rb) {
@@ -536,7 +532,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
     }
     __syncthreads();
     // x*theta and x*x, a warp per row
-    for (int q = warp; q < rb; q += kFgtsWarps)
+    for (int q = warp; q < rb; q += kBlockWarps)
       for (int t = 4 * lane; t < dp; t += 128) {
         float xv[4];
         load_n<4>(xs + q * lda + t, xv);
@@ -591,7 +587,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
       tden[base] = dn;
     }
     __syncthreads();
-    for (int q = warp; q < nrows; q += kFgtsWarps)
+    for (int q = warp; q < nrows; q += kBlockWarps)
       scan_row<kSmallArms>(p, rs[q], ts + q * kSmallArms,
                            tden + q * kSmallArms, tcost, tlive, 0, nullptr,
                            nullptr, lane);
@@ -608,7 +604,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
         rs[tid].cm = g.cm;
       }
       // rows with a tied maximum: their whole gradient rows, a warp each
-      for (int q = warp; q < nrows; q += kFgtsWarps)
+      for (int q = warp; q < nrows; q += kBlockWarps)
         if (rs[q].cnt > 1)
           grad_row(p, rs[q], xt + q * lda, xs + q * lda, as, lda,
                    ts + q * kSmallArms, tden + q * kSmallArms, tcost, tlive,
@@ -618,7 +614,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
       float acc[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int t = tid + i * kFgtsThreads;
+        const int t = tid + i * kBlockThreads;
         acc[i] = t < p.d ? part[t] : 0.f;
       }
       for (int q = 0; q < nrows; ++q) {
@@ -627,7 +623,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
         if (s.cnt > 1) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int t = tid + i * kFgtsThreads;
+            const int t = tid + i * kBlockThreads;
             if (t < p.d) acc[i] = __fadd_rn(acc[i], xt[q * lda + t]);
           }
           continue;
@@ -637,7 +633,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
         const float* rm = as + s.kmax * lda;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int t = tid + i * kFgtsThreads;
+          const int t = tid + i * kBlockThreads;
           if (t >= p.d) break;
           float gv = fmaf(s.c2, r2[t], __fmul_rn(s.c1, r1[t]));
           if (s.cnt == 1) gv = fmaf(s.cm, rm[t], gv);
@@ -646,7 +642,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int t = tid + i * kFgtsThreads;
+        const int t = tid + i * kBlockThreads;
         if (t < p.d) part[t] = acc[i];
       }
     }
@@ -654,7 +650,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
   }
   // a block without rows still lets its copies land before it leaves
   if (bulk && i_end <= rank * p.rpb) sm90::mbar_wait(&bars[0], 0);
-  reduce_cluster<GRAD>(p, part, c);
+  reduce_cluster<GRAD>(p.g, p.out, p.d, part, c);
 }
 
 // ---- Large and Narrow: any K, the operations-bound shapes ------------------
@@ -670,7 +666,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1)
 template <int TR_, int TA_, int DC_, int NST_>
 struct Cfg {
   static constexpr int TR = TR_, TA = TA_, DC = DC_, NST = NST_;
-  static constexpr int RTH = 4, ATH = kFgtsThreads / RTH;
+  static constexpr int RTH = 4, ATH = kBlockThreads / RTH;
   static constexpr int RB = RTH * TR;       // minibatch rows per group
   static constexpr int AT = ATH * TA;       // arms per tile
   static constexpr int LD = DC + 4;         // a ring slot's padded row
@@ -770,7 +766,7 @@ __device__ __forceinline__ void score_tile(const FgtsArgs& p, const float* xt,
 
 // grid (cluster size, C), one cluster per chain, 256 threads
 template <class G, bool GRAD>
-__global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
+__global__ void __launch_bounds__(kBlockThreads, 1) fgts_kernel(FgtsArgs p) {
   extern __shared__ __align__(16) float sm[];
   __shared__ RowState rs[G::RB];
   const int dp = G::dp(p.d);
@@ -796,7 +792,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
   stage_rows(th, dp, p.theta + (int64_t)c * p.d, p.d, p.d, 1, 1, dp,
              [](int) { return 0; }, aligned && (uintptr_t)p.theta % 16 == 0);
   sm90::cp_async_commit();
-  for (int t = tid; t < (GRAD ? p.d : 1); t += kFgtsThreads) part[t] = 0.f;
+  for (int t = tid; t < (GRAD ? p.d : 1); t += kBlockThreads) part[t] = 0.f;
 
   for (int g0 = rank * p.rpb; g0 < i_end; g0 += G::RB) {
     const int nrows = min(G::RB, i_end - g0);
@@ -807,7 +803,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
     }
     __syncthreads();
     // the group's rows x into xx, transposed (zeros past d and nrows)
-    for (int e = tid; e < G::RB * dp; e += kFgtsThreads) {
+    for (int e = tid; e < G::RB * dp; e += kBlockThreads) {
       const int q = e % G::RB, t = e / G::RB;
       const bool ok = q < nrows && t < p.d;
       sm90::cp_async_4(xx + e, ok ? p.x + rs[q].r * p.d + t : p.x,
@@ -818,7 +814,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
     fetch_rows(p, G::RB, c, g0 + G::RB, i_end, r_next, v_next);
     sm90::cp_async_wait<0>();
     __syncthreads();
-    for (int e = tid; e < G::RB * dp; e += kFgtsThreads) {
+    for (int e = tid; e < G::RB * dp; e += kBlockThreads) {
       const float xv = xx[e];
       xt[e] = __fmul_rn(xv, th[e / G::RB]);
       xx[e] = __fmul_rn(xv, xv);
@@ -835,7 +831,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
       }
       __syncthreads();
       if (k0 + G::AT < p.K) tile_prologue<G>(p, ring, k0 + G::AT, n_ch, vec_a);
-      for (int q = warp; q < nrows; q += kFgtsWarps) {
+      for (int q = warp; q < nrows; q += kBlockWarps) {
         float* sc = spill ? p.scratch + ((int64_t)c * p.m + g0 + q) * p.K
                           : nullptr;
         scan_row<G::AT>(p, rs[q], ts + q * G::AT, tden + q * G::AT, tcost,
@@ -849,7 +845,7 @@ __global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
       if (tid < nrows) rs[tid].term = row_term(p, rs[tid]);
     } else {
       // the gradient rows into xx (RB x dp, row-major), a warp per row
-      for (int q = warp; q < nrows; q += kFgtsWarps) {
+      for (int q = warp; q < nrows; q += kBlockWarps) {
         const int64_t row = (int64_t)c * p.m + g0 + q;
         const float* sc = spill ? p.scratch + row * p.K : ts + q * G::AT;
         const float* dn = spill ? sc + (int64_t)p.C * p.m * p.K
@@ -862,18 +858,19 @@ __global__ void __launch_bounds__(kFgtsThreads, 1) fgts_kernel(FgtsArgs p) {
     add_rows<GRAD>(p, part, xx, dp, rs, nrows);
     __syncthreads();
   }
-  reduce_cluster<GRAD>(p, part, c);
+  reduce_cluster<GRAD>(p.g, p.out, p.d, part, c);
 }
 
-// one cluster of cl blocks per chain
-int launch_clusters(void (*kernel)(FgtsArgs), const FgtsArgs& p, size_t smem,
-                    int cl, cudaStream_t stream) {
+// one cluster of cl blocks per chain (either mode's kernel and arguments)
+template <class Args>
+int launch_clusters(void (*kernel)(Args), const Args& p, size_t smem, int cl,
+                    cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess || p.C == 0) return (int)e;
   cudaLaunchConfig_t lc = {};
   lc.gridDim = dim3(cl, p.C);
-  lc.blockDim = dim3(kFgtsThreads);
+  lc.blockDim = dim3(kBlockThreads);
   lc.dynamicSmemBytes = smem;
   lc.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -935,65 +932,6 @@ FgtsArgs make_args(const void* theta, const void* x, const void* a1,
 }
 
 // ---------------------------------------------------------------------------
-// shared by the mixed mode below: per-block partials and their ordered sum
-// ---------------------------------------------------------------------------
-
-// this block's partial: its rows summed in warp order (gradient rows gr of
-// kWarps x d in shared memory, or the per-warp terms)
-template <bool GRAD>
-__device__ __forceinline__ void block_partial(const float* gr,
-                                              const float* terms,
-                                              float* partials, int c, int blk,
-                                              int nblk, int d) {
-  if (GRAD) {
-    float* dst = partials + ((int64_t)c * nblk + blk) * d;
-    for (int t = threadIdx.x; t < d; t += blockDim.x) {
-      float acc = 0.f;
-      for (int w = 0; w < kWarps; ++w) acc += gr[w * d + t];
-      dst[t] = acc;
-    }
-  } else if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int w = 0; w < kWarps; ++w) acc += terms[w];
-    partials[(int64_t)c * nblk + blk] = acc;
-  }
-}
-
-// second pass: out[c, l] = g_c * sum_blk partials[c, blk, l], in block order
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       const float* __restrict__ g,
-                                       float* __restrict__ out, int C,
-                                       int nblk, int L) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)C * L) return;
-  const int c = (int)(idx / L), l = (int)(idx % L);
-  float acc = 0.f;
-  for (int b = 0; b < nblk; ++b)
-    acc += partials[((int64_t)c * nblk + b) * L + l];
-  out[idx] = g ? g[c] * acc : acc;
-}
-
-// the row kernel on grid (nblk, C), then the ordered reduction of its
-// partials (L = d for a gradient, 1 for a potential)
-template <typename A>
-int launch_rows(void (*kernel)(A), const A& p, int C, int m, int d,
-                size_t smem, bool grad, const float* g, float* partials,
-                float* out, cudaStream_t stream) {
-  const int nblk = (m + kWarps - 1) / kWarps;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  if (nblk > 0 && C > 0) {
-    kernel<<<dim3(nblk, C), 32 * kWarps, smem, stream>>>(p);
-    const int L = grad ? d : 1;
-    const int64_t n = (int64_t)C * L;
-    reduce_partials_kernel<<<(int)((n + 255) / 256), 256, 0, stream>>>(
-        partials, g, out, C, nblk, L);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // "mixed" mode: the mixed duel + click estimator (no feel-good term)
 //
 // For chain c and minibatch row i (ring row r, is_duel_r > 0 for a duel):
@@ -1007,122 +945,294 @@ int launch_rows(void (*kernel)(A), const A& p, int C, int m, int d,
 // click.
 //
 // What bounds it: the bytes of the gathered rows (x_r, and the one or two
-// arm rows it scores), so ~1.6 MB at C = 8, m = 64, d = 768. It scores
-// only a1 (and a2 on a duel), never walking the K arms: its work is
-// O(m * d) whatever K is. One warp per minibatch row, rows gathered from
-// the ring in the kernel, per-block partials reduced in a fixed order by a
-// second launch, no atomics (the first design of both modes; "fgts" mode
-// has left it for the cluster kernel above).
+// arm rows it scores), so ~1.6 MB at C = 8, m = 64, d = 768, half a
+// microsecond: latency and the launch. It scores only a1 (and a2 on a
+// duel), never walking the K arms: its work is O(m * d) whatever K is.
+//
+// The design (one kernel, two entry points, like fgts mode):
+// - One thread-block cluster per chain; the chain's m rows split evenly
+//   over its blocks (sgld_update.mixed_plan), each block walking its rows
+//   in groups of rb (8, fewer only where d leaves no room), a warp a row.
+// - A thread per row reads the ring rows and table entries of up to 256
+//   rows at once into shared memory, while theta's copy into shared memory
+//   is in flight. Then each warp loads its row's x_r, a_a1 and (on a duel)
+//   a_a2 straight into registers, every load of a round (1024 floats a
+//   warp) issued before the fma chain: one latency round. 16-byte loads
+//   where d % 4 == 0 and x, A and theta are 16-byte aligned, else 4-byte
+//   ones (a rule, not a fallback). Staging the rows in shared memory
+//   first, by bulk copies or cp.async, measured slower on the H100
+//   (PERF.md, section 6).
+// - Lane l adds its loads l, l + 32, ... (float4s, or single floats on
+//   the 4-byte rule) in order, one fma per element, then a fixed xor tree,
+//   so every lane holds the row's sums; a click runs the same code for
+//   its one arm. tests/test_torch_kernels.py emulates this order.
+// - The forward adds the rows' terms in row order. The gradient's warp
+//   writes its row x_r * (c1 a_a1 + c2 a_a2) to shared memory (from the
+//   values still in registers when d fits one round), and a thread per 4
+//   columns adds the group's rows in row order into the block's partial,
+//   one block barrier a group (two buffers of rows). reduce_cluster adds
+//   the partials in rank order over distributed shared memory, times g_c,
+//   straight into out. One launch, no atomics: bitwise repeatable, and
+//   capturable in a CUDA graph.
 // ---------------------------------------------------------------------------
+
+constexpr int kMixedRows = kBlockWarps;   // most rows per group: a warp each
+// rows whose table entries a block reads in one pass, a thread each
+constexpr int kMetaRows = kBlockThreads;
 
 struct MixedArgs {
   const float* theta;      // (C, d)
   const float* x;          // (N, d) ring rows
   const int32_t* a1;       // (N,)
-  const int32_t* a2;       // (N,) read on duel rows only
+  const int32_t* a2;       // (N,) used on duel rows only
   const float* y;          // (N,) duels +-1, clicks 0/1
   const float* duel;       // (N,) > 0 on a duel row
   const int64_t* rows;     // (C, m)
   const float* valid;      // (C, m)
   const float* a;          // (K, d)
   const float* g;          // (C,) or null (= 1)
-  float* partials;         // (C, nblk, L)
-  float* out;              // (C, L)
+  float* out;              // (C, d) gradient or (C,) potential
   int C, m, d;
   float eta;
+  int rpb, rb;             // rows per block and per group (mixed_plan)
 };
 
-// grid (nblk, C), kWarps warps; dynamic smem: theta (d) [+ kWarps gradient
-// rows (d) when GRAD]
-template <bool GRAD>
-__global__ void sgld_mixed_kernel(MixedArgs p) {
-  extern __shared__ float smem[];
-  __shared__ float terms[kWarps];
-  float* th = smem;
-  float* gr = smem + p.d + (threadIdx.x / 32) * p.d;
-  const int c = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i = blk * kWarps + warp;
-  for (int t = threadIdx.x; t < p.d; t += blockDim.x)
-    th[t] = p.theta[(int64_t)c * p.d + t];
-  __syncthreads();
+// a minibatch row's table entries, then its potential term
+struct MixedRow {
+  int64_t r;
+  int a1, a2;              // a2 == a1 on a click
+  float y, v;
+  int duel;
+  float term;
+};
 
-  float term = 0.f;
-  if (i < p.m) {
-    const int64_t r = p.rows[(int64_t)c * p.m + i];
-    const float v = p.valid[(int64_t)c * p.m + i];
-    const float* xr = p.x + r * p.d;
-    const int ia1 = p.a1[r];
-    const bool duel = p.duel[r] > 0.f;       // the same for the whole warp
-    const int ia2 = duel ? p.a2[r] : ia1;
-    const float yv = p.y[r];
-    const float* r1 = p.a + (int64_t)ia1 * p.d;
-    const float* r2 = p.a + (int64_t)ia2 * p.d;
-    float n1 = 0.f, d1 = 0.f, n2 = 0.f, d2 = 0.f;
-    if (duel) {
-      for (int t = lane; t < p.d; t += 32) {
-        const float xv = xr[t], xt = xv * th[t], xx = xv * xv;
-        const float u = r1[t], w = r2[t];
-        n1 = fmaf(xt, u, n1);
-        d1 = fmaf(xx, u * u, d1);
-        n2 = fmaf(xt, w, n2);
-        d2 = fmaf(xx, w * w, d2);
-      }
-      n2 = warp_sum(n2);
-      d2 = warp_sum(d2);
-    } else {
-      for (int t = lane; t < p.d; t += 32) {
-        const float xv = xr[t], u = r1[t];
-        n1 = fmaf(xv * th[t], u, n1);
-        d1 = fmaf(xv * xv, u * u, d1);
-      }
-    }
-    n1 = warp_sum(n1);
-    d1 = warp_sum(d1);
-    const float den1 = sqrtf(fmaxf(d1, 1e-24f));
-    const float den2 = sqrtf(fmaxf(d2, 1e-24f));
-    const float s1 = n1 / den1;
-    const float s2 = n2 / den2;
-    if (!GRAD) {
-      const float t = duel ? softplus(-(yv * (s1 - s2)))
-                           : (yv > 0.5f ? softplus(-s1) : softplus(s1));
-      term = p.eta * t * v;
-    } else {
-      float c1, c2 = 0.f;
-      if (duel) {
-        const float z = yv * (s1 - s2);
-        const float dz = p.eta * (-1.f / (1.f + expf(z))) * yv;
-        const float w1 = ia1 == ia2 ? 0.f : dz;
-        c1 = w1 * v / den1;
-        c2 = -w1 * v / den2;
-      } else {
-        const float w1 = p.eta * (yv > 0.5f ? -1.f / (1.f + expf(s1))
-                                            : 1.f / (1.f + expf(-s1)));
-        c1 = w1 * v / den1;
-      }
-      for (int t = lane; t < p.d; t += 32)
-        gr[t] = xr[t] * fmaf(c2, r2[t], c1 * r1[t]);
-    }
-  } else if (GRAD) {
-    for (int t = lane; t < p.d; t += 32) gr[t] = 0.f;
-  }
-  if (!GRAD && lane == 0) terms[warp] = term;
-  __syncthreads();
-  block_partial<GRAD>(smem + p.d, terms, p.partials, c, blk, nblk, p.d);
+// d rounded up to 4: gradient rows are dp floats
+__host__ __device__ __forceinline__ int mixed_dp(int d) {
+  return (d + 3) / 4 * 4;
 }
 
+// dynamic shared memory: theta and the block's partial (dp each) and two
+// buffers of rb gradient rows (dp each)
+inline size_t mixed_smem(int rb, int d) {
+  return 4 * (size_t)mixed_dp(d) * (2 + 2 * rb);
+}
+
+// minibatch slot i of chain c: its ring row and table entries
+__device__ __forceinline__ void mixed_read_row(const MixedArgs& p, int c,
+                                               int i, MixedRow& mr) {
+  const int64_t slot = (int64_t)c * p.m + i;
+  const int64_t r = p.rows[slot];
+  const bool duel = p.duel[r] > 0.f;
+  const int a1 = p.a1[r], a2 = p.a2[r];
+  mr.r = r;
+  mr.v = p.valid[slot];
+  mr.a1 = a1;
+  mr.a2 = duel ? a2 : a1;
+  mr.y = p.y[r];
+  mr.duel = duel;
+}
+
+// one warp's sum over its lanes: lane l adds lane l ^ o's value for o =
+// 16, 8, 4, 2, 1, so every lane ends with the same sum
+__device__ __forceinline__ float xor_tree(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// W floats at p (global, or shared where SH) into v (W = 4: one 16-byte
+// load), zeros where !ok
+template <int W, bool SH = false>
+__device__ __forceinline__ void load_w(const float* p, bool ok, float* v) {
+  if constexpr (W == 4) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 f = !ok ? make_float4(0.f, 0.f, 0.f, 0.f)
+                         : SH ? *q : __ldg(q);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    v[0] = !ok ? 0.f : SH ? *p : __ldg(p);
+  }
+}
+
+// One warp scores minibatch row mr straight from global memory: lane l
+// takes loads l, l + 32, ... of W floats (16-byte loads where d % 4 == 0
+// and the tables are 16-byte aligned, else 4-byte) of x_r, a_a1 and, on a
+// duel, a_a2, and of theta (th, in shared memory), U loads of each (1024
+// floats a warp) issued before the fma chain; it adds one fma per element
+// in order, then the xor tree. The forward leaves the row's term in mr; the gradient
+// writes the row x_r * (c1 a_a1 + c2 a_a2) to gr (a click has c2 = 0 and
+// takes its a_a1 twice), from the values still in registers when d fits
+// one round of loads. Every lane holds the same sums after the xor tree,
+// so every lane computes the same c1 and c2.
+template <bool GRAD, int W>
+__device__ __forceinline__ void mixed_row(const MixedArgs& p, MixedRow& mr,
+                                          const float* th, float* gr,
+                                          int lane) {
+  constexpr int U = 32 / W;
+  const bool duel = mr.duel;
+  const float* xr = p.x + mr.r * p.d;
+  const float* u = p.a + (int64_t)mr.a1 * p.d;
+  const float* w = p.a + (int64_t)mr.a2 * p.d;
+  float xv[U][W], uv[U][W], wv[U][W];
+  const auto load = [&](int t0) {
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int t = t0 + (32 * k + lane) * W;
+      const bool ok = t < p.d;
+      load_w<W>(xr + t, ok, xv[k]);
+      load_w<W>(u + t, ok, uv[k]);
+      load_w<W>(w + t, ok && duel, wv[k]);
+    }
+  };
+  float n1 = 0.f, e1 = 0.f, n2 = 0.f, e2 = 0.f;
+  for (int t0 = 0; t0 < p.d; t0 += 32 * U * W) {
+    float tv[U][W];
+    load(t0);
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      load_w<W, true>(th + t0 + (32 * k + lane) * W,
+                      t0 + (32 * k + lane) * W < p.d, tv[k]);
+    // past d every value is 0: adding 0 leaves a sum as it is
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const float xt = __fmul_rn(xv[k][i], tv[k][i]);
+        const float xx = __fmul_rn(xv[k][i], xv[k][i]);
+        n1 = fmaf(xt, uv[k][i], n1);
+        e1 = fmaf(xx, __fmul_rn(uv[k][i], uv[k][i]), e1);
+        n2 = fmaf(xt, wv[k][i], n2);
+        e2 = fmaf(xx, __fmul_rn(wv[k][i], wv[k][i]), e2);
+      }
+  }
+  n1 = xor_tree(n1);
+  e1 = xor_tree(e1);
+  n2 = xor_tree(n2);
+  e2 = xor_tree(e2);
+  const float den1 = sqrtf(fmaxf(e1, 1e-24f)), s1 = __fdiv_rn(n1, den1);
+  const float den2 = sqrtf(fmaxf(e2, 1e-24f)), s2 = __fdiv_rn(n2, den2);
+  const float y = mr.y, v = mr.v;
+  if (!GRAD) {
+    const float term = duel ? softplus(-__fmul_rn(y, __fsub_rn(s1, s2)))
+                            : (y > 0.5f ? softplus(-s1) : softplus(s1));
+    if (lane == 0) mr.term = __fmul_rn(__fmul_rn(p.eta, term), v);
+    return;
+  }
+  float c1, c2 = 0.f;
+  if (duel) {
+    const float z = __fmul_rn(y, __fsub_rn(s1, s2));
+    const float dz = __fmul_rn(__fmul_rn(p.eta, -1.f / (1.f + expf(z))), y);
+    const float w1 = mr.a1 == mr.a2 ? 0.f : dz;
+    c1 = __fdiv_rn(__fmul_rn(w1, v), den1);
+    c2 = __fdiv_rn(__fmul_rn(-w1, v), den2);
+  } else {
+    const float w1 = __fmul_rn(p.eta, y > 0.5f ? -1.f / (1.f + expf(s1))
+                                               : 1.f / (1.f + expf(-s1)));
+    c1 = __fdiv_rn(__fmul_rn(w1, v), den1);
+  }
+  for (int t0 = 0; t0 < p.d; t0 += 32 * U * W) {
+    if (p.d > 32 * U * W) load(t0);    // else still in registers
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int t = t0 + (32 * k + lane) * W;
+      if (t >= p.d) break;
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        gr[t + i] = __fmul_rn(
+            xv[k][i], fmaf(c2, duel ? wv[k][i] : uv[k][i],
+                           __fmul_rn(c1, uv[k][i])));
+    }
+  }
+}
+
+// a thread per 4 columns adds the group's gradient rows gr (rows of dp
+// floats) in row order to the block's partial
+__device__ __forceinline__ void mixed_add_rows(float* part, const float* gr,
+                                               int nrows, int d, int dp) {
+  for (int t = 4 * (int)threadIdx.x; t < d; t += 4 * kBlockThreads) {
+    float acc[4], gv[4];
+    load_n<4>(part + t, acc);
+#pragma unroll
+    for (int q = 0; q < kMixedRows; ++q) {
+      if (q >= nrows) break;
+      load_n<4>(gr + q * dp + t, gv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], gv[i]);
+    }
+    *reinterpret_cast<float4*>(part + t) = make_float4(acc[0], acc[1], acc[2],
+                                                       acc[3]);
+  }
+}
+
+// grid (cluster size, C), one cluster per chain, 256 threads; W as for
+// mixed_row
+template <bool GRAD, int W>
+__global__ void __launch_bounds__(kBlockThreads, 1) mixed_kernel(MixedArgs p) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ MixedRow meta[kMetaRows];
+  const int dp = mixed_dp(p.d), rb = p.rb;
+  float* th = sm;                       // theta_c
+  float* part = th + dp;                // this block's partial
+  float* grs = part + dp;               // two buffers of rb gradient rows
+  const int c = blockIdx.y, rank = (int)sm90::cluster_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int i0 = rank * p.rpb, i_end = min(p.m, i0 + p.rpb);
+  // theta once a block, its copies in flight while the tables are read
+  const float* theta_c = p.theta + (int64_t)c * p.d;
+  for (int t = W * tid; t < p.d; t += W * kBlockThreads) {
+    if (W == 4) sm90::cp_async_16(th + t, theta_c + t, 16);
+    else sm90::cp_async_4(th + t, theta_c + t, 4);
+  }
+  sm90::cp_async_commit();
+  for (int t = tid; t < (GRAD ? dp : 1); t += kBlockThreads) part[t] = 0.f;
+  int g_base = 0;                       // groups of the passes before
+  for (int m0 = i0; m0 < i_end; m0 += kMetaRows) {
+    // a pass: every row's table entries at once, then its groups
+    const int nm = min(kMetaRows, i_end - m0), ng = (nm + rb - 1) / rb;
+    __syncthreads();                    // the pass before is done
+    if (tid < nm) mixed_read_row(p, c, m0 + tid, meta[tid]);
+    sm90::cp_async_wait<0>();           // this thread's copies of theta
+    __syncthreads();
+    for (int k = 0; k < ng; ++k) {
+      const int nrows = min(rb, nm - k * rb);
+      float* gr = grs + ((g_base + k) & 1) * rb * dp;
+      MixedRow* gm = meta + k * rb;
+      if (warp < nrows)
+        mixed_row<GRAD, W>(p, gm[warp], th, gr + warp * dp, lane);
+      // one barrier a group: the other buffer's rows were added before it
+      __syncthreads();
+      if (GRAD) {
+        mixed_add_rows(part, gr, nrows, p.d, dp);
+      } else if (tid == 0) {
+        float acc = part[0];
+        for (int q = 0; q < nrows; ++q) acc = __fadd_rn(acc, gm[q].term);
+        part[0] = acc;
+      }
+    }
+    g_base += ng;
+  }
+  reduce_cluster<GRAD>(p.g, p.out, p.d, part, c);
+}
+
+// cl blocks per chain, rpb rows per block, rb per group (mixed_plan);
+// 16-byte loads where d % 4 == 0 and x, A and theta are 16-byte aligned
 template <bool GRAD>
-int launch_mixed(const MixedArgs& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)p.d * (1 + (GRAD ? kWarps : 0));
-  return launch_rows(sgld_mixed_kernel<GRAD>, p, p.C, p.m, p.d, smem, GRAD,
-                     p.g, p.partials, p.out, stream);
+int launch_mixed(const MixedArgs& p, int cl, cudaStream_t stream) {
+  if (cl < 1 || cl > 8 || p.rb < 1 || p.rb > kMixedRows)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mixed_smem(p.rb, p.d);
+  const bool vec = p.d % 4 == 0 && (uintptr_t)p.x % 16 == 0 &&
+                   (uintptr_t)p.a % 16 == 0 && (uintptr_t)p.theta % 16 == 0;
+  return vec ? launch_clusters(mixed_kernel<GRAD, 4>, p, smem, cl, stream)
+             : launch_clusters(mixed_kernel<GRAD, 1>, p, smem, cl, stream);
 }
 
 MixedArgs make_mixed_args(const void* theta, const void* x, const void* a1,
                           const void* a2, const void* y, const void* is_duel,
                           const void* rows, const void* valid,
-                          const void* a_emb, const void* g, void* partials,
-                          void* out, int C, int m, int d, float eta) {
+                          const void* a_emb, const void* g, void* out, int C,
+                          int m, int d, float eta, int rpb, int rb) {
   MixedArgs p;
   p.theta = (const float*)theta;
   p.x = (const float*)x;
@@ -1134,10 +1244,10 @@ MixedArgs make_mixed_args(const void* theta, const void* x, const void* a1,
   p.valid = (const float*)valid;
   p.a = (const float*)a_emb;
   p.g = (const float*)g;
-  p.partials = (float*)partials;
   p.out = (float*)out;
   p.C = C; p.m = m; p.d = d;
   p.eta = eta;
+  p.rpb = rpb; p.rb = rb;
   return p;
 }
 
@@ -1168,18 +1278,19 @@ extern "C" int sgld_potential_grad_launch(SGLD_PARAMS) {
 #define MIXED_PARAMS                                                       \
   const void *theta, const void *x, const void *a1, const void *a2,        \
       const void *y, const void *is_duel, const void *rows,                \
-      const void *valid, const void *a_emb, const void *g, void *partials, \
-      void *out, int C, int m, int d, float eta, void *stream
+      const void *valid, const void *a_emb, const void *g, void *out,      \
+      int C, int m, int d, float eta, int cl, int rpb, int rb, void *stream
 #define MIXED_ARGS                                                         \
   make_mixed_args(theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g,     \
-                  partials, out, C, m, d, eta)
+                  out, C, m, d, eta, rpb, rb)
 
-// partials: (C, ceil(m/8)) floats; out: (C,)
+// cl blocks per chain (the cluster), rpb rows per block, rb rows per group
+// (sgld_update.mixed_plan); out: (C,)
 extern "C" int sgld_mixed_fwd_launch(MIXED_PARAMS) {
-  return launch_mixed<false>(MIXED_ARGS, (cudaStream_t)stream);
+  return launch_mixed<false>(MIXED_ARGS, cl, (cudaStream_t)stream);
 }
 
-// partials: (C, ceil(m/8), d) floats; out: (C, d)
+// out: (C, d)
 extern "C" int sgld_mixed_grad_launch(MIXED_PARAMS) {
-  return launch_mixed<true>(MIXED_ARGS, (cudaStream_t)stream);
+  return launch_mixed<true>(MIXED_ARGS, cl, (cudaStream_t)stream);
 }

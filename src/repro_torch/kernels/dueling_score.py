@@ -16,8 +16,10 @@ when no candidate of a2 is left.
 Dispatch goes by the device of ``x`` (``a`` for ``posterior_scores``): a
 CPU tensor runs the plain PyTorch version, a CUDA tensor the hand-written
 kernel (``csrc/dueling_score.cu``, ``csrc/dueling_select.cu``) or raises.
-The select kernel streams K with a running argmax, so it has no K ceiling
-and needs no large-K fallback.
+``score_plan`` picks the score kernel's configuration: Small (a warp per
+output, d split across lanes) for few outputs, as ``posterior_scores``
+has, Large (a tiled product) otherwise. The select kernel streams K with a
+running argmax, so it has no K ceiling and needs no large-K fallback.
 """
 from __future__ import annotations
 
@@ -49,6 +51,35 @@ def dueling_score_plain(x: torch.Tensor, a: torch.Tensor,
                         for j in range(thetas.shape[0])])
 
 
+# The score kernel's configurations (``csrc/dueling_score.cu``): Small, a
+# warp per output and SMALL_WARPS outputs per block, while B*K*J*d (the
+# elements its warps read from x, a and thetas each) stays within
+# SMALL_WORK; Large, 64 x 64 (b, k) tiles and 2 samples per block,
+# otherwise. On the H100 (both forced, d 768, B 32-256) Small was the
+# faster up to B*K*J*d ~ 1e8 and level with Large at ~2e8, whatever B.
+SMALL_WORK = 1 << 27
+SMALL_WARPS = 2
+LARGE_TILE, LARGE_J = 64, 2
+MAX_GRID_YZ = 65535                 # CUDA's limit on grid y and z
+
+
+def score_plan(b: int, k: int, j: int, d: int):
+    """(configuration, grid) of a ``dueling_score`` launch: 0 Small, grid
+    (ceil(J*B*K / SMALL_WARPS), 1, 1), one warp per output; 1 Large, grid
+    (ceil(K/64), ceil(B/64), ceil(J/2)). Small takes B*K*J*d <=
+    SMALL_WORK, as the autopilot's ``posterior_scores`` (B 1) and small
+    batches have: there the Large tiles would be mostly padding and their
+    d-slices a chain of exposed loads. Raises ValueError where a Large grid
+    would exceed CUDA's 65535 blocks in y or z."""
+    if b * k * j * d <= SMALL_WORK:
+        return 0, (max(1, -(-(j * b * k) // SMALL_WARPS)), 1, 1)
+    grid = (-(-k // LARGE_TILE), -(-b // LARGE_TILE), -(-j // LARGE_J))
+    if max(grid[1:]) > MAX_GRID_YZ:
+        raise ValueError(f"dueling_score: B {b}, J {j} need a grid of "
+                         f"{grid}, past {MAX_GRID_YZ} blocks in y or z")
+    return 1, grid
+
+
 def dueling_score(x: torch.Tensor, a: torch.Tensor,
                   thetas: torch.Tensor) -> torch.Tensor:
     """Scores (J,B,K) float32 of x (B,d), a (K,d), thetas (J,d). CPU
@@ -66,12 +97,14 @@ def dueling_score(x: torch.Tensor, a: torch.Tensor,
     _same_device(x, a=a, thetas=thetas)
     f32 = torch.float32
     x_c, a_c, th_c = (v.to(f32).contiguous() for v in (x, a, thetas))
+    cfg, grid = score_plan(b, k, j, d)
     out = torch.empty((j, b, k), dtype=f32, device=x.device)
     lib = _build.library("dueling_score")
     P = _build.ptr
     with torch.cuda.device(x.device):
         code = lib.dueling_score_launch(P(x_c), P(a_c), P(th_c), P(out), b, k,
-                                        d, j, _build.stream(x.device))
+                                        d, j, cfg, *grid,
+                                        _build.stream(x.device))
     _build.check(code, "dueling_score")
     dueling_score.launches += 1
     return out

@@ -23,12 +23,11 @@ take the minibatch as ring-row indices ``rows`` (C,m) into tables x (N,d),
 a1/a2/y/pref (N,): the SGLD loop hands them the replay ring and its drawn
 indices, and the CUDA kernel (``csrc/sgld_potential.cu``) gathers the rows
 itself; ``mixed_potential_rows``/``mixed_potential_grad_rows`` are the
-mixed mode's, with an ``is_duel`` (N,) table beside ``y``. In fgts mode
+mixed mode's, with an ``is_duel`` (N,) table beside ``y``. In both modes
 each call is one launch of one kernel: a thread-block cluster per chain
 sums its blocks' partials through distributed shared memory in a fixed
-order (``fgts_plan`` sizes it), so the result is bitwise the same from
-run to run; mixed mode launches its row kernel and an ordered reduction
-of its per-block partials. Dispatch goes
+order (``fgts_plan`` and ``mixed_plan`` size it), so the result is bitwise
+the same from run to run. Dispatch goes
 by the device of ``theta``: CPU -> the plain PyTorch version, CUDA -> the
 kernel (or an error). ``sgld_potential`` and ``sgld_mixed_potential`` are
 the ``torch.autograd.Function`` forms, whose backward is the gradient
@@ -234,14 +233,48 @@ def fgts_plan(m: int, k: int, d: int) -> tuple[int, int, int]:
     return cfg, cl, -(-m // cl)
 
 
+# The mixed kernel (``csrc/sgld_potential.cu``, mixed mode): a group holds
+# up to 8 rows (a warp each); a block reads the table entries of up to 256
+# rows at once into static shared memory (8 KB), so its dynamic shared
+# memory gets the rest of the 227 KB.
+MIXED_ROWS = (8, 4, 2, 1)
+MIXED_SMEM_BYTES = 227 * 1024 - 12 * 1024
+
+
+def mixed_smem(rb: int, d: int) -> int:
+    """Dynamic shared memory (bytes) of the mixed kernel with groups of rb
+    rows at width d (rounded up to 4, dp): theta, the block's partial and
+    two buffers of rb gradient rows, dp floats each."""
+    dp = -(-d // 4) * 4
+    return 4 * dp * (2 + 2 * rb)
+
+
+def mixed_plan(m: int, d: int) -> tuple[int, int, int]:
+    """(cluster size, rows per block, rows per group) of a mixed-mode
+    launch: groups of 8 rows where two buffers of their gradient rows fit
+    a block's shared memory (d <= 3056), else 4, 2 or 1; one cluster of up
+    to 8 blocks per chain, enough for m in groups, and the chain's m rows
+    split evenly over its blocks, in order, none left without a row.
+    Raises ValueError for a d no group size fits (beyond 13760)."""
+    for rb in MIXED_ROWS:
+        if mixed_smem(rb, d) <= MIXED_SMEM_BYTES:
+            break
+    else:
+        raise ValueError(f"sgld_mixed_potential: d {d} needs more shared "
+                         f"memory than a block has")
+    cl = max(1, min(MAX_CLUSTER, -(-m // rb)))
+    rpb = -(-m // cl)
+    return (-(-m // rpb) if m else 1), rpb, rb
+
+
 def _launch(fn_name, grad, theta, rows, valid, x, a_emb, per_row, per_arm,
-            g, scalars, workspace):
+            g, scalars, workspace=()):
     """Check the operands of a row kernel, launch it and return (C,d) for a
     gradient, (C,) for a potential. ``per_row`` and ``per_arm``: (name,
     tensor or None, dtype) of the (N,) and (K,) tables, in the C entry
     point's order after x; ``scalars``: its trailing ints and floats after
-    the workspace and out pointers; ``workspace``: the tensor (or None)
-    the entry point takes before out."""
+    the out pointer; ``workspace``: the tensors (or None) the entry point
+    takes between g and out."""
     dev = theta.device
     c, d = theta.shape
     m = rows.shape[1]
@@ -273,7 +306,7 @@ def _launch(fn_name, grad, theta, rows, valid, x, a_emb, per_row, per_arm,
     P = _build.ptr
     with torch.cuda.device(dev):
         code = getattr(lib, fn_name)(
-            *[P(v) for v in args], P(workspace), P(out), *scalars,
+            *[P(v) for v in args], *map(P, workspace), P(out), *scalars,
             _build.stream(dev))
     _build.check(code, fn_name)
     return out if grad else out[:, 0]
@@ -295,21 +328,21 @@ def _fgts_launch(grad, theta, x, a1, a2, y, pref, rows, valid, a_emb, mask,
         [("a1", a1, i32), ("a2", a2, i32), ("y", y, torch.float32),
          ("pref", pref, torch.float32)],
         [("mask", mask, torch.bool), ("costs", costs, torch.float32)], g,
-        (c, m, k, d, int(j), float(eta), float(mu), cfg, cl, rpb), scratch)
+        (c, m, k, d, int(j), float(eta), float(mu), cfg, cl, rpb), (scratch,))
 
 
 def _mixed_launch(grad, theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g,
                   *, eta):
     f32, i32 = torch.float32, torch.int32
     c, m = rows.shape
+    d = theta.shape[1]
+    cl, rpb, rb = mixed_plan(m, d)
     return _launch(
         "sgld_mixed_grad_launch" if grad else "sgld_mixed_fwd_launch",
         grad, theta, rows, valid, x, a_emb,
         [("a1", a1, i32), ("a2", a2, i32), ("y", y, f32),
          ("is_duel", is_duel, f32)], [], g,
-        (c, m, theta.shape[1], float(eta)),
-        torch.empty((c, -(-m // 8), theta.shape[1] if grad else 1),
-                    dtype=f32, device=theta.device))
+        (c, m, d, float(eta), cl, rpb, rb))
 
 
 def _dispatch(theta, plain, what):

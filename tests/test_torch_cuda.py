@@ -9,10 +9,11 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 Pairs must be exact (the inputs are random, so near-ties are vanishingly
 rare at these sizes); scores match to 1e-5 of their largest magnitude,
 duplicated arms bitwise; potentials match to rtol 1e-5 and gradients to
-rtol 1e-4 (fp32 with another summation order on the card); each fgts-mode
-SGLD call is one launch of one kernel and repeats bitwise, and duplicated
-arms that tie across its arm tiles split the gradient as the plain version
-does. Attention
+rtol 1e-4 (fp32 with another summation order on the card); each SGLD
+call, fgts and mixed mode, is one launch of one kernel and repeats
+bitwise, and duplicated arms that tie across its arm tiles split the
+gradient as the plain version does; each score call runs the configuration
+``score_plan`` names and repeats bitwise. Attention
 matches to rtol = atol = 2e-5 in fp32 (the SIMT kernel, at the encoder's
 shape, across its double-buffered kv tiles with ragged S/T, and through
 its 4-byte copies for unaligned views) and 2e-2 in bf16 (the Hopper
@@ -170,6 +171,16 @@ def test_sgld_kernels_match_plain(cuda_device, j, variant, m, k, d):
                                **GRAD_TOL)
 
 
+def _misaligned(v):
+    """A contiguous copy of v that starts 4 bytes past a 16-byte boundary
+    (a view into a larger buffer): the kernels' 16-byte rule fails."""
+    buf = torch.empty(v.numel() + 4, dtype=v.dtype, device=v.device)
+    out = buf[1:1 + v.numel()].view(v.shape)
+    out.copy_(v)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
 def _device_kernels(fn):
     """(name, launches) of every device kernel ``fn`` runs, from
     ``torch.profiler`` (taken again, up to 3 times, if a profile records
@@ -282,6 +293,46 @@ def test_dueling_score_kernel_matches_plain(cuda_device, b, k, d, j):
         assert not bool(s[:, 2].any())
 
 
+@pytest.mark.parametrize("b,k,d,j,misalign", [
+    (170, 1024, 768, 1, False),   # Small, at the edge of its B*K*J*d cap
+    (171, 1024, 768, 1, False),   # Large, just past it
+    (63, 16, 768, 16, False),     # Small at a batch of 63
+    (5, 37, 100, 3, False),       # Small, ragged d, 16-byte loads
+    (5, 37, 98, 3, False),        # Small, d % 4 != 0: 4-byte loads
+    (5, 37, 96, 3, True),         # Small, misaligned tables: 4-byte loads
+    (300, 130, 200, 2, False),    # Large, ragged tiles
+])
+def test_dueling_score_plans_match_plain(cuda_device, b, k, d, j, misalign):
+    """Both configurations at the two sides of ``score_plan``'s bounds:
+    the kernel the plan names runs (one launch), scores match the plain
+    version to 1e-5 of max|s|, duplicated arms are bitwise equal, a zero
+    arm and a zero query score 0, and repeated calls agree bitwise."""
+    rng = np.random.default_rng(b + k + d + j)
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    a[k - 1] = a[0]
+    a[1] = 0.0
+    x[2] = 0.0
+    on = lambda v: torch.from_numpy(v).to(cuda_device)
+    x, a, th = on(x), on(a), on(rng.standard_normal((j, d)).astype(
+        np.float32))
+    if misalign:
+        x, a, th = _misaligned(x), _misaligned(a), _misaligned(th)
+    cfg, _ = tds.score_plan(b, k, j, d)
+    s = tds.dueling_score(x, a, th)
+    torch.cuda.synchronize()
+    p = tds.dueling_score_plain(x, a, th)
+    assert float((s - p).abs().max()) <= 1e-5 * float(p.abs().max())
+    assert torch.equal(s[..., k - 1], s[..., 0])
+    assert not bool(s[..., 1].any()) and not bool(s[:, 2].any())
+    for _ in range(3):
+        assert torch.equal(tds.dueling_score(x, a, th), s)
+    ran = _device_kernels(lambda: tds.dueling_score(x, a, th))
+    assert len(ran) == 1 and ran[0][1] == 1, ran
+    name = "dueling_score_small" if cfg == 0 else "dueling_score_kernel"
+    assert name in ran[0][0], ran
+
+
 def test_posterior_scores_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(4)
     a = torch.from_numpy(rng.standard_normal((16, 768)).astype(np.float32))
@@ -296,12 +347,11 @@ def test_posterior_scores_kernel_matches_plain(cuda_device):
 MIXED = ["half", "duels", "clicks", "invalid", "self_duels"]
 
 
-@pytest.mark.parametrize("variant", MIXED)
-@pytest.mark.parametrize("m,k,d", [(37, 11, 64), (300, 130, 200)])
-def test_sgld_mixed_kernels_match_plain(cuda_device, variant, m, k, d):
-    rng = np.random.default_rng(m + MIXED.index(variant))
-    c, n = 3, 500
-    on = lambda v: torch.from_numpy(np.asarray(v)).to(cuda_device)
+def _mixed_ops(variant, c, m, k, d, seed, dev, n=500):
+    """Operands of the mixed row entry points: C chains, m minibatch rows
+    of a ring of n, K arms, width d."""
+    rng = np.random.default_rng(seed)
+    on = lambda v: torch.from_numpy(np.asarray(v)).to(dev)
     a1 = rng.integers(0, k, n).astype(np.int32)
     a2 = ((a1 + rng.integers(1, k, n)) % k).astype(np.int32)
     if variant == "self_duels":
@@ -313,10 +363,19 @@ def test_sgld_mixed_kernels_match_plain(cuda_device, variant, m, k, d):
     valid = (rng.random((c, m)) < 0.8).astype(np.float32)
     if variant == "invalid":
         valid[:, ::2] = 0.0
-    ops = (on(rng.standard_normal((c, d)).astype(np.float32)),
-           on(rng.standard_normal((n, d)).astype(np.float32)), on(a1), on(a2),
-           on(y), on(duel.astype(np.float32)), on(rng.integers(0, n, (c, m))),
-           on(valid), on(rng.standard_normal((k, d)).astype(np.float32)))
+    return (on(rng.standard_normal((c, d)).astype(np.float32)),
+            on(rng.standard_normal((n, d)).astype(np.float32)), on(a1),
+            on(a2), on(y), on(duel.astype(np.float32)),
+            on(rng.integers(0, n, (c, m))), on(valid),
+            on(rng.standard_normal((k, d)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("variant", MIXED)
+@pytest.mark.parametrize("m,k,d", [(37, 11, 64), (300, 130, 200)])
+def test_sgld_mixed_kernels_match_plain(cuda_device, variant, m, k, d):
+    c = 3
+    ops = _mixed_ops(variant, c, m, k, d, m + MIXED.index(variant),
+                     cuda_device)
     g = torch.rand(c, device=cuda_device) + 0.5
     before = kernels.launch_counts()
     u_k = tsu.mixed_potential_rows(*ops, eta=1.5)
@@ -356,6 +415,43 @@ def test_mixed_autograd_backward_is_the_gradient_kernel(cuda_device):
     u2.sum().backward()
     np.testing.assert_allclose(th.grad.cpu().numpy(), th2.grad.cpu().numpy(),
                                **GRAD_TOL)
+
+
+@pytest.mark.parametrize("c,m,k,d,misalign", [
+    (3, 1, 11, 768, False),       # m 1: one block, one row
+    (3, 3, 11, 768, False),       # m below the cluster size: one block
+    (3, 45, 11, 768, False),      # 6 blocks of 8 rows, the last with 5
+    (1, 64, 16, 768, False),      # C 1
+    (2, 1024, 1024, 768, False),  # 16 groups a block through the ring
+    (3, 37, 11, 100, False),      # d 100: 16-byte loads (d % 4 == 0)
+    (3, 37, 11, 98, False),       # d % 4 != 0: 4-byte loads
+    (3, 300, 130, 200, True),     # misaligned tables: 4-byte loads
+    (2, 700, 11, 3300, False),    # groups of 4 rows (d past 3056)
+])
+def test_sgld_mixed_is_one_deterministic_launch(cuda_device, c, m, k, d,
+                                                misalign):
+    """Each mixed entry point is one launch of one cluster kernel
+    (``mixed_plan``), matches the plain version and repeats bitwise on
+    repeated calls, across ragged m and d, C 1, rows per block that are no
+    multiple of the group and both load rules."""
+    ops = list(_mixed_ops("half", c, m, k, d, m + d, cuda_device))
+    if misalign:
+        ops[1], ops[8] = _misaligned(ops[1]), _misaligned(ops[8])
+    g = torch.rand(c, device=cuda_device) + 0.5
+    fwd = lambda: tsu.mixed_potential_rows(*ops, eta=1.5)
+    grad = lambda: tsu.mixed_potential_grad_rows(*ops, g, eta=1.5)
+    u_p = tsu.mixed_potential_rows(*ops, eta=1.5, plain=True)
+    g_p = tsu.mixed_potential_grad_rows(*ops, g, eta=1.5, plain=True)
+    for fn, want, tol in ((fwd, u_p, POT_TOL), (grad, g_p, GRAD_TOL)):
+        first = fn()
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(first.cpu().numpy(), want.cpu().numpy(),
+                                   **tol)
+        for _ in range(3):
+            assert torch.equal(fn(), first)
+        ran = _device_kernels(fn)
+        assert len(ran) == 1 and ran[0][1] == 1, ran
+        assert "mixed_kernel" in ran[0][0], ran
 
 
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),

@@ -180,6 +180,105 @@ def test_posterior_scores_matches_jax(k, c, d):
                                    atol=1e-5)
 
 
+def _fma(a, b, c):
+    """fmaf in float32: the product exact in float64, one sum, then one
+    rounding to float32 (the double rounding can differ from fmaf in the
+    last place, rarely)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lane_sums(u, v, width):
+    """sum_t u[..., t] * v[..., t] (float32) in the order of a warp whose
+    lane l takes d's loads l, l + 32, ... of ``width`` elements each (4:
+    float4s, 1: single floats), one fma per element in increasing t, and
+    then the xor tree: lane l adds lane l ^ o's sum for o = 16, 8, 4, 2, 1.
+    Elements past d add nothing."""
+    d = u.shape[-1]
+    lanes = torch.arange(32)
+    acc = torch.zeros(torch.broadcast_shapes(u.shape, v.shape)[:-1] + (32,))
+    for step in range(-(-d // (32 * width)) * width):
+        t = (step // width) * 32 * width + lanes * width + step % width
+        live = t < d
+        tc = torch.where(live, t, 0)
+        acc = torch.where(live, _fma(u[..., tc], v[..., tc], acc), acc)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0]
+
+
+def _emulated_small_scores(x, a, th, width):
+    """(J,B,K) scores in the order of ``csrc/dueling_score.cu``'s Small
+    configuration: a warp per output, numerator and denominator by
+    ``_lane_sums``, the denominator the same for every sample."""
+    xt = x[None] * th[:, None]                             # (J, B, d)
+    num = _lane_sums(xt[:, :, None], a[None, None], width)
+    den = _lane_sums((x * x)[:, None], (a * a)[None], width)
+    return num / torch.sqrt(torch.clamp_min(den, 1e-24))[None]
+
+
+@pytest.mark.parametrize("b,k,d,j,width", [(1, 16, 768, 16, 4),
+                                           (7, 3, 64, 2, 4),
+                                           (9, 5, 30, 17, 1),
+                                           (5, 37, 100, 3, 1),
+                                           (5, 37, 100, 3, 4)])
+def test_small_score_order_matches_jax(b, k, d, j, width):
+    """The Small score kernel's lane-strided sums and xor tree (emulated)
+    against the Pallas kernel (interpret mode) within 1e-5 of max|s|, both
+    load widths (ragged d takes the 4-byte rule); duplicated arms give
+    bitwise equal columns, a zero arm and a zero query score exactly 0."""
+    rng = np.random.default_rng(b * k + d + j)
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    th = rng.standard_normal((j, d)).astype(np.float32)
+    if k > 2:
+        a[k - 1] = a[0]
+        a[1] = 0.0
+    if b > 2:
+        x[2] = 0.0
+    want = np.asarray(jax_score(x, a, th, interpret=True))
+    got = _emulated_small_scores(t(x), t(a), t(th), width)
+    assert tds.score_plan(b, k, j, d)[0] == 0
+    assert float(np.abs(got.numpy() - want).max()) <= \
+        1e-5 * float(np.abs(want).max())
+    if k > 2:
+        assert torch.equal(got[..., k - 1], got[..., 0])
+        assert not bool(got[..., 1].any())
+    if b > 2:
+        assert not bool(got[:, 2].any())
+    if b == 1:                      # posterior_scores: the all-ones query
+        ones = np.ones((1, d), np.float32)
+        post = np.asarray(jax_post_scores(a, th, interpret=True))
+        got = _emulated_small_scores(t(ones), t(a), t(th), width)[:, 0]
+        assert float(np.abs(got.numpy() - post).max()) <= \
+            1e-5 * float(np.abs(post).max())
+        assert torch.equal(got[:, k - 1], got[:, 0])
+
+
+@pytest.mark.parametrize("b,k,j,d", [(1, 16, 16, 768), (63, 16, 16, 768),
+                                     (256, 16, 16, 768), (170, 1024, 1, 768),
+                                     (171, 1024, 1, 768), (4096, 1024, 2, 768),
+                                     (5, 37, 3, 100), (1, 1, 1, 1),
+                                     (131072, 1, 1, 1024), (200, 1, 1, 8)])
+def test_score_plan_covers_every_output(b, k, j, d):
+    """Small exactly within the B*K*J*d cap (B 170 and 171 at K 1024, J 1,
+    d 768 are its two sides), its grid a warp for every output and no
+    block without one; Large's tiles cover every (b, k) and sample pair
+    with no empty edge tile; a grid past CUDA's 65535 blocks in y or z
+    raises."""
+    cfg, grid = tds.score_plan(b, k, j, d)
+    assert cfg == (0 if b * k * j * d <= tds.SMALL_WORK else 1)
+    if cfg == 0:
+        n, w = j * b * k, tds.SMALL_WARPS
+        assert grid[1:] == (1, 1) and grid[0] * w >= n > (grid[0] - 1) * w
+    else:
+        for g, size, tile in zip(grid, (k, b, j), (64, 64, 2)):
+            assert g * tile >= size > (g - 1) * tile
+    with pytest.raises(ValueError, match="grid"):
+        tds.score_plan(64 * 65535 + 1, k, j, 1 << 10)
+    with pytest.raises(ValueError, match="grid"):
+        tds.score_plan(64, k, 2 * 65535 + 1, 1 << 10)
+
+
 # ---------------------------------------------------------------------------
 # sgld_potential: forward and gradient
 # ---------------------------------------------------------------------------
@@ -305,13 +404,6 @@ def test_sgld_potential_single_theta_and_shared_rows():
 # ---------------------------------------------------------------------------
 # the fgts CUDA kernel's order of operations, emulated on the CPU
 # ---------------------------------------------------------------------------
-
-def _fma(a, b, c):
-    """fmaf in float32: the product exact in float64, one sum, then one
-    rounding to float32 (the double rounding can differ from fmaf in the
-    last place, rarely)."""
-    return (a.double() * b.double() + c.double()).float()
-
 
 def _fold_blocks(rows_terms, m, cl, rpb):
     """The kernel's reduction: each block sums its rows (rank b holds rows
@@ -452,9 +544,9 @@ def test_fgts_plan_fits_and_covers_every_row(m, k, d):
 MIXED_VARIANTS = ["half", "duels", "clicks", "self_duels", "invalid"]
 
 
-def _mixed_inputs(m, k, variant, seed):
+def _mixed_inputs(m, k, variant, seed, d=D):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((C, m, D)).astype(np.float32)
+    x = rng.standard_normal((C, m, d)).astype(np.float32)
     a1 = rng.integers(0, k, (C, m)).astype(np.int32)
     a2 = ((a1 + rng.integers(1, k, (C, m))) % k).astype(np.int32)
     duel = {"duels": np.ones((C, m), bool), "clicks": np.zeros((C, m), bool)
@@ -466,8 +558,8 @@ def _mixed_inputs(m, k, variant, seed):
     valid = (rng.random((C, m)) < 0.8).astype(np.float32)
     if variant == "invalid":
         valid[:, :m // 2] = 0.0
-    a_emb = rng.standard_normal((k, D)).astype(np.float32)
-    theta = rng.standard_normal((C, D)).astype(np.float32)
+    a_emb = rng.standard_normal((k, d)).astype(np.float32)
+    theta = rng.standard_normal((C, d)).astype(np.float32)
     return (theta, x, a1, a2, y.astype(np.float32),
             duel.astype(np.float32), valid, a_emb)
 
@@ -523,6 +615,94 @@ def test_mixed_rows_match_port_autodiff():
     g = tsu.mixed_potential_grad_rows(*ops, g_in, eta=1.3)
     np.testing.assert_allclose(u.numpy(), u_ref.detach().numpy(), **POT_TOL)
     np.testing.assert_allclose(g.numpy(), g_ref.numpy(), **GRAD_TOL)
+
+
+def _emulated_mixed(theta, x, a1, a2, y, is_duel, rows, valid, a_emb, g,
+                    *, eta, width):
+    """(U (C,), g * dU (C,d)) in the order of ``csrc/sgld_potential.cu``'s
+    mixed kernel: each row's sums for a1 (and a2 on a duel) by
+    ``_lane_sums`` (``width`` 4: 16-byte loads, 1: 4-byte), then its term
+    or its gradient row x_r * (c1 a_a1 + c2 a_a2), and ``_fold_blocks``
+    over ``mixed_plan``'s blocks."""
+    c, d = theta.shape
+    m = rows.shape[1]
+    cl, rpb, _ = tsu.mixed_plan(m, d)
+    r = rows.long()
+    xg, yv, duel = x[r], y[r], is_duel[r] > 0
+    ia1 = a1[r].long()
+    ia2 = torch.where(duel, a2[r].long(), ia1)
+    u, w = a_emb[ia1], a_emb[ia2]
+    xt, xx = xg * theta[:, None], xg * xg
+    den1 = torch.sqrt(torch.clamp_min(_lane_sums(xx, u * u, width), 1e-24))
+    den2 = torch.sqrt(torch.clamp_min(_lane_sums(xx, w * w, width), 1e-24))
+    s1 = _lane_sums(xt, u, width) / den1
+    s2 = _lane_sums(xt, w, width) / den2
+    z = yv * (s1 - s2)
+    term = torch.where(duel, tsu.softplus(-z),
+                       torch.where(yv > 0.5, tsu.softplus(-s1),
+                                   tsu.softplus(s1)))
+    u_c = _fold_blocks((eta * term) * valid, m, cl, rpb)
+    dz = (eta * (-1.0 / (1.0 + torch.exp(z)))) * yv
+    w1 = torch.where(ia1 == ia2, 0.0, dz)
+    wc = eta * torch.where(yv > 0.5, -1.0 / (1.0 + torch.exp(s1)),
+                           1.0 / (1.0 + torch.exp(-s1)))
+    c1 = torch.where(duel, w1 * valid / den1, wc * valid / den1)
+    c2 = torch.where(duel, (-w1) * valid / den2, 0.0)
+    gr = xg * _fma(c2[..., None], w, c1[..., None] * u)
+    grad = _fold_blocks(gr, m, cl, rpb)
+    return u_c, (grad if g is None else g[:, None] * grad)
+
+
+@pytest.mark.parametrize("m,d", [(37, 32), (70, 30), (5, 32)])
+@pytest.mark.parametrize("variant", MIXED_VARIANTS)
+def test_mixed_kernel_order_matches_jax_and_plain(variant, m, d):
+    """The mixed kernel's order (emulated): lane-strided row sums and the
+    xor tree, rows in order inside each block and blocks in rank order
+    from ``mixed_plan`` (m 37: 5 blocks of 8; m 70: 8 of 9, so two groups
+    a block; m 5: one block; d 30: the 4-byte loads), against JAX's Pallas
+    lowering and jax.grad within 1e-5 of the largest magnitude, and
+    against the plain version."""
+    ins = _mixed_inputs(m, 11, variant, 7 + MIXED_VARIANTS.index(variant),
+                        d=d)
+    fwd, grad = _jax_mixed_fns(1.5)
+    ref_u, ref_g = np.asarray(fwd(*ins)), np.asarray(grad(*ins))
+    theta, x, a1, a2, y, duel, valid, a_emb = ins
+    rows = torch.arange(C * m).reshape(C, m)
+    flat = lambda v: t(v).reshape(C * m, *v.shape[2:])
+    ops = (t(theta), flat(x), flat(a1), flat(a2), flat(y), flat(duel), rows,
+           t(valid), t(a_emb))
+    width = 4 if d % 4 == 0 else 1
+    u, g = _emulated_mixed(*ops, None, eta=1.5, width=width)
+    for got, want in ((u, ref_u), (g, ref_g)):
+        assert float(np.abs(got.numpy() - want).max()) <= \
+            1e-5 * float(np.abs(want).max())
+    gs = torch.rand(C) + 0.5
+    _, g2 = _emulated_mixed(*ops, gs, eta=1.5, width=width)
+    np.testing.assert_allclose(u.numpy(),
+                               tsu.mixed_potential_rows(*ops, eta=1.5),
+                               **POT_TOL)
+    np.testing.assert_allclose(g2.numpy(),
+                               tsu.mixed_potential_grad_rows(*ops, gs,
+                                                             eta=1.5),
+                               **GRAD_TOL)
+
+
+@pytest.mark.parametrize("m,d", [(64, 768), (1024, 768), (1, 768), (5, 768),
+                                 (45, 768), (37, 100), (9, 3056), (9, 3057),
+                                 (300, 6200), (9, 13760), (0, 8)])
+def test_mixed_plan_fits_and_covers_every_row(m, d):
+    """The group size is the largest of 8, 4, 2, 1 rows whose two buffers
+    of gradient rows fit a block's shared memory; the cluster holds 1-8
+    blocks, each with rows, and they cover the chain's m rows exactly; a d
+    no group size fits raises."""
+    cl, rpb, rb = tsu.mixed_plan(m, d)
+    fits = [n for n in tsu.MIXED_ROWS
+            if tsu.mixed_smem(n, d) <= tsu.MIXED_SMEM_BYTES]
+    assert rb == fits[0]
+    assert 1 <= cl <= tsu.MAX_CLUSTER
+    assert cl * rpb >= m and (cl - 1) * rpb < max(m, 1)
+    with pytest.raises(ValueError, match="shared"):
+        tsu.mixed_plan(m, 13761)
 
 
 def test_backend_resolution():

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port (``src/repro_torch``).
 
 * No module imports ``jax`` or the JAX package ``repro``: the port stands
-  alone (only these tests import both).
+  alone (only these tests import both); nor do ``chip_smoke.py`` and the
+  card tools under ``tools/``.
 * Without a CUDA card ``default_device()`` raises and names the
   ``device="cpu"`` opt-in: there is no silent CPU fallback.
 * CPU tensors run the plain versions and never count a kernel launch;
@@ -44,6 +45,16 @@ def test_port_imports_neither_jax_nor_reference():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{f}: {mod}"
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/ab_kernels.py",
+                                    "tools/kernel_phases.py",
+                                    "tools/score_sweep.py"])
+def test_card_scripts_import_neither_jax_nor_reference(script):
+    """The scripts that run the port on the card import no JAX either: the
+    machine with the card has none."""
+    for mod in _imports(PKG.parents[1] / script):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
 
 
 def test_kernel_sources_present_for_every_library():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's timed kernel cases in two checkouts, in turns.
 
-    python3 tools/ab_kernels.py --other DIR [--out FILE] [--prefill]
+    python3 tools/ab_kernels.py --other DIR [--out FILE] [--prefill] [--paths]
 
 ``DIR`` is another checkout of this repository (for example the parent
 commit unpacked with ``git archive`` into the ignored ``build/``). Four
@@ -16,20 +16,26 @@ functions:
 - ``ssd_scan`` ``main`` (mamba2-1.3b's prefill, bf16 strided),
   ``main_fp32`` and ``bench`` (B 1, S 32768);
 - ``sgld_potential`` fgts mode, forward and gradient, ``main`` (the
-  routing loop's C 8 chains, m 64, K 16, d 768) and ``bench`` (m 1024,
+  routing loop's C 8 chains, m 64, K 16, d 768; a control that no kernel
+  change of the mixed mode or the scores may move) and ``bench`` (m 1024,
   K 1024);
 - ``rglru_scan`` ``main`` (recurrentgemma-9b's prefill, B 2, S 4096,
   D 4096) and ``bench`` (B 4, S 32768);
-- ``sgld_mixed`` ``main``, forward and gradient (the control: nothing in
-  its kernel changes between the two checkouts being compared here).
+- ``sgld_mixed``, forward and gradient, ``main`` (the mixed loop's C 8
+  chains, m 64, K 16, d 768, half clicks) and ``bench`` (m 1024, K 1024);
+- ``dueling_score`` ``main`` (``posterior_scores`` of the autopilot's 16
+  chains, K 16, d 768) and ``bench`` (B 4096, K 1024, J 2).
 
 With ``--prefill`` each worker also times mamba2-1.3b's and
 recurrentgemma-9b's ``lm.prefill`` (random bf16 weights, B 2 x 4096
 tokens; host clock around a synchronised call, median of 3) and the fp32
 encoder (``EncoderConfig()``, one 256-query batch of 64 tokens; median of
-20). Prints one JSON line per worker and a summary line of every time
-(``*ms`` field) by checkout; every record names the card and its power
-limit. Needs one CUDA card.
+20). With ``--paths`` it also runs that checkout's ``chip_smoke`` autopilot
+and mixed paths (16 ticks at full width, then 2 profiled ticks) and keeps
+their ms per tick, device busy ms per tick and idle share. Prints one
+JSON line per worker and a summary line of every time (``*ms`` field) by
+checkout; every record names the card and its power limit. Needs one
+CUDA card.
 """
 from __future__ import annotations
 
@@ -49,12 +55,14 @@ SSD = {"main": (2, 4096, 64, 64, 128, 128, dict(dtype="bfloat16")),
        "main_fp32": (2, 4096, 64, 64, 128, 128, dict()),
        "bench": (1, 32768, 64, 64, 128, 128, dict(dtype="bfloat16"))}
 SGLD = {"main": (8, 64, 16, 768, 4096), "bench": (8, 1024, 1024, 768, 4096)}
+SCORE = {"main": (1, 16, 768, 16, dict(posterior=True, live=11)),
+         "bench": (4096, 1024, 768, 2, dict())}
 RGLRU = {"main": (2, 4096, 4096), "bench": (4, 32768, 4096)}
 KEYS = ("ms", "device_ms", "bound_ms", "max_abs_err", "library_ms",
         "library_device_ms")
 
 
-def worker(root: Path, prefill: bool) -> dict:
+def worker(root: Path, prefill: bool, paths: bool) -> dict:
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
     import chip_smoke as cs
@@ -79,11 +87,24 @@ def worker(root: Path, prefill: bool) -> dict:
     for name, (b, s, d) in RGLRU.items():
         r = cs.rglru_case(name, b, s, d, gen, dev, timed=True)
         out[f"rglru_{name}"] = {k: r.get(k) for k in KEYS}
-    r = cs.mixed_case("main", 8, 64, 16, 768, 4096, gen, dev, timed=True)
-    out["mixed_main"] = {k: v for k, v in r.items()
-                         if k.endswith(("_ms", "_err"))}
+    for name, (c, m, k, d, n) in SGLD.items():
+        r = cs.mixed_case(name, c, m, k, d, n, gen, dev, timed=True)
+        out[f"mixed_{name}"] = {k: v for k, v in r.items()
+                                if k.endswith(("_ms", "_err"))}
+    for name, (b, k, d, j, kw) in SCORE.items():
+        r = cs.score_case(name, b, k, d, j, gen, dev, timed=True, **kw)
+        out[f"score_{name}"] = {k: v for k, v in r.items()
+                                if k.endswith(("_ms", "_err"))}
     if prefill:
         out.update(prefill_times(dev))
+    if paths:
+        for name, phase in (("autopilot", cs.phase_autopilot),
+                            ("mixed", cs.phase_mixed)):
+            r = phase(dev, 0)
+            out[f"path_{name}"] = dict(
+                ms=r["ms_per_tick"],
+                device_busy_ms=r["profile"]["device_busy_ms_per_tick"],
+                device_idle_share=r["profile"]["device_idle_share"])
     return out
 
 
@@ -137,11 +158,12 @@ def main() -> int:
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--out", help="also write the records here (JSON)")
     ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--paths", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(Path(args.worker).resolve(), args.prefill)),
-              flush=True)
+        print(json.dumps(worker(Path(args.worker).resolve(), args.prefill,
+                                args.paths)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -152,7 +174,8 @@ def main() -> int:
     for label, root in (("other", other), ("this", HERE), ("this", HERE),
                         ("other", other)):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-               str(root)] + (["--prefill"] if args.prefill else [])
+               str(root)] + (["--prefill"] if args.prefill else []) + (
+                   ["--paths"] if args.paths else [])
         run = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=1500, env=dict(os.environ,
                                                     PYTHONPATH=""))

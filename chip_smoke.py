@@ -13,12 +13,18 @@ line per phase (phase 2 prints one per path):
    posterior scores of 16 chains; the encoder's attention, B 256, 4 heads
    of 64, S = T = 64) and at the top row of the SGLD bench (K = 1024,
    m = 1024, C = 8; scores and selection B = 4096), plus edge cases (the
+   selection, each case recording ``select_plan``'s configuration as
+   ``plan``, also at a RouterService batch, B 4096 over the 16 slots
+   (``serve``, timed), at K 1, K 32 and K 33 with d 98, K 1100, with row
+   masks, a single survivor, an all-inactive row and duplicated arms, and
+   the routing shape and its edges forced to the Large configuration, so
+   both configurations run there; the
    SGLD potential also at K 1, K 33 and K 300 with duplicated arms tying
    across its 256-arm tiles, m no multiple of its rows per block; the
    scores at B 170 and 171 (K 1024, J 1), the two sides of
    ``score_plan``'s bound, and at d 100 and 98; the mixed SGLD kernels
-   at m 1, 3 and 45, C 1 and d 98; every SGLD, mixed and score case must
-   repeat bitwise on repeated calls). Pairs must agree outside
+   at m 1, 3 and 45, C 1 and d 98; every selection, SGLD, mixed and score
+   case must repeat bitwise on repeated calls). Pairs must agree outside
    near-ties (top-two gap below 1e-5 * max|s|, counted but not
    failures); scores to 1e-5 of max|s|, with duplicated arms
    bitwise equal and dominance matrices equal outside near-tied arm pairs;
@@ -240,10 +246,29 @@ def compare_pairs(x, a, th, tilt, mask, distinct, k_pair, p_pair):
 
 
 def select_case(name, b, k, d, gen, dev, *, mask_kind=None, tilt_kind=None,
-                distinct=True, live=None, dup=False, timed=False):
-    """One selection case against the plain version. ``dup`` copies the
-    first half of the arms into the second, so every row's maximum is an
-    exact tie that must go to the first copy."""
+                distinct=True, live=None, dup=False, cfg=None, timed=False):
+    """One selection case against the plain version, in the configuration
+    ``select_plan`` picks or, with ``cfg``, the one it names (recorded as
+    ``plan``). ``dup`` copies the first half of the arms into the second,
+    so every row's maximum is an exact tie that must go to the first copy;
+    every case must repeat bitwise. Timed cases add the bound: 6 d
+    operations per live (row, arm) pair, and the bytes of x, of the live
+    arms' rows of A, of theta, tilt, mask and the pairs."""
+    import torch
+    from repro_torch.kernels import dueling_score as ds
+    plan = ds.select_plan
+    if cfg is not None:
+        ds.select_plan = lambda b_, k_, d_: plan(b_, k_, d_, cfg=cfg)
+    try:
+        return _select_case(name, b, k, d, gen, dev, mask_kind=mask_kind,
+                            tilt_kind=tilt_kind, distinct=distinct,
+                            live=live, dup=dup, timed=timed)
+    finally:
+        ds.select_plan = plan
+
+
+def _select_case(name, b, k, d, gen, dev, *, mask_kind, tilt_kind, distinct,
+                 live, dup, timed):
     import torch
     from repro_torch.kernels import dueling_score as ds
     x = torch.randn((b, d), generator=gen, device=dev)
@@ -269,8 +294,8 @@ def select_case(name, b, k, d, gen, dev, *, mask_kind=None, tilt_kind=None,
     torch.cuda.synchronize()
     pp = ds.dueling_select_plain(x, a, th, **kw)
     bad, ties, err = compare_pairs(x, a, th, tilt, mask, distinct, kp, pp)
-    out = dict(case=name, B=b, K=k, d=d, mismatches=bad, near_ties=ties,
-               max_abs_err=err)
+    out = dict(case=name, B=b, K=k, d=d, plan=list(ds.select_plan(b, k, d)),
+               mismatches=bad, near_ties=ties, max_abs_err=err)
     if mask_kind == "bk" and k > 1:
         check((kp[0][0].item(), kp[1][0].item()) == (0, 0),
               f"{name}: all-inactive row must route (0, 0)")
@@ -280,8 +305,17 @@ def select_case(name, b, k, d, gen, dev, *, mask_kind=None, tilt_kind=None,
         check(int(kp[0].max()) < k // 2 and int(kp[1].max()) < k // 2,
               f"{name}: a tie went to the second copy")
     check(bad == 0, f"{name}: {bad} pair mismatches outside near-ties")
+    # one launch, every (b, k) summed in one fixed order: bitwise the same
+    # from call to call
+    check(all(all(torch.equal(u, v) for u, v in zip(
+        ds.dueling_select(x, a, th, **kw), kp)) for _ in range(3)),
+        f"{name}: repeated calls differ")
     if timed:
-        nbytes = 4 * (b * d + k * d + 2 * d + 2 * b)
+        live_mask = torch.ones((b, k), dtype=torch.bool, device=dev) \
+            if mask is None else torch.broadcast_to(mask, (b, k))
+        live_pairs = int(live_mask.sum())
+        live_arms = int(live_mask.any(dim=0).sum())
+        nbytes = 4 * (b * d + live_arms * d + 2 * d + 2 * b)
         nbytes += 0 if tilt is None else 4 * tilt.numel()
         nbytes += 0 if mask is None else mask.numel()
         kern = lambda: ds.dueling_select(x, a, th, **kw)
@@ -289,7 +323,8 @@ def select_case(name, b, k, d, gen, dev, *, mask_kind=None, tilt_kind=None,
         out["ms"], out["plain_ms"] = time_ms(kern), time_ms(plain)
         out["device_ms"], out["plain_device_ms"] = (device_ms(kern),
                                                     device_ms(plain))
-        out["bound_ms"], out["bound_by"] = bound(nbytes, 6.0 * b * k * d)
+        out["bound_ms"], out["bound_by"] = bound(nbytes,
+                                                 6.0 * live_pairs * d)
     return out
 
 
@@ -864,8 +899,24 @@ def phase_kernels(dev, seed):
         select_case("row_mask_not_distinct", 130, 11, 768, gen, dev,
                     mask_kind="bk", distinct=False),
         select_case("large_k", 64, 1100, 96, gen, dev, mask_kind="bk"),
+        # the 4-byte loads (d % 4 != 0) of both configurations
+        select_case("k32_d98_ragged", 130, 32, 98, gen, dev, mask_kind="bk"),
+        select_case("k33_d98_ragged", 70, 33, 98, gen, dev, mask_kind="bk",
+                    tilt_kind="k"),
         select_case("duplicate_arms_first_index", 256, 16, 768, gen, dev,
                     distinct=False, dup=True),
+        # a RouterService batch over the RouterBench pool (Small, 8 rows a
+        # block); the routing shape and its edges forced to Large, so both
+        # configurations run there
+        select_case("serve", 4096, 16, 768, gen, dev, mask_kind="k", live=11,
+                    timed=True),
+        select_case("main_large", 256, 16, 768, gen, dev, mask_kind="k",
+                    live=11, tilt_kind="bk", cfg=1),
+        select_case("row_mask_survivor_inactive_large", 130, 11, 768, gen,
+                    dev, mask_kind="bk", tilt_kind="bk", cfg=1),
+        select_case("duplicate_arms_first_index_large", 256, 16, 768, gen,
+                    dev, distinct=False, dup=True, cfg=1),
+        select_case("k1_large", 64, 1, 768, gen, dev, cfg=1),
     ]
     sg = [
         sgld_case("main", 8, 64, 16, 768, 4096, gen, dev, timed=True),
@@ -1768,9 +1819,11 @@ KERNELS = [
 
 
 # the bf16 cases of flash_attention timed beside its fp32 main and bench,
-# and the fp32 case of ssd_scan (the SIMT kernel) beside its bf16 ones
+# the fp32 case of ssd_scan (the SIMT kernel) beside its bf16 ones, and
+# the serve case of dueling_select beside its main and bench
 ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16")
 SSD_FP32_TIMED = ("main_fp32",)
+SELECT_TIMED = ("serve",)
 
 
 def kernels_line(cases, launches):
@@ -1780,7 +1833,8 @@ def kernels_line(cases, launches):
     and null for the others: no one PyTorch call computes them. The
     ``flash_attention`` row also carries its timed bf16 cases (the Hopper
     kernel) under ``bf16``, the ``ssd_scan`` row its timed fp32 case (the
-    SIMT kernel) under ``fp32``. The two forward kernels are reached on their
+    SIMT kernel) under ``fp32``, the ``dueling_select`` row its timed
+    ``serve`` case under ``serve``. The two forward kernels are reached on their
     paths only through the energy trace the runs here add
     (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
@@ -1805,12 +1859,14 @@ def kernels_line(cases, launches):
             bench_bound_ms=bch[pre + "bound_ms"],
             bench_bound_by=bch[pre + "bound_by"]))
         extra = dict(flash_attention=("bf16", ATTN_BF16_TIMED),
-                     ssd_scan=("fp32", SSD_FP32_TIMED)).get(name)
+                     ssd_scan=("fp32", SSD_FP32_TIMED),
+                     dueling_select=("serve", SELECT_TIMED)).get(name)
         if extra:
             rows[-1][extra[0]] = {
                 r["case"]: {k: r.get(k) for k in (
                     "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
-                    "library_device_ms", "plain_ms", "plain_device_ms")}
+                    "library_device_ms", "plain_ms", "plain_device_ms",
+                    "plan")}
                 for r in fam_cases if r["case"] in extra[1]}
     return {"kernels": rows}
 

@@ -34,8 +34,10 @@ F = ctypes.c_float
 SIGNATURES = {
     "dueling_select": {
         # x, a, thetas, tilt, mask, a1, a2, B, K, d, tilt_stride,
-        # mask_stride, distinct, stream
-        "dueling_select_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        # mask_stride, distinct, configuration, rows per block, cluster
+        # size, blocks, stream
+        "dueling_select_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                  I, I, I, P],
     },
     "dueling_score": {
         # x, a, thetas, out, B, K, d, J, configuration, grid x, y, z,

@@ -18,8 +18,11 @@ CPU tensor runs the plain PyTorch version, a CUDA tensor the hand-written
 kernel (``csrc/dueling_score.cu``, ``csrc/dueling_select.cu``) or raises.
 ``score_plan`` picks the score kernel's configuration: Small (a warp per
 output, d split across lanes) for few outputs, as ``posterior_scores``
-has, Large (a tiled product) otherwise. The select kernel streams K with a
-running argmax, so it has no K ceiling and needs no large-K fallback.
+has, Large (a tiled product) otherwise. ``select_plan`` picks the select
+kernel's: Small (a warp per arm, a block per row or per 8 rows) for the
+routing pools' few arms, Large (a tiled product fused with the argmax)
+for many. Both keep a running argmax over the arms, so K has no ceiling
+and needs no large-K fallback.
 """
 from __future__ import annotations
 
@@ -130,6 +133,54 @@ def posterior_scores_plain(a: torch.Tensor,
     return dueling_score_plain(_ones_query(a), a, thetas)[:, 0, :]
 
 
+# The select kernel's configurations (``csrc/dueling_select.cu``): Small, a
+# warp per arm and a block per row (or per 8 rows), for K <= 32; Large,
+# blocks of 32 rows walking tiles of 128 arms, split over a thread-block
+# cluster of up to 8 blocks where the rows leave SMs idle. On the H100 (both
+# forced, d 768, B 64-4096; tools/score_sweep.py --select) Small was the
+# faster at K <= 16 for every B and at K 32 up to B 1024; Large, whose
+# block takes ~0.083 ms per arm tile whatever its rows, at K 32 and B
+# 4096; blocks of 8 rows were the faster from B 1024 on.
+SELECT_SMALL_ARMS = 32              # a block of 32 warps at most
+SELECT_ROWS_ARMS = 16               # Small whatever B; 8-row blocks
+SELECT_SMALL_PAIRS = 1 << 16        # past 16 arms, Small up to this B*K
+SELECT_ROWS_MIN_B = 1024            # 8 rows a block from this batch on
+SELECT_LARGE_ROWS, SELECT_LARGE_ARMS = 32, 128
+SELECT_SMS, SELECT_MAX_CLUSTER = 132, 8    # SMs of an H100 SXM
+SELECT_SMEM_BYTES = 227 * 1024      # a block's shared memory on Hopper
+
+
+def select_smem(rows: int, k: int, d: int) -> int:
+    """Shared memory (bytes) of a Small block of ``rows`` rows: their three
+    staged products, d rounded up to 4 each, and their (s_1, s_2)."""
+    return 4 * (3 * rows * (-(-d // 4) * 4) + 2 * rows * k)
+
+
+def select_plan(b: int, k: int, d: int, cfg: int | None = None):
+    """(configuration, rows per block, cluster size, blocks) of a
+    ``dueling_select`` launch. 0 Small, where one row's products fit a
+    block's shared memory and K <= 16, or K <= 32 and B*K <= 2^16: a block
+    per row, or per 8 rows from B 1024 on (K <= 16). 1 Large, otherwise:
+    32 rows per block, and a cluster of up to 8 blocks (no more than the
+    arm tiles of 128) where ceil(B/32) blocks leave SMs idle; ``blocks``
+    counts every block of every cluster. ``cfg`` names the configuration
+    instead (sweeps and tests force both this way); ValueError where Small
+    cannot run (K > 32, or a row's products past shared memory)."""
+    fits = k <= SELECT_SMALL_ARMS and \
+        select_smem(1, k, d) <= SELECT_SMEM_BYTES
+    if cfg == 0 and not fits:
+        raise ValueError(f"dueling_select: Small cannot run K {k}, d {d}")
+    small = fits and (k <= SELECT_ROWS_ARMS or b * k <= SELECT_SMALL_PAIRS)
+    if cfg == 0 or (cfg is None and small):
+        rows = 8 if (k <= SELECT_ROWS_ARMS and b >= SELECT_ROWS_MIN_B and
+                     select_smem(8, k, d) <= SELECT_SMEM_BYTES) else 1
+        return 0, rows, 1, max(1, -(-b // rows))
+    blocks = max(1, -(-b // SELECT_LARGE_ROWS))
+    tiles = -(-k // SELECT_LARGE_ARMS)
+    cl = max(1, min(SELECT_MAX_CLUSTER, tiles, SELECT_SMS // blocks))
+    return 1, SELECT_LARGE_ROWS, cl, blocks * cl
+
+
 def dueling_select_plain(x: torch.Tensor, a: torch.Tensor,
                          thetas: torch.Tensor, *,
                          tilt: torch.Tensor | None = None,
@@ -172,7 +223,8 @@ def dueling_select(x: torch.Tensor, a: torch.Tensor, thetas: torch.Tensor, *,
     """Route a batch: (a1, a2) int32 (B,) from x (B,d), a (K,d), thetas
     (2,d), an optional (K,) or (B,K) float tilt and an optional (K,) or
     (B,K) bool arm mask. CPU tensors take the plain version; CUDA tensors
-    launch the kernel and count the launch in ``dueling_select.launches``."""
+    launch the kernel in the configuration ``select_plan`` names and count
+    the launch in ``dueling_select.launches``."""
     if x.device.type == "cpu":
         return dueling_select_plain(x, a, thetas, tilt=tilt, mask=mask,
                                     distinct=distinct)
@@ -194,12 +246,13 @@ def dueling_select(x: torch.Tensor, a: torch.Tensor, thetas: torch.Tensor, *,
     mask_c = None if mask is None else mask.to(torch.bool).contiguous()
     a1 = torch.empty((b,), dtype=torch.int32, device=x.device)
     a2 = torch.empty((b,), dtype=torch.int32, device=x.device)
+    plan = select_plan(b, k, d)
     lib = _build.library("dueling_select")
     P = _build.ptr
     with torch.cuda.device(x.device):
         code = lib.dueling_select_launch(
             P(x_c), P(a_c), P(th_c), P(tilt_c), P(mask_c), P(a1), P(a2),
-            b, k, d, t_stride, m_stride, int(bool(distinct)),
+            b, k, d, t_stride, m_stride, int(bool(distinct)), *plan,
             _build.stream(x.device))
     _build.check(code, "dueling_select")
     dueling_select.launches += 1

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test takes the ``cuda_device`` fixture, which skips when no CUDA card
-is present (decided inside the fixture, never at import). The file imports
+is present (decided inside the fixture, never at import) and otherwise
+builds every kernel library before the test runs. The file imports
 no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -13,7 +14,9 @@ rtol 1e-4 (fp32 with another summation order on the card); each SGLD
 call, fgts and mixed mode, is one launch of one kernel and repeats
 bitwise, and duplicated arms that tie across its arm tiles split the
 gradient as the plain version does; each score call runs the configuration
-``score_plan`` names and repeats bitwise. Attention
+``score_plan`` names and repeats bitwise; each select call, in either
+configuration forced, is one launch of that configuration's kernel,
+repeats bitwise and routes duplicated arms to the first copy. Attention
 matches to rtol = atol = 2e-5 in fp32 (the SIMT kernel, at the encoder's
 shape, across its double-buffered kv tiles with ragged S/T, and through
 its 4-byte copies for unaligned views) and 2e-2 in bf16 (the Hopper
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import ARCHS
+from repro_torch.kernels import _build
 from repro_torch.encoder import model as tenc
 from repro_torch.kernels import dueling_score as tds
 from repro_torch.kernels import flash_attention as tfa
@@ -55,6 +59,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: holds a CUDA kernel against its "
                     "plain version")
+    # every library built (nvcc in subprocesses) before the first test, so
+    # no build runs between profiler sessions: on a fresh machine, builds
+    # after the first session left the profiler seeing no device activity
+    # for the rest of the process
+    _build.build_all()
     return torch.device("cuda")
 
 
@@ -109,6 +118,97 @@ def test_dueling_select_kernel_edges(cuda_device):
     a[6:] = a[:5]
     d1, d2 = tds.dueling_select(x, a, th)
     assert int(d1.max()) < 6 and int(d2.max()) < 6
+
+
+def _force_select(monkeypatch, cfg):
+    """Make ``dueling_select`` launch configuration ``cfg`` (0 Small, 1
+    Large) whatever ``select_plan`` would pick."""
+    plan = tds.select_plan
+    monkeypatch.setattr(tds, "select_plan",
+                        lambda b, k, d: plan(b, k, d, cfg=cfg))
+
+
+# b, k, d, mask, layout: K 1; K 33 (Large only) and K 32 at d 98 (4-byte
+# loads); a row-slice view off a 16-byte boundary (d 98) and tables one
+# element off it (d 96); the routing shape; 8-row Small blocks (B 1024)
+SELECT_EDGES = [(64, 1, 768, "bk", None), (70, 33, 98, "bk", None),
+                (130, 32, 98, "bk", None), (130, 11, 98, "k", "row_slice"),
+                (130, 11, 96, "bk", "misaligned"), (256, 16, 768, "k", None),
+                (1024, 16, 768, "bk", None)]
+
+
+@pytest.mark.parametrize("cfg,b,k,d,mask_kind,layout", [
+    (cfg, *edge) for cfg in (0, 1) for edge in SELECT_EDGES
+    if cfg == 1 or edge[1] <= 32])
+def test_dueling_select_configurations_match_plain(
+        cuda_device, monkeypatch, cfg, b, k, d, mask_kind, layout):
+    """Both configurations forced at the edge shapes: pairs equal to the
+    plain version's, a (B,K) mask's all-inactive row routes (0, 0) and its
+    single survivor duels itself, each call counts one launch, and
+    repeated calls agree bitwise."""
+    x, a, th, mask, tilt = _select_inputs(b, k, d, mask_kind, "bk", b + k,
+                                          cuda_device)
+    if mask_kind == "bk":
+        mask[0] = False
+        mask[1] = False
+        mask[1, k - 1] = True
+    if layout == "row_slice":
+        base = torch.randn((b + 1, d), device=cuda_device)
+        base[1:] = x
+        x = base[1:]
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    elif layout == "misaligned":
+        x, a, th = _misaligned(x), _misaligned(a), _misaligned(th)
+    _force_select(monkeypatch, cfg)
+    assert tds.select_plan(b, k, d)[0] == cfg
+    kw = dict(tilt=tilt, mask=mask, distinct=True)
+    before = tds.dueling_select.launches
+    a1, a2 = tds.dueling_select(x, a, th, **kw)
+    torch.cuda.synchronize()
+    assert tds.dueling_select.launches == before + 1
+    p1, p2 = tds.dueling_select_plain(x, a, th, **kw)
+    assert a1.tolist() == p1.tolist() and a2.tolist() == p2.tolist()
+    if mask_kind == "bk":
+        assert (a1[0].item(), a2[0].item()) == (0, 0)
+        assert (a1[1].item(), a2[1].item()) == (k - 1, k - 1)
+    for _ in range(3):
+        r1, r2 = tds.dueling_select(x, a, th, **kw)
+        assert torch.equal(r1, a1) and torch.equal(r2, a2)
+
+
+@pytest.mark.parametrize("cfg", [0, 1])
+def test_dueling_select_is_one_kernel(cuda_device, monkeypatch, cfg):
+    """At the routing shape, a call of either configuration runs exactly
+    one device kernel, once: the configuration's own."""
+    x, a, th, mask, tilt = _select_inputs(256, 16, 768, "k", "bk", 5,
+                                          cuda_device)
+    _force_select(monkeypatch, cfg)
+    ran = _device_kernels(lambda: tds.dueling_select(
+        x, a, th, tilt=tilt, mask=mask, distinct=True))
+    assert len(ran) == 1 and ran[0][1] == 1, ran
+    assert ("select_small" if cfg == 0 else "select_large") in ran[0][0], ran
+
+
+@pytest.mark.parametrize("cfg,b,k,d", [(0, 256, 16, 768), (1, 256, 16, 768),
+                                       (1, 70, 300, 64), (0, 130, 11, 98)])
+def test_dueling_select_duplicate_arms_take_the_first(cuda_device,
+                                                      monkeypatch, cfg, b, k,
+                                                      d):
+    """Arms n.. copy arms 0.. (across arm groups, and across tiles and
+    cluster ranks at K 300): they score bitwise equal, so every pair goes
+    to the first copies, the plain version's pair up to its copy."""
+    x, a, th, _, _ = _select_inputs(b, k, d, "none", "none", k, cuda_device)
+    n = k - k // 2
+    a[n:] = a[:k // 2]
+    _force_select(monkeypatch, cfg)
+    a1, a2 = tds.dueling_select(x, a, th)
+    p1, p2 = tds.dueling_select_plain(x, a, th)
+    first = lambda v: torch.where(v >= n, v - n, v)
+    assert int(a1.max()) < n and int(a2.max()) < n
+    assert torch.equal(a1, first(p1)) and torch.equal(a2, first(p2))
+    for _ in range(3):
+        r1, r2 = tds.dueling_select(x, a, th)
+        assert torch.equal(r1, a1) and torch.equal(r2, a2)
 
 
 VARIANTS = ["plain", "mask", "pref", "ties", "self_duels"]

@@ -280,6 +280,296 @@ def test_score_plan_covers_every_output(b, k, j, d):
 
 
 # ---------------------------------------------------------------------------
+# dueling_select: the kernel's two configurations, emulated
+# ---------------------------------------------------------------------------
+
+BIG = 2 ** 31 - 1                   # the kernels' index of "no candidate"
+NEG = -torch.inf
+
+
+def _better(v, i, bv, bi):
+    """(v, i) before (bv, bi): higher value, then lower index."""
+    return (v > bv) | ((v == bv) & (i < bi))
+
+
+def _xor_best(v, i):
+    """The best (value, index) over the last axis (32 lanes) by the
+    kernels' xor tree: lane l takes lane l ^ o's pair where it is better,
+    for o = 16, 8, 4, 2, 1."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        ov, oi = v[..., lanes ^ o], i[..., lanes ^ o]
+        take = _better(ov, oi, v, i)
+        v, i = torch.where(take, ov, v), torch.where(take, oi, i)
+    return v[..., 0], i[..., 0]
+
+
+def _tilted(s, tilt, mask):
+    """(2,B,K) scores minus the tilt (fp32), -inf on inactive arms."""
+    if tilt is not None:
+        s = s - torch.atleast_2d(tilt)[None]
+    if mask is not None:
+        s = torch.where(torch.atleast_2d(mask)[None], s, NEG)
+    return s
+
+
+def _emulated_small_select(x, a, th, tilt, mask, distinct, width):
+    """(a1, a2) in the order of ``csrc/dueling_select.cu``'s Small
+    configuration: each (row, arm) scored by a warp as the Small score
+    kernel scores it (``_emulated_small_scores``), the row's arms on lanes
+    0..K-1, the argmax of s_1 and then of s_2 (a1 at -inf when distinct)
+    by the xor tree of (value, index) pairs."""
+    s = _tilted(_emulated_small_scores(x, a, th, width), tilt, mask)
+    b, k = s.shape[1:]
+    idx = torch.cat([torch.arange(k), torch.full((32 - k,), BIG)])
+    idx = idx.expand(b, 32)
+    pad = lambda v: torch.cat([v, torch.full((b, 32 - k), NEG)], dim=-1)
+    _, a1 = _xor_best(pad(s[0]), idx)
+    s2 = s[1]
+    if distinct:
+        s2 = torch.where(torch.arange(k)[None] == a1[:, None], NEG, s2)
+    v2, i2 = _xor_best(pad(s2), idx)
+    return a1, torch.where(v2 == NEG, a1, i2)
+
+
+def _sequential_sums(u, v):
+    """sum_t u[..., t] * v[..., t] by one fmaf per element in increasing t:
+    the order of a thread of the Large configuration."""
+    acc = torch.zeros(torch.broadcast_shapes(u.shape, v.shape)[:-1])
+    for t in range(u.shape[-1]):
+        acc = _fma(u[..., t], v[..., t], acc)
+    return acc
+
+
+def _push(c, s1, s2, k, ok):
+    """A thread's running candidates (best s_1, top two of s_2) after arm
+    k, where ``ok``."""
+    v1, i1, u1, j1, u2, j2 = c
+    t = ok & _better(s1, k, v1, i1)
+    v1, i1 = torch.where(t, s1, v1), torch.where(t, k, i1)
+    lead = ok & _better(s2, k, u1, j1)
+    second = ok & ~lead & _better(s2, k, u2, j2)
+    u2 = torch.where(lead, u1, torch.where(second, s2, u2))
+    j2 = torch.where(lead, j1, torch.where(second, k, j2))
+    u1, j1 = torch.where(lead, s2, u1), torch.where(lead, k, j1)
+    return v1, i1, u1, j1, u2, j2
+
+
+def _merge(c, o):
+    """Two threads' candidates (disjoint arms) merged, as ``cands_merge``."""
+    v1, i1, u1, j1, u2, j2 = c
+    ov1, oi1, ou1, oj1, ou2, oj2 = o
+    t = _better(ov1, oi1, v1, i1)
+    v1, i1 = torch.where(t, ov1, v1), torch.where(t, oi1, i1)
+    lead = _better(ou1, oj1, u1, j1)
+    keep = _better(u1, j1, ou2, oj2)           # under lead: c's first second
+    up = _better(ou1, oj1, u2, j2)             # else: o's first second
+    n2 = torch.where(lead, torch.where(keep, u1, ou2),
+                     torch.where(up, ou1, u2))
+    m2 = torch.where(lead, torch.where(keep, j1, oj2),
+                     torch.where(up, oj1, j2))
+    n1, m1 = torch.where(lead, ou1, u1), torch.where(lead, oj1, j1)
+    return v1, i1, n1, m1, n2, m2
+
+
+def _xor_merge(c):
+    """Candidates over the last axis (32 lanes) merged by the xor tree."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        c = _merge(c, tuple(f[..., lanes ^ o] for f in c))
+    return tuple(f[..., 0] for f in c)
+
+
+def _emulated_large_select(x, a, th, tilt, mask, distinct, cl):
+    """(a1, a2) in the order of the Large configuration with clusters of
+    ``cl`` blocks: every (b, k) summed over d in increasing order with
+    fmaf; the thread of arm group g in rank r visits arms 128 t + 4 g + n
+    of its tiles t = r, r + cl, ... in that order; a row's 32 arm groups
+    merge by the xor tree, then rank 0 merges the ranks (lane r holding
+    rank r's candidates)."""
+    xt = x[None] * th[:, None]                             # (2, B, d)
+    num = _sequential_sums(xt[:, :, None], a[None, None])  # (2, B, K)
+    den = _sequential_sums((x * x)[:, None], (a * a)[None])
+    s = _tilted(num / torch.sqrt(torch.clamp_min(den, 1e-24))[None], tilt,
+                mask)
+    b, k = s.shape[1:]
+    tiles = -(-k // 128)
+    shape = (b, cl, 32)
+    c = tuple(torch.full(shape, v) for v in (NEG, BIG) * 3)
+    rank = torch.arange(cl)[:, None]
+    group = torch.arange(32)[None]
+    for j in range(-(-tiles // cl)):
+        for n in range(4):
+            arm = (rank + j * cl) * 128 + 4 * group + n        # (cl, 32)
+            ok = (arm < k).expand(shape)
+            kk = torch.where(arm < k, arm, 0).expand(shape)
+            pick = lambda v: torch.gather(v, 1, kk.reshape(b, -1)).reshape(
+                shape)
+            c = _push(c, pick(s[0]), pick(s[1]), kk, ok)
+    c = _xor_merge(c)                                      # (B, cl) each
+    if cl > 1:
+        c = tuple(torch.cat([f, torch.full((b, 32 - cl), fill)], dim=-1)
+                  for f, fill in zip(c, (NEG, BIG) * 3))
+        c = _xor_merge(c)
+    else:
+        c = tuple(f[:, 0] for f in c)
+    v1, i1, u1, j1, u2, j2 = c
+    skip = (j1 == i1) if distinct else torch.zeros_like(j1, dtype=torch.bool)
+    cv, ci = torch.where(skip, u2, u1), torch.where(skip, j2, j1)
+    return i1, torch.where(cv == NEG, i1, ci)
+
+
+SELECT_EMULATIONS = {
+    "small_w4": lambda *ops: _emulated_small_select(*ops, width=4),
+    "small_w1": lambda *ops: _emulated_small_select(*ops, width=1),
+    "large_cl1": lambda *ops: _emulated_large_select(*ops, cl=1),
+    "large_cl3": lambda *ops: _emulated_large_select(*ops, cl=3),
+}
+# (B, K, d): Small at the routing pool's 11 slots, ragged d (100: a lane's
+# float4s cross no row end); Large with three arm tiles and two row blocks
+SELECT_EMU_SHAPES = {"small": (7, 11, 100), "large": (40, 300, 36)}
+
+
+def _emulation_inputs(config, mask_kind, tilt_kind, seed):
+    b, k, d = SELECT_EMU_SHAPES[config.split("_")[0]]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    th = rng.standard_normal((2, d)).astype(np.float32)
+    mask = {"none": None, "k": rng.random(k) > 0.3,
+            "bk": rng.random((b, k)) > 0.3}[mask_kind]
+    tilt = {"none": None, "k": (0.3 * rng.random(k)).astype(np.float32),
+            "bk": (0.3 * rng.random((b, k))).astype(np.float32)}[tilt_kind]
+    return x, a, th, mask, tilt
+
+
+def _emulated_pair(config, x, a, th, mask, tilt, distinct):
+    on = lambda v: None if v is None else t(v)
+    return SELECT_EMULATIONS[config](t(x), t(a), t(th), on(tilt), on(mask),
+                                     distinct)
+
+
+def _near_tied_rows(x, a, th, mask, tilt, a1_ref, distinct):
+    """Rows whose top two of s_1, or of s_2 without the reference's a1
+    where distinct, lie within 1e-5 of max|s| (the plain scores)."""
+    on = lambda v: None if v is None else t(v)
+    s = _tilted(tds.dueling_score_plain(t(x), t(a), t(th)), on(tilt),
+                on(mask))
+    thr = 1e-5 * float(torch.nan_to_num(s.abs(), posinf=0.0).max())
+    s2 = s[1]
+    if distinct:
+        cols = torch.arange(a.shape[0])[None]
+        s2 = torch.where(cols == t(a1_ref)[:, None].long(), NEG, s2)
+
+    def tied(v):
+        if v.shape[-1] < 2:
+            return torch.zeros(v.shape[0], dtype=torch.bool)
+        top = torch.topk(v, 2, dim=-1).values
+        return torch.isfinite(top[:, 1]) & (top[:, 0] - top[:, 1] <= thr)
+    return (tied(s[0]) | tied(s2)).numpy()
+
+
+@pytest.mark.parametrize("mask_kind,tilt_kind", [("none", "none"),
+                                                 ("k", "bk"), ("bk", "k")])
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("config", list(SELECT_EMULATIONS))
+def test_select_configuration_order_matches_jax(config, distinct, mask_kind,
+                                                tilt_kind):
+    """Each configuration of the select kernel (emulated: its summation
+    order and its (value, index) merges) routes as the Pallas kernel
+    (interpret mode): pairs equal outside near-ties (top-two gap within
+    1e-5 of max|s|), which these inputs do not have."""
+    x, a, th, mask, tilt = _emulation_inputs(config, mask_kind, tilt_kind,
+                                             seed=len(config) + 7)
+    ref1, ref2 = _jax_pair(x, a, th, mask, tilt, distinct)
+    a1, a2 = _emulated_pair(config, x, a, th, mask, tilt, distinct)
+    ok = ~_near_tied_rows(x, a, th, mask, tilt, ref1, distinct)
+    assert ok.sum() >= len(ok) - 1
+    np.testing.assert_array_equal(a1.numpy()[ok], ref1[ok])
+    np.testing.assert_array_equal(a2.numpy()[ok], ref2[ok])
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("config", list(SELECT_EMULATIONS))
+def test_select_configurations_single_survivor_and_all_inactive(config,
+                                                               distinct):
+    """A row with one live arm duels it with itself, a row with none routes
+    (0, 0), in both configurations, as the reference."""
+    x, a, th, _, tilt = _emulation_inputs(config, "none", "bk", seed=11)
+    b, k = x.shape[0], a.shape[0]
+    mask = np.zeros((b, k), bool)
+    mask[0, k - 2] = True                     # single survivor
+    mask[1, [2, k - 1]] = True                # two survivors
+    mask[3:] = True                           # row 2 all inactive
+    ref1, ref2 = _jax_pair(x, a, th, mask, tilt, distinct)
+    a1, a2 = _emulated_pair(config, x, a, th, mask, tilt, distinct)
+    np.testing.assert_array_equal(a1.numpy(), ref1)
+    np.testing.assert_array_equal(a2.numpy(), ref2)
+    assert (a1[0].item(), a2[0].item()) == (k - 2, k - 2)
+    assert (a1[2].item(), a2[2].item()) == (0, 0)
+
+
+@pytest.mark.parametrize("config", list(SELECT_EMULATIONS))
+def test_select_configurations_duplicate_arms_take_the_first(config):
+    """Duplicated arms score bitwise equal in either configuration's order,
+    wherever they sit (across arm groups, tiles and cluster ranks in
+    Large), so the first copy wins every row exactly: the pairs are the
+    reference's over the first copies alone (outside near-ties)."""
+    x, a, th, _, _ = _emulation_inputs(config, "none", "none", seed=13)
+    k = a.shape[0]
+    n = k - k // 2                            # arms n.. copy arms 0..
+    a[n:] = a[:k // 2]
+    a1, a2 = _emulated_pair(config, x, a, th, None, None, False)
+    assert int(a1.max()) < n and int(a2.max()) < n
+    first = a[:n]
+    ref1, ref2 = _jax_pair(x, first, th, None, None, False)
+    ok = ~_near_tied_rows(x, first, th, None, None, ref1, False)
+    assert ok.sum() >= len(ok) - 1
+    np.testing.assert_array_equal(a1.numpy()[ok], ref1[ok])
+    np.testing.assert_array_equal(a2.numpy()[ok], ref2[ok])
+
+
+@pytest.mark.parametrize("b,k,d", [(256, 16, 768), (4096, 16, 768),
+                                   (4096, 1024, 768), (64, 1100, 96),
+                                   (64, 1, 768), (1, 1, 1), (130, 11, 768),
+                                   (70, 33, 98), (130, 32, 98),
+                                   (1023, 16, 768), (1024, 16, 768),
+                                   (2048, 32, 768), (2049, 32, 768),
+                                   (300, 17, 768), (8192, 4, 8),
+                                   (256, 16, 20000), (3000, 256, 64)])
+def test_select_plan_covers_every_row_and_arm(b, k, d):
+    """Small exactly where one row's products fit shared memory and K <= 16,
+    or K <= 32 and B*K <= 2^16 (B 2048 and 2049 at K 32 are its two
+    sides): its blocks cover every row, 8 rows a block exactly from B 1024
+    on at K <= 16 (B 1023 and 1024 its sides), a block per row otherwise.
+    Large's blocks cover every row; its clusters split the arm tiles so that
+    each tile has exactly one rank and no rank is left without one, and
+    come only where the rows leave SMs idle. Forcing Large runs any shape;
+    forcing Small past 32 arms raises."""
+    cfg, rows, cl, blocks = tds.select_plan(b, k, d)
+    fits = k <= 32 and tds.select_smem(1, k, d) <= tds.SELECT_SMEM_BYTES
+    assert cfg == (0 if fits and (k <= 16 or b * k <= 1 << 16) else 1)
+    if cfg == 0:
+        assert cl == 1 and rows == (8 if k <= 16 and b >= 1024 else 1)
+        assert blocks * rows >= b > (blocks - 1) * rows
+        assert tds.select_smem(rows, k, d) <= tds.SELECT_SMEM_BYTES
+    else:
+        assert rows == 32 and 1 <= cl <= 8 and blocks % cl == 0
+        row_blocks = blocks // cl
+        assert row_blocks * 32 >= b > (row_blocks - 1) * 32
+        # rank r walks tiles r, r + cl, ...: each tile has one rank, and
+        # every rank a tile
+        assert cl <= -(-k // 128)
+        assert cl == 1 or blocks <= tds.SELECT_SMS
+    assert tds.select_plan(b, k, d, cfg=1)[0] == 1
+    if fits:
+        assert tds.select_plan(b, k, d, cfg=0)[0] == 0
+    else:
+        with pytest.raises(ValueError, match="Small"):
+            tds.select_plan(b, k, d, cfg=0)
+
+
+# ---------------------------------------------------------------------------
 # sgld_potential: forward and gradient
 # ---------------------------------------------------------------------------
 

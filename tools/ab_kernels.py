@@ -24,14 +24,18 @@ functions:
 - ``sgld_mixed``, forward and gradient, ``main`` (the mixed loop's C 8
   chains, m 64, K 16, d 768, half clicks) and ``bench`` (m 1024, K 1024);
 - ``dueling_score`` ``main`` (``posterior_scores`` of the autopilot's 16
-  chains, K 16, d 768) and ``bench`` (B 4096, K 1024, J 2).
+  chains, K 16, d 768) and ``bench`` (B 4096, K 1024, J 2);
+- ``dueling_select`` ``main`` (the routing batch: B 256, K 16 with 11
+  live, d 768), ``bench`` (B 4096, K 1024) and ``serve`` (a RouterService
+  batch: B 4096 over the same 16 slots).
 
 With ``--prefill`` each worker also times mamba2-1.3b's and
 recurrentgemma-9b's ``lm.prefill`` (random bf16 weights, B 2 x 4096
 tokens; host clock around a synchronised call, median of 3) and the fp32
 encoder (``EncoderConfig()``, one 256-query batch of 64 tokens; median of
-20). With ``--paths`` it also runs that checkout's ``chip_smoke`` autopilot
-and mixed paths (16 ticks at full width, then 2 profiled ticks) and keeps
+20). With ``--paths`` it also runs that checkout's ``chip_smoke`` FGTS
+slice (its ``sync`` run), autopilot and mixed paths (16 ticks at full
+width, then 2 profiled ticks) and keeps
 their ms per tick, device busy ms per tick and idle share. Prints one
 JSON line per worker and a summary line of every time (``*ms`` field) by
 checkout; every record names the card and its power limit. Needs one
@@ -58,6 +62,9 @@ SGLD = {"main": (8, 64, 16, 768, 4096), "bench": (8, 1024, 1024, 768, 4096)}
 SCORE = {"main": (1, 16, 768, 16, dict(posterior=True, live=11)),
          "bench": (4096, 1024, 768, 2, dict())}
 RGLRU = {"main": (2, 4096, 4096), "bench": (4, 32768, 4096)}
+SELECT = {"main": (256, 16, 768, dict(mask_kind="k", live=11)),
+          "bench": (4096, 1024, 768, dict()),
+          "serve": (4096, 16, 768, dict(mask_kind="k", live=11))}
 KEYS = ("ms", "device_ms", "bound_ms", "max_abs_err", "library_ms",
         "library_device_ms")
 
@@ -95,14 +102,21 @@ def worker(root: Path, prefill: bool, paths: bool) -> dict:
         r = cs.score_case(name, b, k, d, j, gen, dev, timed=True, **kw)
         out[f"score_{name}"] = {k: v for k, v in r.items()
                                 if k.endswith(("_ms", "_err"))}
+    for name, (b, k, d, kw) in SELECT.items():
+        r = cs.select_case(name, b, k, d, gen, dev, timed=True, **kw)
+        out[f"select_{name}"] = dict(
+            {k: v for k, v in r.items() if k.endswith(("_ms", "_err"))},
+            plan=r.get("plan"))
     if prefill:
         out.update(prefill_times(dev))
     if paths:
-        for name, phase in (("autopilot", cs.phase_autopilot),
+        for name, phase in (("sync", cs.phase_slice),
+                            ("autopilot", cs.phase_autopilot),
                             ("mixed", cs.phase_mixed)):
             r = phase(dev, 0)
+            run = r.get(name, r)         # the slice returns its two runs
             out[f"path_{name}"] = dict(
-                ms=r["ms_per_tick"],
+                ms=run["ms_per_tick"],
                 device_busy_ms=r["profile"]["device_busy_ms_per_tick"],
                 device_idle_share=r["profile"]["device_idle_share"])
     return out

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Both configurations of the ``dueling_score`` kernel forced at a sweep of
-shapes, to place ``dueling_score.score_plan``'s bound.
+"""Both configurations of the ``dueling_score`` kernel, or with
+``--select`` of the ``dueling_select`` kernel, forced at a sweep of shapes,
+to place ``dueling_score.score_plan``'s or ``select_plan``'s bound.
 
-    python3 tools/score_sweep.py [--out FILE]
+    python3 tools/score_sweep.py [--select] [--out FILE]
 
 For each (B, K, J) at d 768 it runs the score kernel once as Small (a warp
 per output) and once as Large (64 x 64 tiles), whatever the plan would
 pick, checks both against the plain version (1e-5 of max|s|) and prints
 their device times (``chip_smoke.device_ms``), B*K*J*d and the plan's own
-choice, with the card's name and power limit. Needs one CUDA card.
+choice, with the card's name and power limit. With ``--select``, for each
+(B, K) at d 768 it runs the select kernel as Small with each number of rows
+per block it takes (1, and 8 for K <= 16; Small only for K <= 32) and as
+Large, checks every routed pair against the plain
+version (none may differ outside near-ties) and prints the device times
+beside the plan's own choice. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -25,22 +31,47 @@ SHAPES = [(1, 16, 16), (63, 16, 16), (128, 16, 16), (256, 16, 16),
           (256, 64, 16), (63, 256, 16), (32, 1024, 16)]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", help="also write the records here (JSON)")
-    args = ap.parse_args()
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+SELECT_SHAPES = [(64, 16), (256, 16), (1024, 16), (4096, 16), (256, 11),
+                 (256, 32), (1024, 32), (4096, 32), (256, 64), (4096, 64),
+                 (256, 1024), (4096, 1024)]
+
+
+def select_sweep(cs, dev, card) -> list:
     import torch
-    if not torch.cuda.is_available():
-        print("score_sweep: no CUDA card", file=sys.stderr)
-        return 2
-    import chip_smoke as cs
     from repro_torch.kernels import dueling_score as ds
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    plan = ds.select_plan
+    records = []
+    for b, k in SELECT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(b + k)
+        x = torch.randn((b, D), generator=gen, device=dev)
+        a = torch.randn((k, D), generator=gen, device=dev)
+        th = torch.randn((2, D), generator=gen, device=dev)
+        want = ds.dueling_select_plain(x, a, th, distinct=True)
+        rec = dict(B=b, K=k, d=D, plan=list(plan(b, k, D)), card=card)
+        large = plan(b, k, D, cfg=1)
+        forced = [(f"small_r{r}", (0, r, 1, -(-b // r)))
+                  for r in (1, 8) if k <= (32 if r == 1 else 16)]
+        try:
+            for label, p in forced + [("large", large)]:
+                ds.select_plan = lambda *_, p=p: p
+                got = ds.dueling_select(x, a, th, distinct=True)
+                bad = cs.compare_pairs(x, a, th, None, None, True, got,
+                                       want)[0]
+                if bad:
+                    raise SystemExit(f"score_sweep: {label} at B {b}, K {k}"
+                                     f": {bad} pairs differ")
+                rec[f"{label}_device_ms"] = cs.device_ms(
+                    lambda: ds.dueling_select(x, a, th, distinct=True))
+        finally:
+            ds.select_plan = plan
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+    return records
+
+
+def score_sweep(cs, dev, card) -> list:
+    import torch
+    from repro_torch.kernels import dueling_score as ds
     plan = ds.score_plan
     tile, pair = ds.LARGE_TILE, ds.LARGE_J
     grids = {0: lambda b, k, j: (-(-(j * b * k) // ds.SMALL_WARPS), 1, 1),
@@ -67,6 +98,28 @@ def main() -> int:
             ds.score_plan = plan
         records.append(rec)
         print(json.dumps(rec), flush=True)
+    return records
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--select", action="store_true",
+                    help="sweep the select kernel's configurations")
+    ap.add_argument("--out", help="also write the records here (JSON)")
+    args = ap.parse_args()
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import torch
+    if not torch.cuda.is_available():
+        print("score_sweep: no CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    sweep = select_sweep if args.select else score_sweep
+    records = sweep(cs, dev, card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))

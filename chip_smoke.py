@@ -31,7 +31,10 @@ line per phase (phase 2 prints one per path):
    potentials to rtol 1e-5 and gradients to rtol 1e-4 of the largest
    magnitude. The attn family holds ``flash_attention`` to rtol = atol =
    2e-5 (fp32, the SIMT kernel) and 2e-2 (bf16, the Hopper kernel) on the
-   reference's five test shapes in both types, rows with no live key in
+   reference's five test shapes in both types, fp32 head dims 8, 16 and 24
+   at the minilm encoder's shape (B 64, H 4, S = T = 32) and 24 and 30
+   with ragged S/T (the kernel built for D 32, columns past D zero-filled),
+   rows with no live key in
    both types (they must be the mean of v), bf16 ``transpose(1, 2)`` views
    of (B,S,H,D) tensors (with a window and soft cap at D 256), ragged S/T
    at D 256, D 32 with GQA, fp32 across the SIMT kernel's double-buffered
@@ -57,7 +60,16 @@ line per phase (phase 2 prints one per path):
    SXM data sheet; bf16 attention and SSD inputs take the bf16 rate, as
    their kernels run on the tensor cores); attention's library yardstick is
    ``scaled_dot_product_attention`` where it computes the same function
-   (no soft cap; a window as a dense boolean mask).
+   (no soft cap; a window as a dense boolean mask). The attn_bwd family
+   holds ``flash_attention_bwd`` (the fp32 backward kernels) to
+   ``flash_attention_bwd_plain`` on the card from the kernel forward's o
+   and lse, at rtol = atol = 1e-4 of each gradient's max |g|, repeated
+   bitwise: the training step's shape (B 64, H 4, S = T = 64, D 64,
+   bidir: ``main``), qwen2-7b's heads (causal: ``bench``), causal +
+   window + soft cap at D 256 with ragged S/T, GQA and rows with no live
+   key, D 24, 16 and 8, D 30, ragged GQA at D 128 and strided views; its
+   bound counts 10 D operations per live pair, its library yardstick is
+   SDPA's backward (``torch.autograd.grad`` over a kept graph).
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
    8 chains, minibatch 64):
    - slice: ``env.run`` with the FGTS.CDB policy on a pooled ``ModelPool``
@@ -69,8 +81,16 @@ line per phase (phase 2 prints one per path):
    - mixed: ``mixed_feedback_policy`` for 16 ticks of act -> BTL feedback
      -> update -> ``inject_clicks`` on half of each batch, with the mixed
      energy trace;
-   - ccft: query tokens -> ``EncoderConfig()`` (random weights from a
-     seed) -> the RouterBench model embeddings in all four weightings and
+   - train: ``EncoderConfig()`` (random weights from a seed) trained on
+     the card as the paper benchmarks train it: ``pretrain_generic``, 150
+     steps of 64 pairs, then ``finetune_categorical``, 4 x 40 steps on the
+     RouterBench offline split; every step launches ``flash_attention``
+     and ``flash_attention_bwd`` 8 times each (exact counts); losses
+     finite, the category silhouette of held-out queries must rise through
+     fine-tuning; ms per step, and device ms and idle share from 2
+     profiled steps;
+   - ccft: query tokens -> the fine-tuned encoder -> the RouterBench model
+     embeddings in all four weightings and
      the online env (4096 queries, d = 256 + 14) -> ``env.run`` over FGTS;
      then MixInstruct (1200 queries) -> eq. 6 embeddings -> ``env.run``.
      The encoder alone is timed per 256-query batch;
@@ -91,10 +111,13 @@ line per phase (phase 2 prints one per path):
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
    versions) from one numpy-made draw set, for the FGTS slice, for the
    autopilot (a control tick every 2 acts) and for the ccft path (whose
-   embeddings, from the same weights and tokens, must agree to atol 1e-5
+   embeddings, from the same fine-tuned weights and tokens, must agree to
+   atol 1e-5
    first); routed pairs equal outside near-ties, final chains to rtol
    1e-4, controller counters and flags equal, lambda and the cost EMA to
-   rtol 1e-5. Then each LM at full width in fp32 at a cut depth (mamba2
+   rtol 1e-5; one ``train_step`` from the fine-tuned weights on one
+   ``HostDraws`` pair batch: loss to rtol 1e-5, every gradient leaf to 1e-4
+   of its max. Then each LM at full width in fp32 at a cut depth (mamba2
    2 layers, recurrentgemma 3), B 2 x S 500, prefill and 4 decode steps:
    logits within 1e-4 of max |logit|, greedy tokens equal outside
    near-ties, cache leaves within 1e-4 of their largest magnitude,
@@ -108,6 +131,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -679,6 +703,16 @@ def attn_cases(gen, dev):
         attn_case("ragged_d256_window_bf16", 2, 4, 1, 300, 130, 256, gen,
                   dev, causal=False, window=64, **bf),
         attn_case("d32_gqa_bf16", 1, 8, 2, 300, 300, 32, gen, dev, **bf),
+        # head dims below 32 on the kernel built for 32 (zero-filled
+        # columns): the minilm encoder's attention (d 96 over 4 heads) at
+        # its batch, and D 16 and 8 at the same shape; D 24 and D 30 (4-byte
+        # copies) with a window and ragged S/T
+        attn_case("minilm_d24", 64, 4, 4, 32, 32, 24, gen, dev, causal=False),
+        attn_case("minilm_d16", 64, 4, 4, 32, 32, 16, gen, dev, causal=False),
+        attn_case("minilm_d8", 64, 4, 4, 32, 32, 8, gen, dev, causal=False),
+        attn_case("d24_window_ragged", 1, 4, 2, 100, 70, 24, gen, dev,
+                  causal=False, window=16),
+        attn_case("d30_causal_ragged", 2, 4, 2, 45, 77, 30, gen, dev),
         # the encoder's attention at the ccft path's batch: EncoderConfig()
         attn_case("main", 256, 4, 4, 64, 64, 64, gen, dev, causal=False,
                   timed=True),
@@ -694,6 +728,122 @@ def attn_cases(gen, dev):
                   window=2048, timed=True, **bf),
     ]
     return cases
+
+
+ATTN_BWD_TOL = 1e-4     # rtol = atol = 1e-4 of each gradient's max |g|
+# SDPA's backward against the kernel's: the same function, to 1e-2 of max
+# |g| (a wrong mask or scale would be off by far more)
+LIB_BWD_TOL = 1e-2
+
+
+def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
+                  window=0, cap=0.0, strided=False, timed=False):
+    """One ``flash_attention_bwd`` case against ``flash_attention_bwd_plain``
+    on the card, both from the kernel forward's o and lse: |kernel - plain|
+    <= 1e-4 max|plain| + 1e-4 |plain| for dq, dk and dv; a second call
+    must repeat bitwise, and dq must be exactly 0 on rows with no live key.
+    ``strided`` passes q, k, v and dO as ``transpose(1, 2)`` views. Timed
+    cases add the bound (10 D operations per live (row, key) pair at the
+    fp32 rate; q, k, v, o, dO, lse, dq, dk and dv moved once) and, without
+    a soft cap, the time of SDPA's backward (``torch.autograd.grad`` over a
+    kept SDPA graph on the same inputs; the forward is not timed)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q_shape, kv_shape = (((b, s, h, d), (b, t, kv, d)) if strided
+                         else ((b, h, s, d), (b, kv, t, d)))
+    mk = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    q, k, v, do = mk(q_shape), mk(kv_shape), mk(kv_shape), mk(q_shape)
+    if strided:
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    kern = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    got = kern()
+    torch.cuda.synchronize()
+    plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    want = plain()
+    out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, causal=causal,
+               window=window, softcap=cap, strided=strided)
+    errs = []
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g).all()),
+              f"attn_bwd {name}: non-finite {gname}")
+        diff = (g - w).abs()
+        top = float(w.abs().max())
+        errs.append(float(diff.max()))
+        check(bool((diff <= ATTN_BWD_TOL * (top + w.abs())).all()),
+              f"attn_bwd {name}: {gname} off by {errs[-1]} (max |g| {top})")
+        out[f"{gname}_max_rel_err"] = errs[-1] / max(top, 1e-30)
+    out["max_abs_err"] = max(errs)
+    again = kern()
+    check(all(bool(torch.equal(x, y)) for x, y in zip(got, again)),
+          f"attn_bwd {name}: a second call differs")
+    if window and s > t + window - 1:
+        out["dead_rows"] = s - (t + window - 1)
+        check(not bool(got[0][:, :, t + window - 1:].any()),
+              f"attn_bwd {name}: dq is not 0 on rows with no live key")
+    del want, again
+    if timed:
+        mask = fa.live_mask(s, t, causal=causal, window=window, device=dev)
+        live = int(mask.sum())
+        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        out["ms"], out["plain_ms"] = time_ms(kern), time_ms(plain)
+        out["device_ms"], out["plain_device_ms"] = (device_ms(kern),
+                                                    device_ms(plain))
+        out["bound_ms"], out["bound_by"] = bound(nbytes,
+                                                 10.0 * b * h * live * d)
+        out["library_ms"] = None
+        if not cap:
+            sdpa_kw = (dict(is_causal=causal) if not window
+                       else dict(attn_mask=mask))
+            ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+            o_l = torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, enable_gqa=h != kv, **sdpa_kw)
+            lib = lambda: torch.autograd.grad(o_l, (ql, kl, vl), do,
+                                              retain_graph=True)
+            rel = max(float((x - y).abs().max()) / float(y.abs().max())
+                      for x, y in zip(lib(), got))
+            out["library_max_rel_err"] = rel
+            check(rel <= LIB_BWD_TOL,
+                  f"attn_bwd {name}: SDPA's backward computes another "
+                  f"function (off by {rel} of max |g|)")
+            out["library_mask"] = ("dense bool" if window else
+                                   "is_causal" if causal else "none")
+            out["library_ms"] = time_ms(lib)
+            out["library_device_ms"] = device_ms(lib)
+            del o_l, ql, kl, vl
+    return out
+
+
+def attn_bwd_cases(gen, dev):
+    """The attn_bwd family: the training step's shape (``main``: the
+    fine-tuning batch of 64 pairs through ``EncoderConfig()``), qwen2-7b's
+    heads (``bench``), causal + window + soft cap at D 256 with ragged S/T,
+    GQA and rows with no live key, the minilm encoder's head dim 24 and D
+    16 and 8, D 30 (4-byte copies), ragged GQA at D 128, and strided
+    views."""
+    return [
+        attn_bwd_case("main", 64, 4, 4, 64, 64, 64, gen, dev, causal=False,
+                      timed=True),
+        attn_bwd_case("bench", 1, 28, 4, 2048, 2048, 128, gen, dev,
+                      timed=True),
+        attn_bwd_case("d256_window_cap_dead_rows", 1, 4, 2, 300, 130, 256,
+                      gen, dev, window=64, cap=30.0),
+        attn_bwd_case("minilm_d24", 64, 4, 4, 32, 32, 24, gen, dev,
+                      causal=False),
+        attn_bwd_case("minilm_d16", 64, 4, 4, 32, 32, 16, gen, dev,
+                      causal=False),
+        attn_bwd_case("minilm_d8", 64, 4, 4, 32, 32, 8, gen, dev,
+                      causal=False),
+        attn_bwd_case("d30_window_ragged", 2, 4, 2, 45, 77, 30, gen, dev,
+                      causal=False, window=9),
+        attn_bwd_case("d128_gqa_ragged", 1, 8, 2, 200, 333, 128, gen, dev,
+                      causal=False),
+        attn_bwd_case("strided_window", 2, 8, 2, 150, 150, 64, gen, dev,
+                      window=40, strided=True),
+        attn_bwd_case("strided_d32_cap", 2, 4, 4, 90, 90, 32, gen, dev,
+                      causal=False, cap=20.0, strided=True),
+    ]
 
 
 SSD_TOL, RGLRU_TOL = 2e-4, 1e-5       # the reference's kernel tolerances
@@ -973,7 +1123,8 @@ def phase_kernels(dev, seed):
         mixed_case("c1", 1, 64, K_MAX, DIM, 4096, gen, dev),
         mixed_case("d98_ragged", 3, 37, 5, 98, 500, gen, dev),
     ]
-    return (sel, sg, sc, mx, attn_cases(gen, dev)) + scan_cases(gen, dev)
+    return ((sel, sg, sc, mx, attn_cases(gen, dev), attn_bwd_cases(gen, dev))
+            + scan_cases(gen, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1087,12 +1238,14 @@ def short_env(envd, ticks):
     return env.EnvData(envd.x[:ticks * BATCH], envd.utils[:ticks * BATCH])
 
 
-def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2):
+def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
     """Device busy time and kernel launches per tick from ``torch.profiler``
     (device activity only) over ``run(ticks)``, a few ticks of a path's
-    loop (or a few batches of the encoder). The idle share is taken against
-    the path's unprofiled ms per tick, since the profiler slows the
-    host."""
+    loop (or a few batches of the encoder, or steps of training). The idle
+    share is taken against the path's unprofiled ms per tick, since the
+    profiler slows the host. ``groups`` (name -> substrings of kernel
+    names, first match wins, the rest "other") adds device ms per tick by
+    group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1104,7 +1257,15 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2):
     kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
     busy_ms = sum(us for _, us, _ in kern) / 1e3 / ticks
     launches = sum(n for _, _, n in kern) / ticks
+    by_group = None
+    if groups:
+        by_group = dict.fromkeys([*groups, "other"], 0.0)
+        for key, us, _ in kern:
+            g = next((g for g, subs in groups.items()
+                      if any(x in key for x in subs)), "other")
+            by_group[g] += us / 1e3 / ticks
     return dict(ticks=ticks, profiled_ms_per_tick=wall_ms / ticks,
+                device_ms_per_tick_by_group=by_group,
                 unprofiled_ms_per_tick=ms_per_tick,
                 device_busy_ms_per_tick=busy_ms,
                 device_idle_share=1.0 - busy_ms / ms_per_tick,
@@ -1243,9 +1404,10 @@ def mixed_ticks(pol, envd, cfg, seed, dev, n_ticks):
     return state, energy, regrets
 
 
-def ccft_setup(seed, dev, t_online):
+def ccft_setup(seed, dev, t_online, params=None):
     """The CCFT embedding path's inputs from one CPU generator seeded with
-    ``seed``: ``EncoderConfig()`` with random weights, a RouterBench split
+    ``seed``: ``EncoderConfig()`` with random weights (or ``params``, the
+    trained ones, moved to ``dev``), a RouterBench split
     (``CorpusConfig(seq_len=64)``, the encoder's max_len; 5 offline queries
     per benchmark; ``t_online`` online queries) and a MixInstruct dataset
     (``MixInstructConfig()``, 1200 queries). A card run and a CPU run get
@@ -1253,13 +1415,163 @@ def ccft_setup(seed, dev, t_online):
     import torch
     from repro_torch.data import mixinstruct as mi, routerbench as rb, synth
     from repro_torch.encoder import EncoderConfig, init_encoder
+    from repro_torch.models.layers import tree_map
     enc_cfg = EncoderConfig()
     corpus = synth.CorpusConfig(seq_len=enc_cfg.max_len)
     gen = torch.Generator().manual_seed(seed)
-    params = init_encoder(gen, enc_cfg, device=dev)
+    init = init_encoder(gen, enc_cfg, device=dev)
+    if params is not None:
+        init = tree_map(lambda w: w.to(dev), params)
     split = rb.make_split(gen, corpus, t_online=t_online, device=dev)
     data = mi.make_dataset(gen, corpus, mi.MixInstructConfig(), device=dev)
-    return enc_cfg, params, split, data
+    return enc_cfg, init, split, data
+
+
+# encoder training at the paper benchmarks' counts
+# (``benchmarks/common.py:63-70``): 150 generic steps, then 4 epochs of 40
+# CCFT steps, 64 pairs a step
+PRETRAIN_STEPS, FT_EPOCHS, FT_STEPS, PAIRS = 150, 4, 40, 64
+# a training step's device time by kernel family (profiler kernel names)
+STEP_GROUPS = {
+    "attention_fwd": ("flash_attention_kernel",),
+    "attention_bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel"),
+    "gemm": ("gemm", "Kernel2<cutlass"),
+    "reduce": ("reduce_kernel",),
+    "elementwise": ("elementwise", "foreach", "index", "scatter", "gather",
+                    "cat", "copy", "fill"),
+}
+
+
+def phase_train(dev, seed):
+    """The CCFT encoder's training on the card at ``EncoderConfig()``
+    width: ``pretrain_generic`` (150 steps of 64 pairs over 840 unlabelled
+    queries of ``CorpusConfig(seq_len=64)``), then ``finetune_categorical``
+    (4 x 40 steps) on the RouterBench split's 35 offline queries, the data
+    the ccft path then embeds. Each run has the launch counts reset just
+    before it and read just after: every step must launch
+    ``flash_attention`` and ``flash_attention_bwd`` once per layer per
+    encode (8 each). ms per step on the host clock (synchronised); device
+    ms per step, the idle share and the kernels per step from 2 profiled
+    steps. Losses must be finite, and the category silhouette of 56 held-out
+    queries must rise through fine-tuning. Returns (record, the fine-tuned
+    parameters)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.contrastive import finetune as ft
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.data import synth
+    enc_cfg, params0, split, _ = ccft_setup(seed, dev, HORIZON)
+    corpus = synth.CorpusConfig(seq_len=enc_cfg.max_len)
+    gen = torch.Generator().manual_seed(seed + 1)
+    pt_tok, pt_mask, _ = synth.make_split(gen, 120, corpus, dev)
+    ev = synth.make_split(gen, 8, corpus, dev)
+    off = (split.offline_tokens, split.offline_mask, split.offline_cats)
+    sil = {"init": ft.category_silhouette(params0, enc_cfg, *ev)}
+    n_layers = enc_cfg.n_layers
+
+    def counted(run, steps):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        counts = kernels.launch_counts()
+        for k in ("flash_attention", "flash_attention_bwd"):
+            check(counts[k] == 2 * n_layers * steps,
+                  f"train: {counts[k]} {k} launches in {steps} steps of "
+                  f"2 x {n_layers} layers")
+        return result, ms, counts
+
+    # one uncounted step first (the first backward's one-time costs)
+    ft.pretrain_generic(TorchDraws(seed, dev), params0, pt_tok, pt_mask,
+                        enc_cfg, steps=1, batch=PAIRS)
+    (params_pt, pt_losses), pt_ms, pt_counts = counted(
+        lambda: ft.pretrain_generic(TorchDraws(seed, dev), params0, pt_tok,
+                                    pt_mask, enc_cfg, steps=PRETRAIN_STEPS,
+                                    batch=PAIRS), PRETRAIN_STEPS)
+    sil["pretrained"] = ft.category_silhouette(params_pt, enc_cfg, *ev)
+    (params_ft, ft_losses), ft_ms, ft_counts = counted(
+        lambda: ft.finetune_categorical(TorchDraws(seed + 2, dev), params_pt,
+                                        *off, enc_cfg, epochs=FT_EPOCHS,
+                                        steps_per_epoch=FT_STEPS,
+                                        batch=PAIRS), FT_EPOCHS * FT_STEPS)
+    sil["finetuned"] = ft.category_silhouette(params_ft, enc_cfg, *ev)
+    losses = pt_losses + ft_losses
+    check(all(math.isfinite(x) for x in losses),
+          f"train: non-finite losses {losses}")
+    check(sil["finetuned"] > sil["pretrained"],
+          f"train: fine-tuning did not raise the category silhouette "
+          f"{sil}")
+    for name, w in zip(*_named_leaves(params_ft)):
+        check(bool(torch.isfinite(w).all()), f"train: non-finite {name}")
+    prof = profile_ticks(
+        lambda n: ft.pretrain_generic(TorchDraws(seed, dev), params_pt,
+                                      pt_tok, pt_mask, enc_cfg, steps=n,
+                                      batch=PAIRS), pt_ms, groups=STEP_GROUPS)
+    steps = PRETRAIN_STEPS + FT_EPOCHS * FT_STEPS
+    launches = {k: pt_counts[k] + ft_counts[k] for k in pt_counts}
+    record = dict(
+        config=dict(d_model=enc_cfg.d_model, n_layers=n_layers,
+                    n_heads=enc_cfg.n_heads, d_ff=enc_cfg.d_ff,
+                    max_len=enc_cfg.max_len, vocab=enc_cfg.vocab_size),
+        pairs_per_step=PAIRS, pretrain_steps=PRETRAIN_STEPS,
+        finetune_steps=FT_EPOCHS * FT_STEPS, pretrain_ms_per_step=pt_ms,
+        finetune_ms_per_step=ft_ms, pretrain_losses=pt_losses,
+        finetune_losses=ft_losses, silhouette=sil, launches=launches,
+        launches_per_step={k: launches[k] / steps for k in
+                           ("flash_attention", "flash_attention_bwd")},
+        profile=prof)
+    return record, params_ft
+
+
+def _named_leaves(params):
+    from repro_torch.models.layers import tree_leaves
+
+    def names(t, pre=""):
+        if not isinstance(t, dict):
+            return [pre]
+        return [n for k in sorted(t) for n in names(t[k], f"{pre}/{k}")]
+    return names(params), tree_leaves(params)
+
+
+def phase_train_card_vs_cpu(dev, seed, params):
+    """One ``train_step`` on the card and on the CPU from the same (trained)
+    parameters on the same pair batch (``HostDraws``: 64 category pairs of
+    the RouterBench offline split): the loss to rtol 1e-5 and every
+    gradient leaf to 1e-4 of its largest magnitude on the CPU."""
+    import torch
+    from repro_torch.contrastive import finetune as ft
+    from repro_torch.core.draws import HostDraws
+    from repro_torch.optim import adamw_init
+
+    def run(where):
+        enc_cfg, p, split, _ = ccft_setup(seed, where, BATCH, params)
+        batch = ft.make_category_pairs(
+            HostDraws(seed), split.offline_tokens, split.offline_mask,
+            split.offline_cats, PAIRS)
+        loss, grads = ft.loss_and_grads(p, batch, enc_cfg)
+        _, _, step_loss = ft.train_step(p, adamw_init(p), batch, enc_cfg,
+                                        2e-3)
+        return (float(loss), float(step_loss),
+                [g.cpu() for g in _named_leaves(grads)[1]])
+    g_loss, g_step, g_grads = run(dev)
+    c_loss, c_step, c_grads = run(torch.device("cpu"))
+    for a, b in ((g_loss, c_loss), (g_step, c_step)):
+        check(abs(a - b) <= 1e-5 * abs(b),
+              f"train card vs cpu: loss {a} against {b}")
+    worst, worst_leaf = 0.0, None
+    for name, g, c in zip(_named_leaves(params)[0], g_grads, c_grads):
+        top = float(c.abs().max())
+        rel = float((g - c).abs().max()) / max(top, 1e-30)
+        check(rel <= 1e-4, f"train card vs cpu: gradient {name} off by "
+                           f"{rel} of its max")
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    return dict(pairs=PAIRS, loss_card=g_loss, loss_cpu=c_loss,
+                loss_rel_err=abs(g_loss - c_loss) / abs(c_loss),
+                step_loss_card=g_step, step_loss_cpu=c_step,
+                max_rel_grad_err=worst, worst_leaf=worst_leaf)
 
 
 def ccft_fgts_cfg(dim):
@@ -1282,19 +1594,20 @@ def routerbench_embeddings(enc_cfg, params, split):
     return embs, pipeline.routerbench_env(params, enc_cfg, split)
 
 
-def phase_ccft(dev, seed):
-    """The CCFT embedding path at ``EncoderConfig()`` width: query tokens
-    -> encoder (attention on the flash kernel) -> model and query
-    embeddings -> ``env.run`` over FGTS.CDB, for RouterBench (routing over
-    the excel_perf_cost embeddings, d = 256 + 14) and for MixInstruct
-    (eq. 6 embeddings, d = 256). Each is one run with the launch counts
-    reset just before it and read just after."""
+def phase_ccft(dev, seed, params):
+    """The CCFT embedding path at ``EncoderConfig()`` width over the
+    encoder ``phase_train`` fine-tuned: query tokens -> encoder (attention
+    on the flash kernel) -> model and query embeddings -> ``env.run`` over
+    FGTS.CDB, for RouterBench (routing over the excel_perf_cost
+    embeddings, d = 256 + 14) and for MixInstruct (eq. 6 embeddings,
+    d = 256). Each is one run with the launch counts reset just before it
+    and read just after."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import env, policy, regret
     from repro_torch.core.draws import TorchDraws
     from repro_torch.data import pipeline
-    enc_cfg, params, split, data = ccft_setup(seed, dev, HORIZON)
+    enc_cfg, params, split, data = ccft_setup(seed, dev, HORIZON, params)
     eb = pipeline.ENCODE_BATCH
     n_batches = HORIZON // eb
 
@@ -1376,11 +1689,11 @@ def phase_ccft(dev, seed):
     return out
 
 
-def phase_ccft_card_vs_cpu(dev, seed):
-    """The CCFT path on the card and on the CPU from the same weights and
-    tokens: every embedding (the four weightings' model embeddings, the
-    RouterBench queries, the MixInstruct queries and eq. 6 embeddings) to
-    atol 1e-5; then 4 RouterBench ticks of ``env.run`` from one HostDraws
+def phase_ccft_card_vs_cpu(dev, seed, params):
+    """The CCFT path on the card and on the CPU from the same (fine-tuned)
+    weights and tokens: every embedding (the four weightings' model
+    embeddings, the RouterBench queries, the MixInstruct queries and eq. 6
+    embeddings) to atol 1e-5; then 4 RouterBench ticks of ``env.run`` from one HostDraws
     set: pairs equal outside near-ties, final chains to rtol 1e-4."""
     import torch
     from repro_torch.core import env, policy
@@ -1389,10 +1702,10 @@ def phase_ccft_card_vs_cpu(dev, seed):
     ticks = 4
 
     def run(where):
-        enc_cfg, params, split, data = ccft_setup(seed, where, BATCH * ticks)
-        embs, envd = routerbench_embeddings(enc_cfg, params, split)
-        menv, m_a = pipeline.mixinstruct_env_and_embeddings(params, enc_cfg,
-                                                            data)
+        enc_cfg, p, split, data = ccft_setup(seed, where, BATCH * ticks,
+                                             params)
+        embs, envd = routerbench_embeddings(enc_cfg, p, split)
+        menv, m_a = pipeline.mixinstruct_env_and_embeddings(p, enc_cfg, data)
         pol = policy.fgts_policy(embs["excel_perf_cost"],
                                  ccft_fgts_cfg(envd.x.shape[1]))
 
@@ -1811,6 +2124,11 @@ KERNELS = [
      "mixed", "grad_", "mixed"),
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:99", "attn", "", "ccft"),
+    ("flash_attention_bwd",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "none: gradient of _attn_kernel (src/repro/kernels/flash_attention.py"
+     ":23), which the reference takes by XLA autodiff of "
+     "src/repro/models/attention.py::_attend", "attn_bwd", "", "train"),
     ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:109", "ssd", "", "mamba2-1.3b"),
     ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1829,8 +2147,9 @@ SELECT_TIMED = ("serve",)
 def kernels_line(cases, launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
-    ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs)
-    and null for the others: no one PyTorch call computes them. The
+    ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
+    its backward for ``flash_attention_bwd``, and null for the others: no
+    one PyTorch call computes them. The
     ``flash_attention`` row also carries its timed bf16 cases (the Hopper
     kernel) under ``bf16``, the ``ssd_scan`` row its timed fp32 case (the
     SIMT kernel) under ``fp32``, the ``dueling_select`` row its timed
@@ -1897,10 +2216,11 @@ def main() -> int:
                            libraries=sorted(_build.SIGNATURES))
     emit(record["build"])
 
-    sel, sg, sc, mx, at, ssd, rgl = phase_kernels(dev, args.seed)
+    sel, sg, sc, mx, at, atb, ssd, rgl = phase_kernels(dev, args.seed)
     record["kernels"] = dict(phase="kernels", dueling_select=sel,
                              sgld_potential=sg, dueling_score=sc,
-                             sgld_mixed=mx, flash_attention=at, ssd_scan=ssd,
+                             sgld_mixed=mx, flash_attention=at,
+                             flash_attention_bwd=atb, ssd_scan=ssd,
                              rglru_scan=rgl)
     emit(record["kernels"])
 
@@ -1912,7 +2232,11 @@ def main() -> int:
     emit(record["autopilot"])
     record["mixed"] = dict(phase="mixed", **phase_mixed(dev, args.seed))
     emit(record["mixed"])
-    record["ccft"] = dict(phase="ccft", **phase_ccft(dev, args.seed))
+    train, params_ft = phase_train(dev, args.seed)
+    record["train"] = dict(phase="train", **train)
+    emit(record["train"])
+    record["ccft"] = dict(phase="ccft", **phase_ccft(dev, args.seed,
+                                                     params_ft))
     emit(record["ccft"])
     record["lm"] = dict(phase="lm", **phase_lm(dev, args.seed))
     emit(record["lm"])
@@ -1920,14 +2244,16 @@ def main() -> int:
     record["card_vs_cpu"] = dict(
         phase="card_vs_cpu", **phase_card_vs_cpu(dev, args.seed),
         autopilot=phase_autopilot_card_vs_cpu(dev, args.seed),
-        ccft=phase_ccft_card_vs_cpu(dev, args.seed),
+        train=phase_train_card_vs_cpu(dev, args.seed, params_ft),
+        ccft=phase_ccft_card_vs_cpu(dev, args.seed, params_ft),
         lm=phase_lm_card_vs_cpu(dev, args.seed))
     emit(record["card_vs_cpu"])
 
     line = kernels_line(
-        dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at, ssd=ssd,
-             rglru=rgl),
+        dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at,
+             attn_bwd=atb, ssd=ssd, rglru=rgl),
         dict(sync=runs["sync"]["launches"],
+             train=record["train"]["launches"],
              autopilot=record["autopilot"]["launches"],
              mixed=record["mixed"]["launches"],
              ccft=record["ccft"]["routerbench"]["launches"],

@@ -17,11 +17,8 @@ import msgpack
 import numpy as np
 import torch
 
-
-def _leaves(tree) -> list:
-    if not isinstance(tree, dict):
-        return [tree]
-    return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+from repro_torch.models.layers import tree_leaves as _leaves
+from repro_torch.models.layers import tree_unflatten
 
 
 def _treedef(tree) -> str:
@@ -66,12 +63,6 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _rebuild(like, leaves):
-    if not isinstance(like, dict):
-        return next(leaves)
-    return {k: _rebuild(like[k], leaves) for k in sorted(like)}
-
-
 def restore_checkpoint(path: str, step: int, like):
     """Restore into the structure of ``like``: each leaf must have its
     shape; it comes back as a tensor of the stored dtype, on the device of
@@ -91,4 +82,4 @@ def restore_checkpoint(path: str, step: int, like):
             raise ValueError(f"leaf shape {tuple(t.shape)} stored, "
                              f"{tuple(np.shape(ref))} expected")
         out.append(t.to(ref.device) if isinstance(ref, torch.Tensor) else t)
-    return _rebuild(like, iter(out))
+    return tree_unflatten(like, out)

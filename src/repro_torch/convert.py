@@ -2,7 +2,8 @@
 
 The arm table (``ModelPool``), the query encoder's parameters and the
 candidate LMs' parameters are this system's weights (the LMs' decode
-caches their state); the replay ring and the SGLD chains (``FGTSState``), the
+caches their state, the encoder's AdamW moments its training state); the
+replay ring and the SGLD chains (``FGTSState``), the
 mixed ring (``MixedHistory``), the baselines' estimates and the
 autopilot's ``ControllerState`` its state. The
 reference's arrays come out with ``jax.device_get`` (or ``numpy.asarray``);
@@ -113,6 +114,17 @@ def encoder_params_from_numpy(params: dict, device=None) -> dict:
     dev = resolve_device(device)
     return {k: encoder_params_from_numpy(v, dev) if isinstance(v, dict)
             else as_f32(v, dev) for k, v in params.items()}
+
+
+def adamw_state_from_numpy(state: dict, device=None) -> dict:
+    """The reference's AdamW state (``optim/adamw.py::adamw_init`` /
+    ``adamw_update``: {"mu", "nu", "step"}, as ``jax.device_get`` returns
+    it) as the port's: the moments as float32 trees, the step a 0-d
+    int32 tensor, on ``device``."""
+    dev = resolve_device(device)
+    return {"mu": encoder_params_from_numpy(state["mu"], dev),
+            "nu": encoder_params_from_numpy(state["nu"], dev),
+            "step": _i32(state["step"], dev)}
 
 
 def _leaf(a, device) -> torch.Tensor:

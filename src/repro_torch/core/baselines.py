@@ -24,10 +24,10 @@ import torch
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.dueling_score import mask_fallback_pair
 
-from .btl import logistic_loss
 from .ccft import phi
 from .model_pool import ModelPool, PooledState, masked_pair_choice
-from .policy import RoutingPolicy, merge_tilt, pref_tilt, select_pair
+from .policy import (RoutingPolicy, merge_tilt, pref_tilt,
+                     preference_loss, select_pair)
 
 
 def _zero_state(device) -> torch.Tensor:
@@ -123,14 +123,6 @@ class EpsGreedyConfig:
 
 class EpsGreedyState(NamedTuple):
     theta: torch.Tensor    # (dim,) MAP estimate
-
-
-def preference_loss(theta, x, a1, a2, y, a_emb) -> torch.Tensor:
-    """Mean BTL logistic loss over a batch of duels (eps-greedy's
-    objective), on the phi features as the reference computes it."""
-    z = y * torch.sum((phi(x, a_emb[a1.long()]) - phi(x, a_emb[a2.long()]))
-                      * theta[None, :], dim=-1)
-    return torch.mean(logistic_loss(z))
 
 
 def eps_greedy_policy(a_emb: torch.Tensor | ModelPool, cfg: EpsGreedyConfig,

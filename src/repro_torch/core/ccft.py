@@ -103,6 +103,12 @@ def phi(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return p / torch.clamp_min(n, 1e-12)
 
 
+def phi_all(x: torch.Tensor, a_all: torch.Tensor) -> torch.Tensor:
+    """phi for one query against all K models: x (d,), a_all (K,d) ->
+    (K,d)."""
+    return phi(x[None, :], a_all)
+
+
 def scores_all(x: torch.Tensor, a_all: torch.Tensor,
                theta: torch.Tensor) -> torch.Tensor:
     """<theta, phi(x, a_k)> for all k: x (d,), a_all (K,d) -> (K,)."""

@@ -21,7 +21,11 @@ The draws the loop makes:
     (``distinct_pair``), the static baselines' ``jax.random.choice(...,
     replace=False)``;
   * ``fold_in(i)``, a derived source, where the reference folds a
-    constant into its key.
+    constant into its key;
+  * and for encoder training (``contrastive/finetune.py``): uniform ints
+    in [lo, hi) (``randint``, the reference's ``jax.random.randint``) and
+    weighted draws with replacement (``choice``, its
+    ``jax.random.choice(..., p=...)``).
 
 ``hi`` is passed at call time (a Python int or a 0-d device tensor), so a
 ring that fills data-dependently still replays exactly, and a CUDA run
@@ -39,7 +43,8 @@ from repro_torch.device import resolve_device
 
 class SgldDraws(Protocol):
     def step(self, i: int, m: int, hi, d: int, device) -> tuple:
-        """(indices (C,m) int64 in [0, hi), noise (C,d) float32) of step i."""
+        """(indices (C,m) int64 in [0, hi), noise (C,d) float32) of step i
+        (C = 1 for a single chain)."""
 
 
 class Draws(Protocol):
@@ -51,7 +56,16 @@ class Draws(Protocol):
     def distinct_pair(self, b: int, n: int, device) -> torch.Tensor:
         """(b, 2) int64: per row an ordered pair of distinct ints in
         [0, n), uniform."""
-    def sgld(self, n_chains: int, n_steps: int) -> SgldDraws: ...
+    def randint(self, shape: tuple, lo: int, hi, device) -> torch.Tensor:
+        """int64 of ``shape``, uniform in [lo, hi)."""
+    def choice(self, n: int, shape: tuple, p: torch.Tensor,
+               device) -> torch.Tensor:
+        """int64 of ``shape`` in [0, n), drawn with replacement with the
+        probabilities ``p`` (n,)."""
+    def sgld(self, n_chains: int | None, n_steps: int) -> SgldDraws:
+        """Per-step draws of ``n_chains`` chains; ``None``: one chain drawn
+        from this source's own stream (the reference's unbatched theta
+        (d,), whose key is not split per chain)."""
 
 
 def scaled_index(u: torch.Tensor, hi) -> torch.Tensor:
@@ -71,15 +85,24 @@ class _Sequential:
     def fold_in(self, i: int):
         return self
 
-    def randint(self, shape, hi, device):
-        return scaled_index(self.uniform(shape, device), hi)
+    def randint(self, shape, lo, hi, device):
+        return lo + scaled_index(self.uniform(shape, device), hi - lo)
+
+    def choice(self, n: int, shape, p, device):
+        """Inverse CDF: the first index whose cumulative weight exceeds a
+        uniform share of the total."""
+        cum = torch.cumsum(torch.as_tensor(p, dtype=torch.float32,
+                                           device=device), dim=0)
+        u = self.uniform(tuple(shape), device) * cum[-1]
+        idx = torch.searchsorted(cum, u.reshape(-1), right=True)
+        return torch.clamp_max(idx, n - 1).reshape(tuple(shape))
 
     def distinct_pair(self, b: int, n: int, device):
         """Gumbel top-2: a uniform ordered pair without replacement."""
         return torch.topk(self.gumbel((b, n), device), 2, dim=-1).indices
 
-    def sgld(self, n_chains: int, n_steps: int):
-        return _SequentialSgld(self, n_chains)
+    def sgld(self, n_chains: int | None, n_steps: int):
+        return _SequentialSgld(self, 1 if n_chains is None else n_chains)
 
 
 class _SequentialSgld:
@@ -87,7 +110,7 @@ class _SequentialSgld:
         self.src, self.c = src, n_chains
 
     def step(self, i, m, hi, d, device):
-        idx = self.src.randint((self.c, m), hi, device)
+        idx = self.src.randint((self.c, m), 0, hi, device)
         return idx, self.src.normal((self.c, d), device)
 
 

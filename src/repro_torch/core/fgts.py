@@ -194,15 +194,21 @@ def sgld_sample(draws, theta0, state: FGTSState, a_emb, j: int,
                 cfg: FGTSConfig, arm_mask=None, costs=None):
     """cfg.sgld_steps of SGLD for the chains theta0 (C,d) of sample j, with
     the decaying step size in the round count. ``draws`` is the sample's
-    source: its ``sgld(C, steps)`` replays the reference's per-chain keys."""
+    source: its ``sgld(C, steps)`` replays the reference's per-chain keys.
+    A single theta0 (d,) is one chain drawn from ``draws`` itself
+    (``sgld(None, steps)``), as the reference's unbatched call."""
     t = state.t.to(torch.float32)
     eps = decayed_step_size(cfg.sgld_eps, t, cfg.sgld_decay_t0,
                             cfg.sgld_decay_pow)
-    return sgld_loop(
-        draws.sgld(theta0.shape[0], cfg.sgld_steps), theta0,
+    single = theta0.dim() == 1
+    chains = theta0[None] if single else theta0
+    theta = sgld_loop(
+        draws.sgld(None if single else chains.shape[0], cfg.sgld_steps),
+        chains,
         lambda th, idx: _potential_grad(th, idx, state, a_emb, j, cfg,
                                         arm_mask, costs),
         state.t, state.x.shape[0], cfg, eps=eps)
+    return theta[0] if single else theta
 
 
 def chain_energy(state: FGTSState, a_emb, cfg: FGTSConfig, arm_mask=None,
@@ -240,6 +246,17 @@ def select_arms(theta1, theta2, x_t, a_emb, force_distinct: bool = False,
     if arm_mask is not None:
         a2 = mask_fallback_pair(s2, a1, a2)
     return a1.to(torch.int32), a2.to(torch.int32)
+
+
+def fgts_round(draws, state: FGTSState, x_t, a_emb, cfg: FGTSConfig):
+    """One full FGTS.CDB round before feedback, for the state's single
+    thetas (d,) and one query x_t (d,): both samples' SGLD, then the pair.
+    Returns (state', a1, a2)."""
+    k1, k2 = draws.split(2)
+    theta1 = sgld_sample(k1, state.theta1, state, a_emb, 1, cfg)
+    theta2 = sgld_sample(k2, state.theta2, state, a_emb, 2, cfg)
+    a1, a2 = select_arms(theta1, theta2, x_t, a_emb, cfg.force_distinct)
+    return state._replace(theta1=theta1, theta2=theta2), a1, a2
 
 
 def set_at(buf: torch.Tensor, i, v) -> torch.Tensor:

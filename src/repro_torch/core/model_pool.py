@@ -129,6 +129,11 @@ def masked_pair_choice(draws, active: torch.Tensor, b: int):
     return a1, a2
 
 
+def n_active_mask(active: torch.Tensor) -> torch.Tensor:
+    """The number of active arms, a 0-d int32 tensor."""
+    return torch.sum(active.to(torch.int32)).to(torch.int32)
+
+
 class PoolSchedule(NamedTuple):
     """E membership events for ``env.run``: at step ``step[e]`` slot
     ``slot[e]`` is activated with ``emb[e]``/``cost[e]`` or retired."""

@@ -26,6 +26,8 @@ from repro_torch.kernels.dueling_score import (dueling_select,
                                                dueling_select_plain)
 
 from . import fgts
+from .btl import logistic_loss
+from .ccft import phi
 from .model_pool import ModelPool, PooledState
 
 
@@ -256,3 +258,11 @@ def vanilla_ts_policy(a_emb, cfg: fgts.FGTSConfig, **kw) -> RoutingPolicy:
     """Feel-good ablation: FGTS.CDB with mu = 0 (paper's vanilla TS)."""
     pol = fgts_policy(a_emb, dataclasses.replace(cfg, mu=0.0), **kw)
     return pol._replace(name="vanilla_ts")
+
+
+def preference_loss(theta, x, a1, a2, y, a_emb) -> torch.Tensor:
+    """Mean BTL logistic loss over a batch of duels (eps-greedy's
+    objective), on the phi features as the reference computes it."""
+    z = y * torch.sum((phi(x, a_emb[a1.long()]) - phi(x, a_emb[a2.long()]))
+                      * theta[None, :], dim=-1)
+    return torch.mean(logistic_loss(z))

@@ -19,6 +19,11 @@ def instant_regret(utils_t: torch.Tensor, a1, a2, active=None):
     return best - 0.5 * (pick(a1) + pick(a2))
 
 
+def cumulative(regrets: torch.Tensor) -> torch.Tensor:
+    """The running sum of per-round regrets."""
+    return torch.cumsum(regrets, dim=0)
+
+
 def slope_ratio(cum_regret, frac: float = 0.2) -> float:
     """Late-window slope / early-window slope — < 1 means converging; the
     window is clamped to the curve, a single point gives 1.0."""
@@ -32,3 +37,9 @@ def slope_ratio(cum_regret, frac: float = 0.2) -> float:
     early = (cum[w] - cum[0]) / w
     late = (cum[-1] - cum[-1 - w]) / w
     return float(late / max(early, 1e-9))
+
+
+def final_regret(cum_regret) -> float:
+    """The last value of a cumulative regret curve (a tensor, an array or
+    a list)."""
+    return float(cum_regret[-1])

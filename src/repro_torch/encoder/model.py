@@ -10,6 +10,15 @@ reference scans it. The attention of every layer runs on the flash kernel
 
 Padding tokens do attend in self-attention (the bidirectional mask is
 all ones); the pooling mask excludes them from the sentence embedding.
+
+``encode`` is differentiable on both devices (``contrastive/finetune.py``
+trains through it), with respect to the parameter leaves themselves: the
+per-layer slices of the stacked ``units`` pass their gradients back into
+the stacked leaves. Everything but attention is autograd over plain
+PyTorch; attention goes through ``flash_attention``'s
+``autograd.Function``, whose backward is the plain version on the CPU
+and the fp32 backward kernel (``csrc/flash_attention_bwd.cu``) on the
+card.
 """
 from __future__ import annotations
 

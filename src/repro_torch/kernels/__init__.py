@@ -6,7 +6,7 @@ integer attribute ``launches``. Nothing is compiled at import: see
 ``_build``. (The ``dueling_score``, ``flash_attention``, ``ssd_scan`` and
 ``rglru_scan`` functions are reached through their modules, e.g.
 ``kernels.flash_attention.flash_attention``, whose names they would shadow
-here.)
+here; ``flash_attention_bwd`` lives beside ``flash_attention``.)
 """
 from . import dueling_score as _scores
 from . import flash_attention as _flash
@@ -27,6 +27,7 @@ WRAPPERS = {
     "sgld_mixed_fwd": mixed_potential_rows,
     "sgld_mixed_grad": mixed_potential_grad_rows,
     "flash_attention": _flash.flash_attention,
+    "flash_attention_bwd": _flash.flash_attention_bwd,
     "ssd_scan": _ssd.ssd_scan,
     "rglru_scan": _rglru.rglru_scan,
 }

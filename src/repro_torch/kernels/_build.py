@@ -61,11 +61,19 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, o, B, H, KV, S, T, D, (batch, head, seq) strides of q,
-        # k, v and o, scale, softcap, causal, window, stream; fp32 / bf16
+        # k, v and o, scale, softcap, causal, window, [fp32: lse (B,H,S)
+        # or NULL,] stream; fp32 / bf16
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, *[L] * 12,
-                                   F, F, I, I, P],
+                                   F, F, I, I, P, P],
         "flash_attention_sm90_launch": [P, P, P, P, I, I, I, I, I, I,
                                         *[L] * 12, F, F, I, I, P],
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, lse, do, dq, dk, dv, delta scratch (B,H,S), B, H, KV,
+        # S, T, D, (batch, head, seq) strides of q, k, v, o, do, dq, dk and
+        # dv, scale, softcap, causal, window, stream; fp32
+        "flash_attention_bwd_launch": [*[P] * 10, I, I, I, I, I, I,
+                                       *[L] * 24, F, F, I, I, P],
     },
     "ssd_scan": {
         # x, bt, ct, log_a, dt, h0, y, h_last, B, S, H, P, N, chunk,

@@ -1,5 +1,6 @@
 // flash_attention: online-softmax attention with GQA, causal and sliding
-// window masks and a logit soft cap, forward only.
+// window masks and a logit soft cap, forward (the fp32 backward is
+// flash_attention_bwd.cu).
 //
 // Replaces the Pallas kernel _attn_kernel (:23) of
 // src/repro/kernels/flash_attention.py (flash_attention, pallas_call at
@@ -63,17 +64,29 @@
 // D 256: 16, 132 KB, 1 block.
 // Strides are passed for every tensor's batch, head and sequence axes (the
 // head dim is contiguous), so the (B,S,H,D) projections of the model need
-// no copy.
+// no copy. Any head dim D from 1 to 256 runs on the kernel built for the
+// next of 32, 64, 128 and 256: the loads zero-fill the columns past D (as
+// they zero-fill rows past S and T), which add exactly nothing to the fmaf
+// chains, and the stores skip them. For training the kernel also writes
+// each row's log-sum-exp m + log(l) (B,H,S), which the backward
+// (flash_attention_bwd.cu) recomputes P from; given a null pointer it
+// writes nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_fp32.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using attn::copy_commit;
+using attn::copy_wait;
+using attn::kThreads;
+using attn::live_key;
+using attn::load_rows;
+
 constexpr int kBQ = 64;              // query rows per block
 constexpr int kRows = 4;             // query rows per thread
 constexpr int kGroup = 8;            // threads per row group
@@ -92,61 +105,17 @@ struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ bool live_key(long long i, long long j, int T,
-                                         int causal, int window) {
-  return j < T && (!causal || j <= i) && (window <= 0 || j > i - window);
-}
-
-// 16 bytes (or, unaligned, four 4-byte copies) global -> shared, zeros
-// when !in
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool in,
-                                       bool vec) {
-  const uint32_t d = sm90::smem_u32(dst);
-  const int n = in ? 16 : 0;
-  if (vec) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                       d + 4 * u),
-                   "l"(src + (in ? u : 0)), "r"(n / 4)
-                   : "memory");
-  }
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [row0, row0 + n) of a (rows, D) tensor into shared memory, row r at
-// dst + r * D, its 16-byte chunk c at chunk c ^ ((r >> shift) % 8)
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long stride, int row0, int n,
-                                          int limit, int shift, bool vec) {
-  constexpr int C = D / 4;
-  for (int e = threadIdx.x; e < n * C; e += kThreads) {
-    const int r = e / C, c = e % C, i = row0 + r;
-    const bool in = i < limit;
-    copy16(dst + r * D + 4 * (c ^ ((r >> shift) & 7)),
-           in ? src + i * stride + 4 * c : src, in, vec);
-  }
-}
-
+// D: the built head dim (32, 64, 128, 256); dim <= D the tensors' own,
+// whose columns past dim are loaded as zeros and never stored. lse, when
+// not null, gets each row's log-sum-exp m + log(l) at (b * H + h) * S + i
+// (-inf for a row with no live key).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int Tn, int group, Strides st, float scale,
-                           float cap, int causal, int window, int vec) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int S, int Tn, int dim,
+                           int group, Strides st, float scale, float cap,
+                           int causal, int window, int vec) {
   using Tl = Tile<D>;
   constexpr int BK = Tl::BK, KK = Tl::kKeys, DC = Tl::kDimChunks;
   extern __shared__ float4 smem4[];
@@ -173,14 +142,16 @@ __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
   // groups: {Q, tile 0}, {tile 1}, then one per tile (some empty), so that
   // tile n has landed once at most one later group is pending
   if (n_tiles > 0) {
-    load_rows<D>(Qs, qp, st.qs, q0, kBQ, S, 2, vec);
-    load_rows<D>(Ks, kp, st.ks, n_lo * BK, BK, Tn, 0, vec);
-    load_rows<D>(Vs, vp, st.vs, n_lo * BK, BK, Tn, 0, vec);
+    load_rows<D>(Qs, qp, st.qs, q0, kBQ, S, dim, 2, vec);
+    load_rows<D>(Ks, kp, st.ks, n_lo * BK, BK, Tn, dim, 0, vec);
+    load_rows<D>(Vs, vp, st.vs, n_lo * BK, BK, Tn, dim, 0, vec);
   }
   copy_commit();
   if (n_tiles > 1) {
-    load_rows<D>(Ks + BK * D, kp, st.ks, (n_lo + 1) * BK, BK, Tn, 0, vec);
-    load_rows<D>(Vs + BK * D, vp, st.vs, (n_lo + 1) * BK, BK, Tn, 0, vec);
+    load_rows<D>(Ks + BK * D, kp, st.ks, (n_lo + 1) * BK, BK, Tn, dim, 0,
+                 vec);
+    load_rows<D>(Vs + BK * D, vp, st.vs, (n_lo + 1) * BK, BK, Tn, dim, 0,
+                 vec);
   }
   copy_commit();
 
@@ -294,8 +265,10 @@ __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
     }
     __syncthreads();  // this tile's K, V and p are read
     if (it + 2 < n_tiles) {
-      load_rows<D>(Ks + buf * BK * D, kp, st.ks, k0 + 2 * BK, BK, Tn, 0, vec);
-      load_rows<D>(Vs + buf * BK * D, vp, st.vs, k0 + 2 * BK, BK, Tn, 0, vec);
+      load_rows<D>(Ks + buf * BK * D, kp, st.ks, k0 + 2 * BK, BK, Tn, dim, 0,
+                   vec);
+      load_rows<D>(Vs + buf * BK * D, vp, st.vs, k0 + 2 * BK, BK, Tn, dim, 0,
+                   vec);
     }
     copy_commit();
   }
@@ -308,7 +281,8 @@ __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
   if (any_dead) {
     for (int c = tid; c < D; c += kThreads) {
       float sum = 0.f;
-      for (int j = 0; j < Tn; ++j) sum += vp[j * st.vs + c];
+      if (c < dim)
+        for (int j = 0; j < Tn; ++j) sum += vp[j * st.vs + c];
       Ks[c] = sum / (float)Tn;
     }
     __syncthreads();
@@ -321,10 +295,13 @@ __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
     const int qi = q0 + 4 * ty + i;
     if (qi >= S) continue;
     const bool dead = any_dead && qi >= dead_from;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * S + qi] = m[i] + logf(l[i]);
     const float inv_l = dead ? 0.f : 1.f / l[i];
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const int c = 4 * (tx + 8 * j);
+      if (c >= dim) continue;
       float4 out = make_float4(acc[i][4 * j] * inv_l, acc[i][4 * j + 1] * inv_l,
                                acc[i][4 * j + 2] * inv_l,
                                acc[i][4 * j + 3] * inv_l);
@@ -333,32 +310,18 @@ __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
       if (vec) {
         *reinterpret_cast<float4*>(dst) = out;
       } else {
-        dst[0] = out.x;
-        dst[1] = out.y;
-        dst[2] = out.z;
-        dst[3] = out.w;
+        const float w[4] = {out.x, out.y, out.z, out.w};
+        for (int u = 0; u < 4 && c + u < dim; ++u) dst[u] = w[u];
       }
     }
   }
 }
 
-// every address and stride a multiple of 16 bytes: 16-byte copies
-inline bool aligned16(const void* q, const void* k, const void* v,
-                      const void* o, const Strides& st) {
-  const long long s[12] = {st.qb, st.qh, st.qs, st.kb, st.kh, st.ks,
-                           st.vb, st.vh, st.vs, st.ob, st.oh, st.os};
-  for (long long x : s)
-    if (x % 4) return false;
-  for (const void* p : {q, k, v, o})
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int Tn, const Strides& st,
-                   float scale, float cap, int causal, int window,
-                   cudaStream_t stream) {
+                   float* lse, int B, int H, int KV, int S, int Tn, int dim,
+                   const Strides& st, float scale, float cap, int causal,
+                   int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Tile<D>::kSmemFloats;
   auto kern = flash_attention_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -369,10 +332,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const void* ptrs[4] = {q, k, v, o};
+  const long long strides[12] = {st.qb, st.qh, st.qs, st.kb, st.kh, st.ks,
+                                 st.vb, st.vh, st.vs, st.ob, st.oh, st.os};
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Tn, H / KV,
-      st, scale, cap, causal, window, aligned16(q, k, v, o, st));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Tn, dim,
+      H / KV, st, scale, cap, causal, window,
+      attn::aligned16(ptrs, 4, strides, 12, dim));
   return cudaGetLastError();
 }
 
@@ -704,17 +671,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-template <bool kBf16>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* o, int B, int H, int KV, int S, int Tn,
-                     const Strides& st, float scale, float cap, int causal,
-                     int window, cudaStream_t stream) {
+cudaError_t launch_fp32(int D, const void* q, const void* k, const void* v,
+                        void* o, float* lse, int B, int H, int KV, int S,
+                        int Tn, const Strides& st, float scale, float cap,
+                        int causal, int window, cudaStream_t stream) {
 #define FA_CASE(DIM)                                                       \
   case DIM:                                                                \
-    return kBf16 ? tc::launch<DIM>(q, k, v, o, B, H, KV, S, Tn, st, scale, \
-                                   cap, causal, window, stream)            \
-                 : launch<DIM>(q, k, v, o, B, H, KV, S, Tn, st, scale,     \
-                               cap, causal, window, stream);
+    return launch<DIM>(q, k, v, o, lse, B, H, KV, S, Tn, D, st, scale, cap, \
+                       causal, window, stream);
+  switch (attn::built_dim(D)) {
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FA_CASE
+}
+
+cudaError_t launch_bf16(int D, const void* q, const void* k, const void* v,
+                        void* o, int B, int H, int KV, int S, int Tn,
+                        const Strides& st, float scale, float cap, int causal,
+                        int window, cudaStream_t stream) {
+#define FA_CASE(DIM)                                                        \
+  case DIM:                                                                 \
+    return tc::launch<DIM>(q, k, v, o, B, H, KV, S, Tn, st, scale, cap,     \
+                           causal, window, stream);
   switch (D) {
     FA_CASE(32)
     FA_CASE(64)
@@ -728,21 +711,22 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// fp32 q, k, v, o: the SIMT kernel
+// fp32 q, k, v, o: the SIMT kernel, any head dim D in [1, 256]; lse
+// (B,H,S) or null
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int Tn, int D, long long qb, long long qh, long long qs,
     long long kb, long long kh, long long ks, long long vb, long long vh,
     long long vs, long long ob, long long oh, long long os, float scale,
-    float cap, int causal, int window, void* stream) {
+    float cap, int causal, int window, void* lse, void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  return static_cast<int>(launch_d<false>(
-      D, q, k, v, o, B, H, KV, S, Tn, st, scale, cap, causal, window,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_fp32(
+      D, q, k, v, o, static_cast<float*>(lse), B, H, KV, S, Tn, st, scale,
+      cap, causal, window, static_cast<cudaStream_t>(stream)));
 }
 
 // bf16 q, k, v, o: the Hopper kernel (base addresses and strides 16-byte
-// aligned, the head dim contiguous)
+// aligned, the head dim contiguous; D 32, 64, 128 or 256)
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int Tn, int D, long long qb, long long qh, long long qs,
@@ -750,7 +734,7 @@ extern "C" int flash_attention_sm90_launch(
     long long vs, long long ob, long long oh, long long os, float scale,
     float cap, int causal, int window, void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  return static_cast<int>(launch_d<true>(
+  return static_cast<int>(launch_bf16(
       D, q, k, v, o, B, H, KV, S, Tn, st, scale, cap, causal, window,
       static_cast<cudaStream_t>(stream)));
 }

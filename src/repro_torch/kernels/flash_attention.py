@@ -13,19 +13,35 @@ not copied).
 
 Dispatch goes by the device of ``q``: a CPU tensor runs the plain version,
 a CUDA tensor a hand-written kernel of ``csrc/flash_attention.cu`` or an
-error, chosen by dtype; head dims 32, 64, 128 and 256. Both kernels count
+error, chosen by dtype. Both kernels count
 their launches in ``flash_attention.launches`` and read every tensor
 through its batch, head and sequence strides (the head dim must be
 contiguous), so the model's (B,S,H,D) projections go in as
 ``transpose(1, 2)`` views without a copy, and the output takes q's layout.
 
 * fp32: the parity path, fp32 FMAs on the CUDA cores, accumulating in
-  fp32 (within 2e-5 of the dense oracle).
+  fp32 (within 2e-5 of the dense oracle). Any head dim from 1 to 256: the
+  kernel is built for 32, 64, 128 and 256 and runs D on the next of them,
+  its loads zero-filling the columns past D (zeros add exactly nothing to
+  an fp32 fma chain) and its stores skipping them.
 * bf16: the Hopper kernel (wgmma for both products, fed by TMA through an
   mbarrier ring); scores and sums in fp32, p rounded to bf16 before P.V.
   TMA needs q, k and v each at a 16-byte aligned address with batch, head
   and sequence strides that are multiples of 16 bytes (8 elements); a
   tensor that breaks the rule raises ``ValueError`` (there is no fallback).
+  Head dims 32, 64, 128 and 256.
+
+Gradients: when grad mode is on and q, k or v requires grad,
+``flash_attention`` runs through ``FlashAttention``, an
+``autograd.Function`` whose forward also keeps the row log-sum-exp ``lse``
+(B,H,S) of the scaled, soft-capped, masked scores and whose backward is
+``flash_attention_bwd``: FlashAttention-2's backward, which recomputes
+P = exp(s - lse) from q and k (the plain version on the CPU;
+``csrc/flash_attention_bwd.cu`` on the card, fp32 only: bf16 raises until
+LM training needs it). A row with no live key gave the mean of v, so its
+gradient is dO/T to every value and nothing to q or k. The reference has
+no backward kernel; it trains through XLA's autodiff of its einsum
+attention, the function this backward differentiates.
 """
 from __future__ import annotations
 
@@ -35,9 +51,15 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 256)      # the head dims the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 MASKED = -1e30          # the oracle's fill for masked scores
+
+
+def kernel_head_dim(d: int) -> int:
+    """The built head dim an fp32 kernel runs head dim ``d`` on: the
+    smallest of ``HEAD_DIMS`` not below it."""
+    return next(x for x in HEAD_DIMS if x >= d)
 
 
 def live_mask(s: int, t: int, *, causal: bool, window: int,
@@ -53,26 +75,84 @@ def live_mask(s: int, t: int, *, causal: bool, window: int,
     return mask
 
 
+def _scores(q, k, *, causal, window, softcap, scale):
+    """The scaled, soft-capped scores (B,KV,G,S,T) in float32, masked ones
+    at ``MASKED``; the mask (S,T); tanh(s/cap) under a cap, else None."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    qr = q.reshape(b, kvh, h // kvh, s, d).to(torch.float32)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qr,
+                          k.to(torch.float32)) * scale
+    th = None
+    if softcap:
+        th = torch.tanh(scores / softcap)
+        scores = softcap * th
+    mask = live_mask(s, t, causal=causal, window=window, device=q.device)
+    return torch.where(mask, scores, MASKED), mask, th
+
+
+def _plain_forward(q, k, v, *, causal, window, softcap, scale, want_lse):
+    """Dense masked softmax attention in float32, cast back to q's type
+    (``attention_ref``'s arithmetic), and, when ``want_lse``, the row
+    log-sum-exp (B,H,S) over the live keys (-inf on a row with none)."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    scores, mask, _ = _scores(q, k, causal=causal, window=window,
+                              softcap=softcap, scale=scale)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
+    out = out.reshape(b, h, s, d).to(q.dtype)
+    if not want_lse:
+        return out, None
+    lse = torch.logsumexp(torch.where(mask, scores, -torch.inf), dim=-1)
+    return out, lse.reshape(b, h, s)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0,
                           scale: float | None = None) -> torch.Tensor:
     """Dense masked softmax attention in float32, cast back to q's type
     (``attention_ref``'s arithmetic)."""
+    return _plain_forward(q, k, v, causal=causal, window=window,
+                          softcap=softcap, scale=scale, want_lse=False)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0,
+                              scale: float | None = None):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
+    gradient ``do``, from the forward's output ``o`` and row log-sum-exp
+    ``lse`` (B,H,S): P = exp(s - lse) on the live keys, dV = P^T dO,
+    dS = P (dO V^T - rowsum(dO o)), times 1 - tanh^2(s/cap) under a cap,
+    dQ = scale dS K, dK = scale dS^T Q (summed over a kv head's group). A
+    row with no live key (its output is the mean of v) gives dO/T to every
+    value and nothing to q or k. Float32 throughout, cast to the inputs'
+    types."""
     b, h, s, d = q.shape
     kvh, t = k.shape[1], k.shape[2]
     g = h // kvh
     scale = d ** -0.5 if scale is None else scale
     f32 = torch.float32
+    scores, mask, th = _scores(q, k, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+    p = torch.where(mask, torch.exp(scores - lse.to(f32).reshape(
+        b, kvh, g, s, 1)), 0.0)
+    dead = ~mask.any(dim=-1, keepdim=True)                    # (S, 1)
+    p = torch.where(dead, 1.0 / t, p)
     qr = q.reshape(b, kvh, g, s, d).to(f32)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qr, k.to(f32)) * scale
-    if softcap:
-        scores = softcap * torch.tanh(scores / softcap)
-    mask = live_mask(s, t, causal=causal, window=window, device=q.device)
-    scores = torch.where(mask, scores, MASKED)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(f32))
-    return out.reshape(b, h, s, d).to(q.dtype)
+    dor = do.reshape(b, kvh, g, s, d).to(f32)
+    delta = (dor * o.reshape(b, kvh, g, s, d).to(f32)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dor)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dor, v.to(f32))
+    ds = torch.where(mask, p * (dp - delta), 0.0)
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.to(f32)) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qr) * scale
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _inner_contiguous(x: torch.Tensor) -> torch.Tensor:
@@ -106,16 +186,8 @@ def _check_tma(name: str, x: torch.Tensor, axes: int = 3) -> None:
             f"sequence) strides of a multiple of 8 elements")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0,
-                    scale: float | None = None) -> torch.Tensor:
-    """Attention (B,H,S,D) of q (B,H,S,D) over k, v (B,KV,T,D). CPU tensors
-    take the plain version; CUDA tensors launch the fp32 or the bf16 kernel
-    and count the launch in ``flash_attention.launches``."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale)
+def _check_cuda(q, k, v, window) -> None:
+    """Raise for what the CUDA kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -127,37 +199,155 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[3] != d or h % kvh:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)} do "
                          f"not agree (H % KV == 0 needed)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want one "
                          f"of {DTYPES} for all three")
+    if q.dtype == torch.bfloat16 and d not in HEAD_DIMS:
+        raise ValueError(f"bf16 head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= d <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {d} not in [1, {HEAD_DIMS[-1]}]")
     if t < 1 or s < 1 or b > 65535 or h > 65535 or window < 0:
         raise ValueError(f"unsupported S {s}, T {t}, B {b}, H {h} or "
                          f"window {window}")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+
+
+def _forward(q, k, v, *, causal, window, softcap, scale, want_lse):
+    """(out, lse or None) by device: the plain version on the CPU, a kernel
+    on the card (the fp32 kernel writes ``lse`` only when asked)."""
+    if q.device.type == "cpu":
+        return _plain_forward(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale,
+                              want_lse=want_lse)
+    _check_cuda(q, k, v, window)
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
     q, k, v = (_inner_contiguous(x) for x in (q, k, v))
     tma = q.dtype == torch.bfloat16
+    if tma and want_lse:
+        raise NotImplementedError(
+            "bf16 attention has no backward kernel: it comes with LM "
+            "training; the encoder trains in fp32")
     if tma:
         for name, x in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, x)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     scale = d ** -0.5 if scale is None else scale
     lib = _build.library("flash_attention")
-    launch = (lib.flash_attention_sm90_launch if tma
-              else lib.flash_attention_launch)
     P = _build.ptr
     strides = [ctypes.c_longlong(st) for x in (q, k, v, out)
                for st in _outer_strides(x, tma)]
+    args = (P(q), P(k), P(v), P(out), b, h, kvh, s, t, d, *strides,
+            float(scale), float(softcap), int(bool(causal)), int(window))
     with torch.cuda.device(q.device):
-        code = launch(P(q), P(k), P(v), P(out), b, h, kvh, s, t, d, *strides,
-                      float(scale), float(softcap), int(bool(causal)),
-                      int(window), _build.stream(q.device))
+        if tma:
+            code = lib.flash_attention_sm90_launch(*args,
+                                                   _build.stream(q.device))
+        else:
+            code = lib.flash_attention_launch(*args, P(lse),
+                                              _build.stream(q.device))
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward keeps the row
+    log-sum-exp, the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out, lse = _forward(q, k, v, causal=causal, window=window,
+                            softcap=softcap, scale=scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention (B,H,S,D) of q (B,H,S,D) over k, v (B,KV,T,D). CPU tensors
+    take the plain version; CUDA tensors launch the fp32 or the bf16 kernel
+    and count the launch in ``flash_attention.launches``. With grad mode on
+    and an input that requires grad, it runs through ``FlashAttention``."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale, want_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, scale: float | None = None):
+    """The forward as training runs it: (out, lse), the row log-sum-exp
+    (B,H,S) float32 that ``flash_attention_bwd`` recomputes P from. No
+    graph is recorded; the kernel launch counts as ``flash_attention``'s."""
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale, want_lse=True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        scale: float | None = None):
+    """(dq, dk, dv) of ``flash_attention`` (see
+    ``flash_attention_bwd_plain``). CPU tensors take the plain version;
+    fp32 CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (three
+    kernels: the row sums rowsum(dO o), dK/dV, dQ) and count the call in
+    ``flash_attention_bwd.launches``; every tensor is read and written
+    through its batch, head and sequence strides. bf16 on the card raises
+    ``NotImplementedError``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+    _check_cuda(q, k, v, window)
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{q.dtype} attention has no backward kernel: the bf16 backward "
+            f"comes with LM training; the encoder trains in fp32")
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}: want q's shape, dtype and device")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
+                         f"({b}, {h}, {s}) float32")
+    q, k, v, o, do = (_inner_contiguous(x) for x in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    scale = d ** -0.5 if scale is None else scale
+    lib = _build.library("flash_attention_bwd")
+    P = _build.ptr
+    strides = [ctypes.c_longlong(st) for x in (q, k, v, o, do, dq, dk, dv)
+               for st in _outer_strides(x, False)]
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_bwd_launch(
+            P(q), P(k), P(v), P(o), P(lse), P(do), P(dq), P(dk), P(dv),
+            P(delta), b, h, kvh, s, t, d, *strides, float(scale),
+            float(softcap), int(bool(causal)), int(window),
+            _build.stream(q.device))
+    _build.check(code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

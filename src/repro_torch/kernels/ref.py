@@ -1,14 +1,55 @@
 """Plain oracles for the port's kernels (counterpart of ``repro/kernels/ref.py``).
 
-``dueling_score_ref`` is the dueling-score oracle; ``ssd_ref`` the
+``attention_ref`` is dense masked softmax attention, differentiable by
+autograd: the oracle the attention backward's plain version
+(``flash_attention.flash_attention_bwd_plain``) is held against;
+``rglru_ref`` the RG-LRU recurrence as a sequential loop;
+``dueling_score_ref`` the dueling-score oracle; ``ssd_ref`` the
 sequential SSD recurrence, against which the chunked SSD arithmetic
-(``ssd_scan.ssd_scan_plain`` and the kernels' roundings) is held. The
-reference's ``attention_ref`` and ``rglru_ref`` have no port counterpart
-yet: ``flash_attention_plain`` and ``rglru_scan_plain`` compute the same
-functions."""
+(``ssd_scan.ssd_scan_plain`` and the kernels' roundings) is held."""
 from __future__ import annotations
 
 import torch
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  scale=None) -> torch.Tensor:
+    """q: (B,H,S,D); k/v: (B,KV,T,D). Dense masked softmax attention in
+    float32 (masked scores filled with -1e30), cast back to q's type."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d ** -0.5 if scale is None else scale
+    f32 = torch.float32
+    qr = q.reshape(b, kvh, g, s, d).to(f32)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qr, k.to(f32)) * scale
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(f32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def rglru_ref(log_a, x_in, h0=None):
+    """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) x_t, a sequential loop.
+
+    log_a, x_in: (B,S,D) float32. Returns (h (B,S,D), h_last (B,D))."""
+    a = torch.exp(log_a)
+    bx = torch.sqrt(torch.clamp_min(1 - torch.exp(2 * log_a), 0.0)) * x_in
+    h = torch.zeros_like(x_in[:, 0]) if h0 is None else h0
+    hs = []
+    for t in range(x_in.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
 
 
 def dueling_score_ref(x, a, theta1, theta2) -> torch.Tensor:

@@ -101,11 +101,32 @@ def causal_conv(w: torch.Tensor, u: torch.Tensor,
     return out, up[:, -(width - 1):].to(u.dtype)
 
 
-def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def tree_map(fn, *trees):
+    """``fn`` on every tensor leaf of a nested dict (on the matching leaves
+    of several equally shaped ones)."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
+    sorted at every level."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """A nested dict shaped as ``like`` whose leaves are ``leaves``, in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if not isinstance(t, dict):
+            return next(it)
+        return {k: build(t[k]) for k in sorted(t)}
+    return build(like)
 
 
 def stack_trees(trees: list):

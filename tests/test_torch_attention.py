@@ -21,11 +21,24 @@
   raises (the reference clamps the slot: a reference caveat, not copied),
   for an int and for a tensor position, and leaves the cache untouched;
   the local ring takes the same position.
+* The backward: ``flash_attention_bwd_plain`` (P recomputed from the
+  forward's row log-sum-exp) against ``jax.vjp`` of
+  ``repro/kernels/ref.py::attention_ref`` at bidir, causal, windowed
+  (with rows that have no live key), soft-capped, GQA and ragged S/T
+  shapes, head dims 8, 24 and 64, to 2e-5 of each gradient's largest
+  magnitude; ``lse`` against a logsumexp of the reference's scores;
+  ``torch.autograd.grad`` through ``flash_attention`` (its
+  ``autograd.Function``, no kernel launch on the CPU) equal to autograd
+  through ``flash_attention_plain`` to 1e-6 of the largest magnitude.
+* The forward at the head dims the card now also takes (8, 16, 24) and at
+  ``benchmarks/common.py``'s ``minilm`` encoder shape (B 64, H 4, S = T =
+  32, D 24) against the JAX kernel in interpret mode.
 
 Inputs are made with numpy from a seed and handed to both sides.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -267,3 +280,95 @@ def test_decode_past_a_full_cache_raises(as_tensor):
     _, ring = tattn.decode_attention(p, x, ring, at(4), tc, mode="local",
                                      window=4)
     assert ring["slot_pos"].tolist() == [4, -1, -1, -1]
+
+
+BWD_SHAPES = [
+    # b, h, kv, s, t, d, causal, window, cap
+    (2, 4, 2, 40, 40, 8, False, 0, 0.0),      # bidir, GQA
+    (1, 4, 1, 37, 53, 24, True, 0, 0.0),      # causal, ragged S/T
+    (1, 2, 1, 70, 30, 64, True, 5, 0.0),      # window: rows 34.. no live key
+    (1, 2, 2, 50, 20, 8, False, 4, 0.0),      # bidir window: rows 23.. dead
+    (2, 2, 2, 33, 45, 24, False, 9, 30.0),    # window and soft cap
+    (1, 4, 2, 48, 48, 64, True, 0, 20.0),     # causal, soft cap, GQA
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", BWD_SHAPES)
+def test_plain_backward_matches_jax_vjp_of_attention_ref(b, h, kv, s, t, d,
+                                                         causal, window,
+                                                         cap):
+    arrays = qkv(b, h, kv, s, t, d, seed=s + d)
+    do = np.random.default_rng(7).standard_normal((b, h, s, d),
+                                                  dtype=np.float32)
+    (jq, jk, jv), (tq, tk, tv) = both(arrays, "float32")
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(q, k, v, **kw),
+                        jq, jk, jv)
+    grads = vjp(jnp.asarray(do))
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, **kw)
+    np.testing.assert_allclose(f32(o), f32(want), **TOL["float32"])
+    # lse: logsumexp over the live keys of the scaled, capped scores
+    qr = np.asarray(jq).reshape(b, kv, h // kv, s, d)
+    sc = np.einsum("bkgsd,bktd->bkgst", qr, np.asarray(jk)) * d ** -0.5
+    if cap:
+        sc = cap * np.tanh(sc / cap)
+    mask = tfa.live_mask(s, t, causal=causal, window=window,
+                         device="cpu").numpy()
+    with np.errstate(divide="ignore"):
+        ref_lse = np.log(np.where(mask, np.exp(sc), 0.0).sum(-1))
+    got_lse = lse.numpy().reshape(ref_lse.shape)
+    np.testing.assert_allclose(got_lse, ref_lse, rtol=1e-5, atol=1e-5)
+    dead = ~mask.any(-1)
+    assert (dead.any() == bool(window and s > t + window - 1))
+    assert np.isneginf(got_lse[..., dead]).all()
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse,
+                                        torch.from_numpy(do), **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, grads):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 2e-5 * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", BWD_SHAPES[1:4])
+def test_autograd_through_flash_attention_equals_plain_autograd(
+        b, h, kv, s, t, d, causal, window, cap):
+    """On the CPU, gradients through ``flash_attention`` go through its
+    ``autograd.Function`` and the plain backward, launch no kernel, and
+    equal autograd through the plain forward; (B,S,H,D) views in, as the
+    model passes them."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(9)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).transpose(1, 2).requires_grad_(True)
+    q, k, v = mk(b, s, h, d), mk(b, t, kv, d), mk(b, t, kv, d)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out = tfa.flash_attention(q, k, v, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    do = torch.from_numpy(rng.standard_normal(out.shape, dtype=np.float32))
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ref = tfa.flash_attention_plain(q, k, v, **kw)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    assert kernels.launch_counts()["flash_attention"] == 0
+    assert kernels.launch_counts()["flash_attention_bwd"] == 0
+    with torch.no_grad():                  # no graph: the plain forward
+        assert tfa.flash_attention(q, k, v, **kw).grad_fn is None
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", [
+    (2, 4, 2, 40, 40, 8, False, 0),
+    (1, 4, 2, 50, 50, 16, True, 7),
+    (1, 4, 1, 37, 53, 24, True, 0),
+    (64, 4, 4, 32, 32, 24, False, 0),      # the minilm encoder's attention
+])
+def test_plain_flash_matches_jax_kernel_at_small_head_dims(b, h, kv, s, t, d,
+                                                           causal, window):
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(b, h, kv, s, t, d), "float32")
+    got = tfa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    want = jax_flash(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
+    assert tfa.kernel_head_dim(d) == 32

@@ -2,7 +2,11 @@
 
 Seeded numpy inputs go through both; continuous outputs match to fp32
 tolerance (rtol 1e-5: the same float32 formulas, summed in another order),
-discrete ones (arm indices, ring contents, masks) exactly.
+discrete ones (arm indices, ring contents, masks) exactly. The last
+section holds the reference's public functions the port gained late
+(``phi_all``, ``fgts_round`` under ``JaxDraws``, ``n_active_mask``,
+``preference_loss``, ``cumulative``, ``final_regret`` and the oracles
+``attention_ref`` and ``rglru_ref``), one parity test each.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from repro.core import fgts as jfgts
 from repro.core import model_pool as jmp
 from repro.core import policy as jpol
 from repro.core import regret as jreg
+from repro.kernels import ref as jref
 from repro.optim import sgld as jsgld
 from repro_torch import convert
 from repro_torch.core import btl as tbtl
@@ -26,6 +31,7 @@ from repro_torch.core import policy as tpol
 from repro_torch.core import regret as treg
 from repro_torch.core.draws import HostDraws
 from repro_torch.device import as_f32
+from repro_torch.kernels import ref as tref
 from repro_torch.optim import sgld as tsgld
 
 torch.set_num_threads(2)
@@ -450,3 +456,113 @@ def test_as_f32_casts_numpy_float64():
         x=np.zeros((4, 3)), y=np.ones(4)), device="cpu")
     assert st.x.dtype == torch.float32 and st.y.dtype == torch.float32
     assert st.a1.dtype == torch.int32 and st.t.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# the reference's public functions the port gained late
+# ---------------------------------------------------------------------------
+
+def test_phi_all_matches():
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal(12).astype(np.float32)
+    a = rng.standard_normal((7, 12)).astype(np.float32)
+    a[3] = 0.0                                       # a zero row: phi is 0
+    got = tccft.phi_all(t(x), t(a))
+    assert got.shape == (7, 12)
+    np.testing.assert_allclose(got.numpy(), n(jccft.phi_all(x, a)), **TOL)
+
+
+def test_fgts_round_matches_under_replayed_draws():
+    """One round for the state's single thetas (d,): both samples' SGLD
+    (one unbatched chain each, ``sgld(None, steps)``) and the pair."""
+    from test_torch_env import JaxDraws
+    kw = dict(n_models=5, dim=8, horizon=16, eta=2.0, mu=0.3, sgld_steps=4,
+              sgld_minibatch=6, force_distinct=True)
+    jc, tc = jfgts.FGTSConfig(**kw), tfgts.FGTSConfig(**kw)
+    r = _ring(16, 8, 11, seed=5)
+    r["theta1"], r["theta2"] = r["theta1"][0], r["theta2"][0]
+    js = jfgts.FGTSState(**{k: jnp.asarray(v) for k, v in r.items()})
+    ts = convert.fgts_state_from_numpy(**r, device="cpu")
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((5, 8)).astype(np.float32)
+    for i in range(3):
+        key = jax.random.PRNGKey(40 + i)
+        x = rng.standard_normal(8).astype(np.float32)
+        js, j1, j2 = jfgts.fgts_round(key, js, jnp.asarray(x),
+                                      jnp.asarray(a), jc)
+        ts, t1, t2 = tfgts.fgts_round(JaxDraws(key), ts, t(x), t(a), tc)
+        assert (int(t1), int(t2)) == (int(j1), int(j2))
+        assert t1.dtype == torch.int32 and ts.theta1.shape == (8,)
+        for f in ("theta1", "theta2"):
+            np.testing.assert_allclose(getattr(ts, f).numpy(),
+                                       n(getattr(js, f)), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_n_active_mask_matches():
+    for active in ([True, False, True, True], [False] * 3, [True]):
+        got = tmp.n_active_mask(torch.tensor(active))
+        assert got.dtype == torch.int32 and got.shape == ()
+        assert int(got) == int(jmp.n_active_mask(jnp.asarray(active)))
+
+
+def test_preference_loss_matches():
+    rng = np.random.default_rng(33)
+    m, k, d = 24, 6, 10
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    a = rng.standard_normal((k, d)).astype(np.float32)
+    th = rng.standard_normal(d).astype(np.float32)
+    a1 = rng.integers(0, k, m).astype(np.int32)
+    a2 = rng.integers(0, k, m).astype(np.int32)
+    y = np.sign(rng.standard_normal(m)).astype(np.float32)
+    ref = jpol.preference_loss(th, x, a1, a2, y, a)
+    got = tpol.preference_loss(t(th), t(x), t(a1), t(a2), t(y), t(a))
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(ref), **TOL)
+    # eps-greedy's objective: the same function the baselines step on
+    from repro_torch.core import baselines as tbl
+    assert tbl.preference_loss is tpol.preference_loss
+
+
+def test_cumulative_and_final_regret_match():
+    r = np.random.default_rng(34).random(50).astype(np.float32)
+    got = treg.cumulative(t(r))
+    np.testing.assert_allclose(got.numpy(), n(jreg.cumulative(r)), **TOL)
+    want = jreg.final_regret(jreg.cumulative(r))
+    assert treg.final_regret(got) == pytest.approx(want, rel=1e-6)
+    assert treg.final_regret(got.numpy()) == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize("b,h,kv,s,t_,d,causal,window,cap", [
+    (2, 4, 2, 33, 47, 24, True, 0, 0.0),
+    (1, 2, 1, 60, 20, 8, True, 4, 0.0),            # rows with no live key
+    (1, 2, 2, 30, 30, 16, False, 7, 25.0),
+])
+def test_attention_ref_matches(b, h, kv, s, t_, d, causal, window, cap):
+    rng = np.random.default_rng(s)
+    q = rng.standard_normal((b, h, s, d), dtype=np.float32)
+    k = rng.standard_normal((b, kv, t_, d), dtype=np.float32)
+    v = rng.standard_normal((b, kv, t_, d), dtype=np.float32)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = tref.attention_ref(t(q), t(k), t(v), **kw)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              **kw)
+    np.testing.assert_allclose(got.numpy(), n(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_ref_matches(with_h0):
+    rng = np.random.default_rng(35)
+    b, s, d = 2, 9, 12
+    log_a = -rng.random((b, s, d)).astype(np.float32)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32) if with_h0 else None
+    got_h, got_last = tref.rglru_ref(t(log_a), t(x),
+                                     None if h0 is None else t(h0))
+    want_h, want_last = jref.rglru_ref(jnp.asarray(log_a), jnp.asarray(x),
+                                       None if h0 is None
+                                       else jnp.asarray(h0))
+    np.testing.assert_allclose(got_h.numpy(), n(want_h), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_last.numpy(), n(want_last), rtol=1e-5,
+                               atol=1e-6)

@@ -22,7 +22,12 @@ shape, across its double-buffered kv tiles with ragged S/T, and through
 its 4-byte copies for unaligned views) and 2e-2 in bf16 (the Hopper
 kernel; the reference's own kernel tolerances), bf16 rows with no live
 key are the mean of v, and a bf16 tensor that TMA cannot load raises; the
-encoder on the card matches its CPU run to atol 1e-5. The SSD scan
+encoder on the card matches its CPU run to atol 1e-5. fp32 attention takes
+head dims 8 to 30 on the kernel built for 32. The backward kernels match
+``flash_attention_bwd_plain`` to 1e-4 of each gradient's largest
+magnitude, count one launch per call and repeat bitwise; bf16 has no
+backward and raises; the encoder's gradients on the card match the CPU's
+to 1e-4 of each leaf's largest magnitude. The SSD scan
 matches to rtol = atol = 2e-4 and the RG-LRU scan to 1e-5 (the
 reference's kernel tolerances); each SSD case proves by the profiler's
 kernel names which kernel ran (bf16 at P 64, N 128, chunk 128: the Hopper
@@ -613,7 +618,13 @@ def test_flash_attention_kernel_reads_strided_views(cuda_device):
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_run(cuda_device):
-    x = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    """Head dims past 256 (any dtype) and bf16 head dims outside the four
+    built ones raise; fp32 takes every head dim up to 256."""
+    x = torch.zeros((1, 2, 8, 264), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(x, x, x)
+    x = torch.zeros((1, 2, 8, 48), device=cuda_device,
+                    dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(x, x, x)
     y = torch.zeros((1, 2, 8, 64), device=cuda_device)
@@ -820,6 +831,127 @@ def test_encode_on_the_card_matches_the_cpu(cuda_device):
     assert tfa.flash_attention.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("d,causal,window", [(8, False, 0), (16, False, 0),
+                                             (24, False, 0), (24, True, 16),
+                                             (30, False, 9)])
+def test_flash_attention_fp32_small_head_dims(cuda_device, d, causal,
+                                              window):
+    """Head dims below 32 run on the kernel built for 32 (columns past D
+    loaded as zeros, never stored): the minilm encoder's shape (B 64, H 4,
+    S = T = 32) and ragged S/T with a window; D 30 through the 4-byte
+    copies. fp32 to 2e-5, one launch."""
+    rng = np.random.default_rng(d + window)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    b, s, t = (64, 32, 32) if not window else (2, 45, 77)
+    q, k, v = on(b, 4, s, d), on(b, 4, t, d), on(b, 4, t, d)
+    before = tfa.flash_attention.launches
+    o = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert o.shape == (b, 4, s, d)
+    p = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(o.cpu().numpy(), p.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
+BWD_CASES = [
+    # b, h, kv, s, t, d, causal, window, cap, strided
+    (64, 4, 4, 64, 64, 64, False, 0, 0.0, False),    # the training step
+    (1, 4, 2, 300, 130, 256, True, 64, 30.0, False),  # rows with no live key
+    (64, 4, 4, 32, 32, 24, False, 0, 0.0, False),    # minilm's head dim
+    (64, 4, 4, 32, 32, 16, False, 0, 0.0, False),
+    (64, 4, 4, 32, 32, 8, False, 0, 0.0, False),
+    (2, 4, 2, 45, 77, 30, False, 9, 0.0, False),      # 4-byte copies
+    (1, 8, 2, 200, 333, 128, False, 0, 0.0, False),   # GQA, ragged S/T
+    (2, 8, 2, 150, 150, 64, True, 40, 0.0, True),     # strided views
+    (1, 28, 4, 512, 512, 128, True, 0, 0.0, False),   # qwen2-7b's heads
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,strided",
+                         BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, h, kv, s,
+                                                  t, d, causal, window, cap,
+                                                  strided):
+    """The backward kernels against ``flash_attention_bwd_plain`` from the
+    kernel forward's o and lse: dq, dk and dv to 1e-4 of their largest
+    magnitude (rtol = atol), one counted launch per call, a bitwise repeat,
+    and dq exactly 0 on rows with no live key."""
+    rng = np.random.default_rng(s + t + d)
+    shape_q, shape_kv = (((b, s, h, d), (b, t, kv, d)) if strided
+                         else ((b, h, s, d), (b, kv, t, d)))
+    on = lambda shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    q, k, v, do = on(shape_q), on(shape_kv), on(shape_kv), on(shape_q)
+    if strided:
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        top = float(w.abs().max())
+        assert bool(((g - w).abs() <= 1e-4 * (top + w.abs())).all())
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if window and s > t + window - 1:
+        assert not bool(got[0][:, :, t + window - 1:].any())
+
+
+def test_flash_attention_bwd_refuses_bf16(cuda_device):
+    """bf16 has no backward kernel: the backward and a bf16 forward that
+    needs one (an input requires grad) raise ``NotImplementedError``."""
+    x = torch.zeros((1, 2, 8, 64), device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="LM training"):
+        tfa.flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(NotImplementedError, match="LM training"):
+        tfa.flash_attention(x.requires_grad_(True), x, x)
+    with torch.no_grad():
+        assert tfa.flash_attention(x, x, x).dtype == torch.bfloat16
+
+
+def test_encoder_gradients_on_the_card_match_the_cpu(cuda_device):
+    """The cosine loss of 16 pairs through ``EncoderConfig()`` and its
+    gradient by autograd (attention through ``FlashAttention``: the fp32
+    forward kernel and the backward kernel, once per layer per encode),
+    against the CPU's from the same weights and pairs: the loss to rtol
+    1e-5, every leaf's gradient to 1e-4 of its largest magnitude."""
+    from repro_torch.contrastive import finetune as ft
+    from repro_torch.models.layers import tree_leaves
+    cfg = tenc.EncoderConfig()
+    params = tenc.init_encoder(torch.Generator().manual_seed(2), cfg,
+                               device="cpu")
+    rng = np.random.default_rng(8)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 64)))
+    mask = torch.ones((32, 64))
+    mask[5, 30:] = 0.0
+    batch = {"tok_a": tok[:16], "mask_a": mask[:16], "tok_b": tok[16:],
+             "mask_b": mask[16:],
+             "target": torch.from_numpy(rng.random(16).astype(np.float32))}
+
+    def grads(where):
+        p = tenc.tree_map(lambda w: w.to(where), params)
+        b = {k: x.to(where) for k, x in batch.items()}
+        loss, g = ft.loss_and_grads(p, b, cfg)
+        return float(loss), [x.cpu() for x in tree_leaves(g)]
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    g_loss, g_grads = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches - before[0],
+            tfa.flash_attention_bwd.launches - before[1]) == (
+                2 * cfg.n_layers, 2 * cfg.n_layers)
+    c_loss, c_grads = grads("cpu")
+    assert abs(g_loss - c_loss) <= 1e-5 * abs(c_loss)
+    for g, c in zip(g_grads, c_grads):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
 
 
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)

@@ -5,8 +5,9 @@ same parameters (the reference's, carried over with
 * the layers: ``rms_norm`` (gain 1 + scale, eps 1e-6), ``rope_freqs`` and
   ``apply_rope`` (split halves, numpy float32 frequencies), ``gated_mlp``;
 * ``block_fwd`` for the three attention mixers with the gated MLP;
-* ``encode`` at a tiny configuration and at ``EncoderConfig()`` (the
-  repo's widest encoder), to atol 2e-5, with padded positions;
+* ``encode`` at a tiny configuration, at ``EncoderConfig()`` (the repo's
+  widest encoder) and at the paper benchmarks' ``minilm`` encoder (head
+  dim 24), to atol 2e-5, with padded positions;
 * msgpack checkpoints: the port writes the reference's bytes, a reference
   checkpoint restores into the port and a port checkpoint into the
   reference.
@@ -130,9 +131,14 @@ def _tokens(cfg, b, seed):
     return tok, mask
 
 
-@pytest.mark.parametrize("size", ["tiny", "default"])
+# benchmarks/common.py's "minilm" encoder: head dim 24 (d 96 over 4 heads)
+MINILM = dict(vocab_size=2048, d_model=96, n_layers=2, n_heads=4, d_ff=384,
+              max_len=32, name="minilm-repro")
+
+
+@pytest.mark.parametrize("size", ["tiny", "default", "minilm"])
 def test_encode_matches(size):
-    kw = TINY if size == "tiny" else {}
+    kw = {"tiny": TINY, "default": {}, "minilm": MINILM}[size]
     jc, tc = jenc.EncoderConfig(**kw), tenc.EncoderConfig(**kw)
     params = jax.device_get(jenc.init_encoder(jax.random.PRNGKey(3), jc))
     tok, mask = _tokens(jc, 4, seed=4)

@@ -5,10 +5,12 @@ the same draws.
 replays the reference's key tree with ``jax.random``: ``split`` is
 ``jax.random.split`` (``fold_in`` and ``gumbel`` replay the calls of the
 same names, ``distinct_pair`` the static baselines' per-row
-``jax.random.choice(..., replace=False)``), and ``sgld(C, steps)`` hands
-out, per SGLD step, the
+``jax.random.choice(..., replace=False)``, ``randint`` and ``choice`` the
+calls of the same names that build the encoder's training pairs), and
+``sgld(C, steps)`` hands out, per SGLD step, the
 ``randint``/``normal`` draws of every chain exactly as ``policy._act`` ->
-``sgld_sample`` -> ``sgld_loop`` derive them. So the port sees the
+``sgld_sample`` -> ``sgld_loop`` derive them (``sgld(None, steps)`` those
+of one unbatched chain, as ``fgts_round`` draws them). So the port sees the
 reference's numbers, and routed pairs must match exactly and the
 cumulative regret to 1e-5. Both sides run at small shapes on the CPU (the
 reference's Pallas kernels in interpret mode, the port's plain versions).
@@ -50,7 +52,14 @@ def _step_draws(keys, m, d, hi):
 
 
 class JaxSgldDraws:
+    """Per-step keys of each chain: ``split(key, C)`` then ``split(k,
+    steps)`` per chain, or for one unbatched chain (``n_chains`` None)
+    ``split(key, steps)`` itself."""
+
     def __init__(self, key, n_chains, n_steps):
+        if n_chains is None:
+            self.keys = jax.random.split(key, n_steps)[None]
+            return
         ks = jax.random.split(key, n_chains)
         self.keys = jax.vmap(lambda k: jax.random.split(k, n_steps))(ks)
 
@@ -90,6 +99,14 @@ class JaxDraws:
 
     def distinct_pair(self, b, n, device):
         return t(_distinct_pairs(self.key, b, n)).long().to(device)
+
+    def randint(self, shape, lo, hi, device):
+        return t(jax.random.randint(self.key, shape, lo, int(hi))).long().to(
+            device)
+
+    def choice(self, n, shape, p, device):
+        p = jnp.asarray(np.asarray(p.detach().cpu(), np.float32))
+        return t(jax.random.choice(self.key, n, shape, p=p)).long().to(device)
 
     def sgld(self, n_chains, n_steps):
         return JaxSgldDraws(self.key, n_chains, n_steps)

@@ -1023,8 +1023,9 @@ def test_cpu_tensors_never_count_launches():
     thm = t(ins[0]).requires_grad_(True)
     u = tsu.sgld_mixed_potential(thm, *map(t, ins[1:]))
     u.sum().backward()
-    q = t(np.ones((1, 2, 4, 32), np.float32))
-    tfa.flash_attention(q, q[:, :1], q[:, :1], causal=True, window=2)
+    q = t(np.ones((1, 2, 4, 32), np.float32)).requires_grad_(True)
+    o = tfa.flash_attention(q, q[:, :1], q[:, :1], causal=True, window=2)
+    o.sum().backward()                      # through flash_attention_bwd
     z = torch.zeros
     tk.WRAPPERS["ssd_scan"](z((1, 5, 2, 8)), z((1, 5, 4)), z((1, 5, 4)),
                             z((1, 5, 2)), z((1, 5, 2)), chunk=16)
@@ -1036,5 +1037,6 @@ def test_cpu_tensors_never_count_launches():
                                   "sgld_mixed_fwd": 0,
                                   "sgld_mixed_grad": 0,
                                   "flash_attention": 0,
+                                  "flash_attention_bwd": 0,
                                   "ssd_scan": 0,
                                   "rglru_scan": 0}

@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port (``src/repro_torch``).
 
 * No module imports ``jax`` or the JAX package ``repro``: the port stands
-  alone (only these tests import both); nor do ``chip_smoke.py`` and the
-  card tools under ``tools/``.
+  alone (only these tests import both); nor do ``chip_smoke.py``, the
+  card tools under ``tools/`` and the port's training example.
 * Without a CUDA card ``default_device()`` raises and names the
   ``device="cpu"`` opt-in: there is no silent CPU fallback.
 * CPU tensors run the plain versions and never count a kernel launch;
@@ -49,7 +49,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/ab_kernels.py",
                                     "tools/kernel_phases.py",
-                                    "tools/score_sweep.py"])
+                                    "tools/score_sweep.py",
+                                    "examples/train_encoder_e2e_torch.py"])
 def test_card_scripts_import_neither_jax_nor_reference(script):
     """The scripts that run the port on the card import no JAX either: the
     machine with the card has none."""
@@ -165,8 +166,25 @@ def test_scaled_index_stays_in_range():
     idx = draws.scaled_index(u, torch.tensor(7, dtype=torch.int32))
     assert idx.tolist() == [0, 3, 6]
     host = draws.HostDraws(3)
-    a = host.randint((100,), 5, "cpu")
+    a = host.randint((100,), 0, 5, "cpu")
     assert a.dtype == torch.int64 and int(a.min()) >= 0 and int(a.max()) < 5
+
+
+@pytest.mark.parametrize("src", ["host", "torch"])
+def test_sequential_sources_draw_randint_and_weighted_choice(src):
+    """``randint`` stays in [lo, hi) (hi a 0-d tensor too) and reaches both
+    ends; ``choice`` never draws a zero-weight index and follows the
+    weights (4000 draws, within 0.05 of each probability)."""
+    d = draws.HostDraws(2) if src == "host" else draws.TorchDraws(2, "cpu")
+    a = d.randint((4000,), 3, torch.tensor(9), "cpu")
+    assert a.dtype == torch.int64 and a.shape == (4000,)
+    assert int(a.min()) == 3 and int(a.max()) == 8
+    p = torch.tensor([0.5, 0.0, 0.2, 0.3])
+    c = d.choice(4, (40, 100), p, "cpu")
+    assert c.dtype == torch.int64 and c.shape == (40, 100)
+    freq = torch.bincount(c.reshape(-1), minlength=4) / c.numel()
+    assert int(freq[1] * c.numel()) == 0
+    assert float((freq - p).abs().max()) < 0.05
 
 
 @pytest.mark.parametrize("src", ["host", "torch"])

@@ -64,10 +64,16 @@ line per phase (phase 2 prints one per path):
    holds ``flash_attention_bwd`` (the fp32 backward kernels) to
    ``flash_attention_bwd_plain`` on the card from the kernel forward's o
    and lse, at rtol = atol = 1e-4 of each gradient's max |g|, repeated
-   bitwise: the training step's shape (B 64, H 4, S = T = 64, D 64,
-   bidir: ``main``), qwen2-7b's heads (causal: ``bench``), causal +
-   window + soft cap at D 256 with ragged S/T, GQA and rows with no live
-   key, D 24, 16 and 8, D 30, ragged GQA at D 128 and strided views; its
+   bitwise, each case recording ``bwd_plan``'s ``plan`` (0 Small, one
+   launch; 1 Large): the training step's shape (B 64, H 4, S = T = 64,
+   D 64, bidir: ``main``, Small) and the same forced to Large
+   (``main_large``), qwen2-7b's heads (causal: ``bench``, Large), the e5b
+   encoder (D 32) and the minilm encoder's D 24 at S = T = 32 (Small),
+   Small with GQA, a window and a soft cap and with rows that have no
+   live key, the last T Small takes (64) and the first past it (65,
+   Large), causal + window + soft cap at D 256 with ragged S/T, GQA and
+   rows with no live key, D 16 and 8, D 30, ragged GQA at D 128 and
+   strided views; timed cases split the device time by kernel name; its
    bound counts 10 D operations per live pair, its library yardstick is
    SDPA's backward (``torch.autograd.grad`` over a kept graph).
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
@@ -85,7 +91,9 @@ line per phase (phase 2 prints one per path):
      the card as the paper benchmarks train it: ``pretrain_generic``, 150
      steps of 64 pairs, then ``finetune_categorical``, 4 x 40 steps on the
      RouterBench offline split; every step launches ``flash_attention``
-     and ``flash_attention_bwd`` 8 times each (exact counts); losses
+     and ``flash_attention_bwd`` 8 times each (exact counts), and each
+     backward call runs the kernels of its plan (by profiler name; one
+     under Small); losses
      finite, the category silhouette of held-out queries must rise through
      fine-tuning; ms per step, and device ms and idle share from 2
      profiled steps;
@@ -737,16 +745,56 @@ LIB_BWD_TOL = 1e-2
 
 
 def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
-                  window=0, cap=0.0, strided=False, timed=False):
+                  window=0, cap=0.0, strided=False, cfg=None, expect=None,
+                  timed=False):
     """One ``flash_attention_bwd`` case against ``flash_attention_bwd_plain``
-    on the card, both from the kernel forward's o and lse: |kernel - plain|
-    <= 1e-4 max|plain| + 1e-4 |plain| for dq, dk and dv; a second call
-    must repeat bitwise, and dq must be exactly 0 on rows with no live key.
-    ``strided`` passes q, k, v and dO as ``transpose(1, 2)`` views. Timed
-    cases add the bound (10 D operations per live (row, key) pair at the
-    fp32 rate; q, k, v, o, dO, lse, dq, dk and dv moved once) and, without
-    a soft cap, the time of SDPA's backward (``torch.autograd.grad`` over a
+    on the card, both from the kernel forward's o and lse, in the
+    configuration ``bwd_plan`` picks or, with ``cfg``, the one it names
+    (recorded as ``plan``; ``expect``: the configuration the plan must
+    pick): |kernel - plain| <= 1e-4 max|plain| + 1e-4 |plain| for dq, dk
+    and dv; two more calls must repeat bitwise, and dq must be exactly 0 on
+    rows with no live key. ``strided`` passes q, k, v and dO as
+    ``transpose(1, 2)`` views. Timed cases add the device time by kernel
+    name, the bound (10 D operations per live (row, key) pair at the fp32
+    rate; q, k, v, o, dO, lse, dq, dk and dv moved once) and, without a
+    soft cap, the time of SDPA's backward (``torch.autograd.grad`` over a
     kept SDPA graph on the same inputs; the forward is not timed)."""
+    from repro_torch.kernels import flash_attention as fa
+    plan = fa.bwd_plan
+    if cfg is not None:
+        fa.bwd_plan = lambda *args: plan(*args, cfg=cfg)
+    try:
+        return _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev,
+                              causal=causal, window=window, cap=cap,
+                              strided=strided, expect=expect, timed=timed)
+    finally:
+        fa.bwd_plan = plan
+
+
+def device_split(fn, calls=20, attempts=3):
+    """Device us per call of ``fn`` by kernel name (``torch.profiler``; a
+    profile that records no device activity is taken again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for key, us, _ in _kernel_events(prof):
+            name = key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            split[name] = split.get(name, 0.0) + us / calls
+        if split:
+            return split
+    return None
+
+
+def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
+                   cap, strided, expect, timed):
     import torch
     from repro_torch.kernels import flash_attention as fa
     q_shape, kv_shape = (((b, s, h, d), (b, t, kv, d)) if strided
@@ -762,8 +810,13 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
     torch.cuda.synchronize()
     plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     want = plain()
+    plan = fa.bwd_plan(b, h, kv, s, t, d, causal, window)
     out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, causal=causal,
-               window=window, softcap=cap, strided=strided)
+               window=window, softcap=cap, strided=strided,
+               plan=plan._asdict())
+    if expect is not None:
+        check(plan.cfg == expect, f"attn_bwd {name}: plan {plan} is not "
+                                  f"configuration {expect}")
     errs = []
     for gname, g, w in zip(("dq", "dk", "dv"), got, want):
         check(bool(torch.isfinite(g).all()),
@@ -775,9 +828,10 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
               f"attn_bwd {name}: {gname} off by {errs[-1]} (max |g| {top})")
         out[f"{gname}_max_rel_err"] = errs[-1] / max(top, 1e-30)
     out["max_abs_err"] = max(errs)
-    again = kern()
-    check(all(bool(torch.equal(x, y)) for x, y in zip(got, again)),
-          f"attn_bwd {name}: a second call differs")
+    for _ in range(2):
+        again = kern()
+        check(all(bool(torch.equal(x, y)) for x, y in zip(got, again)),
+              f"attn_bwd {name}: a repeated call differs")
     if window and s > t + window - 1:
         out["dead_rows"] = s - (t + window - 1)
         check(not bool(got[0][:, :, t + window - 1:].any()),
@@ -790,6 +844,9 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
         out["ms"], out["plain_ms"] = time_ms(kern), time_ms(plain)
         out["device_ms"], out["plain_device_ms"] = (device_ms(kern),
                                                     device_ms(plain))
+        out["device_us_by_kernel"] = device_split(kern)
+        check(out["device_us_by_kernel"] is not None,
+              f"attn_bwd {name}: three profiles recorded no device activity")
         out["bound_ms"], out["bound_by"] = bound(nbytes,
                                                  10.0 * b * h * live * d)
         out["library_ms"] = None
@@ -817,20 +874,36 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
 
 def attn_bwd_cases(gen, dev):
     """The attn_bwd family: the training step's shape (``main``: the
-    fine-tuning batch of 64 pairs through ``EncoderConfig()``), qwen2-7b's
-    heads (``bench``), causal + window + soft cap at D 256 with ragged S/T,
-    GQA and rows with no live key, the minilm encoder's head dim 24 and D
-    16 and 8, D 30 (4-byte copies), ragged GQA at D 128, and strided
-    views."""
+    fine-tuning batch of 64 pairs through ``EncoderConfig()``; Small) and
+    the same forced to Large (``main_large``), qwen2-7b's heads (``bench``;
+    Large), the e5b encoder (D 32) and the minilm encoder's head dim 24
+    (both Small, timed beside SDPA's backward), Small at GQA with a window
+    and a soft cap and with rows that have no live key over two row tiles,
+    the last T Small takes (64) and the first past it (65, Large), causal +
+    window + soft cap at D 256 with ragged S/T, GQA and rows with no live
+    key, D 16 and 8, D 30 (4-byte copies), ragged GQA at D 128, and
+    strided views."""
     return [
         attn_bwd_case("main", 64, 4, 4, 64, 64, 64, gen, dev, causal=False,
-                      timed=True),
+                      expect=0, timed=True),
         attn_bwd_case("bench", 1, 28, 4, 2048, 2048, 128, gen, dev,
-                      timed=True),
+                      expect=1, timed=True),
+        attn_bwd_case("main_large", 64, 4, 4, 64, 64, 64, gen, dev,
+                      causal=False, cfg=1, timed=True),
+        attn_bwd_case("e5b", 64, 4, 4, 32, 32, 32, gen, dev, causal=False,
+                      expect=0, timed=True),
+        attn_bwd_case("minilm_d24", 64, 4, 4, 32, 32, 24, gen, dev,
+                      causal=False, expect=0, timed=True),
+        attn_bwd_case("small_gqa_window_cap", 64, 8, 2, 64, 64, 64, gen,
+                      dev, window=16, cap=30.0, expect=0),
+        attn_bwd_case("small_dead_rows", 128, 4, 1, 100, 40, 32, gen, dev,
+                      window=8, expect=0),
+        attn_bwd_case("small_last_t", 2, 2, 2, 70, 64, 128, gen, dev,
+                      causal=False, strided=True, expect=0),
+        attn_bwd_case("large_first_t", 2, 2, 2, 70, 65, 128, gen, dev,
+                      causal=False, strided=True, expect=1),
         attn_bwd_case("d256_window_cap_dead_rows", 1, 4, 2, 300, 130, 256,
                       gen, dev, window=64, cap=30.0),
-        attn_bwd_case("minilm_d24", 64, 4, 4, 32, 32, 24, gen, dev,
-                      causal=False),
         attn_bwd_case("minilm_d16", 64, 4, 4, 32, 32, 16, gen, dev,
                       causal=False),
         attn_bwd_case("minilm_d8", 64, 4, 4, 32, 32, 8, gen, dev,
@@ -1257,15 +1330,18 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
     kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
     busy_ms = sum(us for _, us, _ in kern) / 1e3 / ticks
     launches = sum(n for _, _, n in kern) / ticks
-    by_group = None
+    by_group = n_group = None
     if groups:
         by_group = dict.fromkeys([*groups, "other"], 0.0)
-        for key, us, _ in kern:
+        n_group = dict.fromkeys([*groups, "other"], 0.0)
+        for key, us, n in kern:
             g = next((g for g, subs in groups.items()
                       if any(x in key for x in subs)), "other")
             by_group[g] += us / 1e3 / ticks
+            n_group[g] += n / ticks
     return dict(ticks=ticks, profiled_ms_per_tick=wall_ms / ticks,
                 device_ms_per_tick_by_group=by_group,
+                device_kernels_per_tick_by_group=n_group,
                 unprofiled_ms_per_tick=ms_per_tick,
                 device_busy_ms_per_tick=busy_ms,
                 device_idle_share=1.0 - busy_ms / ms_per_tick,
@@ -1434,7 +1510,8 @@ PRETRAIN_STEPS, FT_EPOCHS, FT_STEPS, PAIRS = 150, 4, 40, 64
 # a training step's device time by kernel family (profiler kernel names)
 STEP_GROUPS = {
     "attention_fwd": ("flash_attention_kernel",),
-    "attention_bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel"),
+    "attention_bwd": ("bwd_kv_kernel", "bwd_q_kernel", "bwd_reduce_kernel",
+                      "delta_kernel"),
     "gemm": ("gemm", "Kernel2<cutlass"),
     "reduce": ("reduce_kernel",),
     "elementwise": ("elementwise", "foreach", "index", "scatter", "gather",
@@ -1460,6 +1537,7 @@ def phase_train(dev, seed):
     from repro_torch.contrastive import finetune as ft
     from repro_torch.core.draws import TorchDraws
     from repro_torch.data import synth
+    from repro_torch.kernels import flash_attention as fa
     enc_cfg, params0, split, _ = ccft_setup(seed, dev, HORIZON)
     corpus = synth.CorpusConfig(seq_len=enc_cfg.max_len)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -1509,6 +1587,16 @@ def phase_train(dev, seed):
         lambda n: ft.pretrain_generic(TorchDraws(seed, dev), params_pt,
                                       pt_tok, pt_mask, enc_cfg, steps=n,
                                       batch=PAIRS), pt_ms, groups=STEP_GROUPS)
+    # the backward's kernels per call, by profiler name, against its plan
+    # at the step's shape (2 profiled steps of 2 x n_layers calls)
+    bwd_plan = fa.bwd_plan(PAIRS, enc_cfg.n_heads, enc_cfg.n_heads,
+                           enc_cfg.max_len, enc_cfg.max_len,
+                           enc_cfg.d_model // enc_cfg.n_heads, False, 0)
+    bwd_kernels = (prof["device_kernels_per_tick_by_group"]["attention_bwd"]
+                   / (2 * n_layers))
+    check(bwd_kernels == bwd_plan.launches,
+          f"train: {bwd_kernels} backward kernels a call, the plan "
+          f"{bwd_plan} launches {bwd_plan.launches}")
     steps = PRETRAIN_STEPS + FT_EPOCHS * FT_STEPS
     launches = {k: pt_counts[k] + ft_counts[k] for k in pt_counts}
     record = dict(
@@ -1521,6 +1609,7 @@ def phase_train(dev, seed):
         finetune_losses=ft_losses, silhouette=sil, launches=launches,
         launches_per_step={k: launches[k] / steps for k in
                            ("flash_attention", "flash_attention_bwd")},
+        bwd_plan=bwd_plan._asdict(), bwd_kernels_per_call=bwd_kernels,
         profile=prof)
     return record, params_ft
 
@@ -2142,6 +2231,8 @@ KERNELS = [
 ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16")
 SSD_FP32_TIMED = ("main_fp32",)
 SELECT_TIMED = ("serve",)
+# the timed attn_bwd cases beside main and bench
+ATTN_BWD_TIMED = ("main_large", "e5b", "minilm_d24")
 
 
 def kernels_line(cases, launches):
@@ -2151,7 +2242,10 @@ def kernels_line(cases, launches):
     its backward for ``flash_attention_bwd``, and null for the others: no
     one PyTorch call computes them. The
     ``flash_attention`` row also carries its timed bf16 cases (the Hopper
-    kernel) under ``bf16``, the ``ssd_scan`` row its timed fp32 case (the
+    kernel) under ``bf16``, the ``flash_attention_bwd`` row its plans, its
+    device time by kernel and its other timed cases (``main_large``,
+    ``e5b``, ``minilm_d24``) under ``more``, the ``ssd_scan`` row its timed
+    fp32 case (the
     SIMT kernel) under ``fp32``, the ``dueling_select`` row its timed
     ``serve`` case under ``serve``. The two forward kernels are reached on their
     paths only through the energy trace the runs here add
@@ -2177,7 +2271,13 @@ def kernels_line(cases, launches):
             bench_plain_device_ms=bch[pre + "plain_device_ms"],
             bench_bound_ms=bch[pre + "bound_ms"],
             bench_bound_by=bch[pre + "bound_by"]))
+        if name == "flash_attention_bwd":
+            rows[-1].update(plan=m["plan"], bench_plan=bch["plan"],
+                            device_us_by_kernel=m["device_us_by_kernel"],
+                            bench_device_us_by_kernel=bch[
+                                "device_us_by_kernel"])
         extra = dict(flash_attention=("bf16", ATTN_BF16_TIMED),
+                     flash_attention_bwd=("more", ATTN_BWD_TIMED),
                      ssd_scan=("fp32", SSD_FP32_TIMED),
                      dueling_select=("serve", SELECT_TIMED)).get(name)
         if extra:
@@ -2185,7 +2285,7 @@ def kernels_line(cases, launches):
                 r["case"]: {k: r.get(k) for k in (
                     "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
                     "library_device_ms", "plain_ms", "plain_device_ms",
-                    "plan")}
+                    "plan", "device_us_by_kernel")}
                 for r in fam_cases if r["case"] in extra[1]}
     return {"kernels": rows}
 

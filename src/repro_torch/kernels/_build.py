@@ -69,11 +69,13 @@ SIGNATURES = {
                                         *[L] * 12, F, F, I, I, P],
     },
     "flash_attention_bwd": {
-        # q, k, v, o, lse, do, dq, dk, dv, delta scratch (B,H,S), B, H, KV,
-        # S, T, D, (batch, head, seq) strides of q, k, v, o, do, dq, dk and
-        # dv, scale, softcap, causal, window, stream; fp32
-        "flash_attention_bwd_launch": [*[P] * 10, I, I, I, I, I, I,
-                                       *[L] * 24, F, F, I, I, P],
+        # q, k, v, o, lse, do, dq, dk, dv, Large's delta (B,H,S) and
+        # partials scratch or NULL, the part table, B, H, KV, S, T, D,
+        # (batch, head, seq) strides of q, k, v, o, do, dq, dk and dv,
+        # scale, softcap, causal, window, configuration, key tile, parts,
+        # stream; fp32
+        "flash_attention_bwd_launch": [*[P] * 12, I, I, I, I, I, I,
+                                       *[L] * 24, F, F, I, I, I, I, I, P],
     },
     "ssd_scan": {
         # x, bt, ct, log_a, dt, h0, y, h_last, B, S, H, P, N, chunk,

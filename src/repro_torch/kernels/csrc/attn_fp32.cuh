@@ -1,8 +1,9 @@
 // Pieces shared by the fp32 attention kernels: the forward
 // (flash_attention.cu) and the backward (flash_attention_bwd.cu).
 //
-// Both run blocks of 128 threads that stage rows of (rows, D) tensors in
-// shared memory by cp.async, at the built head dim DP (32, 64, 128 or 256)
+// Both stage rows of (rows, D) tensors in shared memory by cp.async (the
+// forward in blocks of 128 threads, the backward 256), at the built head
+// dim DP (32, 64, 128 or 256)
 // for any D <= DP: a row's columns past D, and rows past the tensor's end,
 // arrive as zeros, which add exactly nothing to an fp32 fma chain.
 #pragma once
@@ -53,14 +54,14 @@ __device__ __forceinline__ void copy_wait() {
 // rows [row0, row0 + n) of a (rows, dim) tensor into shared memory at a
 // width of DP floats: row r at dst + r * DP, its 16-byte chunk c at chunk
 // c ^ ((r >> shift) % 8); rows at or past `limit` and columns at or past
-// `dim` are zeros
-template <int DP>
+// `dim` are zeros. NT: the block's threads, which share the copies.
+template <int DP, int NT = kThreads>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int row0, int n,
                                           int limit, int dim, int shift,
                                           bool vec) {
   constexpr int C = DP / 4;
-  for (int e = threadIdx.x; e < n * C; e += kThreads) {
+  for (int e = threadIdx.x; e < n * C; e += NT) {
     const int r = e / C, c = e % C, i = row0 + r;
     const int cols = i < limit ? max(0, min(4, dim - 4 * c)) : 0;
     copy16(dst + r * DP + 4 * (c ^ ((r >> shift) & 7)),

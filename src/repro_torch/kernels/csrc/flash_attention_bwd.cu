@@ -20,32 +20,45 @@
 // told dead by index, as the forward tells them.
 //
 // What bounds it on the card: 10 D operations per live (row, key) pair
-// (five products: s, dO.v, dV, dK, dQ; s and dO.v twice, once per
-// kernel, which the bound does not count) at 67 TFLOP/s on the CUDA cores
-// in fp32 (no tensor cores on fp32 inputs, by the port's numerics rule),
-// or the bytes of q, k, v, o, dO, lse, dq, dk and dv for short rows.
+// (five products: s, dO.v, dV, dK, dQ) at 67 TFLOP/s on the CUDA cores in
+// fp32 (no tensor cores on fp32 inputs, by the port's numerics rule), or
+// the bytes of q, k, v, o, dO, lse, dq, dk and dv for short rows.
 //
-// Three launches, in a fixed order, no atomics, so results repeat bitwise:
-//   1. delta_kernel: Delta_i, a warp per row.
-//   2. dkdv_kernel: a block of 128 threads per (b, kv head, tile of BKV
-//      keys), K and V resident in shared memory; it walks the group's
-//      query heads in order and, per head, the tiles of 32 query rows that
-//      hold a live key for its keys. Per step: Q, dO, lse and Delta land
-//      by cp.async; thread (ty, tx) = (tid / 8, tid % 8) computes s and
-//      dO.v for keys ty + 16 a and rows tx + 8 c in registers (fmaf over D
-//      from 16-byte shared loads, K/V and Q/dO rows XOR-swizzled by 16-byte
-//      chunk), then P and dS into shared memory (query-major, rows padded
-//      by 4 floats so neither the writes nor the reads meet a bank twice);
-//      then the same thread accumulates dV and dK for keys BKV/16 ty ..
-//      and columns 4 (tx + 8 m) .. + 3 in registers over the step's rows.
-//      BKV = 64 up to D 64, 32 at D 128, 16 at D 256 (64 accumulators a
-//      thread).
-//   3. dq_kernel: the forward's layout, a block per (b, h, 64 query rows),
-//      walking the live kv tiles: s and dO.v in registers (rows 4 ty ..,
-//      keys tx + 8 c), dS through shared memory key-major, dQ in
-//      registers as the forward accumulates o.
-// expf and tanhf, not the fast intrinsics, as in the forward. Single
-// buffered (a load round is exposed per step): the simple first design.
+// Two plans (kernels/flash_attention.py::bwd_plan picks one and owns its
+// dK/dV geometry):
+//   0 Small, one launch (bwd_kv_kernel<.., FUSED>): for T up to 64 keys
+//     (32 at D 256). A block owns every key of a (batch, kv head), K and V
+//     resident in shared memory, and walks its group's heads and their
+//     query tiles in order. Per step it computes Delta from o and dO, s and
+//     dO.v in registers, P and dS once into shared memory, then dV += P^T
+//     dO and dK += dS^T Q in registers and dQ = dS K, written whole: five
+//     products, no global scratch. A dead row takes P = 1/T, dS = 0.
+//   1 Large, for long rows: delta_kernel (a warp per row); the dK/dV walk
+//     of each key tile (64 keys, 32 at D 256) cut into parts, one block a
+//     part, the longest walks first; a key tile cut into several parts
+//     writes raw partials that bwd_reduce_kernel sums in part order (no
+//     atomics); bwd_q_kernel, a block per (64 query rows, head) with the
+//     causal row tiles longest first, K and V tiles of 64 keys (16 at D
+//     256) double-buffered by cp.async, recomputes s and dO.v and
+//     accumulates dQ.
+// The plan's part table (bwd_parts, one row of kPartInts ints a dK/dV
+// block) names each block's key tile, its walk's row tiles, its steps and
+// its key tile's parts; the kernels read it and derive none of it.
+// Every block runs 8 warps; each product is a register tile over a warp
+// grid whose lanes are 8 (rows) x 4 (columns), the squarest that divides
+// it, so a 16-byte shared load is a broadcast of at most 8 distinct rows.
+// Every warp computes s, P, dO.v and dS for its tile of the step; warps
+// 0-3 then accumulate dV += P^T dO and warps 4-7 dK += dS^T Q (an 8 x 8
+// tile each at D 128), and dQ takes all 8. K/V and Q/dO rows are
+// XOR-swizzled by 16-byte chunk, P and dS rows padded by 4 floats, so no
+// load meets a bank twice. Knock-out builds (tools/bwd_variants.py patches
+// this file) chose this: the warpgroups splitting s and dO.v too was
+// slower everywhere, dQ row tiles in natural order slower on long causal
+// rows; double-buffering Q and dO in Large's dK/dV walk lost more on short
+// rows than it gained on long ones; unrolling D by 2, not 4, moved
+// nothing.
+// expf and tanhf, not the fast intrinsics, as in the forward. A plan fixes
+// every summation order, so results repeat bitwise.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,34 +69,54 @@ namespace {
 
 using attn::copy_commit;
 using attn::copy_wait;
-using attn::kThreads;
 using attn::live_key;
 using attn::load_rows;
+
+constexpr int kWarps = 8;              // every block
+constexpr int kBlock = 32 * kWarps;
+constexpr size_t kSmemBlock = 232448;   // shared memory a block may use
+constexpr size_t kSmemSm = 233472;      // an SM's, 1 KB reserved a block
+
+// a row of the part table (bwd_plan's bwd_parts): the key tile, the first
+// row tile and the row tiles its walk visits per head, the part's steps
+// [first, end) of that walk (step n: head n / rows of the kv head's group,
+// row tile first + n % rows), and the key tile's first part and parts
+enum PartField {
+  kTile, kRowTile, kRowTiles, kStepLo, kStepHi, kFirstPart, kParts,
+  kPartInts = 8
+};
 
 // (batch, head, sequence) strides in elements of each tensor
 struct Strides {
   long long q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];
 };
 
-// Delta at (b * H + h) * S + i: a warp per row
-__global__ void __launch_bounds__(kThreads)
-    delta_kernel(const float* __restrict__ o, const float* __restrict__ g,
-                 float* __restrict__ delta, int H, int S, int dim,
-                 long long rows, Strides st) {
-  const long long row =
-      (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+struct Args {
+  const float *q, *k, *v, *o, *g, *lse;
+  const int* parts;    // the part table, [n_parts][kPartInts]
+  float *delta, *dq, *dk, *dv, *part;
+  int B, H, KV, S, Tn, dim, group, causal, window, vec;
+  int n_parts;         // dK/dV blocks per (batch, kv head)
+  float scale, cap;
+  Strides st;
+};
+
+// Delta at (b * H + h) * S + i: a warp per row (Large)
+__global__ void __launch_bounds__(kBlock) delta_kernel(const Args a) {
+  const long long rows = (long long)a.B * a.H * a.S;
+  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
-  const long long i = row % S, bh = row / S;
-  const long long h = bh % H, b = bh / H;
-  const float* op = o + b * st.o[0] + h * st.o[1] + i * st.o[2];
-  const float* gp = g + b * st.g[0] + h * st.g[1] + i * st.g[2];
+  const long long i = row % a.S, bh = row / a.S;
+  const long long h = bh % a.H, b = bh / a.H;
+  const float* op = a.o + b * a.st.o[0] + h * a.st.o[1] + i * a.st.o[2];
+  const float* gp = a.g + b * a.st.g[0] + h * a.st.g[1] + i * a.st.g[2];
   float sum = 0.f;
-  for (int c = lane; c < dim; c += 32) sum = fmaf(op[c], gp[c], sum);
+  for (int c = lane; c < a.dim; c += 32) sum = fmaf(op[c], gp[c], sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) delta[row] = sum;
+  if (lane == 0) a.delta[row] = sum;
 }
 
 // x -> (s, ds/dx factor) under the soft cap
@@ -97,406 +130,583 @@ __device__ __forceinline__ float capped(float x, float cap, float* dcap) {
   return cap * t;
 }
 
-template <int DP>
-struct KvTile {
-  static constexpr int BKV = DP <= 64 ? 64 : 4096 / DP;  // keys per block
-  static constexpr int BQ = 32;                           // rows per step
-  static constexpr int KA = BKV / 16;   // keys per thread (both phases)
-  static constexpr int QC = BQ / 8;     // rows per thread (phase 1)
-  static constexpr int DC = DP / 32;    // 16-byte column chunks per thread
-  static constexpr int LDP = BKV + 4;   // row stride of P and dS
-  static constexpr size_t kSmemFloats = 2 * size_t(BKV) * DP +
-                                        2 * size_t(BQ) * DP +
-                                        2 * size_t(BQ) * LDP + 2 * BQ + DP;
+// The register tile of a product with an M x N output (N in columns, U = 1,
+// or in 4-float chunks, U = 4) over NW warps: warps WM x WN, a warp's lanes
+// 8 (m) x 4 (n), a thread TM x TN (TM <= 8). The warp grid is the one that
+// loads the fewest bytes per fma (the squarest warp tile). A thread's m are
+// m0() + 8 u (rows: 8 lanes meet 8 rows), or key(u) where its m are keys
+// read as float4 from a row of P or dS (lanes on neighbouring 16 bytes);
+// its n are n0() + 4 v.
+constexpr int warp_tile_score(int tm, int tn, int u) {
+  return 1000 * (8 * tm) * (4 * tn * u) / (8 * tm + 4 * tn * u);
+}
+
+constexpr int pick_wm(int M, int N, int U, int NW) {
+  int best = 0, score = -1;
+  for (int wm = 1; wm <= NW; wm *= 2) {
+    const int wn = NW / wm;
+    if (M % (8 * wm) || N % (4 * wn) || M / (8 * wm) > 8) continue;
+    const int s = warp_tile_score(M / (8 * wm), N / (4 * wn), U);
+    if (s > score) {
+      score = s;
+      best = wm;
+    }
+  }
+  return best;
+}
+
+template <int M, int N, int U, int NW>
+struct Tile {
+  static constexpr int WM = pick_wm(M, N, U, NW);
+  static_assert(WM > 0, "no warp grid divides the tile");
+  static constexpr int WN = NW / WM;
+  static constexpr int TM = M / (8 * WM), TN = N / (4 * WN);
+  __device__ __forceinline__ static int lane() { return threadIdx.x % 32; }
+  __device__ __forceinline__ static int warp() {
+    return (threadIdx.x / 32) % NW;
+  }
+  __device__ __forceinline__ static int m0() {
+    return (warp() / WN) * 8 * TM + lane() % 8;
+  }
+  // contiguous m: float4 groups 32 apart (TM >= 4), else TM in a row
+  __device__ __forceinline__ static int key(int u) {
+    const int base = (warp() / WN) * 8 * TM, lm = lane() % 8;
+    return TM >= 4 ? base + (u / 4) * 32 + 4 * lm + u % 4 : base + lm * TM + u;
+  }
+  __device__ __forceinline__ static int n0() {
+    return (warp() % WN) * 4 * TN + lane() / 8;
+  }
 };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ g,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int H, int S, int Tn, int dim,
-                int group, Strides st, float scale, float cap, int causal,
-                int window, int vec) {
-  using Tl = KvTile<DP>;
-  constexpr int BKV = Tl::BKV, BQ = Tl::BQ, KA = Tl::KA, QC = Tl::QC,
-                DC = Tl::DC, LDP = Tl::LDP;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BKV][DP], swizzled
-  float* Vs = Ks + BKV * DP;                    // [BKV][DP], swizzled
-  float* Qs = Vs + BKV * DP;                    // [BQ][DP], swizzled
-  float* Gs = Qs + BQ * DP;                     // [BQ][DP]: dO, swizzled
-  float* Ps = Gs + BQ * DP;                     // [BQ][LDP]: P
-  float* Ds = Ps + BQ * LDP;                    // [BQ][LDP]: dS
-  float* Ls = Ds + BQ * LDP;                    // [BQ]: lse
-  float* Es = Ls + BQ;                          // [BQ]: Delta
-  float* Dead = Es + BQ;                        // [DP]: dead rows' dO / T
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
-  const int j0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
-  const float* kp = k + b * st.k[0] + kvh * st.k[1];
-  const float* vp = v + b * st.v[0] + kvh * st.v[1];
-  load_rows<DP>(Ks, kp, st.k[2], j0, BKV, Tn, dim, 0, vec);
-  load_rows<DP>(Vs, vp, st.v[2], j0, BKV, Tn, dim, 0, vec);
-  copy_commit();
-
-  // rows live for some key of this block: [i_lo, i_hi); rows from
-  // dead_from on have no live key at all
-  const int j_last = min(j0 + BKV, Tn) - 1;
-  const int i_lo = causal ? j0 : 0;
-  const int i_hi = window > 0 ? min(S, j_last + window) : S;
-  const int t_lo = i_lo / BQ;
-  const int n_steps = i_hi > i_lo ? (i_hi + BQ - 1) / BQ - t_lo : 0;
-  const long long dead_from = window > 0 ? (long long)Tn + window - 1 : S;
-
-  float dka[KA][4 * DC], dva[KA][4 * DC];
+// a thread's TM contiguous-tile values of one shared-memory row (Tile::key)
+template <int TM>
+__device__ __forceinline__ void ld_keys(float* dst, const float* row,
+                                        int first) {
+  if constexpr (TM >= 4) {
 #pragma unroll
-  for (int a = 0; a < KA; ++a)
-#pragma unroll
-    for (int j = 0; j < 4 * DC; ++j) dka[a][j] = dva[a][j] = 0.f;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const float* qp = q + b * st.q[0] + h * st.q[1];
-    const float* gp = g + b * st.g[0] + h * st.g[1];
-    const float* lp = lse + ((long long)b * H + h) * S;
-    const float* ep = delta + ((long long)b * H + h) * S;
-    for (int it = 0; it < n_steps; ++it) {
-      const int i0 = (t_lo + it) * BQ;
-      __syncthreads();  // the last step's tiles are read
-      load_rows<DP>(Qs, qp, st.q[2], i0, BQ, S, dim, 0, vec);
-      load_rows<DP>(Gs, gp, st.g[2], i0, BQ, S, dim, 0, vec);
-      copy_commit();
-      if (tid < BQ) {
-        const int i = i0 + tid;
-        Ls[tid] = i < S ? lp[i] : 0.f;
-        Es[tid] = i < S ? ep[i] : 0.f;
-      }
-      copy_wait<0>();
-      __syncthreads();  // K, V (the first time), Q, dO, lse, Delta landed
-
-      // phase 1: keys ty + 16 a (K/V chunk d at d ^ (ty % 8)), rows
-      // tx + 8 c (Q/dO chunk d at d ^ tx)
-      float s[KA][QC], dp[KA][QC];
-#pragma unroll
-      for (int a = 0; a < KA; ++a)
-#pragma unroll
-        for (int c = 0; c < QC; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DP / 4; ++d) {
-        float4 kv[KA], vv[KA], qv[QC], gv[QC];
-#pragma unroll
-        for (int a = 0; a < KA; ++a) {
-          const int off = (ty + 16 * a) * DP + 4 * (d ^ (ty & 7));
-          kv[a] = *reinterpret_cast<const float4*>(Ks + off);
-          vv[a] = *reinterpret_cast<const float4*>(Vs + off);
-        }
-#pragma unroll
-        for (int c = 0; c < QC; ++c) {
-          const int off = (tx + 8 * c) * DP + 4 * (d ^ tx);
-          qv[c] = *reinterpret_cast<const float4*>(Qs + off);
-          gv[c] = *reinterpret_cast<const float4*>(Gs + off);
-        }
-#pragma unroll
-        for (int a = 0; a < KA; ++a)
-#pragma unroll
-          for (int c = 0; c < QC; ++c) {
-            s[a][c] = fmaf(kv[a].x, qv[c].x, s[a][c]);
-            s[a][c] = fmaf(kv[a].y, qv[c].y, s[a][c]);
-            s[a][c] = fmaf(kv[a].z, qv[c].z, s[a][c]);
-            s[a][c] = fmaf(kv[a].w, qv[c].w, s[a][c]);
-            dp[a][c] = fmaf(vv[a].x, gv[c].x, dp[a][c]);
-            dp[a][c] = fmaf(vv[a].y, gv[c].y, dp[a][c]);
-            dp[a][c] = fmaf(vv[a].z, gv[c].z, dp[a][c]);
-            dp[a][c] = fmaf(vv[a].w, gv[c].w, dp[a][c]);
-          }
-      }
-#pragma unroll
-      for (int a = 0; a < KA; ++a)
-#pragma unroll
-        for (int c = 0; c < QC; ++c) {
-          const int r = tx + 8 * c, i = i0 + r, j = j0 + ty + 16 * a;
-          float dcap;
-          const float x = capped(s[a][c] * scale, cap, &dcap);
-          const bool live = i < S && live_key(i, j, Tn, causal, window);
-          const float p = live ? expf(x - Ls[r]) : 0.f;
-          Ps[r * LDP + ty + 16 * a] = p;
-          Ds[r * LDP + ty + 16 * a] =
-              live ? p * (dp[a][c] - Es[r]) * dcap : 0.f;
-        }
-      __syncthreads();  // P and dS complete
-
-      // phase 2: keys KA ty + a, columns 4 (tx + 8 m) .. + 3; Q/dO row r
-      // keeps chunk tx + 8 m at (tx + 8 m) ^ (r % 8)
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float pr[KA], dr[KA];
-#pragma unroll
-        for (int a = 0; a < KA; ++a) {
-          pr[a] = Ps[r * LDP + KA * ty + a];
-          dr[a] = Ds[r * LDP + KA * ty + a];
-        }
-#pragma unroll
-        for (int m = 0; m < DC; ++m) {
-          const int off = r * DP + 4 * ((tx + 8 * m) ^ (r & 7));
-          const float4 gv = *reinterpret_cast<const float4*>(Gs + off);
-          const float4 qv = *reinterpret_cast<const float4*>(Qs + off);
-#pragma unroll
-          for (int a = 0; a < KA; ++a) {
-            dva[a][4 * m] = fmaf(pr[a], gv.x, dva[a][4 * m]);
-            dva[a][4 * m + 1] = fmaf(pr[a], gv.y, dva[a][4 * m + 1]);
-            dva[a][4 * m + 2] = fmaf(pr[a], gv.z, dva[a][4 * m + 2]);
-            dva[a][4 * m + 3] = fmaf(pr[a], gv.w, dva[a][4 * m + 3]);
-            dka[a][4 * m] = fmaf(dr[a], qv.x, dka[a][4 * m]);
-            dka[a][4 * m + 1] = fmaf(dr[a], qv.y, dka[a][4 * m + 1]);
-            dka[a][4 * m + 2] = fmaf(dr[a], qv.z, dka[a][4 * m + 2]);
-            dka[a][4 * m + 3] = fmaf(dr[a], qv.w, dka[a][4 * m + 3]);
-          }
-        }
-      }
+    for (int g = 0; g < TM / 4; ++g) {
+      const float4 x = ld4(row + first + 32 * g);
+      dst[4 * g] = x.x, dst[4 * g + 1] = x.y, dst[4 * g + 2] = x.z,
+      dst[4 * g + 3] = x.w;
     }
-    // rows with no live key: dO / T to every key
-    if (dead_from < S) {
-      __syncthreads();  // the last head's Dead is read
-      for (int c = tid; c < DP; c += kThreads) {
-        float sum = 0.f;
-        if (c < dim)
-          for (long long i = dead_from; i < S; ++i) sum += gp[i * st.g[2] + c];
-        Dead[c] = sum / (float)Tn;
+  } else if constexpr (TM == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(row + first);
+    dst[0] = x.x, dst[1] = x.y;
+  } else {
+    dst[0] = row[first];
+  }
+}
+
+// rows [row0, row0 + n) of a length-`limit` vector into shared memory by
+// 4-byte copies, zeros past the end
+template <int NT>
+__device__ __forceinline__ void load_col(float* dst, const float* src,
+                                         int row0, int n, int limit) {
+  for (int r = threadIdx.x; r < n; r += NT) {
+    const int i = row0 + r;
+    const uint32_t d = sm90::smem_u32(dst + r);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(i < limit ? src + i : src), "r"(i < limit ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// the s (or dO.v) product of rows [i0, i0 + BQ) x keys [j0, j0 + KP):
+// X rows (Q or dO) against Y rows (K or V), row r keeping 16-byte chunk d
+// at d ^ (r % 8) (the rows r0 + 8 u share it)
+template <typename T, int DP>
+__device__ __forceinline__ void dots(const float* X, const float* Y,
+                                     float (&s)[T::TM][T::TN]) {
+  const int r0 = T::m0(), c0 = T::n0();
+#pragma unroll
+  for (int u = 0; u < T::TM; ++u)
+#pragma unroll
+    for (int v = 0; v < T::TN; ++v) s[u][v] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DP / 4; ++d) {
+    float4 xv[T::TM], yv[T::TN];
+#pragma unroll
+    for (int u = 0; u < T::TM; ++u)
+      xv[u] = ld4(X + (r0 + 8 * u) * DP + 4 * (d ^ (r0 & 7)));
+#pragma unroll
+    for (int v = 0; v < T::TN; ++v) {
+      const int c = c0 + 4 * v;
+      yv[v] = ld4(Y + c * DP + 4 * (d ^ (c & 7)));
+    }
+#pragma unroll
+    for (int u = 0; u < T::TM; ++u)
+#pragma unroll
+      for (int v = 0; v < T::TN; ++v) {
+        s[u][v] = fmaf(xv[u].x, yv[v].x, s[u][v]);
+        s[u][v] = fmaf(xv[u].y, yv[v].y, s[u][v]);
+        s[u][v] = fmaf(xv[u].z, yv[v].z, s[u][v]);
+        s[u][v] = fmaf(xv[u].w, yv[v].w, s[u][v]);
       }
-      __syncthreads();
+  }
+}
+
+// s of the tile's (r0 + 8 u, c0 + 4 v) -> P (into Ps if WANT_P) and P dcap
+// (into Ds); DEAD_P: a row with no live key takes P = 1/T on every key
+// (the block holds them all)
+template <typename T, int KP, bool WANT_P, bool DEAD_P>
+__device__ __forceinline__ void probs(const float (&s)[T::TM][T::TN],
+                                      const float* Ls, float* Ps, float* Ds,
+                                      int i0, int j0, const Args& a) {
+  constexpr int LDP = KP + 4;
+  const int r0 = T::m0(), c0 = T::n0();
+  const long long dead_from =
+      a.window > 0 ? (long long)a.Tn + a.window - 1 : a.S;
 #pragma unroll
-      for (int m = 0; m < DC; ++m) {
-        const float4 dd =
-            *reinterpret_cast<const float4*>(Dead + 4 * (tx + 8 * m));
+  for (int u = 0; u < T::TM; ++u) {
+    const int r = r0 + 8 * u, i = i0 + r;
 #pragma unroll
-        for (int a = 0; a < KA; ++a) {
-          dva[a][4 * m] += dd.x;
-          dva[a][4 * m + 1] += dd.y;
-          dva[a][4 * m + 2] += dd.z;
-          dva[a][4 * m + 3] += dd.w;
-        }
+    for (int v = 0; v < T::TN; ++v) {
+      const int c = c0 + 4 * v, j = j0 + c;
+      float dcap;
+      const float x = capped(s[u][v] * a.scale, a.cap, &dcap);
+      const bool live = i < a.S && live_key(i, j, a.Tn, a.causal, a.window);
+      float p = live ? expf(x - Ls[r]) : 0.f;
+      Ds[r * LDP + c] = p * dcap;
+      if (DEAD_P && i < a.S && i >= dead_from && j < a.Tn)
+        p = 1.f / (float)a.Tn;
+      if (WANT_P) Ps[r * LDP + c] = p;
+    }
+  }
+}
+
+// dS = P dcap (dp - Delta) in place, for the tile's (r0 + 8 u, c0 + 4 v)
+template <typename T, int KP>
+__device__ __forceinline__ void dscores(const float (&dp)[T::TM][T::TN],
+                                        const float* Es, float* Ds) {
+  constexpr int LDP = KP + 4;
+  const int r0 = T::m0(), c0 = T::n0();
+#pragma unroll
+  for (int u = 0; u < T::TM; ++u) {
+    const int r = r0 + 8 * u;
+#pragma unroll
+    for (int v = 0; v < T::TN; ++v) {
+      float* ds = Ds + r * LDP + c0 + 4 * v;
+      *ds = *ds * (dp[u][v] - Es[r]);
+    }
+  }
+}
+
+// rows [i0, i0 + BQ) x keys [j0, j0 + KP): P (if WANT_P) and dS into
+// shared memory, row-major at a row stride of KP + 4, every warp both for
+// its tile. Ends with the block synchronised.
+template <int DP, int KP, int BQ, bool WANT_P, bool DEAD_P>
+__device__ __forceinline__ void scores(const float* Qs, const float* Gs,
+                                       const float* Ks, const float* Vs,
+                                       const float* Ls, const float* Es,
+                                       float* Ps, float* Ds, int i0, int j0,
+                                       const Args& a) {
+  using T = Tile<BQ, KP, 1, kWarps>;
+  float s[T::TM][T::TN];
+  dots<T, DP>(Qs, Ks, s);
+  probs<T, KP, WANT_P, DEAD_P>(s, Ls, Ps, Ds, i0, j0, a);
+  dots<T, DP>(Gs, Vs, s);
+  dscores<T, KP>(s, Es, Ds);  // the thread's own P dcap
+  __syncthreads();            // P and dS complete
+}
+
+// the step's dK/dV over its BQ rows: warps 0-3 dV += P^T dO, warps 4-7
+// dK += dS^T Q, each half over the same tile of KP keys x DP columns; a
+// thread holds keys key(u) and 16-byte chunks n0 + 4 v
+template <int DP, int KP>
+using KvTile = Tile<KP, DP / 4, 4, kWarps / 2>;
+
+__device__ __forceinline__ bool holds_dk() {
+  return threadIdx.x >= kBlock / 2;
+}
+
+template <int DP, int KP, int BQ>
+__device__ __forceinline__ void accumulate_kv(
+    const float* Qs, const float* Gs, const float* Ps, const float* Ds,
+    float (&acc)[KvTile<DP, KP>::TM][4 * KvTile<DP, KP>::TN]) {
+  using T = KvTile<DP, KP>;
+  constexpr int TM = T::TM, TN = T::TN, LDP = KP + 4;
+  const int k0 = T::key(0), c0 = T::n0();
+  const bool dk = holds_dk();
+  const float* X = dk ? Ds : Ps;
+  const float* Y = dk ? Qs : Gs;
+#pragma unroll 2
+  for (int r = 0; r < BQ; ++r) {
+    float xr[TM];
+    ld_keys<TM>(xr, X + r * LDP, k0);
+#pragma unroll
+    for (int v = 0; v < TN; ++v) {
+      const float4 y = ld4(Y + r * DP + 4 * ((c0 + 4 * v) ^ (r & 7)));
+#pragma unroll
+      for (int u = 0; u < TM; ++u) {
+        acc[u][4 * v] = fmaf(xr[u], y.x, acc[u][4 * v]);
+        acc[u][4 * v + 1] = fmaf(xr[u], y.y, acc[u][4 * v + 1]);
+        acc[u][4 * v + 2] = fmaf(xr[u], y.z, acc[u][4 * v + 2]);
+        acc[u][4 * v + 3] = fmaf(xr[u], y.w, acc[u][4 * v + 3]);
       }
     }
   }
-  copy_wait<0>();  // a block with no step still owns its K/V copies
+}
 
+// acc += dS K over the tile's KP keys, all 8 warps, for rows m0 + 8 u and
+// 16-byte chunks n0 + 4 v of dQ
+template <int DP, int BQ>
+using QTile = Tile<BQ, DP / 4, 4, kWarps>;
+
+template <int DP, int KP, int BQ>
+__device__ __forceinline__ void accumulate_q(
+    const float* Ds, const float* Ks,
+    float (&acc)[QTile<DP, BQ>::TM][4 * QTile<DP, BQ>::TN]) {
+  using T = QTile<DP, BQ>;
+  constexpr int TM = T::TM, TN = T::TN, LDP = KP + 4;
+  const int r0 = T::m0(), c0 = T::n0();
+#pragma unroll 2
+  for (int c = 0; c < KP; c += 4) {
+    float4 dsv[TM];
 #pragma unroll
-  for (int a = 0; a < KA; ++a) {
-    const int j = j0 + KA * ty + a;
-    if (j >= Tn) continue;
-    float* kd = dk + b * st.dk[0] + kvh * st.dk[1] + j * st.dk[2];
-    float* vd = dv + b * st.dv[0] + kvh * st.dv[1] + j * st.dv[2];
+    for (int u = 0; u < TM; ++u) dsv[u] = ld4(Ds + (r0 + 8 * u) * LDP + c);
 #pragma unroll
-    for (int m = 0; m < DC; ++m) {
-      const int c = 4 * (tx + 8 * m);
-      if (c >= dim) continue;
-      const float kw[4] = {dka[a][4 * m] * scale, dka[a][4 * m + 1] * scale,
-                           dka[a][4 * m + 2] * scale,
-                           dka[a][4 * m + 3] * scale};
-      const float vw[4] = {dva[a][4 * m], dva[a][4 * m + 1],
-                           dva[a][4 * m + 2], dva[a][4 * m + 3]};
-      if (vec) {
-        *reinterpret_cast<float4*>(kd + c) =
-            make_float4(kw[0], kw[1], kw[2], kw[3]);
-        *reinterpret_cast<float4*>(vd + c) =
-            make_float4(vw[0], vw[1], vw[2], vw[3]);
-      } else {
-        for (int u = 0; u < 4 && c + u < dim; ++u) {
-          kd[c + u] = kw[u];
-          vd[c + u] = vw[u];
+    for (int e = 0; e < 4; ++e) {
+      const int key = c + e;
+#pragma unroll
+      for (int v = 0; v < TN; ++v) {
+        const float4 kv =
+            ld4(Ks + key * DP + 4 * ((c0 + 4 * v) ^ (key & 7)));
+#pragma unroll
+        for (int u = 0; u < TM; ++u) {
+          const float w = e == 0 ? dsv[u].x : e == 1 ? dsv[u].y
+                        : e == 2 ? dsv[u].z : dsv[u].w;
+          acc[u][4 * v] = fmaf(w, kv.x, acc[u][4 * v]);
+          acc[u][4 * v + 1] = fmaf(w, kv.y, acc[u][4 * v + 1]);
+          acc[u][4 * v + 2] = fmaf(w, kv.z, acc[u][4 * v + 2]);
+          acc[u][4 * v + 3] = fmaf(w, kv.w, acc[u][4 * v + 3]);
         }
       }
     }
   }
 }
 
-constexpr int kBQ = 64;     // dq_kernel: query rows per block
-constexpr int kRows = 4;    // query rows per thread
-constexpr int kGroup = 8;   // threads per row group
+// four floats of a row at column c (< dim) of a global tensor
+__device__ __forceinline__ void store4(float* dst, int c, int dim,
+                                       const float* w, int vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(dst + c) = make_float4(w[0], w[1], w[2], w[3]);
+  } else {
+    for (int e = 0; e < 4 && c + e < dim; ++e) dst[c + e] = w[e];
+  }
+}
 
-template <int D>
-struct QTile {
-  static constexpr int BK = D <= 128 ? 32 : 16;   // keys per kv tile
-  static constexpr int kKeys = BK / kGroup;       // score columns per thread
-  static constexpr int kDimChunks = D / 32;       // dQ chunks per thread
-  static constexpr size_t kSmemFloats = 2 * size_t(kBQ) * D +
-                                        2 * size_t(BK) * D +
-                                        size_t(BK) * kBQ + 2 * kBQ;
+// dq rows i0 + m0 + 8 u of head h, scaled
+template <int DP, int BQ>
+__device__ __forceinline__ void store_dq(
+    const Args& a, int b, int h, int i0,
+    const float (&acc)[QTile<DP, BQ>::TM][4 * QTile<DP, BQ>::TN]) {
+  using T = QTile<DP, BQ>;
+  const int r0 = T::m0(), c0 = T::n0();
+  float* dqp = a.dq + b * a.st.dq[0] + h * a.st.dq[1];
+#pragma unroll
+  for (int u = 0; u < T::TM; ++u) {
+    const int i = i0 + r0 + 8 * u;
+    if (i >= a.S) continue;
+#pragma unroll
+    for (int v = 0; v < T::TN; ++v) {
+      const int c = 4 * (c0 + 4 * v);
+      if (c >= a.dim) continue;
+      const float w[4] = {acc[u][4 * v] * a.scale, acc[u][4 * v + 1] * a.scale,
+                          acc[u][4 * v + 2] * a.scale,
+                          acc[u][4 * v + 3] * a.scale};
+      store4(dqp + i * a.st.dq[2], c, a.dim, w, a.vec);
+    }
+  }
+}
+
+template <int DP, int KP, int BQ>
+struct KvPlan {
+  static constexpr size_t kSmemFloats = 4 * size_t(KP) * DP +
+                                        2 * size_t(BQ) * (KP + 4) + 2 * BQ;
+  static constexpr size_t kSmemBytes = 4 * kSmemFloats;
+  static_assert(BQ == KP, "K and V share their room with Q and dO");
+  static_assert(kSmemBytes <= kSmemBlock, "dK/dV tile past shared memory");
+  static constexpr int kMinBlocks = 2 * (kSmemBytes + 1024) <= kSmemSm ? 2
+                                                                       : 1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ g,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int S, int Tn, int dim, int group,
-              Strides st, float scale, float cap, int causal, int window,
-              int vec) {
-  using Tl = QTile<D>;
-  constexpr int BK = Tl::BK, KK = Tl::kKeys, DC = Tl::kDimChunks;
+// A block per (part, batch, kv head), parts first: K and V of the part's
+// key tile resident, its (head, query tile) steps in order, dV and dK in
+// registers. FUSED (Small): the one part holds every key and walks every
+// row, and the block also writes dQ; else (Large) dK/dV only, raw partials
+// where the key tile has several parts.
+template <int DP, int KP, int BQ, bool FUSED>
+__global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
+    bwd_kv_kernel(const Args a) {
+  using KT = KvTile<DP, KP>;
+  using QT = QTile<DP, BQ>;
+  constexpr int LDP = KP + 4;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [kBQ][D], swizzled
-  float* Gs = Qs + kBQ * D;                     // [kBQ][D]: dO, swizzled
-  float* Ks = Gs + kBQ * D;                     // [BK][D], swizzled
-  float* Vs = Ks + BK * D;                      // [BK][D], swizzled
-  float* Ps = Vs + BK * D;                      // [BK][kBQ]: dS, key-major
-  float* Ls = Ps + BK * kBQ;                    // [kBQ]: lse
-  float* Es = Ls + kBQ;                         // [kBQ]: Delta
+  float* Ks = reinterpret_cast<float*>(smem4);  // [KP][DP], swizzled
+  float* Vs = Ks + KP * DP;                     // [KP][DP], swizzled
+  float* Qs = Vs + KP * DP;                     // [BQ][DP], swizzled
+  float* Gs = Qs + BQ * DP;                     // dO, like Q
+  float* Ps = Gs + BQ * DP;                     // [BQ][LDP]: P
+  float* Ds = Ps + BQ * LDP;                    // [BQ][LDP]: dS
+  float* Ls = Ds + BQ * LDP;                    // [BQ]: lse
+  float* Es = Ls + BQ;                          // [BQ]: Delta
+  float* Dead = Ps;             // [DP] after the walk: dead rows' dO / T
 
-  const int tid = threadIdx.x, tx = tid % kGroup, ty = tid / kGroup;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
-  const float* qp = q + b * st.q[0] + h * st.q[1];
-  const float* gp = g + b * st.g[0] + h * st.g[1];
-  const float* kp = k + b * st.k[0] + kvh * st.k[1];
-  const float* vp = v + b * st.v[0] + kvh * st.v[1];
-  const long long bh = (long long)b * gridDim.y + h;
+  const int kvb = blockIdx.x % (a.KV * a.B);
+  const int part = blockIdx.x / (a.KV * a.B);
+  const int kvh = kvb % a.KV, b = kvb / a.KV;
+  const int* row = a.parts + part * kPartInts;
+  const int t_lo = row[kRowTile], n_rows = row[kRowTiles];
+  const int s_lo = row[kStepLo], s_hi = row[kStepHi];
+  const bool first = row[kFirstPart] == part, cut = row[kParts] > 1;
+  const int j0 = row[kTile] * KP;
+
+  // step -> its head and first query row
+  auto head_of = [&](int step) { return kvh * a.group + step / n_rows; };
+  auto row_of = [&](int step) { return (t_lo + step % n_rows) * BQ; };
+  // Q, dO, lse (Large: Delta) of a step, one copy group
+  auto issue = [&](int step) {
+    const int h = head_of(step), i0 = row_of(step);
+    const long long bh = (long long)b * a.H + h;
+    load_rows<DP, kBlock>(Qs, a.q + b * a.st.q[0] + h * a.st.q[1], a.st.q[2],
+                          i0, BQ, a.S, a.dim, 0, a.vec);
+    load_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1], a.st.g[2],
+                          i0, BQ, a.S, a.dim, 0, a.vec);
+    load_col<kBlock>(Ls, a.lse + bh * a.S, i0, BQ, a.S);
+    if (!FUSED) load_col<kBlock>(Es, a.delta + bh * a.S, i0, BQ, a.S);
+    copy_commit();
+  };
+  load_rows<DP, kBlock>(Ks, a.k + b * a.st.k[0] + kvh * a.st.k[1], a.st.k[2],
+                        j0, KP, a.Tn, a.dim, 0, a.vec);
+  load_rows<DP, kBlock>(Vs, a.v + b * a.st.v[0] + kvh * a.st.v[1], a.st.v[2],
+                        j0, KP, a.Tn, a.dim, 0, a.vec);
+  copy_commit();
+
+  float acc[KT::TM][4 * KT::TN];  // raw dV (warps 0-3) or dK (warps 4-7)
+#pragma unroll
+  for (int u = 0; u < KT::TM; ++u)
+#pragma unroll
+    for (int e = 0; e < 4 * KT::TN; ++e) acc[u][e] = 0.f;
+
+  for (int s = s_lo; s < s_hi; ++s) {
+    const int h = head_of(s), i0 = row_of(s);
+    issue(s);
+    if (FUSED) {
+      // Delta of the step's rows, a warp per row (delta_kernel's order),
+      // while the copies fly
+      const int lane = threadIdx.x % 32;
+      for (int r = threadIdx.x / 32; r < BQ; r += kWarps) {
+        const long long i = i0 + r;
+        float sum = 0.f;
+        if (i < a.S) {
+          const float* op = a.o + b * a.st.o[0] + h * a.st.o[1] + i * a.st.o[2];
+          const float* gp = a.g + b * a.st.g[0] + h * a.st.g[1] + i * a.st.g[2];
+          for (int c = lane; c < a.dim; c += 32) sum = fmaf(op[c], gp[c], sum);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) Es[r] = sum;
+      }
+    }
+    copy_wait<0>();
+    __syncthreads();  // the step's tiles (and K, V) landed; Delta written
+    scores<DP, KP, BQ, true, FUSED>(Qs, Gs, Ks, Vs, Ls, Es, Ps, Ds, i0, j0, a);
+    accumulate_kv<DP, KP, BQ>(Qs, Gs, Ps, Ds, acc);
+    if (FUSED) {
+      float qa[QT::TM][4 * QT::TN];
+#pragma unroll
+      for (int u = 0; u < QT::TM; ++u)
+#pragma unroll
+        for (int e = 0; e < 4 * QT::TN; ++e) qa[u][e] = 0.f;
+      accumulate_q<DP, KP, BQ>(Ds, Ks, qa);
+      store_dq<DP, BQ>(a, b, h, i0, qa);
+    }
+    __syncthreads();  // Q, dO, P and dS are read
+  }
+  copy_wait<0>();  // a block with no step still owns its K/V copies
+
+  const bool dk = holds_dk();
+  const int c0 = KT::n0();
+  // rows with no live key (Large; Small gave them P = 1/T): dO / T to
+  // every key's dV, added once per key tile, by its first part
+  const long long dead_from =
+      a.window > 0 ? (long long)a.Tn + a.window - 1 : a.S;
+  if (!FUSED && first && dead_from < a.S) {
+    for (int gi = 0; gi < a.group; ++gi) {
+      const int h = kvh * a.group + gi;
+      const float* gp = a.g + b * a.st.g[0] + h * a.st.g[1];
+      __syncthreads();  // the last head's Dead is read
+      for (int c = threadIdx.x; c < DP; c += kBlock) {
+        float sum = 0.f;
+        if (c < a.dim)
+          for (long long i = dead_from; i < a.S; ++i)
+            sum += gp[i * a.st.g[2] + c];
+        Dead[c] = sum / (float)a.Tn;
+      }
+      __syncthreads();
+      if (dk) continue;
+#pragma unroll
+      for (int v = 0; v < KT::TN; ++v) {
+        const float4 dd = ld4(Dead + 4 * (c0 + 4 * v));
+#pragma unroll
+        for (int u = 0; u < KT::TM; ++u) {
+          acc[u][4 * v] += dd.x;
+          acc[u][4 * v + 1] += dd.y;
+          acc[u][4 * v + 2] += dd.z;
+          acc[u][4 * v + 3] += dd.w;
+        }
+      }
+    }
+  }
+
+  if (cut) {
+    // raw partials of slot `part`: [parts][KV * B][2 (dK, dV)][KP][DP]
+    float* dst =
+        a.part + (((size_t)part * a.KV * a.B + kvb) * 2 + !dk) * KP * DP;
+#pragma unroll
+    for (int u = 0; u < KT::TM; ++u)
+#pragma unroll
+      for (int v = 0; v < KT::TN; ++v)
+        *reinterpret_cast<float4*>(dst + KT::key(u) * DP + 4 * (c0 + 4 * v)) =
+            make_float4(acc[u][4 * v], acc[u][4 * v + 1], acc[u][4 * v + 2],
+                        acc[u][4 * v + 3]);
+    return;
+  }
+  const float mul = dk ? a.scale : 1.f;
+  float* out = dk ? a.dk + b * a.st.dk[0] + kvh * a.st.dk[1]
+                  : a.dv + b * a.st.dv[0] + kvh * a.st.dv[1];
+  const long long row_st = dk ? a.st.dk[2] : a.st.dv[2];
+#pragma unroll
+  for (int u = 0; u < KT::TM; ++u) {
+    const int j = j0 + KT::key(u);
+    if (j >= a.Tn) continue;
+#pragma unroll
+    for (int v = 0; v < KT::TN; ++v) {
+      const int c = 4 * (c0 + 4 * v);
+      if (c >= a.dim) continue;
+      const float w[4] = {acc[u][4 * v] * mul, acc[u][4 * v + 1] * mul,
+                          acc[u][4 * v + 2] * mul, acc[u][4 * v + 3] * mul};
+      store4(out + j * row_st, c, a.dim, w, a.vec);
+    }
+  }
+}
+
+// Large: dK and dV of every key tile with several parts, the parts'
+// partials summed in part order; a block per (part, batch x kv head), of
+// which the first part of each such key tile works
+template <int DP, int KP>
+__global__ void __launch_bounds__(kBlock) bwd_reduce_kernel(const Args a) {
+  const int p = blockIdx.x, kvb = blockIdx.y;
+  const int* row = a.parts + p * kPartInts;
+  const int n_q = row[kParts];
+  if (row[kFirstPart] != p || n_q == 1) return;
+  const int kvh = kvb % a.KV, b = kvb / a.KV, j0 = row[kTile] * KP;
+  const size_t slot = (size_t)a.KV * a.B * 2 * KP * DP;
+  const float* base = a.part + (size_t)kvb * 2 * KP * DP;
+  for (int e = threadIdx.x; e < KP * DP; e += kBlock) {
+    const int j = j0 + e / DP, c = e % DP;
+    if (j >= a.Tn || c >= a.dim) continue;
+    float sk = 0.f, sv = 0.f;
+    for (int q = p; q < p + n_q; ++q) {
+      sk += base[q * slot + e];
+      sv += base[q * slot + KP * DP + e];
+    }
+    a.dk[b * a.st.dk[0] + kvh * a.st.dk[1] + j * a.st.dk[2] + c] =
+        sk * a.scale;
+    a.dv[b * a.st.dv[0] + kvh * a.st.dv[1] + j * a.st.dv[2] + c] = sv;
+  }
+}
+
+template <int DP, int BQ, int BK>
+struct QPlan {
+  static constexpr size_t kSmemFloats = 2 * size_t(BQ) * DP +
+                                        2 * 2 * size_t(BK) * DP +
+                                        size_t(BQ) * (BK + 4) + 2 * BQ;
+  static constexpr size_t kSmemBytes = 4 * kSmemFloats;
+  static_assert(kSmemBytes <= kSmemBlock, "dQ tile past shared memory");
+  static constexpr int kMinBlocks = 2 * (kSmemBytes + 1024) <= kSmemSm ? 2
+                                                                       : 1;
+};
+
+// Large: a block per (BQ query rows, batch x head), the causal row tiles
+// longest first; Q and dO resident, K and V double-buffered over the live
+// kv tiles; s and dO.v again, dS through shared memory, dQ in registers
+template <int DP, int BQ, int BK>
+__global__ void __launch_bounds__(kBlock, (QPlan<DP, BQ, BK>::kMinBlocks))
+    bwd_q_kernel(const Args a) {
+  using QT = QTile<DP, BQ>;
+  constexpr int LDP = BK + 4;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][DP], swizzled
+  float* Gs = Qs + BQ * DP;                     // dO, like Q
+  float* Ks = Gs + BQ * DP;                     // [2][BK][DP], swizzled
+  float* Vs = Ks + 2 * BK * DP;                 // [2][BK][DP], swizzled
+  float* Ds = Vs + 2 * BK * DP;                 // [BQ][LDP]: dS
+  float* Ls = Ds + BQ * LDP;                    // [BQ]: lse
+  float* Es = Ls + BQ;                          // [BQ]: Delta
+
+  const int nq = (a.S + BQ - 1) / BQ, bhs = a.B * a.H;
+  int qt = blockIdx.x / bhs;
+  if (a.causal) qt = nq - 1 - qt;  // longest first
+  const int bh = blockIdx.x % bhs, h = bh % a.H, b = bh / a.H;
+  const int kvh = h / a.group, q0 = qt * BQ;
+  const float* kp = a.k + b * a.st.k[0] + kvh * a.st.k[1];
+  const float* vp = a.v + b * a.st.v[0] + kvh * a.st.v[1];
 
   // keys live for some row of this block: [k_lo, k_hi)
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(Tn, q_last + 1) : Tn;
+  const int q_last = min(q0 + BQ, a.S) - 1;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int k_hi = a.causal ? min(a.Tn, q_last + 1) : a.Tn;
   const int n_lo = k_lo / BK;
   const int n_tiles = k_hi > k_lo ? (k_hi + BK - 1) / BK - n_lo : 0;
 
-  if (n_tiles > 0) {
-    load_rows<D>(Qs, qp, st.q[2], q0, kBQ, S, dim, 2, vec);
-    load_rows<D>(Gs, gp, st.g[2], q0, kBQ, S, dim, 2, vec);
+  auto issue_kv = [&](int it, int stage) {
+    const int k0 = (n_lo + it) * BK;
+    load_rows<DP, kBlock>(Ks + stage * BK * DP, kp, a.st.k[2], k0, BK, a.Tn,
+                          a.dim, 0, a.vec);
+    load_rows<DP, kBlock>(Vs + stage * BK * DP, vp, a.st.v[2], k0, BK, a.Tn,
+                          a.dim, 0, a.vec);
     copy_commit();
-    if (tid < kBQ) {
-      const int i = q0 + tid;
-      Ls[tid] = i < S ? lse[bh * S + i] : 0.f;
-      Es[tid] = i < S ? delta[bh * S + i] : 0.f;
-    }
+  };
+  if (n_tiles > 0) {
+    const long long bhl = (long long)b * a.H + h;
+    load_rows<DP, kBlock>(Qs, a.q + b * a.st.q[0] + h * a.st.q[1], a.st.q[2],
+                          q0, BQ, a.S, a.dim, 0, a.vec);
+    load_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1], a.st.g[2],
+                          q0, BQ, a.S, a.dim, 0, a.vec);
+    load_col<kBlock>(Ls, a.lse + bhl * a.S, q0, BQ, a.S);
+    load_col<kBlock>(Es, a.delta + bhl * a.S, q0, BQ, a.S);
+    issue_kv(0, 0);  // one group with Q, dO, lse and Delta
   }
 
-  float acc[kRows][4 * DC];
+  float acc[QT::TM][4 * QT::TN];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int u = 0; u < QT::TM; ++u)
 #pragma unroll
-    for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4 * QT::TN; ++e) acc[u][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = (n_lo + it) * BK;
-    if (it > 0) __syncthreads();  // the last tile's K, V and dS are read
-    load_rows<D>(Ks, kp, st.k[2], k0, BK, Tn, dim, 0, vec);
-    load_rows<D>(Vs, vp, st.v[2], k0, BK, Tn, dim, 0, vec);
-    copy_commit();
-    copy_wait<0>();
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      issue_kv(it + 1, stage ^ 1);  // that stage was read by tile it - 1
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
     __syncthreads();  // the tile (and Q, dO, lse, Delta) landed
-
-    // s and dO.v: rows 4 ty + i (chunk d at d ^ (ty % 8)), keys tx + 8 c
-    // (chunk d at d ^ tx)
-    float s[kRows][KK], dp[kRows][KK];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < KK; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D / 4; ++d) {
-      float4 qv[kRows], kv[KK];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * D +
-                                                 4 * (d ^ (ty & 7)));
-#pragma unroll
-      for (int c = 0; c < KK; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * c) * D +
-                                                 4 * (d ^ tx));
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < KK; ++c) {
-          s[i][c] = fmaf(qv[i].x, kv[c].x, s[i][c]);
-          s[i][c] = fmaf(qv[i].y, kv[c].y, s[i][c]);
-          s[i][c] = fmaf(qv[i].z, kv[c].z, s[i][c]);
-          s[i][c] = fmaf(qv[i].w, kv[c].w, s[i][c]);
-        }
-    }
-#pragma unroll 4
-    for (int d = 0; d < D / 4; ++d) {
-      float4 gv[kRows], vv[KK];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        gv[i] = *reinterpret_cast<const float4*>(Gs + (4 * ty + i) * D +
-                                                 4 * (d ^ (ty & 7)));
-#pragma unroll
-      for (int c = 0; c < KK; ++c)
-        vv[c] = *reinterpret_cast<const float4*>(Vs + (tx + 8 * c) * D +
-                                                 4 * (d ^ tx));
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < KK; ++c) {
-          dp[i][c] = fmaf(gv[i].x, vv[c].x, dp[i][c]);
-          dp[i][c] = fmaf(gv[i].y, vv[c].y, dp[i][c]);
-          dp[i][c] = fmaf(gv[i].z, vv[c].z, dp[i][c]);
-          dp[i][c] = fmaf(gv[i].w, vv[c].w, dp[i][c]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = 4 * ty + i, row = q0 + r;
-#pragma unroll
-      for (int c = 0; c < KK; ++c) {
-        float dcap;
-        const float x = capped(s[i][c] * scale, cap, &dcap);
-        const bool live =
-            row < S && live_key(row, k0 + tx + 8 * c, Tn, causal, window);
-        s[i][c] = live ? expf(x - Ls[r]) * (dp[i][c] - Es[r]) * dcap : 0.f;
-      }
-    }
-    // dS, key-major: key tx + 8 c keeps its rows' chunk ty at ty ^ tx
-#pragma unroll
-    for (int c = 0; c < KK; ++c)
-      *reinterpret_cast<float4*>(Ps + (tx + 8 * c) * kBQ + 4 * (ty ^ tx)) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();  // dS is complete
-
-    // dq += dS k: key c's dS for rows 4 ty.. at chunk ty ^ (c % 8); K row c
-    // keeps chunk tx + 8 j at (tx + 8 j) ^ (c % 8)
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(
-          Ps + c * kBQ + 4 * (ty ^ (c & 7)));
-      const float pr[kRows] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(
-            Ks + c * D + 4 * ((tx + 8 * j) ^ (c & 7)));
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc[i][4 * j] = fmaf(pr[i], kv.x, acc[i][4 * j]);
-          acc[i][4 * j + 1] = fmaf(pr[i], kv.y, acc[i][4 * j + 1]);
-          acc[i][4 * j + 2] = fmaf(pr[i], kv.z, acc[i][4 * j + 2]);
-          acc[i][4 * j + 3] = fmaf(pr[i], kv.w, acc[i][4 * j + 3]);
-        }
-      }
-    }
+    const float* Kst = Ks + stage * BK * DP;
+    scores<DP, BK, BQ, false, false>(Qs, Gs, Kst, Vs + stage * BK * DP, Ls,
+                                     Es, nullptr, Ds, q0, (n_lo + it) * BK,
+                                     a);
+    accumulate_q<DP, BK, BQ>(Ds, Kst, acc);
+    __syncthreads();  // the stage and dS are read
   }
-
-  float* dqp = dq + b * st.dq[0] + h * st.dq[1];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      const int c = 4 * (tx + 8 * j);
-      if (c >= dim) continue;
-      const float w[4] = {acc[i][4 * j] * scale, acc[i][4 * j + 1] * scale,
-                          acc[i][4 * j + 2] * scale,
-                          acc[i][4 * j + 3] * scale};
-      float* dst = dqp + qi * st.dq[2] + c;
-      if (vec) {
-        *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
-      } else {
-        for (int u = 0; u < 4 && c + u < dim; ++u) dst[u] = w[u];
-      }
-    }
-  }
+  store_dq<DP, BQ>(a, b, h, q0, acc);
 }
 
 template <typename K>
@@ -510,85 +720,107 @@ cudaError_t allow_smem(K kern, size_t bytes) {
   return err;
 }
 
+template <int DP, int KP, bool FUSED>
+cudaError_t run_kv(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = KvPlan<DP, KP, KP>::kSmemBytes;
+  cudaError_t err = allow_smem(bwd_kv_kernel<DP, KP, KP, FUSED>, smem);
+  if (err != cudaSuccess) return err;
+  bwd_kv_kernel<DP, KP, KP, FUSED>
+      <<<a.n_parts * a.KV * a.B, kBlock, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// keys: the plan's key tile (and query rows a step)
 template <int DP>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* o, const float* lse, const float* g,
-                   float* dq, float* dk, float* dv, float* delta, int B,
-                   int H, int KV, int S, int Tn, int dim, const Strides& st,
-                   float scale, float cap, int causal, int window,
-                   cudaStream_t stream) {
-  const void* ptrs[8] = {q, k, v, o, g, dq, dk, dv};
-  const long long* strides[8] = {st.q, st.k, st.v, st.o,
-                                 st.g, st.dq, st.dk, st.dv};
-  int vec = 1;
-  for (const long long* x : strides)
-    vec = vec && attn::aligned16(ptrs, 8, x, 3, dim);
-  const long long rows = (long long)B * H * S;
-  delta_kernel<<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
-                 stream>>>(o, g, delta, H, S, dim, rows, st);
+cudaError_t launch(const Args& a, int cfg, int keys, cudaStream_t stream) {
+  if (cfg == 0) {  // Small: one launch, one part holding every key
+    if (a.n_parts != 1 || a.Tn > keys) return cudaErrorInvalidValue;
+    if (keys == 32) return run_kv<DP, 32, true>(a, stream);
+    if constexpr (DP <= 128)
+      if (keys == 64) return run_kv<DP, 64, true>(a, stream);
+    return cudaErrorInvalidValue;
+  }
+  constexpr int KP = DP <= 128 ? 64 : 32;            // dK/dV
+  constexpr int QB = 64, BK = DP <= 128 ? 64 : 16;   // dQ
+  if (cfg != 1 || keys != KP) return cudaErrorInvalidValue;
+  const long long rows = (long long)a.B * a.H * a.S;
+  delta_kernel<<<(rows + kWarps - 1) / kWarps, kBlock, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const size_t smem_kv = sizeof(float) * KvTile<DP>::kSmemFloats;
-  err = allow_smem(dkdv_kernel<DP>, smem_kv);
+  err = run_kv<DP, KP, false>(a, stream);
   if (err != cudaSuccess) return err;
-  constexpr int BKV = KvTile<DP>::BKV;
-  dkdv_kernel<DP><<<dim3((Tn + BKV - 1) / BKV, KV, B), kThreads, smem_kv,
-                    stream>>>(q, k, v, g, lse, delta, dk, dv, H, S, Tn, dim,
-                              H / KV, st, scale, cap, causal, window, vec);
-  err = cudaGetLastError();
+  if (a.part != nullptr) {
+    bwd_reduce_kernel<DP, KP>
+        <<<dim3(a.n_parts, a.KV * a.B), kBlock, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  constexpr size_t smem_q = QPlan<DP, QB, BK>::kSmemBytes;
+  err = allow_smem(bwd_q_kernel<DP, QB, BK>, smem_q);
   if (err != cudaSuccess) return err;
-
-  const size_t smem_q = sizeof(float) * QTile<DP>::kSmemFloats;
-  err = allow_smem(dq_kernel<DP>, smem_q);
-  if (err != cudaSuccess) return err;
-  dq_kernel<DP><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem_q,
-                  stream>>>(q, k, v, g, lse, delta, dq, S, Tn, dim, H / KV,
-                            st, scale, cap, causal, window, vec);
+  const long long nq = (a.S + QB - 1) / QB;
+  bwd_q_kernel<DP, QB, BK><<<nq * a.B * a.H, kBlock, smem_q, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // fp32 q (B,H,S,D), k and v (B,KV,T,D), o and dO like q, lse (B,H,S)
-// contiguous; dq, dk and dv written whole; delta a (B,H,S) scratch. D in
-// [1, 256].
+// contiguous; dq, dk and dv written whole. configuration 0 Small, 1
+// Large, with its key tile `keys` and its part table (n_parts rows of
+// kPartInts int32 on the card); Large takes a (B,H,S) Delta scratch and,
+// where a key tile has several parts, a partials scratch of n_parts x KV x
+// B x 2 x keys x DP floats (else NULL). D in [1, 256].
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* g, void* dq, void* dk, void* dv,
-    void* delta, int B, int H, int KV, int S, int Tn, int D, long long qb,
-    long long qh, long long qs, long long kb, long long kh, long long ks,
-    long long vb, long long vh, long long vs, long long ob, long long oh,
-    long long os, long long gb, long long gh, long long gs, long long dqb,
-    long long dqh, long long dqs, long long dkb, long long dkh,
-    long long dks, long long dvb, long long dvh, long long dvs, float scale,
-    float cap, int causal, int window, void* stream) {
-  const Strides st{{qb, qh, qs},    {kb, kh, ks},    {vb, vh, vs},
-                   {ob, oh, os},    {gb, gh, gs},    {dqb, dqh, dqs},
-                   {dkb, dkh, dks}, {dvb, dvh, dvs}};
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* of = static_cast<const float*>(o);
-  const auto* lf = static_cast<const float*>(lse);
-  const auto* gf = static_cast<const float*>(g);
-  auto* dqf = static_cast<float*>(dq);
-  auto* dkf = static_cast<float*>(dk);
-  auto* dvf = static_cast<float*>(dv);
-  auto* ef = static_cast<float*>(delta);
+    void* delta, void* part, const void* parts, int B, int H, int KV, int S,
+    int Tn, int D, long long qb, long long qh, long long qs, long long kb,
+    long long kh, long long ks, long long vb, long long vh, long long vs,
+    long long ob, long long oh, long long os, long long gb, long long gh,
+    long long gs, long long dqb, long long dqh, long long dqs, long long dkb,
+    long long dkh, long long dks, long long dvb, long long dvh,
+    long long dvs, float scale, float cap, int causal, int window, int cfg,
+    int keys, int n_parts, void* stream) {
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<const float*>(o);
+  a.lse = static_cast<const float*>(lse);
+  a.g = static_cast<const float*>(g);
+  a.parts = static_cast<const int*>(parts);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.delta = static_cast<float*>(delta);
+  a.part = static_cast<float*>(part);
+  a.B = B, a.H = H, a.KV = KV, a.S = S, a.Tn = Tn, a.dim = D;
+  a.group = H / KV, a.causal = causal, a.window = window;
+  a.n_parts = n_parts;
+  a.scale = scale, a.cap = cap;
+  a.st = Strides{{qb, qh, qs},    {kb, kh, ks},    {vb, vh, vs},
+                 {ob, oh, os},    {gb, gh, gs},    {dqb, dqh, dqs},
+                 {dkb, dkh, dks}, {dvb, dvh, dvs}};
+  const void* ptrs[8] = {q, k, v, o, g, dq, dk, dv};
+  const long long* strides[8] = {a.st.q, a.st.k, a.st.v, a.st.o,
+                                 a.st.g, a.st.dq, a.st.dk, a.st.dv};
+  a.vec = 1;
+  for (const long long* x : strides)
+    a.vec = a.vec && attn::aligned16(ptrs, 8, x, 3, D);
+  if (parts == nullptr || n_parts < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define BWD_CASE(DIM)                                                      \
-  case DIM:                                                                \
-    return static_cast<int>(launch<DIM>(qf, kf, vf, of, lf, gf, dqf, dkf,  \
-                                        dvf, ef, B, H, KV, S, Tn, D, st,   \
-                                        scale, cap, causal, window, s));
   switch (attn::built_dim(D)) {
-    BWD_CASE(32)
-    BWD_CASE(64)
-    BWD_CASE(128)
-    BWD_CASE(256)
+    case 32:
+      return static_cast<int>(launch<32>(a, cfg, keys, s));
+    case 64:
+      return static_cast<int>(launch<64>(a, cfg, keys, s));
+    case 128:
+      return static_cast<int>(launch<128>(a, cfg, keys, s));
+    case 256:
+      return static_cast<int>(launch<256>(a, cfg, keys, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef BWD_CASE
 }

@@ -41,11 +41,17 @@ P = exp(s - lse) from q and k (the plain version on the CPU;
 LM training needs it). A row with no live key gave the mean of v, so its
 gradient is dO/T to every value and nothing to q or k. The reference has
 no backward kernel; it trains through XLA's autodiff of its einsum
-attention, the function this backward differentiates.
+attention, the function this backward differentiates. ``bwd_plan`` picks
+the backward's configuration on the card: Small, one launch that owns all
+of a (batch, kv head)'s keys (the encoders' short sequences), or Large,
+for long rows (a Delta launch, a dK/dV walk cut into balanced parts with
+an ordered sum of their partials, a dQ launch).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -302,13 +308,145 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale=scale, want_lse=True)
 
 
+# the backward's plans (csrc/flash_attention_bwd.cu runs them)
+BWD_SMALL, BWD_LARGE = 0, 1
+# set from tools/bwd_variants.py --sweep (its timings are in PERF.md)
+BWD_SMALL_MAX_STEPS = 16          # Small: the longest walk the sweep timed
+BWD_SMALL_SHORT_WALK = 2          # Small on any grid: walks this short
+BWD_SMALL_MIN_BLOCKS = 128        # else Small from this many blocks (B KV)
+BWD_PART_STEPS = 16               # Large: the most steps a dK/dV part walks
+BWD_PART_INTS = 8                 # int32 a row of the part table
+
+
+class BwdPlan(NamedTuple):
+    """A ``flash_attention_bwd`` launch: ``cfg`` 0 Small, 1 Large; ``keys``
+    a dK/dV block's key tile and ``rows`` its query rows a step; Large cuts
+    a key tile's walk into parts of at most ``steps_per_part`` (head, row
+    tile) steps, ``parts`` dK/dV blocks per (batch, kv head) in all;
+    ``launches`` kernels per call."""
+    cfg: int
+    keys: int
+    rows: int
+    steps_per_part: int
+    parts: int
+    launches: int
+
+
+def bwd_small_keys(dp: int) -> int:
+    """The most keys (T) the Small configuration takes at built head dim
+    ``dp``: a (batch, kv head)'s K and V, a step's rows and P and dS in 227
+    KB, and its dK/dV and dQ in registers."""
+    return 64 if dp <= 128 else 32
+
+
+def _walks(s: int, t: int, keys: int, *, causal: bool, window: int,
+           small: bool) -> list[tuple[int, int]]:
+    """(first row tile, row tiles) each key tile of ``keys`` keys walks per
+    head, in row tiles of as many rows: under Small every row tile; under
+    Large those holding a live key for the tile."""
+    out = []
+    for jt in range(-(-t // keys)):
+        if small:
+            out.append((0, -(-s // keys)))
+            continue
+        j0, j_last = jt * keys, min(jt * keys + keys, t) - 1
+        i_lo = j0 if causal else 0
+        i_hi = min(s, j_last + window) if window > 0 else s
+        t_lo = i_lo // keys
+        out.append((t_lo, -(-i_hi // keys) - t_lo if i_hi > i_lo else 0))
+    return out
+
+
+def bwd_parts(s: int, t: int, group: int, plan: BwdPlan, *, causal: bool,
+              window: int) -> list[tuple[int, ...]]:
+    """The plan's part table, which the kernels read: a row per dK/dV block
+    of a (batch, kv head), in launch order, of (key tile, first row tile,
+    row tiles, first step, end step, the key tile's first part, its parts).
+    Step n of a key tile's walk is head n // (row tiles) of the kv head's
+    group at row tile first + n % (row tiles). Small walks every row tile
+    of its one key tile in one part; Large only the row tiles holding a
+    live key for the tile, a walk of L steps cut into max(1, ceil(L /
+    steps_per_part)) parts of floor-divided lengths."""
+    out = []
+    for jt, (t_lo, n_rows) in enumerate(_walks(
+            s, t, plan.keys, causal=causal, window=window,
+            small=plan.cfg == BWD_SMALL)):
+        n = group * n_rows
+        cuts = 1 if plan.cfg == BWD_SMALL or n <= plan.steps_per_part else \
+            -(-n // plan.steps_per_part)
+        first = len(out)
+        out += [(jt, t_lo, n_rows, q * n // cuts, (q + 1) * n // cuts, first,
+                 cuts) for q in range(cuts)]
+    return out
+
+
+def bwd_plan(b: int, h: int, kv: int, s: int, t: int, d: int, causal: bool,
+             window: int, cfg: int | None = None,
+             steps_per_part: int | None = None) -> BwdPlan:
+    """The ``flash_attention_bwd`` launch on the card for q (b,h,s,d) over
+    k, v (b,kv,t,d). Small's one block per (batch, kv head) walks the
+    group's heads times the row tiles in series; it is taken where T fits
+    its key tile (``bwd_small_keys``), the walk is at most
+    ``BWD_SMALL_MAX_STEPS`` steps, and either Large would pad (Small's key
+    tile is the smaller: T <= 32 below head dim 256), the walk is at most
+    ``BWD_SMALL_SHORT_WALK`` steps, or Small's blocks (b kv) number at
+    least ``BWD_SMALL_MIN_BLOCKS``, about one an SM. Large otherwise, each
+    key tile's walk cut into parts of at most ``BWD_PART_STEPS`` steps.
+    ``cfg`` names the configuration instead and ``steps_per_part`` Large's
+    part length (tests and sweeps force them this way); ValueError where
+    they cannot run."""
+    dp = kernel_head_dim(d)
+    group = h // kv
+    if cfg not in (None, BWD_SMALL, BWD_LARGE):
+        raise ValueError(f"flash_attention_bwd: no configuration {cfg}")
+    fits = t <= bwd_small_keys(dp)
+    if cfg == BWD_SMALL and not fits:
+        raise ValueError(f"flash_attention_bwd: Small takes at most "
+                         f"{bwd_small_keys(dp)} keys at head dim {d}, not "
+                         f"T {t}")
+    small_keys = 32 if t <= 32 else 64
+    kp = 64 if dp <= 128 else 32              # Large's key tile
+    if cfg is None:
+        steps = group * -(-s // small_keys)
+        cfg = BWD_SMALL if fits and steps <= BWD_SMALL_MAX_STEPS and (
+            small_keys < kp or steps <= BWD_SMALL_SHORT_WALK
+            or b * kv >= BWD_SMALL_MIN_BLOCKS) else BWD_LARGE
+    if cfg == BWD_SMALL:
+        if steps_per_part is not None:
+            raise ValueError("flash_attention_bwd: Small walks in one part")
+        return BwdPlan(BWD_SMALL, small_keys, small_keys,
+                       group * -(-s // small_keys), 1, 1)
+    if steps_per_part is not None and steps_per_part < 1:
+        raise ValueError(f"flash_attention_bwd: {steps_per_part} steps a "
+                         f"part")
+    walks = _walks(s, t, kp, causal=causal, window=window, small=False)
+    plan = BwdPlan(BWD_LARGE, kp, kp, steps_per_part or BWD_PART_STEPS, 0,
+                   0)
+    parts = len(bwd_parts(s, t, group, plan, causal=causal, window=window))
+    return plan._replace(parts=parts,
+                         launches=3 + int(parts > len(walks)))
+
+
+@functools.lru_cache(maxsize=64)
+def _part_table(s: int, t: int, group: int, plan: BwdPlan, causal: bool,
+                window: int, device: torch.device) -> torch.Tensor:
+    """``bwd_parts`` as the kernels read it: (parts, ``BWD_PART_INTS``)
+    int32 on ``device``, made once per shape and plan."""
+    rows = [r + (0,) * (BWD_PART_INTS - len(r))
+            for r in bwd_parts(s, t, group, plan, causal=causal,
+                               window=window)]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
                         scale: float | None = None):
     """(dq, dk, dv) of ``flash_attention`` (see
     ``flash_attention_bwd_plain``). CPU tensors take the plain version;
-    fp32 CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (three
-    kernels: the row sums rowsum(dO o), dK/dV, dQ) and count the call in
+    fp32 CUDA tensors launch ``csrc/flash_attention_bwd.cu`` in the
+    configuration ``bwd_plan`` picks (Small: one kernel; Large: the row
+    sums rowsum(dO o), the dK/dV parts, their ordered sum where a key
+    tile's walk was cut, dQ) and count the call in
     ``flash_attention_bwd.launches``; every tensor is read and written
     through its batch, head and sequence strides. bf16 on the card raises
     ``NotImplementedError``."""
@@ -330,10 +468,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
                          f"({b}, {h}, {s}) float32")
+    causal, window = bool(causal), int(window)
+    plan = bwd_plan(b, h, kvh, s, t, d, causal, window)
+    table = _part_table(s, t, h // kvh, plan, causal, window, q.device)
     q, k, v, o, do = (_inner_contiguous(x) for x in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = part = None
+    if plan.cfg == BWD_LARGE:
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        if plan.launches == 4:
+            part = torch.empty((plan.parts * kvh * b * 2 * plan.keys *
+                                kernel_head_dim(d),), dtype=torch.float32,
+                               device=q.device)
     scale = d ** -0.5 if scale is None else scale
     lib = _build.library("flash_attention_bwd")
     P = _build.ptr
@@ -342,9 +489,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_launch(
             P(q), P(k), P(v), P(o), P(lse), P(do), P(dq), P(dk), P(dv),
-            P(delta), b, h, kvh, s, t, d, *strides, float(scale),
-            float(softcap), int(bool(causal)), int(window),
-            _build.stream(q.device))
+            P(delta), P(part), P(table), b, h, kvh, s, t, d, *strides,
+            float(scale), float(softcap), int(causal), window, plan.cfg,
+            plan.keys, plan.parts, _build.stream(q.device))
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

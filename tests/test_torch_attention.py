@@ -33,6 +33,15 @@
 * The forward at the head dims the card now also takes (8, 16, 24) and at
   ``benchmarks/common.py``'s ``minilm`` encoder shape (B 64, H 4, S = T =
   32, D 24) against the JAX kernel in interpret mode.
+* The backward kernel's plans (``bwd_plan``): Small at the encoders'
+  shapes (``EncoderConfig()``, e5b, minilm), Large at qwen2-7b's heads; a
+  forced Small past its key tile raises ``ValueError``; the part table
+  the kernels read is ``bwd_parts``, a partition of each key tile's walk;
+  the dK/dV blocks of each plan (and Small's fused dQ) meet every live
+  (head, row, key) pair exactly once (causal, windows with dead rows,
+  GQA, ragged S/T); and Large's split walk with its ordered sum of
+  partials, emulated here from the table, against
+  ``flash_attention_bwd_plain`` and ``jax.vjp`` of ``attention_ref``.
 
 Inputs are made with numpy from a seed and handed to both sides.
 """
@@ -372,3 +381,263 @@ def test_plain_flash_matches_jax_kernel_at_small_head_dims(b, h, kv, s, t, d,
     want = jax_flash(jq, jk, jv, causal=causal, window=window)
     np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
     assert tfa.kernel_head_dim(d) == 32
+
+
+# ---------------------------------------------------------------------------
+# the backward's plans (csrc/flash_attention_bwd.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+ENCODERS = {
+    # b, h, kv, s, t, d: benchmarks/common.py's encoders at 64 pairs a step
+    "main": (64, 4, 4, 64, 64, 64),      # EncoderConfig()
+    "e5b": (64, 4, 4, 32, 32, 32),
+    "minilm": (64, 4, 4, 32, 32, 24),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODERS))
+def test_bwd_plan_takes_small_at_the_encoders(name):
+    plan = tfa.bwd_plan(*ENCODERS[name], False, 0)
+    assert plan.cfg == tfa.BWD_SMALL and plan.launches == 1
+    assert plan.parts == 1 and plan.keys >= ENCODERS[name][4]
+
+
+def test_bwd_plan_takes_large_at_qwen2_heads():
+    plan = tfa.bwd_plan(1, 28, 4, 2048, 2048, 128, True, 0)
+    assert plan.cfg == tfa.BWD_LARGE and (plan.keys, plan.rows) == (64, 64)
+    # the causal walks are cut: more parts than key tiles, so four launches
+    assert plan.parts > 2048 // 64 and plan.launches == 4
+    parts = tfa.bwd_parts(2048, 2048, 7, plan, causal=True, window=0)
+    assert len(parts) == plan.parts
+    assert max(row[4] - row[3] for row in parts) <= plan.steps_per_part
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,cfg", [
+    (1, 4, 1, 64, 64, 64, 1),       # a 4-step walk on one block: Large
+    (64, 4, 1, 64, 64, 64, 1),      # 64 blocks: still Large
+    (128, 4, 1, 64, 64, 64, 0),     # 128 blocks, about one an SM: Small
+    (1, 2, 1, 64, 64, 128, 0),      # a 2-step walk: Small on any grid
+    (1, 16, 1, 32, 32, 64, 0),      # T <= 32: Large would pad its 64 keys
+    (1, 16, 1, 32, 32, 256, 1),     # ... but not at head dim 256
+    (256, 32, 1, 64, 64, 64, 1),    # a 32-step walk: past the sweep
+    (128, 4, 1, 100, 40, 32, 0),    # two row tiles a head, 8 steps
+])
+def test_bwd_plan_small_where_the_sweep_found_it_faster(b, h, kv, s, t, d,
+                                                        cfg):
+    """Small's bounds, set by ``tools/bwd_variants.py --sweep``: its walk
+    at most 16 steps, and T <= 32 below head dim 256, or a walk of at most
+    2 steps, or at least 128 blocks."""
+    assert tfa.bwd_plan(b, h, kv, s, t, d, False, 0).cfg == cfg
+
+
+@pytest.mark.parametrize("t,d,ok", [(64, 64, True), (65, 64, False),
+                                    (64, 128, True), (65, 128, False),
+                                    (32, 256, True), (33, 256, False),
+                                    (1, 8, True)])
+def test_bwd_plan_forced_small_raises_where_it_cannot_run(t, d, ok):
+    """Small holds every key in one tile: 64 up to head dim 128, 32 at
+    256; forced past that it raises ``ValueError``, as does an unknown
+    configuration. Large takes every shape."""
+    if ok:
+        assert tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=0).cfg == 0
+    else:
+        with pytest.raises(ValueError, match="Small takes at most"):
+            tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=0)
+        assert tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0).cfg == 1
+    assert tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=1).cfg == 1
+    with pytest.raises(ValueError, match="no configuration"):
+        tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=2)
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_bwd_part_table_partitions_each_walk(d):
+    """The table the kernels read (``_part_table``; here on the CPU) is
+    ``bwd_parts`` as int32 rows of ``BWD_PART_INTS``: each key tile's
+    parts are contiguous, name their first part and their count, and cut
+    its walk of (group heads x row tiles) steps into consecutive pieces
+    that cover it once; a key tile no row reaches has one empty part."""
+    s, t, group = 200, 330, 3           # key tiles past row 199 see no row
+    plan = tfa.bwd_plan(1, group * 2, 2, s, t, d, True, 0, cfg=1,
+                        steps_per_part=5)
+    parts = tfa.bwd_parts(s, t, group, plan, causal=True, window=0)
+    table = tfa._part_table(s, t, group, plan, True, 0, torch.device("cpu"))
+    assert table.dtype == torch.int32 and table.is_contiguous()
+    assert table.shape == (plan.parts, tfa.BWD_PART_INTS) == \
+        (len(parts), tfa.BWD_PART_INTS)
+    assert table[:, :7].tolist() == [list(r) for r in parts]
+    assert not table[:, 7:].any()
+    n_tiles = -(-t // plan.keys)
+    assert [r[0] for r in parts] == sorted(r[0] for r in parts)
+    assert {r[0] for r in parts} == set(range(n_tiles))
+    for jt in range(n_tiles):
+        rows = [(i, r) for i, r in enumerate(parts) if r[0] == jt]
+        first = rows[0][0]
+        assert [i for i, _ in rows] == list(range(first, first + len(rows)))
+        assert all(r[5] == first and r[6] == len(rows) for _, r in rows)
+        t_lo, n_rows = rows[0][1][1], rows[0][1][2]
+        assert all((r[1], r[2]) == (t_lo, n_rows) for _, r in rows)
+        assert t_lo == jt * plan.keys // plan.rows      # causal: from the diagonal
+        assert n_rows > 0 or len(rows) == 1
+        steps = [n for _, r in rows for n in range(r[3], r[4])]
+        assert steps == list(range(group * n_rows))
+        assert all(r[4] - r[3] <= plan.steps_per_part for _, r in rows)
+
+
+COVER_SHAPES = [
+    # b, h, kv, s, t, d, causal, window
+    (1, 4, 2, 130, 130, 32, True, 0),     # causal GQA
+    (1, 2, 2, 97, 150, 64, False, 0),     # ragged S < T
+    (1, 6, 2, 150, 70, 64, True, 0),      # S > T, group 3
+    (1, 4, 1, 200, 90, 128, True, 20),    # window: rows 109.. dead
+    (1, 2, 1, 70, 33, 256, False, 9),     # bidir window, D 256 tiles
+    (2, 8, 2, 64, 64, 64, False, 0),      # the encoders' shape, group 4
+]
+
+
+def _cover(s, t, group, causal, window, plan):
+    """How many times each (head of the group, row, key) pair is met by
+    the plan's dK/dV parts, read from its part table as the kernel reads
+    it, and (Small) by its fused dQ."""
+    kv_hits = np.zeros((group, s, t), np.int32)
+    q_hits = np.zeros((group, s, t), np.int32)
+    live = tfa.live_mask(s, t, causal=causal, window=window,
+                         device="cpu").numpy()
+    for jt, t_lo, n_rows, lo, hi, _, _ in tfa.bwd_parts(
+            s, t, group, plan, causal=causal, window=window):
+        keys = slice(jt * plan.keys, min(t, jt * plan.keys + plan.keys))
+        for n in range(lo, hi):
+            gi, rt = n // n_rows, t_lo + n % n_rows
+            rows = slice(rt * plan.rows, min(s, rt * plan.rows + plan.rows))
+            kv_hits[gi, rows, keys] += live[rows, keys]
+            if plan.cfg == 0:
+                q_hits[gi, rows, keys] += live[rows, keys]
+    return kv_hits, q_hits, live
+
+
+@pytest.mark.parametrize("cfg", [0, 1])
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", COVER_SHAPES)
+def test_bwd_blocks_cover_every_live_pair_once(cfg, b, h, kv, s, t, d,
+                                               causal, window):
+    """The dK/dV blocks of a plan (Large: cut into parts) meet every live
+    (head, row, key) pair of a kv head exactly once, and so does Small's
+    fused dQ; Large's parts are no longer than ``steps_per_part`` and come
+    longest walk first under a causal mask."""
+    dp = tfa.kernel_head_dim(d)
+    if cfg == 0 and t > tfa.bwd_small_keys(dp):
+        with pytest.raises(ValueError):
+            tfa.bwd_plan(b, h, kv, s, t, d, causal, window, cfg=cfg)
+        return
+    # Large: walks cut finer than the plan would cut them here
+    plan = tfa.bwd_plan(b, h, kv, s, t, d, causal, window, cfg=cfg,
+                        steps_per_part=3 if cfg == 1 else None)
+    kv_hits, q_hits, live = _cover(s, t, h // kv, causal, window, plan)
+    want = np.broadcast_to(live, kv_hits.shape).astype(np.int32)
+    np.testing.assert_array_equal(kv_hits, want)
+    if cfg == 0:
+        np.testing.assert_array_equal(q_hits, want)
+    parts = tfa.bwd_parts(s, t, h // kv, plan, causal=causal, window=window)
+    assert len(parts) == plan.parts
+    assert all(r[4] - r[3] <= plan.steps_per_part for r in parts)
+    if causal and cfg == 1:
+        lengths = [sum(r[4] - r[3] for r in parts if r[0] == jt)
+                   for jt in range(-(-t // plan.keys))]
+        assert lengths == sorted(lengths, reverse=True)
+
+
+def _emulated_large_bwd(q, k, v, o, lse, do, plan, *, causal, window, cap):
+    """(dq, dk, dv) in the order of the Large configuration's kernels,
+    read from its part table: each dK/dV part sums its steps' P^T dO and
+    dS^T Q in step order, a key tile's first part adds the rows with no
+    live key (dO / T per head), its parts are summed in part order and dK
+    scaled once; dQ sums dS K over each 64-row tile's keys."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    group, scale = h // kvh, d ** -0.5
+    live = tfa.live_mask(s, t, causal=causal, window=window, device="cpu")
+    delta = (do * o).sum(-1)
+    dead_from = t + window - 1 if window else s
+
+    def block(bb, hh, rows, keys):
+        """P and dS of rows x keys for head hh of batch bb."""
+        x = q[bb, hh, rows] @ k[bb, hh // group, keys].T * scale
+        dcap = torch.ones_like(x)
+        if cap:
+            th = torch.tanh(x / cap)
+            x, dcap = cap * th, 1.0 - th * th
+        m = live[rows, keys]
+        p = torch.where(m, torch.exp(x - lse[bb, hh, rows, None]), 0.0)
+        dp = do[bb, hh, rows] @ v[bb, hh // group, keys].T
+        return p, torch.where(m, p * (dp - delta[bb, hh, rows, None]) * dcap,
+                              0.0)
+
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    parts = tfa.bwd_parts(s, t, group, plan, causal=causal, window=window)
+    for bb in range(b):
+        for kh in range(kvh):
+            sums = {}
+            for i, (jt, t_lo, n_rows, lo, hi, first, _) in enumerate(parts):
+                keys = slice(jt * plan.keys, min(t, jt * plan.keys +
+                                                 plan.keys))
+                pk = torch.zeros_like(k[bb, kh, keys])
+                pv = torch.zeros_like(pk)
+                for n in range(lo, hi):
+                    hh = kh * group + n // n_rows
+                    rt = t_lo + n % n_rows
+                    rows = slice(rt * plan.rows,
+                                 min(s, rt * plan.rows + plan.rows))
+                    p, ds = block(bb, hh, rows, keys)
+                    pv = pv + p.T @ do[bb, hh, rows]
+                    pk = pk + ds.T @ q[bb, hh, rows]
+                if i == first:                  # the key tile's first part
+                    for gi in range(group):
+                        pv = pv + do[bb, kh * group + gi,
+                                     dead_from:].sum(0) / t
+                    sums[jt] = (keys, pk, pv)
+                else:
+                    _, ak, av = sums[jt]
+                    sums[jt] = (keys, ak + pk, av + pv)
+            for keys, ak, av in sums.values():
+                dk[bb, kh, keys], dv[bb, kh, keys] = ak * scale, av
+    dq = torch.zeros_like(q)
+    for i0 in range(0, s, 64):
+        rows = slice(i0, min(s, i0 + 64))
+        for bb in range(b):
+            for hh in range(h):
+                dq[bb, hh, rows] = block(bb, hh, rows, slice(0, t))[1] @ \
+                    k[bb, hh // group] * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", [
+    (1, 4, 2, 150, 150, 16, True, 0, 0.0),      # causal GQA, cut walks
+    (1, 2, 1, 120, 70, 24, True, 10, 20.0),     # window, cap, dead rows
+    (2, 2, 2, 90, 130, 8, False, 0, 0.0),       # bidir, ragged S < T
+])
+def test_large_split_walk_matches_plain_and_jax_vjp(b, h, kv, s, t, d,
+                                                    causal, window, cap):
+    """Large's split dK/dV walk (parts of 1 step) with its ordered sum of
+    partials, and its dQ walk, emulated on the CPU: against
+    ``flash_attention_bwd_plain`` to 1e-5 and against ``jax.vjp`` of
+    ``attention_ref`` to 2e-5 of each gradient's largest magnitude."""
+    arrays = qkv(b, h, kv, s, t, d, seed=3 * s + d)
+    do = np.random.default_rng(11).standard_normal((b, h, s, d),
+                                                   dtype=np.float32)
+    (jq, jk, jv), (tq, tk, tv) = both(arrays, "float32")
+    kw = dict(causal=causal, window=window, softcap=cap)
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(q, k, v, **kw),
+                     jq, jk, jv)
+    ref = vjp(jnp.asarray(do))
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, **kw)
+    tdo = torch.from_numpy(do)
+    plan = tfa.bwd_plan(b, h, kv, s, t, d, causal, window, cfg=1,
+                        steps_per_part=1)
+    parts = tfa.bwd_parts(s, t, h // kv, plan, causal=causal, window=window)
+    assert len(parts) > -(-t // plan.keys)           # some walk is cut
+    got = _emulated_large_bwd(tq, tk, tv, o, lse, tdo, plan, causal=causal,
+                              window=window, cap=cap)
+    plain = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, **kw)
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        r = np.asarray(r)
+        top = np.abs(r).max()
+        assert np.abs(g.numpy() - p.numpy()).max() <= 1e-5 * top, name
+        assert np.abs(g.numpy() - r).max() <= 2e-5 * top, name

@@ -25,8 +25,10 @@ key are the mean of v, and a bf16 tensor that TMA cannot load raises; the
 encoder on the card matches its CPU run to atol 1e-5. fp32 attention takes
 head dims 8 to 30 on the kernel built for 32. The backward kernels match
 ``flash_attention_bwd_plain`` to 1e-4 of each gradient's largest
-magnitude, count one launch per call and repeat bitwise; bf16 has no
-backward and raises; the encoder's gradients on the card match the CPU's
+magnitude under each ``bwd_plan`` configuration forced (Small raises
+``ValueError`` past its key tile), count one launch per call, repeat
+bitwise and run the plan's kernels by profiler name (Small one); bf16 has
+no backward and raises; the encoder's gradients on the card match the CPU's
 to 1e-4 of each leaf's largest magnitude. The SSD scan
 matches to rtol = atol = 2e-4 and the RG-LRU scan to 1e-5 (the
 reference's kernel tolerances); each SSD case proves by the profiler's
@@ -40,6 +42,8 @@ cache raises ``ValueError`` for an int position; a tensor position trips
 the asynchronous assert, which poisons the CUDA context, so that case runs
 in a subprocess.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -868,41 +872,101 @@ BWD_CASES = [
     (1, 8, 2, 200, 333, 128, False, 0, 0.0, False),   # GQA, ragged S/T
     (2, 8, 2, 150, 150, 64, True, 40, 0.0, True),     # strided views
     (1, 28, 4, 512, 512, 128, True, 0, 0.0, False),   # qwen2-7b's heads
+    (64, 4, 4, 32, 32, 32, False, 0, 0.0, False),    # the e5b encoder
+    (8, 8, 2, 64, 64, 64, True, 16, 30.0, False),    # GQA, window, cap
+    (1, 4, 1, 100, 40, 32, True, 8, 0.0, False),      # dead rows, 2 tiles
+    (2, 4, 2, 70, 64, 128, False, 0, 0.0, True),      # Small's last T
+    (2, 4, 2, 70, 65, 128, False, 0, 0.0, True),      # the first past it
+    (2, 4, 4, 40, 32, 256, True, 0, 20.0, False),     # Small at D 256
 ]
 
 
-@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,strided",
-                         BWD_CASES)
-def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, h, kv, s,
-                                                  t, d, causal, window, cap,
-                                                  strided):
-    """The backward kernels against ``flash_attention_bwd_plain`` from the
-    kernel forward's o and lse: dq, dk and dv to 1e-4 of their largest
-    magnitude (rtol = atol), one counted launch per call, a bitwise repeat,
-    and dq exactly 0 on rows with no live key."""
+def _force_bwd(monkeypatch, cfg):
+    """Make ``flash_attention_bwd`` launch configuration ``cfg`` (0 Small,
+    1 Large) whatever ``bwd_plan`` would pick."""
+    plan = tfa.bwd_plan
+    monkeypatch.setattr(tfa, "bwd_plan",
+                        lambda *args: plan(*args, cfg=cfg))
+
+
+def _bwd_inputs(b, h, kv, s, t, d, causal, window, cap, strided, dev):
     rng = np.random.default_rng(s + t + d)
     shape_q, shape_kv = (((b, s, h, d), (b, t, kv, d)) if strided
                          else ((b, h, s, d), (b, kv, t, d)))
     on = lambda shape: torch.from_numpy(rng.standard_normal(
-        shape, dtype=np.float32)).to(cuda_device)
+        shape, dtype=np.float32)).to(dev)
     q, k, v, do = on(shape_q), on(shape_kv), on(shape_kv), on(shape_q)
     if strided:
         q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
     kw = dict(causal=causal, window=window, softcap=cap)
     o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("cfg", [0, 1])
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,strided",
+                         BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, monkeypatch,
+                                                  cfg, b, h, kv, s, t, d,
+                                                  causal, window, cap,
+                                                  strided):
+    """Each configuration forced, against ``flash_attention_bwd_plain``
+    from the kernel forward's o and lse: dq, dk and dv to 1e-4 of their
+    largest magnitude (rtol = atol), one counted launch per call, a bitwise
+    repeat, and dq exactly 0 on rows with no live key. Small raises
+    ``ValueError`` where T is past its key tile, before any launch."""
+    ins, kw = _bwd_inputs(b, h, kv, s, t, d, causal, window, cap, strided,
+                          cuda_device)
+    _force_bwd(monkeypatch, cfg)
     before = tfa.flash_attention_bwd.launches
-    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    if cfg == 0 and t > tfa.bwd_small_keys(tfa.kernel_head_dim(d)):
+        with pytest.raises(ValueError, match="Small takes at most"):
+            tfa.flash_attention_bwd(*ins, **kw)
+        assert tfa.flash_attention_bwd.launches == before
+        return
+    got = tfa.flash_attention_bwd(*ins, **kw)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bwd.launches == before + 1
-    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(*ins, **kw)
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         top = float(w.abs().max())
         assert bool(((g - w).abs() <= 1e-4 * (top + w.abs())).all())
-    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for _ in range(2):
+        again = tfa.flash_attention_bwd(*ins, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
     if window and s > t + window - 1:
         assert not bool(got[0][:, :, t + window - 1:].any())
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", [
+    (64, 4, 4, 64, 64, 64, False, 0),       # the training step: Small
+    (64, 4, 4, 32, 32, 32, False, 0),       # e5b: Small
+    (64, 4, 4, 32, 32, 24, False, 0),       # minilm: Small
+    (2, 4, 2, 70, 65, 64, False, 0),        # Large, no walk cut
+    (1, 28, 4, 2048, 2048, 128, True, 0),   # bench: Large, cut walks
+    (1, 4, 2, 300, 130, 256, True, 64),     # Large with dead rows
+])
+def test_flash_attention_bwd_kernels_per_call(cuda_device, b, h, kv, s, t,
+                                              d, causal, window):
+    """The kernels a call runs, by profiler name, are the plan's: Small is
+    one ``bwd_kv_kernel`` launch (the encoders' shapes take it); Large runs
+    ``delta_kernel``, ``bwd_kv_kernel``, ``bwd_reduce_kernel`` where a key
+    tile's walk was cut, and ``bwd_q_kernel``, each once."""
+    ins, kw = _bwd_inputs(b, h, kv, s, t, d, causal, window, 0.0, False,
+                          cuda_device)
+    plan = tfa.bwd_plan(b, h, kv, s, t, d, causal, window)
+    assert plan.cfg == (0 if t <= 64 and s <= 64 else 1)
+    ran = _device_kernels(lambda: tfa.flash_attention_bwd(*ins, **kw))
+    names = sorted(m.group(0) for n, count in ran for _ in range(count)
+                   for m in [re.search(r"delta_kernel|bwd_kv_kernel|"
+                                       r"bwd_reduce_kernel|bwd_q_kernel", n)]
+                   if m)
+    want = (["bwd_kv_kernel"] if plan.cfg == 0 else sorted(
+        ["delta_kernel", "bwd_kv_kernel", "bwd_q_kernel"] +
+        ["bwd_reduce_kernel"] * (plan.launches == 4)))
+    assert names == want, ran
+    assert len(names) == plan.launches
 
 
 def test_flash_attention_bwd_refuses_bf16(cuda_device):

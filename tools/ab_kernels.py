@@ -2,6 +2,7 @@
 """Time the port's timed kernel cases in two checkouts, in turns.
 
     python3 tools/ab_kernels.py --other DIR [--out FILE] [--prefill] [--paths]
+                                [--only attn_bwd]
 
 ``DIR`` is another checkout of this repository (for example the parent
 commit unpacked with ``git archive`` into the ignored ``build/``). Four
@@ -13,6 +14,12 @@ functions:
 - ``flash_attention`` fp32 ``main`` (the encoder: B 256, H = KV 4,
   S = T 64, D 64, bidirectional) and ``bench`` (qwen2-7b's heads in fp32,
   causal, S = T 2048);
+- ``flash_attention_bwd`` ``main`` (the training step: B 64, H = KV 4,
+  S = T 64, D 64, bidirectional), ``bench`` (qwen2-7b's heads, causal,
+  S = T 2048, D 128), ``e5b`` (B 64, H = KV 4, S = T 32, D 32,
+  bidirectional) and ``minilm_d24`` (the same at D 24), each with SDPA's
+  backward beside it and its device time split by kernel name
+  (``torch.profiler``);
 - ``ssd_scan`` ``main`` (mamba2-1.3b's prefill, bf16 strided),
   ``main_fp32`` and ``bench`` (B 1, S 32768);
 - ``sgld_potential`` fgts mode, forward and gradient, ``main`` (the
@@ -38,8 +45,10 @@ slice (its ``sync`` run), autopilot and mixed paths (16 ticks at full
 width, then 2 profiled ticks) and keeps
 their ms per tick, device busy ms per tick and idle share. Prints one
 JSON line per worker and a summary line of every time (``*ms`` field) by
-checkout; every record names the card and its power limit. Needs one
-CUDA card.
+checkout; every record names the card and its power limit. ``--only
+attn_bwd`` times the ``flash_attention_bwd`` cases alone; ``--worker DIR``
+runs one worker on checkout ``DIR`` and prints its record. Needs one CUDA
+card.
 """
 from __future__ import annotations
 
@@ -61,6 +70,10 @@ SSD = {"main": (2, 4096, 64, 64, 128, 128, dict(dtype="bfloat16")),
 SGLD = {"main": (8, 64, 16, 768, 4096), "bench": (8, 1024, 1024, 768, 4096)}
 SCORE = {"main": (1, 16, 768, 16, dict(posterior=True, live=11)),
          "bench": (4096, 1024, 768, 2, dict())}
+ATTN_BWD = {"main": (64, 4, 4, 64, 64, 64, dict(causal=False)),
+            "bench": (1, 28, 4, 2048, 2048, 128, dict()),
+            "e5b": (64, 4, 4, 32, 32, 32, dict(causal=False)),
+            "minilm_d24": (64, 4, 4, 32, 32, 24, dict(causal=False))}
 RGLRU = {"main": (2, 4096, 4096), "bench": (4, 32768, 4096)}
 SELECT = {"main": (256, 16, 768, dict(mask_kind="k", live=11)),
           "bench": (4096, 1024, 768, dict()),
@@ -69,7 +82,35 @@ KEYS = ("ms", "device_ms", "bound_ms", "max_abs_err", "library_ms",
         "library_device_ms")
 
 
-def worker(root: Path, prefill: bool, paths: bool) -> dict:
+def _here_chip_smoke():
+    """This checkout's ``chip_smoke`` (for ``device_split``), loaded beside
+    the worker checkout's own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bwd_split(r, b, h, kv, s, t, d, kw, dev) -> dict:
+    """Device us per ``flash_attention_bwd`` call by kernel name: the
+    case record's own, or, for a checkout whose ``chip_smoke`` does not
+    record it, this checkout's ``device_split`` on the same shape."""
+    if r.get("device_us_by_kernel") is not None:
+        return r["device_us_by_kernel"]
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mk = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    q, k, v, do = mk((b, h, s, d)), mk((b, kv, t, d)), mk((b, kv, t, d)), \
+        mk((b, h, s, d))
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    return _here_chip_smoke().device_split(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+
+
+def worker(root: Path, prefill: bool, paths: bool, only: str | None) -> dict:
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
     import chip_smoke as cs
@@ -80,6 +121,14 @@ def worker(root: Path, prefill: bool, paths: bool) -> dict:
     _build.build_all()
     out = dict(root=str(root), build_s=time.perf_counter() - t0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    for name, (b, h, kv, s, t, d, kw) in ATTN_BWD.items():
+        r = cs.attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, timed=True,
+                             **kw)
+        out[f"attn_bwd_{name}"] = dict(
+            {k: r.get(k) for k in KEYS}, plan=r.get("plan"),
+            kernels_us=bwd_split(r, b, h, kv, s, t, d, kw, dev))
+    if only == "attn_bwd":
+        return out
     for name, (b, h, kv, s, t, d, kw) in ATTN.items():
         r = cs.attn_case(name, b, h, kv, s, t, d, gen, dev, timed=True, **kw)
         out[f"attn_{name}"] = {k: r.get(k) for k in KEYS}
@@ -173,11 +222,13 @@ def main() -> int:
     ap.add_argument("--out", help="also write the records here (JSON)")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--paths", action="store_true")
-    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=["attn_bwd"])
+    ap.add_argument("--worker", help="run one worker on this checkout")
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(Path(args.worker).resolve(), args.prefill,
-                                args.paths)), flush=True)
+        rec = dict(worker(Path(args.worker).resolve(), args.prefill,
+                          args.paths, args.only), card=card())
+        print(json.dumps(rec), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -189,7 +240,8 @@ def main() -> int:
                         ("other", other)):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                str(root)] + (["--prefill"] if args.prefill else []) + (
-                   ["--paths"] if args.paths else [])
+                   ["--paths"] if args.paths else []) + (
+                   ["--only", args.only] if args.only else [])
         run = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=1500, env=dict(os.environ,
                                                     PYTHONPATH=""))
@@ -197,7 +249,7 @@ def main() -> int:
             print(run.stdout[-3000:], run.stderr[-6000:], file=sys.stderr)
             return 1
         rec = dict(json.loads(run.stdout.strip().splitlines()[-1]),
-                   label=label, card=card())
+                   label=label)
         records.append(rec)
         print(json.dumps(rec), flush=True)
     summary = {}

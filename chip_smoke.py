@@ -110,6 +110,24 @@ line per phase (phase 2 prints one per path):
      untouched by decode; one more prefill and two more decode steps run
      under the profiler for the idle share, kernels per prefill or token
      and each kernel's share of the prefill.
+   - serve: ``RouterService``'s tick-batch path over the slice's world
+     (11 live arms in 16 slots, d 768, B 256 per ``route_batch``, 8
+     chains x 20 SGLD steps, minibatch 64, ring capacity 4096, expiry 8
+     ticks, prefs cycling [0, 0.5, 2.0]) for 16 ticks: votes come back 2
+     ticks late, shuffled, 13 of 256 duplicated and 13 never sent; at tick
+     6 ``retire_model(BAD)`` and ``add_model`` of slot ARRIVAL with a
+     ``warm_start_duels`` replay; at tick 8 ``save``, ``restore`` into a
+     fresh service, which must route the next 2 ticks bitwise alike
+     (pairs, tickets, folded counts). ``route_batch`` and
+     ``feedback_batch`` run under ``set_sync_debug_mode("error")``; the
+     launches are exact (``dueling_select`` once and the SGLD gradient 40
+     times an act, the restored service's 2 acts included), so are the
+     folded, expired and pending counts; ``embed`` of 256 queries equals
+     ``encode`` over the fine-tuned encoder. Then 8 ticks under the
+     autopilot (``dueling_score`` once an act). Host ms per ``route_batch``
+     and ``feedback_batch``, ms per tick, routed queries per second, regret
+     per tick, ``service_stats()``, and device ms per act by kernel family
+     with the idle share from 2 profiled ticks.
    Each run resets the launch counts just before it and reads them just
    after: every kernel of its path must have launched (attention exactly
    once per layer per encode batch). Two more ticks of each loop (and two
@@ -123,7 +141,9 @@ line per phase (phase 2 prints one per path):
    atol 1e-5
    first); routed pairs equal outside near-ties, final chains to rtol
    1e-4, controller counters and flags equal, lambda and the cost EMA to
-   rtol 1e-5; one ``train_step`` from the fine-tuned weights on one
+   rtol 1e-5; the service for 4 ticks from one host-mode ``KeyedDraws``
+   (tickets equal, pairs equal outside near-ties, chains to rtol 1e-4);
+   one ``train_step`` from the fine-tuned weights on one
    ``HostDraws`` pair batch: loss to rtol 1e-5, every gradient leaf to 1e-4
    of its max. Then each LM at full width in fp32 at a cut depth (mamba2
    2 layers, recurrentgemma 3), B 2 x S 500, prefill and 4 decode steps:
@@ -1978,6 +1998,361 @@ def phase_card_vs_cpu(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 2 and 3: the routing service
+# ---------------------------------------------------------------------------
+
+# RouterService at the slice's width: 16 ticks of B 256, votes SERVE_DELAY
+# ticks late (shuffled, SERVE_DUP duplicated, SERVE_LOST never sent), BAD
+# retired and ARRIVAL added at SWAP_TICK, a checkpoint at SAVE_TICK restored
+# into a fresh service that must route the next RESTORE_TICKS bitwise alike
+SERVE_TICKS, SERVE_AP_TICKS, SERVE_CAP, SERVE_EXPIRY = 16, 8, 4096, 8
+SERVE_DELAY, SERVE_DUP, SERVE_LOST = 2, 13, 13      # 13 of 256 ~ 5%
+SWAP_TICK, SAVE_TICK, RESTORE_TICKS = 6, 8, 2
+# an act's device time by kernel family (profiler kernel names)
+SERVE_GROUPS = {
+    "sgld_potential_grad": ("fgts_kernel",),
+    "dueling_select": ("select_small", "select_large"),
+    "dueling_score": ("dueling_score",),
+}
+
+
+def serve_setup(seed, dev, draws, params=None, autopilot=False):
+    """A ``RouterService`` over the synthetic CCFT world of ``slice_setup``
+    (11 live arms in 16 slots, d 768; the dominated world under the
+    autopilot), with ``HORIZON`` + 256 queries: the stream, then an
+    offline split for the arrival's warm start. Returns (svc, envd, pool,
+    cfg, entries of the live arms and the arrival)."""
+    from repro_torch import autopilot as ap
+    from repro_torch.data.pool import PoolEntry, build_entries
+    from repro_torch.encoder import EncoderConfig
+    from repro_torch.serving import RouterService, RouterServiceConfig
+    envd, pool, cfg, _ = slice_setup(seed, dev, HORIZON + BATCH,
+                                     dominated=autopilot)
+    entries = build_entries([f"arm{i}" for i in range(K_LIVE)],
+                            pool.a_emb[:K_LIVE], pool.costs[:K_LIVE].tolist())
+    arrival = PoolEntry("arrival", "arrival",
+                        float(pool.costs[ARRIVAL]),
+                        pool.a_emb[ARRIVAL].cpu().numpy())
+    scfg = RouterServiceConfig(
+        fgts=cfg, k_max=K_MAX, seed=seed, feedback_capacity=SERVE_CAP,
+        feedback_expiry=SERVE_EXPIRY,
+        autopilot=(ap.AutopilotConfig(**AP_KW) if autopilot else None))
+    svc = RouterService(entries, params, EncoderConfig(), scfg, device=dev,
+                        draws=draws)
+    return svc, envd, pool, cfg, entries + [arrival]
+
+
+def no_sync(what):
+    """``torch.cuda.set_sync_debug_mode("error")`` around a call: any
+    host sync inside it raises, and fails the phase naming ``what``."""
+    import contextlib
+    import torch
+
+    @contextlib.contextmanager
+    def guard():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        except RuntimeError as e:
+            raise CheckFailed(f"serve: {what} synchronised with the card: "
+                              f"{e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return guard()
+
+
+def serve_votes(src, s, u, a1, a2):
+    """BTL votes of tick ``s`` made on the device (no sync), on the
+    launcher's 8x utility scale."""
+    import torch
+    from repro_torch.core.btl import sample_preference
+    rows = torch.arange(a1.shape[0], device=a1.device)
+    return sample_preference(src.fold_in(s), 8.0 * u[rows, a1.long()],
+                             8.0 * u[rows, a2.long()])
+
+
+def late_delivery(src, s, tickets, y):
+    """The votes of a batch as they come back: shuffled, the last
+    SERVE_LOST of the shuffle never sent, the first SERVE_DUP sent twice;
+    fixed shapes, index math on the device."""
+    import torch
+    b = tickets.shape[0]
+    perm = torch.argsort(src.fold_in(10_000 + s).uniform((b,),
+                                                         tickets.device))
+    idx = torch.cat([perm[:b - SERVE_LOST], perm[:SERVE_DUP]])
+    return tickets[idx], y[idx]
+
+
+def phase_serve(dev, seed, params):
+    """``RouterService``'s tick-batch path on the card (see the module
+    docstring): the launch counts over the main run (the restored
+    service's ticks included), exact fold / expiry / pending counts,
+    bitwise restore, no host sync inside ``route_batch`` and
+    ``feedback_batch``, ``embed`` equal to ``encode``, then 8 ticks under
+    the autopilot. Host ms per call, device ms per act by kernel family
+    and the idle share from 2 profiled ticks."""
+    import shutil
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import model_pool as mp
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.data import synth
+    from repro_torch.encoder import encode
+    fb = KeyedDraws(seed + 101)                   # votes and delivery order
+    svc, envd, pool, cfg, entries = serve_setup(seed, dev, None, params)
+    grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
+    x_off, u_off = envd.x[HORIZON:], envd.utils[HORIZON:]
+    ckpt = Path(__file__).resolve().parent / "build" / "serve_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    issued, regrets, n_oks, expired = {}, [], [], 0
+    route_ms, feedback_ms, tick_ms, restored = [], [], [], {}
+    steady = []          # ticks with no control-plane event and no twin
+    twin = None
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    for s in range(SERVE_TICKS):
+        t_tick = time.perf_counter()
+        if s == SWAP_TICK:
+            svc.retire_model(BAD)
+            slot = svc.add_model(entries[-1], replay=mp.warm_start_duels(
+                KeyedDraws(seed + 7), x_off, u_off, ARRIVAL,
+                svc.active_mask(), feedback_scale=8.0))
+            check(slot == ARRIVAL, f"serve: the arrival took slot {slot}")
+        if s == SAVE_TICK:
+            svc.save(str(ckpt))
+            twin = serve_setup(seed, dev, None, params)[0]
+            twin.restore(str(ckpt))
+            check(twin.tick == svc.tick and twin._draws.key == svc._draws.key
+                  and twin._ever_used == svc._ever_used,
+                  "serve: the restored service's clock, key or slots differ")
+        x = envd.x[s * BATCH:(s + 1) * BATCH]
+        u = envd.utils[s * BATCH:(s + 1) * BATCH]
+        prefs = grid[(torch.arange(BATCH, device=dev) + s) % 3]
+        t0 = time.perf_counter()
+        with no_sync("route_batch"):
+            a1, a2, tk = svc.route_batch(x, prefs=prefs)
+        route_ms.append(1e3 * (time.perf_counter() - t0))
+        y = serve_votes(fb, s, u, a1, a2)
+        issued[s] = (tk, y)
+        act = mp.get_pool(svc.state).active
+        best = torch.where(act[None, :], u, -torch.inf).amax(-1)
+        rows = torch.arange(BATCH, device=dev)
+        regrets.append(torch.mean(best - 0.5 * (u[rows, a1.long()]
+                                                + u[rows, a2.long()])))
+        live = twin is not None and s < SAVE_TICK + RESTORE_TICKS
+        if live:
+            with no_sync("route_batch (restored)"):
+                restored[s] = (a1, a2, tk, *twin.route_batch(x, prefs=prefs))
+        if s >= SERVE_DELAY:
+            tk_d, y_d = late_delivery(fb, s, *issued.pop(s - SERVE_DELAY))
+            t0 = time.perf_counter()
+            with no_sync("feedback_batch"):
+                n_ok = svc.feedback_batch(tk_d, y_d)
+            feedback_ms.append(1e3 * (time.perf_counter() - t0))
+            n_oks.append(n_ok)
+            if live:
+                with no_sync("feedback_batch (restored)"):
+                    restored[s] += (n_ok, twin.feedback_batch(tk_d, y_d))
+        expired += svc.expire_pending()
+        if live:
+            twin.expire_pending()
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t_tick))
+        if s > 0 and s not in (SWAP_TICK, SAVE_TICK) and not live:
+            steady.append(tick_ms[-1])
+    wall = time.perf_counter() - t_run
+    counts = kernels.launch_counts()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del twin
+    acts = SERVE_TICKS + RESTORE_TICKS
+    check(counts["dueling_select"] == acts
+          and counts["sgld_potential_grad"] == 2 * cfg.sgld_steps * acts
+          and counts["dueling_score"] == 0,
+          f"serve: launch counts {counts} over {acts} acts")
+    check(sorted(restored) == [SAVE_TICK + i for i in range(RESTORE_TICKS)],
+          "serve: the restored service did not run its ticks")
+    for s, (a1, a2, tk, b1, b2, tb, n1, n2) in restored.items():
+        check(torch.equal(a1, b1) and torch.equal(a2, b2)
+              and torch.equal(tk, tb) and torch.equal(n1, n2),
+              f"serve: tick {s} after the restore routes differently")
+    folded = [int(n) for n in n_oks]
+    n_late = SERVE_TICKS - SERVE_DELAY
+    check(folded == [BATCH - SERVE_LOST] * n_late,
+          f"serve: folded counts {folded}")
+    stats = svc.service_stats()
+    # never-sent votes age out after SERVE_EXPIRY ticks; the last
+    # SERVE_DELAY batches are still in flight
+    n_exp = SERVE_LOST * max(SERVE_TICKS - 1 - SERVE_EXPIRY, 0)
+    check(expired == n_exp, f"serve: {expired} duels expired, not {n_exp}")
+    pending = SERVE_LOST * (n_late - n_exp // SERVE_LOST) \
+        + BATCH * SERVE_DELAY
+    check(stats["n_routed"] == SERVE_TICKS * BATCH
+          and stats["n_folded"] == sum(folded)
+          and stats["pending"] == pending,
+          f"serve: service_stats {stats}, {pending} pending expected")
+    reg = torch.stack(regrets).tolist()
+    check(all(math.isfinite(r) for r in reg), "serve: regret not finite")
+    active = svc.active_mask()
+    check(not active[BAD] and active[ARRIVAL]
+          and int(active.sum()) == K_LIVE,
+          f"serve: membership {active.tolist()}")
+    # embed: the service's encoder call is the fine-tuned encoder's
+    gen = torch.Generator().manual_seed(seed)
+    corpus = synth.CorpusConfig(seq_len=svc.enc_cfg.max_len)
+    tok, mask = synth.sample_queries(
+        gen, torch.randint(0, corpus.n_categories, (BATCH,), generator=gen),
+        corpus, dev)
+    emb = svc.embed(tok, mask)
+    check(emb.shape == (BATCH, svc.enc_cfg.d_model)
+          and torch.equal(emb, encode(params, tok, mask, svc.enc_cfg)),
+          "serve: embed differs from encode")
+    ms_per_tick = statistics.median(steady)
+    draws_ab = serve_draws_ab(svc, envd, grid, seed)
+
+    def more(n):
+        for i in range(n):
+            s = HORIZON // BATCH + i
+            x = envd.x[(i % SERVE_TICKS) * BATCH:][:BATCH]
+            u = envd.utils[(i % SERVE_TICKS) * BATCH:][:BATCH]
+            a1, a2, tk = svc.route_batch(x, prefs=grid[
+                (torch.arange(BATCH, device=dev) + s) % 3])
+            svc.feedback_batch(tk, serve_votes(fb, s, u, a1, a2))
+    prof = profile_ticks(more, ms_per_tick, 2 * cfg.sgld_steps,
+                         groups=SERVE_GROUPS)
+    record = dict(
+        ticks=SERVE_TICKS, batch=BATCH, acts=acts, launches=counts,
+        launches_per_act={k: counts[k] / acts for k in
+                          ("dueling_select", "sgld_potential_grad")},
+        route_batch_ms=statistics.median(route_ms[1:]),
+        feedback_batch_ms=statistics.median(feedback_ms[1:]),
+        ms_per_tick=ms_per_tick, steady_ticks=len(steady),
+        queries_per_s=BATCH * len(steady) / (1e-3 * sum(steady)),
+        run_queries_per_s=SERVE_TICKS * BATCH / wall,
+        tick_ms=tick_ms, regret_per_tick=reg,
+        folded_per_delivery=folded[0], expired=expired,
+        restored_ticks_bitwise=RESTORE_TICKS, service_stats=stats,
+        profile=prof, draws_ab=draws_ab)
+    del svc
+    record["autopilot"] = serve_autopilot(dev, seed, params, fb)
+    return record
+
+
+def serve_draws_ab(svc, envd, grid, seed, calls=4):
+    """ms per ``route_batch`` with a sync after it (host clock), under the
+    service's ``KeyedDraws`` (its generator re-seeded per draw) and under a
+    sequential ``TorchDraws``, in turns keyed, torch, torch, keyed: the
+    cost of checkpointable draws on the act."""
+    import torch
+    from repro_torch.core.draws import TorchDraws
+    keyed, sequential = svc._draws, TorchDraws(seed, svc.device)
+    out = {"keyed": [], "torch": []}
+    for name in ("keyed", "torch", "torch", "keyed"):
+        svc._draws = keyed if name == "keyed" else sequential
+        for i in range(calls):
+            x = envd.x[i * BATCH:(i + 1) * BATCH]
+            prefs = grid[(torch.arange(BATCH, device=x.device) + i) % 3]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.route_batch(x, prefs=prefs)
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t0))
+    svc._draws = keyed
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def serve_autopilot(dev, seed, params, fb):
+    """SERVE_AP_TICKS ticks of a service under the autopilot (the dominated
+    world, a control tick every AP_KW["every"] acts), votes at once:
+    ``dueling_score`` once per act, no host sync."""
+    import torch
+    from repro_torch import kernels
+    svc, envd, _, cfg, _ = serve_setup(seed, dev, None, params,
+                                       autopilot=True)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(SERVE_AP_TICKS):
+        x = envd.x[s * BATCH:(s + 1) * BATCH]
+        u = envd.utils[s * BATCH:(s + 1) * BATCH]
+        with no_sync("route_batch (autopilot)"):
+            a1, a2, tk = svc.route_batch(x)
+        y = serve_votes(fb, s, u, a1, a2)
+        with no_sync("feedback_batch (autopilot)"):
+            svc.feedback_batch(tk, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n = SERVE_AP_TICKS
+    check(counts["dueling_score"] == n and counts["dueling_select"] == n
+          and counts["sgld_potential_grad"] == 2 * cfg.sgld_steps * n,
+          f"serve autopilot: launch counts {counts} over {n} acts")
+    st = svc.autopilot_status()
+    check(int(st["tick"]) == n and math.isfinite(st["lambda"]),
+          f"serve autopilot: controller tick {st['tick']}")
+    return dict(ticks=n, launches=counts, ms_per_tick=1e3 * wall / n,
+                queries_per_s=n * BATCH / wall, status={
+                    k: (v.tolist() if hasattr(v, "tolist") else v)
+                    for k, v in st.items()},
+                service_stats=svc.service_stats())
+
+
+def phase_serve_card_vs_cpu(dev, seed, params):
+    """4 ticks of the service on the card and on the CPU from one
+    host-mode ``KeyedDraws`` (prefs cycling, votes at once): pairs equal
+    outside near-ties against the CPU's own scores, final chains to rtol
+    1e-4."""
+    import torch
+    from repro_torch.core import model_pool as mp
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.models.layers import tree_map
+    ticks = 4
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        p = tree_map(lambda w: w.to(where), params)
+        svc, envd, _, _, _ = serve_setup(seed, where,
+                                         KeyedDraws(seed, host=True), p)
+        grid = torch.tensor([0.0, 0.5, 2.0], device=where)
+        trace = []
+        for s in range(ticks):
+            x = envd.x[s * BATCH:(s + 1) * BATCH]
+            u = envd.utils[s * BATCH:(s + 1) * BATCH]
+            prefs = grid[(torch.arange(BATCH, device=where) + s) % 3]
+            a1, a2, tk = svc.route_batch(x, prefs=prefs)
+            inner = svc.state.inner
+            trace.append((a1.cpu(), a2.cpu(), tk.cpu(), prefs.cpu(),
+                          inner.theta1.mean(0).cpu(),
+                          inner.theta2.mean(0).cpu()))
+            svc.feedback_batch(tk, serve_votes(
+                KeyedDraws(seed + 5, host=True), s, u, a1, a2))
+        out[where.type] = (envd, mp.get_pool(svc.state), svc.state, trace)
+    envd, pool, cpu_state, c_trace = out["cpu"]
+    _, _, card_state, g_trace = out["cuda"]
+    bad = ties = 0
+    for s in range(ticks):
+        c1, c2, ct, pref, th1, th2 = c_trace[s]
+        g1, g2, gt = g_trace[s][:3]
+        check(torch.equal(ct, gt), f"serve card vs cpu: tick {s} tickets")
+        b, t_, _ = compare_pairs(
+            envd.x[s * BATCH:(s + 1) * BATCH], pool.a_emb,
+            torch.stack([th1, th2]), pref[:, None] * pool.costs[None, :],
+            pool.active, True, (g1, g2), (c1, c2))
+        bad, ties = bad + b, ties + t_
+    check(bad == 0, f"serve card vs cpu: {bad} pair mismatches outside "
+                    f"near-ties")
+    errs = {}
+    for f in ("theta1", "theta2"):
+        gc = getattr(card_state.inner, f).cpu()
+        cc = getattr(cpu_state.inner, f)
+        err = (gc - cc).abs()
+        errs[f] = float(err.max())
+        check(bool((err <= 1e-5 + 1e-4 * cc.abs()).all()),
+              f"serve card vs cpu: {f} differs by {errs[f]}")
+    return dict(ticks=ticks, pair_mismatches=bad, near_ties=ties,
+                theta_max_abs_err=errs)
+
+
+# ---------------------------------------------------------------------------
 # phases 2 and 3: the candidate LMs' generation path
 # ---------------------------------------------------------------------------
 
@@ -2235,7 +2610,7 @@ SELECT_TIMED = ("serve",)
 ATTN_BWD_TIMED = ("main_large", "e5b", "minilm_d24")
 
 
-def kernels_line(cases, launches):
+def kernels_line(cases, launches, serve_launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
@@ -2247,7 +2622,9 @@ def kernels_line(cases, launches):
     ``e5b``, ``minilm_d24``) under ``more``, the ``ssd_scan`` row its timed
     fp32 case (the
     SIMT kernel) under ``fp32``, the ``dueling_select`` row its timed
-    ``serve`` case under ``serve``. The two forward kernels are reached on their
+    ``serve`` case under ``serve``. ``serve_launches`` are the launches of
+    the serve phase's runs (the main service's and the autopilot's) for
+    the kernels they launch. The two forward kernels are reached on their
     paths only through the energy trace the runs here add
     (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
@@ -2271,6 +2648,10 @@ def kernels_line(cases, launches):
             bench_plain_device_ms=bch[pre + "plain_device_ms"],
             bench_bound_ms=bch[pre + "bound_ms"],
             bench_bound_by=bch[pre + "bound_by"]))
+        on_serve = {run: c[name] for run, c in serve_launches.items()
+                    if c[name]}
+        if on_serve:
+            rows[-1]["serve_launches"] = on_serve
         if name == "flash_attention_bwd":
             rows[-1].update(plan=m["plan"], bench_plan=bch["plan"],
                             device_us_by_kernel=m["device_us_by_kernel"],
@@ -2338,6 +2719,9 @@ def main() -> int:
     record["ccft"] = dict(phase="ccft", **phase_ccft(dev, args.seed,
                                                      params_ft))
     emit(record["ccft"])
+    record["serve"] = dict(phase="serve", **phase_serve(dev, args.seed,
+                                                        params_ft))
+    emit(record["serve"])
     record["lm"] = dict(phase="lm", **phase_lm(dev, args.seed))
     emit(record["lm"])
 
@@ -2346,6 +2730,7 @@ def main() -> int:
         autopilot=phase_autopilot_card_vs_cpu(dev, args.seed),
         train=phase_train_card_vs_cpu(dev, args.seed, params_ft),
         ccft=phase_ccft_card_vs_cpu(dev, args.seed, params_ft),
+        serve=phase_serve_card_vs_cpu(dev, args.seed, params_ft),
         lm=phase_lm_card_vs_cpu(dev, args.seed))
     emit(record["card_vs_cpu"])
 
@@ -2358,7 +2743,9 @@ def main() -> int:
              mixed=record["mixed"]["launches"],
              ccft=record["ccft"]["routerbench"]["launches"],
              **{n: r["launches"] for n, r in record["lm"].items()
-                if n != "phase"}))
+                if n != "phase"}),
+        dict(serve=record["serve"]["launches"],
+             serve_autopilot=record["serve"]["autopilot"]["launches"]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

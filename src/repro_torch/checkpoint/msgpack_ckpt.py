@@ -3,10 +3,15 @@
 
 A checkpoint is one msgpack map: ``treedef``, the tree's structure as JAX
 prints it, and ``leaves``, one ``{"dtype", "shape", "data"}`` record per
-leaf (numpy dtype name, shape, raw bytes) in ``jax.tree.flatten`` order,
-dict keys sorted. So a checkpoint the reference saved restores here and
-the reverse. Trees are nested dicts whose leaves are tensors or numpy
-arrays of a numpy dtype (the encoder's parameters).
+leaf (numpy dtype name, shape, raw bytes) in ``jax.tree.flatten`` order.
+So a checkpoint the reference saved restores here and the reverse.
+
+Trees are nested dicts (keys sorted, as JAX flattens them), lists,
+tuples and NamedTuples (fields in declared order; a None field is an
+empty node and holds no leaf), with tensors or numpy arrays as leaves:
+the encoder's parameters, and a routing service's state, pending ring,
+PRNG key and counters. Each leaf keeps its dtype (bool, int32, uint32,
+float32, ...).
 """
 from __future__ import annotations
 
@@ -24,10 +29,20 @@ from repro_torch.models.layers import tree_unflatten
 def _treedef(tree) -> str:
     """The structure as ``str(jax.tree.flatten(tree)[1])`` prints it."""
     def spec(t):
-        if not isinstance(t, dict):
-            return "*"
-        return "{" + ", ".join(f"{k!r}: {spec(t[k])}" for k in sorted(t)) \
-            + "}"
+        if t is None:
+            return "None"
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {spec(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, tuple) and hasattr(t, "_fields"):    # NamedTuple
+            return (f"CustomNode(namedtuple[{type(t).__name__}], ["
+                    + ", ".join(spec(v) for v in t) + "])")
+        if isinstance(t, tuple):
+            inner = ", ".join(spec(v) for v in t)
+            return f"({inner},)" if len(t) == 1 else f"({inner})"
+        if isinstance(t, list):
+            return "[" + ", ".join(spec(v) for v in t) + "]"
+        return "*"
     return f"PyTreeDef({spec(tree)})"
 
 

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.device import as_f32, resolve_device
 
+from .btl import sample_preference
 from .fgts import scatter_drop, set_at
 
 
@@ -178,3 +179,37 @@ def apply_events(pool: ModelPool, sched: PoolSchedule, s) -> ModelPool:
         active=active,
         generation=pool.generation + hit.sum(dtype=torch.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Offline -> online warm-start seeding
+# ---------------------------------------------------------------------------
+
+def warm_start_duels(draws, x_off, utils_off, new_arm: int, active,
+                     feedback_scale: float = 5.0):
+    """A historical-duel replay batch for a hot-added arm: the new arm
+    against a Gumbel-drawn *active* incumbent per offline query, with BTL
+    votes on the utility scale (the feedback the arm would have drawn had
+    it been live). Feed it to ``RouterService.add_model(entry,
+    replay=...)`` or any policy's ``update``.
+
+    x_off (N, d) offline query features; utils_off (N, K_max) utilities;
+    ``active`` (K_max,) bool. Returns (x, a1, a2, y) with a1 == new_arm. In
+    a one-arm pool there is no incumbent: every row degrades to an
+    uninformative self-duel (a2 == new_arm, y == 0)."""
+    k_opp, k_y = draws.split(2)
+    dev = utils_off.device
+    active = torch.as_tensor(active, device=dev).to(torch.bool)
+    n, k = x_off.shape[0], active.shape[0]
+    opp_ok = active & (torch.arange(k, device=dev) != new_arm)
+    g = k_opp.gumbel((n, k), dev)
+    opp = torch.argmax(torch.where(opp_ok[None, :], g, -torch.inf),
+                       dim=-1).to(torch.int32)
+    a1 = torch.full((n,), new_arm, dtype=torch.int32, device=dev)
+    rows = torch.arange(n, device=dev)
+    y = sample_preference(k_y, feedback_scale * utils_off[rows, a1.long()],
+                          feedback_scale * utils_off[rows, opp.long()])
+    has_opp = torch.any(opp_ok)
+    opp = torch.where(has_opp, opp, a1)
+    y = torch.where(has_opp, y, 0.0)
+    return x_off, a1, opp, y

@@ -1,0 +1,355 @@
+"""Serving driver: routed inference over a pool of candidate models
+(counterpart of ``repro/launch/serve.py``, synchronous rounds).
+
+Queries stream in, the ``RouterService`` picks two candidates per query,
+both can generate (``--with-generation``: greedy decode on reduced
+candidate LMs), preference feedback is drawn from the pool's latent skill
+profile, and the posterior adapts online.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --rounds 40 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --autopilot \\
+        --budget 0.5 --pool-schedule "+arctic-480b@5"
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --rounds 3 --batch 4
+
+It runs on the CUDA card unless ``--device cpu`` is given. The mesh,
+streaming and refresh flags of the reference exit with the ROADMAP item
+that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.core import baselines, fgts
+from repro_torch.core import model_pool as mp
+from repro_torch.core.btl import sample_preference
+from repro_torch.core.draws import KeyedDraws
+from repro_torch.core.policy import cost_tilt_vector, fgts_policy
+from repro_torch.data.pool import synthetic_pool
+from repro_torch.data.synth import CorpusConfig, sample_queries
+from repro_torch.device import resolve_device
+from repro_torch.encoder import EncoderConfig, init_encoder
+from repro_torch.models import lm
+from repro_torch.serving.router_service import (RouterService,
+                                                RouterServiceConfig)
+
+# Any RoutingPolicy can serve. ``arms`` is the (K, d) embedding table of a
+# static service or the ModelPool of a dynamic one (k_max set); every
+# constructor takes either.
+POLICIES = {
+    "fgts": lambda arms, costs, cfg: fgts_policy(
+        arms, cfg.fgts, costs=costs, cost_tilt=cfg.cost_tilt),
+    # dynamic pools get cost_tilt= (live pool costs, hot adds included)
+    # instead of a construction-time tilt vector
+    "eps_greedy": lambda arms, costs, cfg: baselines.eps_greedy_policy(
+        arms, baselines.EpsGreedyConfig(n_models=cfg.fgts.n_models,
+                                        dim=cfg.fgts.dim),
+        tilt=None if isinstance(arms, mp.ModelPool)
+        else cost_tilt_vector(costs, cfg.cost_tilt),
+        cost_tilt=cfg.cost_tilt),
+    "linucb": lambda arms, costs, cfg: baselines.linucb_duel_policy(
+        arms, baselines.LinUCBConfig(n_models=cfg.fgts.n_models,
+                                     dim=cfg.fgts.dim),
+        tilt=None if isinstance(arms, mp.ModelPool)
+        else cost_tilt_vector(costs, cfg.cost_tilt),
+        cost_tilt=cfg.cost_tilt),
+    "uniform": lambda arms, costs, cfg: baselines.uniform_policy(
+        arms if isinstance(arms, mp.ModelPool) else cfg.fgts.n_models,
+        device=costs.device),
+}
+
+# The candidate pool of the serving runs (each entry's latent skill
+# vector drives the synthetic preferences).
+DEFAULT_POOL = ["granite-3-2b", "qwen2-7b", "mamba2-1.3b",
+                "recurrentgemma-9b", "gemma2-9b"]
+
+# flags of the reference whose paths the port has not yet, and the
+# ROADMAP item that brings each
+NOT_YET = {
+    "--mesh": "multi-device serving, ROADMAP Queue 1 item 5",
+    "--arrival": "streaming serving, ROADMAP Queue 1 item 2",
+    "--buckets": "streaming serving, ROADMAP Queue 1 item 2",
+    "--max-wait": "streaming serving, ROADMAP Queue 1 item 2",
+    "--refresh-every": "the refresh loop, ROADMAP Queue 1 item 3",
+    "--refresh-naive": "the refresh loop, ROADMAP Queue 1 item 3",
+}
+
+
+def greedy_decode(cfg, params, prompt, n_new: int):
+    """Prefill, then ``n_new - 1`` greedy decode steps; the new tokens."""
+    pos = prompt.shape[1]
+    logits, cache = lm.prefill(params, {"tokens": prompt}, cfg,
+                               cache_len=pos + n_new)
+    toks = [torch.argmax(logits[0])]
+    for i in range(n_new - 1):
+        logits, cache = lm.decode_step(params, cache, toks[-1][None],
+                                       pos + i, cfg)
+        toks.append(torch.argmax(logits[0]))
+    return torch.stack(toks).tolist()
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--gen-tokens", type=int, default=8)
+    ap.add_argument("--with-generation", action="store_true",
+                    help="greedy-decode from the two routed models")
+    ap.add_argument("--policy", choices=sorted(POLICIES), default="fgts",
+                    help="RoutingPolicy serving the pool")
+    ap.add_argument("--feedback-delay", type=int, default=0,
+                    help="rounds between a duel being issued and its vote "
+                         "arriving (0 = synchronous act->update ticks)")
+    ap.add_argument("--feedback-expiry", type=int, default=None,
+                    help="drop votes older than this many rounds")
+    ap.add_argument("--stale-half-life", type=float, default=None,
+                    help="age-discount half-life (rounds) for stale votes")
+    ap.add_argument("--pool-schedule", default=None, metavar="EVENTS",
+                    help="dynamic-pool membership events, comma-separated: "
+                         "'+ARCH@R' hot-adds a CCFT-warm-started ARCH at "
+                         "round R, '-K@R' retires slot K — e.g. "
+                         "'+arctic-480b@5,-0@12'. Enables k_max = "
+                         "len(pool) + #adds")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="closed-loop pool management (dominance "
+                         "retirement, A/B candidates, cost governor); "
+                         "implies a dynamic pool")
+    ap.add_argument("--budget", type=float, default=None, metavar="COST",
+                    help="autopilot cost governor target: mean realized "
+                         "duel cost ($/1k tok) held via the lambda tilt")
+    ap.add_argument("--autopilot-every", type=int, default=4,
+                    help="rounds between autopilot control ticks")
+    ap.add_argument("--pref-dist", default=None, metavar="SPEC",
+                    help="per-request preference tilts: 'grid:V1,V2,...' "
+                         "cycles the listed cost weights over batch rows, "
+                         "'uniform:LO,HI' samples one per request")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    for flag in NOT_YET:
+        ap.add_argument(flag, default=None,
+                        action="store_true" if flag == "--refresh-naive"
+                        else "store", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag, why in NOT_YET.items():
+        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
+            raise SystemExit(f"[serve] {flag} is not in the port yet: "
+                             f"{why}")
+    return args
+
+
+def make_pref_sampler(spec):
+    """(draws, round, batch, device) -> (B,) prefs, or None."""
+    if not spec:
+        return None
+    kind, _, body = spec.partition(":")
+    try:
+        vals = [float(v) for v in body.split(",")] if body else []
+    except ValueError:
+        vals = None
+    if kind == "grid" and vals:
+        def grid(draws, r, b, dev):
+            g = torch.tensor(vals, dtype=torch.float32, device=dev)
+            return g[(r * b + torch.arange(b, device=dev)) % g.shape[0]]
+        return grid
+    if kind == "uniform" and vals is not None and len(vals) == 2:
+        lo, hi = vals
+
+        def uniform(draws, r, b, dev):
+            return lo + (hi - lo) * draws.uniform((b,), dev)
+        return uniform
+    raise SystemExit(f"--pref-dist {spec!r} must be 'grid:V1,V2,...' or "
+                     f"'uniform:LO,HI'")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    pref_sampler = make_pref_sampler(args.pref_dist)
+
+    events = []
+    if args.pool_schedule:
+        for tok in args.pool_schedule.split(","):
+            body, _, rnd = tok.strip().rpartition("@")
+            if body.startswith("+"):
+                events.append(("add", body[1:], int(rnd)))
+            elif body.startswith("-"):
+                events.append(("retire", int(body[1:]), int(rnd)))
+            else:
+                raise SystemExit(f"--pool-schedule event {tok!r} must be "
+                                 f"'+ARCH@ROUND' or '-SLOT@ROUND'")
+
+    ks = KeyedDraws(args.seed).split(8)
+    gen = torch.Generator().manual_seed(args.seed)   # weights and queries
+    n_cats, emb_dim = 5, 64
+    pool_names = DEFAULT_POOL
+    # arrivals share the latent category space: build the whole zoo at
+    # once, serve the prefix
+    arrival_names = [a for kind, a, _ in events if kind == "add"]
+    all_entries, skills, protos = synthetic_pool(
+        ks[0], pool_names + arrival_names, n_cats, emb_dim, device=dev)
+    pool = all_entries[:len(pool_names)]
+    arrivals = dict(zip(arrival_names, all_entries[len(pool_names):]))
+    k_max = len(pool_names) + len(arrival_names) \
+        if (events or args.autopilot) else None
+    ap_cfg = None
+    if args.autopilot:
+        from repro_torch.autopilot import AutopilotConfig
+        ap_cfg = AutopilotConfig(every=args.autopilot_every,
+                                 budget=args.budget)
+    enc_cfg = EncoderConfig(d_model=emb_dim, n_layers=2, n_heads=4, d_ff=256,
+                            max_len=32)
+    enc_params = init_encoder(gen, enc_cfg, device=dev)
+
+    n_models = k_max if k_max is not None else len(pool)
+    fcfg = fgts.FGTSConfig(n_models=n_models, dim=emb_dim,
+                           horizon=args.rounds * args.batch, eta=2.0, mu=0.2,
+                           sgld_steps=10, sgld_eps=2e-4, sgld_minibatch=32)
+    svc = RouterService(
+        pool, enc_params, enc_cfg,
+        RouterServiceConfig(fgts=fcfg, cost_tilt=0.0,
+                            policy_factory=POLICIES[args.policy],
+                            feedback_expiry=args.feedback_expiry,
+                            stale_half_life=args.stale_half_life,
+                            k_max=k_max, autopilot=ap_cfg, seed=args.seed),
+        device=dev)
+
+    gen_models = {}
+    if args.with_generation:
+        for name in pool_names:
+            cfg = ARCHS[name].reduced()
+            gen_models[name] = (cfg, lm.init_params(gen, cfg, device=dev))
+
+    cc = CorpusConfig(n_categories=n_cats, seq_len=32)
+    regrets, pref_log, duel_cost_log = [], [], []
+    in_flight = []            # (due_round, tickets, y): votes on their way
+    # slot -> latent-skills row (arrivals may land in any freed slot)
+    row_of_slot = np.arange(n_models) % skills.shape[0]
+    arrival_row = {n: len(pool_names) + i
+                   for i, n in enumerate(arrival_names)}
+    all_names = pool_names + arrival_names
+    t0 = time.time()
+    for r in range(args.rounds):
+        for kind, what, rnd in events:
+            if rnd != r:
+                continue
+            if kind == "add":
+                slot = svc.add_model(arrivals[what])
+                row_of_slot[slot] = arrival_row[what]
+                # offline -> online warm start: BTL duels of the new arm
+                # against active incumbents on a small offline split
+                cats_off = torch.randint(0, n_cats, (16,), generator=gen)
+                toks_off, mask_off = sample_queries(gen, cats_off, cc, dev)
+                x_off = svc.embed(toks_off, mask_off)
+                utils_off = skills[torch.from_numpy(row_of_slot).to(dev)][
+                    :, cats_off.to(dev)].T
+                n_seed = svc.seed_replay(*mp.warm_start_duels(
+                    ks[4].fold_in(r), x_off, utils_off, slot,
+                    svc.active_mask(), feedback_scale=8.0))
+                print(f"[serve] round {r}: +{what} -> slot {slot} "
+                      f"(CCFT warm start, {n_seed} seeded duels)")
+            else:
+                svc.retire_model(what)
+                print(f"[serve] round {r}: retired slot {what}")
+        cats = torch.randint(0, n_cats, (args.batch,), generator=gen)
+        toks, mask = sample_queries(gen, cats, cc, dev)
+        cats = cats.to(dev)
+        x = svc.embed(toks, mask)
+        prefs = None if pref_sampler is None else pref_sampler(
+            ks[5].fold_in(r), r, args.batch, dev)
+        a1, a2, tickets = svc.route_batch(x, prefs=prefs)
+        if prefs is not None:
+            pref_log.append(prefs.cpu().numpy())
+            duel_cost_log.append((0.5 * (svc.costs[a1.long()]
+                                         + svc.costs[a2.long()])).cpu()
+                                 .numpy())
+        if args.with_generation:
+            for b in range(min(args.batch, 2)):   # a couple per round
+                for arm in a1[b].item(), a2[b].item():
+                    arch = all_names[int(row_of_slot[arm])]
+                    if arch not in gen_models:
+                        continue      # scheduled arrivals have no LM here
+                    cfg, params = gen_models[arch]
+                    out = greedy_decode(cfg, params,
+                                        toks[b:b + 1, :8] % cfg.vocab_size,
+                                        args.gen_tokens)
+                    if r == 0 and b == 0:
+                        print(f"[serve]   {arch:<18} generated {out}")
+        rows = torch.arange(args.batch, device=dev)
+        utils = skills[torch.from_numpy(row_of_slot).to(dev)][:, cats].T
+        y = sample_preference(ks[3].fold_in(r),
+                              8.0 * utils[rows, a1.long()],
+                              8.0 * utils[rows, a2.long()])
+        if args.feedback_delay == 0:
+            svc.feedback_batch(tickets, y)
+        else:
+            in_flight.append((r + args.feedback_delay, tickets, y))
+        # votes issued --feedback-delay rounds ago land at the end of this
+        # round, so a D-round lag resolves at service age exactly D
+        due = [f for f in in_flight if f[0] <= r]
+        in_flight = [f for f in in_flight if f[0] > r]
+        for _, due_tickets, due_y in due:
+            svc.feedback_batch(due_tickets, due_y)
+        svc.expire_pending()
+        # regret against the best *active* arm
+        if svc.dynamic:
+            act = torch.from_numpy(svc.active_mask()).to(dev)
+            best = torch.where(act[None, :], utils, -torch.inf).amax(-1)
+        else:
+            best = utils.amax(-1)
+        reg = torch.mean(best - 0.5 * (utils[rows, a1.long()]
+                                       + utils[rows, a2.long()]))
+        regrets.append(reg.item())
+        ap_note = ""
+        if args.autopilot:
+            st = svc.autopilot_status()
+            ap_note = (f" lam={st['lambda']:.3f} "
+                       f"cost_ema={st['cost_ema']:.3f} "
+                       f"active={int(st['active'].sum())}"
+                       f"/{len(st['active'])} "
+                       f"cand={int(st['candidate'].sum())}")
+        print(f"[serve] round {r}: batch-regret={regrets[-1]:.4f} "
+              f"cost=${svc.spend(a1).item():.3f} "
+              f"pending={svc.pending_count()}{ap_note} "
+              f"({time.time() - t0:.1f}s)")
+    early = np.mean(regrets[:max(args.rounds // 4, 1)])
+    late = np.mean(regrets[-max(args.rounds // 4, 1):])
+    stats = svc.service_stats()
+    print(f"[serve] regret early={early:.4f} late={late:.4f} "
+          f"(adaptive: {'yes' if late < early else 'no'}) "
+          f"routed={stats['n_routed']} folded={stats['n_folded']} "
+          f"duel-cost=${stats['duel_cost']:.2f} "
+          f"unresolved={stats['pending']}")
+    if pref_log:
+        # realized duel cost by the pref each request carried
+        pv, cv = np.concatenate(pref_log), np.concatenate(duel_cost_log)
+        edges = np.unique(np.round(pv, 6))
+        if edges.size > 8:                     # continuous: quartiles
+            edges = np.quantile(pv, [0.0, 0.25, 0.5, 0.75])
+        parts = []
+        for i, lo in enumerate(edges):
+            hi = edges[i + 1] if i + 1 < edges.size else np.inf
+            sel = (pv >= lo) & (pv < hi) if edges.size > 1 else pv >= lo
+            if sel.any():
+                parts.append(f"pref>={lo:g}: ${cv[sel].mean():.3f}")
+        print("[serve] realized duel cost by pref  " + "  ".join(parts))
+    if args.autopilot:
+        st = svc.autopilot_status()
+        names = [p.name if p is not None else "-" for p in svc.pool]
+        alive = [n for n, a in zip(names, st["active"]) if a]
+        cands = [n for n, c in zip(names, st["candidate"]) if c]
+        print(f"[serve] autopilot: lam={st['lambda']:.3f} "
+              f"cost_ema={st['cost_ema']:.3f} active={alive} "
+              f"candidates={cands}")
+    return dict(regrets=regrets, stats=stats)
+
+
+if __name__ == "__main__":
+    main()

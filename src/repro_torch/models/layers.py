@@ -110,22 +110,33 @@ def tree_map(fn, *trees):
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
-    sorted at every level."""
-    if not isinstance(tree, dict):
-        return [tree]
-    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    """The leaves of a tree of dicts, lists, tuples and NamedTuples in
+    ``jax.tree.leaves`` order: dict keys sorted, sequence and NamedTuple
+    fields in order, None an empty node (no leaf)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
 
 
-def tree_unflatten(like, leaves) -> dict:
-    """A nested dict shaped as ``like`` whose leaves are ``leaves``, in
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` whose leaves are ``leaves``, in
     ``tree_leaves`` order."""
     it = iter(leaves)
 
     def build(t):
-        if not isinstance(t, dict):
-            return next(it)
-        return {k: build(t[k]) for k in sorted(t)}
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):    # NamedTuple
+            return type(t)(*(build(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
     return build(like)
 
 

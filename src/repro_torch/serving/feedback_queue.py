@@ -1,0 +1,196 @@
+"""Fixed-capacity pending-duels ring: the async-feedback subsystem
+(counterpart of ``repro/serving/feedback_queue.py``, global addressing).
+
+Votes never arrive in lockstep with routing: users answer seconds to
+hours later, out of order, twice or never. ``route_batch`` *issues* duels
+into ``PendingDuels`` (one scatter per field, one int32 ticket per duel);
+``resolve`` looks returned tickets up (one gather), validates them against
+the live slots and hands the (x, a1, a2, y, age) batch to the policy's
+update. Slots are ``ticket % capacity``, so the buffer is a ring: with
+more than ``capacity`` duels in flight the oldest are overwritten and
+their tickets stop validating (expiry by overwrite); ``expire`` adds
+age-based expiry.
+
+Tickets, slots and ages are modular int32: a ticket or a tick that
+crosses 2^31 wraps, and every comparison stays right across the wrap as
+long as the capacity divides 2^32 (``init_pending`` enforces a power of
+two). Everything is tensor math of fixed shapes with no host read, so the
+hot path never synchronises with the card.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.fgts import ring_slots
+from repro_torch.device import resolve_device
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class PendingDuels(NamedTuple):
+    """Ring of issued-but-unresolved duels (slot = ticket % C)."""
+    x: torch.Tensor            # (C, d) float32: query features at issue
+    a1: torch.Tensor           # (C,)  int32: routed pair
+    a2: torch.Tensor           # (C,)  int32
+    ticket: torch.Tensor       # (C,)  int32: ticket holding the slot
+    issued_at: torch.Tensor    # (C,)  int32: service tick at issue
+    valid: torch.Tensor        # (C,)  bool: slot holds an unresolved duel
+    next_ticket: torch.Tensor  # ()    int32: tickets issued so far
+    pref: torch.Tensor | None = None  # (C,) f32: per-duel preference
+    prop: torch.Tensor | None = None  # (C,) f32: act-time pair propensity
+    cat: torch.Tensor | None = None   # (C,) int32: query category (-1)
+
+
+class ResolvedDuels(NamedTuple):
+    """Gathered feedback batch: rows with ``ok`` False are stale or unknown
+    tickets (already resolved, expired, or overwritten)."""
+    x: torch.Tensor            # (B, d)
+    a1: torch.Tensor           # (B,)
+    a2: torch.Tensor           # (B,)
+    y: torch.Tensor            # (B,)  the caller's votes, passed through
+    age: torch.Tensor          # (B,)  int32: now - issued_at (modular)
+    ok: torch.Tensor           # (B,)  bool
+    pref: torch.Tensor | None = None
+    prop: torch.Tensor | None = None
+    cat: torch.Tensor | None = None
+
+
+def wrap32(v: int) -> int:
+    """A Python int reduced into int32's range, as int32 arithmetic wraps."""
+    return ((int(v) + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+
+def as_i32(v, device) -> torch.Tensor:
+    """An int32 tensor on ``device``: a tensor is cast in place on the
+    device; a Python int enters as a fill (``torch.full``), not a host copy,
+    so a card run does not synchronise."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int32)
+    return torch.full((), wrap32(v), dtype=torch.int32, device=device)
+
+
+def init_pending(capacity: int, dim: int, device=None) -> PendingDuels:
+    """Empty ring. ``capacity`` must be a power of two: only then does
+    slot = ticket % capacity stay injective on live tickets across the
+    int32 wrap."""
+    if capacity < 1 or capacity & (capacity - 1):
+        raise ValueError(
+            f"PendingDuels capacity must be a power of two for "
+            f"collision-free slot addressing across the int32 ticket wrap "
+            f"(slot = ticket % capacity only stays injective on live "
+            f"tickets when capacity divides 2^32); got {capacity} — round "
+            f"up with feedback_queue.next_pow2")
+    dev = resolve_device(device)
+
+    def z(*shape, dt=torch.int32):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    return PendingDuels(
+        x=z(capacity, dim, dt=torch.float32),
+        a1=z(capacity),
+        a2=z(capacity),
+        ticket=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
+        issued_at=z(capacity),
+        valid=z(capacity, dt=torch.bool),
+        next_ticket=z(),
+        pref=z(capacity, dt=torch.float32),
+        prop=torch.ones((capacity,), dtype=torch.float32, device=dev),
+        cat=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
+    )
+
+
+def enqueue(q: PendingDuels, x: torch.Tensor, a1: torch.Tensor,
+            a2: torch.Tensor, now, pref: torch.Tensor | None = None,
+            prop: torch.Tensor | None = None,
+            cat: torch.Tensor | None = None):
+    """Issue B duels: one scatter per field; returns (ring', tickets (B,)).
+
+    A full ring overwrites its oldest duels. When B itself exceeds the
+    capacity only the last C rows survive: the earlier tickets are issued
+    already expired (as ``fgts.ring_slots`` keeps the indices unique).
+    ``pref`` is the preference each duel was served under (None = zeros)."""
+    b, cap, dev = x.shape[0], q.x.shape[0], q.x.device
+    tickets = q.next_ticket + torch.arange(b, dtype=torch.int32, device=dev)
+    drop, idx = ring_slots(q.next_ticket, cap, b)
+    now = as_i32(now, dev)
+    if pref is None:
+        pref = torch.zeros((b,), dtype=torch.float32, device=dev)
+    if prop is None:
+        prop = torch.ones((b,), dtype=torch.float32, device=dev)
+    if cat is None:
+        cat = torch.full((b,), -1, dtype=torch.int32, device=dev)
+
+    def put(buf, v):
+        return buf.index_put((idx,), v[drop:].to(buf.dtype))
+    keep = b - drop
+    return q._replace(
+        x=put(q.x, x), a1=put(q.a1, a1), a2=put(q.a2, a2),
+        ticket=put(q.ticket, tickets),
+        issued_at=q.issued_at.index_put((idx,), now.expand(keep)),
+        valid=q.valid.index_put(
+            (idx,), torch.ones((keep,), dtype=torch.bool, device=dev)),
+        next_ticket=q.next_ticket + b,
+        pref=None if q.pref is None else put(q.pref, pref),
+        prop=None if q.prop is None else put(q.prop, prop),
+        cat=None if q.cat is None else put(q.cat, cat),
+    ), tickets
+
+
+def resolve(q: PendingDuels, tickets: torch.Tensor, y: torch.Tensor, now,
+            max_age: int | None = None):
+    """Look up a batch of tickets and clear the slots that validate;
+    returns (ring', ``ResolvedDuels``).
+
+    A ticket validates iff its slot still holds it (``valid`` and the same
+    ticket id) and, with ``max_age``, its duel has not aged out. Every
+    *matched* ticket is consumed: a vote that comes too late clears its
+    slot (``ok`` False) instead of leaving a duel that can never be
+    redeemed. Duplicate tickets in one call fold at most once: a scatter-min
+    over slot collisions keeps the first matching row per slot. Ages are
+    modular int32 differences, so a duel issued before the 2^31 tick
+    boundary ages normally across it; a negative age means older than 2^31
+    ticks, and such a row never validates."""
+    cap, dev = q.x.shape[0], q.x.device
+    tickets = tickets.to(torch.int32)
+    now = as_i32(now, dev)
+    slots = torch.remainder(tickets, cap).long()    # floors, as jnp's %
+    age = now - q.issued_at[slots]                  # int32: wraps
+    matched = q.valid[slots] & (q.ticket[slots] == tickets)
+    b = tickets.shape[0]
+    rows = torch.arange(b, dtype=torch.int32, device=dev)
+    first = torch.full((cap,), b, dtype=torch.int32, device=dev) \
+        .scatter_reduce(0, slots, torch.where(matched, rows, b), "amin",
+                        include_self=True)
+    matched = matched & (first[slots] == rows)
+    ok = matched & (age >= 0)
+    if max_age is not None:
+        ok = ok & (age <= max_age)
+    # scatter-max marks consumed slots, whatever the order of collisions
+    hit = torch.zeros((cap,), dtype=torch.int32, device=dev) \
+        .scatter_reduce(0, slots, matched.to(torch.int32), "amax",
+                        include_self=True)
+    batch = ResolvedDuels(
+        x=q.x[slots], a1=q.a1[slots], a2=q.a2[slots], y=y, age=age, ok=ok,
+        pref=None if q.pref is None else q.pref[slots],
+        prop=None if q.prop is None else q.prop[slots],
+        cat=None if q.cat is None else q.cat[slots])
+    return q._replace(valid=q.valid & (hit == 0)), batch
+
+
+def expire(q: PendingDuels, now, max_age: int):
+    """Drop every pending duel older than ``max_age`` ticks (or with a
+    negative, wrapped age); returns (ring', the count dropped as a 0-d
+    int32 tensor)."""
+    age = as_i32(now, q.x.device) - q.issued_at
+    keep = (age >= 0) & (age <= max_age)
+    dropped = torch.sum(q.valid & ~keep, dtype=torch.int32)
+    return q._replace(valid=q.valid & keep), dropped
+
+
+def pending_count(q: PendingDuels) -> torch.Tensor:
+    """In-flight (issued, unresolved, unexpired) duels, a 0-d int32."""
+    return torch.sum(q.valid, dtype=torch.int32)

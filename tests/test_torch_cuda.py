@@ -1297,3 +1297,103 @@ def test_decode_past_a_full_cache_trips_the_device_assert(cuda_device):
     assert bad.returncode != 0 and "clean" not in bad.stdout
     assert "device-side assert" in bad.stderr or "past the end" in \
         bad.stderr, bad.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# the routing service
+# ---------------------------------------------------------------------------
+
+def _service(dev, draws, autopilot=False, d=32, k=5, k_max=8):
+    from repro_torch.autopilot import AutopilotConfig
+    from repro_torch.core.fgts import FGTSConfig
+    from repro_torch.data.pool import build_entries
+    from repro_torch.serving import RouterService, RouterServiceConfig
+    rng = np.random.default_rng(0)
+    entries = build_entries([f"m{i}" for i in range(k)],
+                            rng.standard_normal((k, d)),
+                            (0.1 + rng.random(k)).tolist())
+    cfg = RouterServiceConfig(
+        fgts=FGTSConfig(n_models=k_max, dim=d, horizon=64, eta=2.0, mu=0.3,
+                        sgld_steps=4, sgld_minibatch=16, n_chains=4,
+                        force_distinct=True),
+        k_max=k_max, feedback_capacity=64, feedback_expiry=3,
+        autopilot=AutopilotConfig(every=2, quota=0.5, budget=0.5)
+        if autopilot else None)
+    return RouterService(entries, None, None, cfg, device=dev, draws=draws)
+
+
+def _serve_inputs(dev, rounds=5, b=16, d=32, seed=1):
+    """The queries of every round and the pref grid, made on ``dev``
+    before any timed or guarded region (a host copy syncs)."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((rounds, b, d), generator=gen).to(dev),
+            torch.tensor([0.0, 0.5, 2.0], device=dev))
+
+
+def _serve_rounds(svc, dev, inputs, host_votes, seed=1):
+    """Route with cycling prefs; each round delivers the previous batch's
+    votes shuffled with two duplicates (drawn on the host, or on the
+    device with ``host_votes`` False). Returns the pairs, tickets and
+    folded counts of every round."""
+    from repro_torch.core.draws import KeyedDraws
+    xs, grid = inputs
+    rounds, b = xs.shape[:2]
+    votes = KeyedDraws(seed + 1, host=host_votes)
+    out, prev = [], None
+    for r in range(rounds):
+        prefs = grid[(torch.arange(b, device=dev) + r) % 3]
+        a1, a2, tk = svc.route_batch(xs[r], prefs=prefs)
+        y = torch.where(votes.fold_in(r).uniform((b,), dev) < 0.5, 1.0, -1.0)
+        n = None
+        if prev is not None:
+            perm = torch.argsort(votes.fold_in(100 + r).uniform((b,), dev))
+            idx = torch.cat([perm, perm[:2]])
+            n = svc.feedback_batch(prev[0][idx], prev[1][idx])
+        prev = (tk, y)
+        out.append((a1, a2, tk, n))
+    return out
+
+
+def test_router_service_on_the_card_matches_the_cpu(cuda_device):
+    """Host-mode ``KeyedDraws`` give both runs the same numbers: pairs,
+    tickets and folded counts equal, the posterior chains to rtol 1e-4."""
+    from repro_torch.core.draws import KeyedDraws
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        svc = _service(dev, KeyedDraws(3, host=True))
+        runs[dev.type] = (svc, _serve_rounds(svc, dev, _serve_inputs(dev),
+                                             True))
+    (g_svc, g), (c_svc, c) = runs["cuda"], runs["cpu"]
+    for (ga1, ga2, gt, gn), (ca1, ca2, ct, cn) in zip(g, c):
+        assert torch.equal(ga1.cpu(), ca1) and torch.equal(ga2.cpu(), ca2)
+        assert torch.equal(gt.cpu(), ct)
+        assert (gn is None) == (cn is None) and (gn is None
+                                                 or int(gn) == int(cn))
+    for f in ("theta1", "theta2"):
+        torch.testing.assert_close(getattr(g_svc.state.inner, f).cpu(),
+                                   getattr(c_svc.state.inner, f),
+                                   rtol=1e-4, atol=1e-5)
+    assert g_svc.service_stats() | {"duel_cost": 0} == \
+        c_svc.service_stats() | {"duel_cost": 0}
+
+
+@pytest.mark.parametrize("autopilot", [False, True])
+def test_router_service_hot_path_does_not_sync(cuda_device, autopilot):
+    """``route_batch`` and ``feedback_batch`` under
+    ``set_sync_debug_mode("error")`` with device-mode draws and device
+    votes: no host sync anywhere inside them."""
+    from repro_torch.core.draws import KeyedDraws
+    svc = _service(cuda_device, KeyedDraws(4), autopilot=autopilot)
+    inputs = _serve_inputs(cuda_device)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _serve_rounds(svc, cuda_device, inputs, False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launch_counts()
+    assert counts["dueling_select"] == 5
+    assert counts["sgld_potential_grad"] == 2 * 4 * 5
+    assert counts["dueling_score"] == (5 if autopilot else 0)
+    assert [int(n) for *_, n in out[1:]] == [16] * 4

@@ -6,7 +6,9 @@ replays the reference's key tree with ``jax.random``: ``split`` is
 ``jax.random.split`` (``fold_in`` and ``gumbel`` replay the calls of the
 same names, ``distinct_pair`` the static baselines' per-row
 ``jax.random.choice(..., replace=False)``, ``randint`` and ``choice`` the
-calls of the same names that build the encoder's training pairs), and
+calls of the same names that build the encoder's training pairs,
+``key_leaf`` / ``from_leaf`` the key itself, as a service checkpoint
+holds it), and
 ``sgld(C, steps)`` hands out, per SGLD step, the
 ``randint``/``normal`` draws of every chain exactly as ``policy._act`` ->
 ``sgld_sample`` -> ``sgld_loop`` derive them (``sgld(None, steps)`` those
@@ -110,6 +112,14 @@ class JaxDraws:
 
     def sgld(self, n_chains, n_steps):
         return JaxSgldDraws(self.key, n_chains, n_steps)
+
+    def key_leaf(self):
+        return np.asarray(self.key, np.uint32)
+
+    def from_leaf(self, leaf):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.numpy()
+        return JaxDraws(jnp.asarray(np.asarray(leaf, np.uint32)))
 
 
 K, D, T = 5, 16, 48

@@ -2,7 +2,8 @@
 
 * No module imports ``jax`` or the JAX package ``repro``: the port stands
   alone (only these tests import both); nor do ``chip_smoke.py``, the
-  card tools under ``tools/`` and the port's training example.
+  card tools under ``tools/`` and the port's training and routed-serving
+  examples.
 * Without a CUDA card ``default_device()`` raises and names the
   ``device="cpu"`` opt-in: there is no silent CPU fallback.
 * CPU tensors run the plain versions and never count a kernel launch;
@@ -50,7 +51,9 @@ def test_port_imports_neither_jax_nor_reference():
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/ab_kernels.py",
                                     "tools/kernel_phases.py",
                                     "tools/score_sweep.py",
-                                    "examples/train_encoder_e2e_torch.py"])
+                                    "examples/train_encoder_e2e_torch.py",
+                                    "examples/routed_serving_e2e_torch.py",
+                                    "tools/bwd_variants.py"])
 def test_card_scripts_import_neither_jax_nor_reference(script):
     """The scripts that run the port on the card import no JAX either: the
     machine with the card has none."""

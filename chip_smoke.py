@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, in parallel) and runs three phases, printing one JSON
-line per phase (phase 2 prints one per path):
+line per phase (phase 2 prints one per path; the wall time since start is
+in each line's ``wall_s``):
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K = 16 pool slots with 11 live RouterBench
@@ -128,6 +129,42 @@ line per phase (phase 2 prints one per path):
      and ``feedback_batch``, ms per tick, routed queries per second, regret
      per tick, ``service_stats()``, and device ms per act by kernel family
      with the idle share from 2 profiled ticks.
+   - stream: the same world with ``buckets=(32, 64, 128, 256)``: one CUDA
+     graph per bucket and program (route, pref route, feedback, resolve),
+     captured at construction. 4096 requests of ``poisson:12800`` then
+     2048 of ``bursty:12800,24``, cut into batches with ``max_wait`` 10 ms,
+     votes one batch late: every batch through ``route_stream`` /
+     ``feedback_stream`` (under ``set_sync_debug_mode("error")``) and a
+     tick-batch twin's ``route_batch`` / ``feedback_batch`` must agree
+     bitwise (pairs, tickets, folded counts, posterior, ring); a retire +
+     warm-started add at batch 12 on both; at batch 20 ``save`` and a
+     restored streaming service that routes 2 batches bitwise alike; the
+     graph counts flat throughout. Launches: ``torch.profiler``'s kernel
+     names over a pass of every formed batch through ``route_stream`` /
+     ``feedback_stream`` (a replay makes no Python call, so the wrappers
+     do not count it): 40 ``sgld_potential_grad`` and 1 ``dueling_select``
+     per route. Padding
+     identity on the card: the same batches through ladders (128, 256)
+     and (256,) for FGTS and eps-greedy; 8 batches under the autopilot
+     (launches as above, plus 1 ``dueling_score`` per route). Then timed
+     passes of the same batches through the graphs and through
+     the twin alone (host ms per route by bucket, queries per second,
+     p50 / p99 latency: event-time wait plus the measured route time),
+     the host time of a replayed route without a sync and its split
+     (staging, the draw plan's fill, the graph's launch), and 4 profiled
+     full batches (device ms per act, idle share).
+   - refresh: a streaming service over RouterBench in the encoder's
+     geometry (11 models in 16 slots, d 256, the fine-tuned encoder) with
+     ``RefreshConfig(every=2048)``: 4096 Poisson requests with their
+     categories; at 2048 logged duels ``export_log`` -> ``refresh_table``
+     on the card (2 x 20 steps of 64 pairs, exact attention launches) ->
+     ``apply_table``, then streaming goes on with no graph captured anew;
+     seconds per cycle. Card against CPU on the exported log:
+     ``category_mix`` exactly, ``duel_scores`` to rtol 1e-6, one
+     ``refresh_table`` of 1 epoch x 2 steps under ``HostDraws`` (lr 1e-3):
+     the table to 1e-4 of its largest magnitude, the encoder's step to
+     ``REFRESH_STEP_TOL`` of its own, against a control with uniform row
+     weights that must land more than 10 x that limit away.
    Each run resets the launch counts just before it and reads them just
    after: every kernel of its path must have launched (attention exactly
    once per layer per encode batch). Two more ticks of each loop (and two
@@ -183,8 +220,17 @@ def check(ok, what):
         raise CheckFailed(what)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def emit_phase(record):
+    """A phase's line, with the script's wall time so far."""
+    record["wall_s"] = time.perf_counter() - T_START
+    emit(record)
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -1372,6 +1418,32 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
                                          for k, us, n in kern[:6]])
 
 
+def replay_launches(run, attempts=3):
+    """Kernel launches by wrapper over ``run()``, counted by
+    ``torch.profiler``'s kernel names (``SERVE_GROUPS``: wrapper ->
+    substrings of its kernels' names): a CUDA graph's replay makes no
+    Python call, so the wrappers do not count it. A profile that records
+    no device activity at all (see ``device_ms``) is taken again,
+    ``run()`` with it, up to ``attempts`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kern = _kernel_events(prof)
+        if kern:
+            break
+    out = dict.fromkeys(SERVE_GROUPS, 0)
+    for key, _, n in kern:
+        g = next((g for g, subs in SERVE_GROUPS.items()
+                  if any(x in key for x in subs)), None)
+        if g is not None:
+            out[g] += n
+    return out
+
+
 def autopilot_setup(seed, dev, t_total, every):
     from repro_torch import autopilot
     envd, pool, cfg, pol = slice_setup(seed, dev, t_total, dominated=True)
@@ -2016,17 +2088,19 @@ SERVE_GROUPS = {
 }
 
 
-def serve_setup(seed, dev, draws, params=None, autopilot=False):
+def serve_setup(seed, dev, draws, params=None, autopilot=False,
+                t_total=HORIZON + BATCH, **cfg_kw):
     """A ``RouterService`` over the synthetic CCFT world of ``slice_setup``
     (11 live arms in 16 slots, d 768; the dominated world under the
-    autopilot), with ``HORIZON`` + 256 queries: the stream, then an
-    offline split for the arrival's warm start. Returns (svc, envd, pool,
-    cfg, entries of the live arms and the arrival)."""
+    autopilot), with ``t_total`` queries: the stream, then the last 256
+    as an offline split for the arrival's warm start. ``cfg_kw`` go to
+    ``RouterServiceConfig`` (``buckets``, ``policy_factory``). Returns
+    (svc, envd, pool, cfg, entries of the live arms and the arrival)."""
     from repro_torch import autopilot as ap
     from repro_torch.data.pool import PoolEntry, build_entries
     from repro_torch.encoder import EncoderConfig
     from repro_torch.serving import RouterService, RouterServiceConfig
-    envd, pool, cfg, _ = slice_setup(seed, dev, HORIZON + BATCH,
+    envd, pool, cfg, _ = slice_setup(seed, dev, t_total,
                                      dominated=autopilot)
     entries = build_entries([f"arm{i}" for i in range(K_LIVE)],
                             pool.a_emb[:K_LIVE], pool.costs[:K_LIVE].tolist())
@@ -2036,7 +2110,8 @@ def serve_setup(seed, dev, draws, params=None, autopilot=False):
     scfg = RouterServiceConfig(
         fgts=cfg, k_max=K_MAX, seed=seed, feedback_capacity=SERVE_CAP,
         feedback_expiry=SERVE_EXPIRY,
-        autopilot=(ap.AutopilotConfig(**AP_KW) if autopilot else None))
+        autopilot=(ap.AutopilotConfig(**AP_KW) if autopilot else None),
+        **cfg_kw)
     svc = RouterService(entries, params, EncoderConfig(), scfg, device=dev,
                         draws=draws)
     return svc, envd, pool, cfg, entries + [arrival]
@@ -2353,6 +2428,548 @@ def phase_serve_card_vs_cpu(dev, seed, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: streaming serving (one CUDA graph per bucket) and the refresh loop
+# ---------------------------------------------------------------------------
+
+# the ladder, the deadline, and the arrivals: 4096 Poisson requests, then
+# 2048 bursty ones (mean bursts of 24), both at 12,800 requests/s; votes
+# come back one formed batch late. STREAM_SWAP: retire BAD, add ARRIVAL;
+# STREAM_SAVE: save, restore into a fresh streaming service that must
+# route the next RESTORE_TICKS batches bitwise alike
+STREAM_BUCKETS, STREAM_MAX_WAIT = (32, 64, 128, 256), 0.01
+STREAM_ARRIVALS = (("poisson:12800", 4096), ("bursty:12800,24", 2048))
+STREAM_SWAP, STREAM_SAVE, STREAM_AP = 12, 20, 8
+# padding identity: the same batches through (128, 256) and (256,)
+PAD_SIZES = (128, 77, 100, 128, 5, 64)
+REFRESH_EVERY, REFRESH_REQUESTS = 2048, 4096
+# the card-vs-CPU limit on the refresh fine-tuning's step, a share of its
+# largest magnitude (an H100 run: 4.6e-4 seen; the uniform-weights
+# control 1.96)
+REFRESH_STEP_TOL = 1e-2
+
+
+def stream_batches(seed, arrivals=None):
+    """The formed batches of the arrival streams (``STREAM_ARRIVALS`` by
+    default), back to back: (first query row, ``FormedBatch``, the
+    stream's arrival times)."""
+    from repro_torch.serving import stream
+    out, row = [], 0
+    for i, (spec, n) in enumerate(arrivals or STREAM_ARRIVALS):
+        times = stream.arrival_times(stream.parse_arrival(spec), n,
+                                     seed=seed + i)
+        for fb in stream.form_batches(times, STREAM_BUCKETS,
+                                      STREAM_MAX_WAIT):
+            out.append((row + fb.start, fb, times))
+        row += n
+    return out
+
+
+def same_service(a, b, what):
+    """Posterior and ring of two services bitwise equal (the ring's ticket
+    counter aside: a (1,) per-shard counter on the streaming ring)."""
+    import torch
+    from repro_torch.models.layers import tree_leaves
+    for u, v in zip(tree_leaves(a.state), tree_leaves(b.state)):
+        check(torch.equal(u, v), f"{what}: the posteriors differ")
+    for f in ("x", "a1", "a2", "ticket", "issued_at", "valid", "pref"):
+        check(torch.equal(getattr(a.pending, f), getattr(b.pending, f)),
+              f"{what}: the rings' {f} differ")
+
+
+def stream_pass(svc, envd, batches, grid, votes, route, feedback,
+                guard=False):
+    """Route every formed batch (prefs cycling) and deliver each batch's
+    votes one batch late, timing each route with a sync on both sides.
+    Returns (route ms per batch, feedback ms per batch, the per-request
+    latencies in s: event-time wait plus the measured route time, wall
+    s)."""
+    import contextlib
+    import numpy as np
+    import torch
+    route_ms, fb_ms, lat, issued = [], [], [], None
+    ctx = (lambda w: no_sync(w)) if guard else \
+        (lambda w: contextlib.nullcontext())
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    for i, (row, fb, times) in enumerate(batches):
+        x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
+        prefs = grid[(torch.arange(fb.n, device=x.device) + i) % 3]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx("route"):
+            a1, a2, tk = route(x, prefs=prefs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        route_ms.append(1e3 * (t1 - t0))
+        lat.append(fb.t_form - times[fb.start:fb.start + fb.n] + (t1 - t0))
+        y = serve_votes(votes, i, u, a1, a2)
+        if issued is not None:
+            t0 = time.perf_counter()
+            with ctx("feedback"):
+                feedback(*issued)
+            torch.cuda.synchronize()
+            fb_ms.append(1e3 * (time.perf_counter() - t0))
+        issued = (tk, y)
+    torch.cuda.synchronize()
+    return route_ms, fb_ms, np.concatenate(lat), time.perf_counter() - t_run
+
+
+def phase_stream(dev, seed, params):
+    """Streaming serving on the card over phase ``serve``'s world (see the
+    module docstring): every formed batch through ``route_stream`` (its
+    bucket's CUDA graph) and a tick-batch twin's ``route_batch`` (eager)
+    must agree bitwise (pairs, tickets, folded counts, posterior, ring);
+    no host sync inside ``route_stream`` / ``feedback_stream``; graph
+    counts flat across ``add_model`` and a restore; a restored streaming
+    service routes bitwise alike; padding identity for FGTS and
+    eps-greedy; 8 batches under the autopilot. Then the timed passes: the
+    same formed batches through the graphs and through the twin alone
+    (host ms per call by bucket, qps, p50 / p99 latency), and 2 profiled
+    passes of 4 full batches (device ms per act, idle share)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import model_pool as mp
+    from repro_torch.core.draws import KeyedDraws
+    votes = KeyedDraws(seed + 201)
+    batches = stream_batches(seed)
+    n_req = sum(n for _, n in STREAM_ARRIVALS)
+    t0 = time.perf_counter()
+    svc, envd, pool, cfg, entries = serve_setup(
+        seed, dev, None, params, t_total=n_req + BATCH,
+        buckets=STREAM_BUCKETS)
+    capture_s = time.perf_counter() - t0
+    twin = serve_setup(seed, dev, None, params, t_total=n_req + BATCH)[0]
+    graphs = svc.compiled_program_counts()
+    nb = len(STREAM_BUCKETS)
+    check(graphs == dict(s_route=nb, s_route_pref=nb, s_feedback=nb,
+                         s_resolve=nb, captures=4 * nb),
+          f"stream: graph counts {graphs}")
+    grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
+    x_off, u_off = envd.x[n_req:], envd.utils[n_req:]
+    ckpt = Path(__file__).resolve().parent / "build" / "stream_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    restored, issued, folded, buckets_used = None, None, [], {}
+    for i, (row, fb, _) in enumerate(batches):
+        if i == STREAM_SWAP:
+            for s in (svc, twin):
+                s.retire_model(BAD)
+                slot = s.add_model(entries[-1], replay=mp.warm_start_duels(
+                    KeyedDraws(seed + 7), x_off, u_off, ARRIVAL,
+                    s.active_mask(), feedback_scale=8.0))
+                check(slot == ARRIVAL, f"stream: the arrival took {slot}")
+        if i == STREAM_SAVE:
+            svc.save(str(ckpt))
+            restored = serve_setup(seed, dev, None, params,
+                                   t_total=n_req + BATCH,
+                                   buckets=STREAM_BUCKETS)[0]
+            restored.restore(str(ckpt))
+            check(restored.tick == svc.tick
+                  and int(restored._tick_dev) == svc.tick,
+                  "stream: the restored clock differs")
+        live = restored is not None and i < STREAM_SAVE + RESTORE_TICKS
+        x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
+        prefs = grid[(torch.arange(fb.n, device=dev) + i) % 3]
+        buckets_used[fb.bucket] = buckets_used.get(fb.bucket, 0) + 1
+        with no_sync("route_stream"):
+            a1, a2, tk = svc.route_stream(x, prefs=prefs)
+        b1, b2, tb = twin.route_batch(x, prefs=prefs)
+        check(torch.equal(a1, b1) and torch.equal(a2, b2)
+              and torch.equal(tk, tb),
+              f"stream: batch {i} (n {fb.n}, bucket {fb.bucket}) routes "
+              f"differently from route_batch")
+        if live:
+            with no_sync("route_stream (restored)"):
+                r = restored.route_stream(x, prefs=prefs)
+            check(all(torch.equal(p, q) for p, q in zip(r, (a1, a2, tk))),
+                  f"stream: batch {i} after the restore routes differently")
+        y = serve_votes(votes, i, u, a1, a2)
+        if issued is not None:
+            with no_sync("feedback_stream"):
+                n_ok = svc.feedback_stream(*issued)
+            n_twin = twin.feedback_batch(*issued)
+            check(torch.equal(n_ok, n_twin), f"stream: batch {i} folded "
+                  f"{int(n_ok)}, route_batch's twin {int(n_twin)}")
+            folded.append((n_ok, issued[0].shape[0]))
+            if live:
+                with no_sync("feedback_stream (restored)"):
+                    n_r = restored.feedback_stream(*issued)
+                check(torch.equal(n_r, n_ok), "stream: the restored "
+                      "service folds differently")
+        issued = (tk, y)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(restored is not None, "stream: the restore did not run")
+    del restored
+    check(svc.compiled_program_counts() == graphs,
+          f"stream: graphs captured anew: {svc.compiled_program_counts()}")
+    check(all(int(n) == m for n, m in folded),
+          "stream: a late delivery did not fold in full")
+    same_service(svc, twin, "stream vs route_batch")
+    check(svc.tick == twin.tick == len(batches) == int(svc._tick_dev),
+          "stream: the device tick left its host mirror")
+    active = svc.active_mask()
+    check(not active[BAD] and active[ARRIVAL],
+          f"stream: membership {active.tolist()}")
+
+    # the launches of the replays: every formed batch once more through the
+    # graphs, counted by the profiler's kernel names
+    launches = replay_launches(lambda: stream_pass(
+        svc, envd, batches, grid, votes, svc.route_stream,
+        svc.feedback_stream))
+    check(launches == dict(sgld_potential_grad=2 * cfg.sgld_steps
+                           * len(batches), dueling_select=len(batches),
+                           dueling_score=0),
+          f"stream: replayed launches {launches}")
+
+    # the timed passes: the graphs, then the eager twin, on the same batches
+    route_ms, fb_ms, lat, wall = stream_pass(
+        svc, envd, batches, grid, votes, svc.route_stream,
+        svc.feedback_stream, guard=False)
+    t_route, t_fb, t_lat, t_wall = stream_pass(
+        twin, envd, batches, grid, votes, twin.route_batch,
+        twin.feedback_batch)
+    check(svc.compiled_program_counts() == graphs,
+          "stream: the timed pass captured anew")
+    by_bucket = {}
+    for (_, fb, _), ms in zip(batches, route_ms):
+        by_bucket.setdefault(fb.bucket, []).append(ms)
+    # host time of a replay alone (enqueue: the draw plan's fill and the
+    # launch; no sync inside), at the top bucket
+    x = envd.x[:STREAM_BUCKETS[-1]]
+    prefs = grid[torch.arange(STREAM_BUCKETS[-1], device=dev) % 3]
+    enqueue_ms = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.route_stream(x, prefs=prefs)
+        enqueue_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    # ... and where it goes: staging the inputs, the draw plan's fill, the
+    # graph's launch (``route_stream``'s steps, run one by one here, with
+    # the host mirrors kept in step)
+    top = STREAM_BUCKETS[-1]
+    prog = svc._s_route_pref[top]
+    split = {"stage": [], "fill": [], "replay": []}
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc._stage(top, top, x=x, pref=prefs)
+        t1 = time.perf_counter()
+        prog.plan.fill(svc._next_key(), prog.tape)
+        t2 = time.perf_counter()
+        prog.graph.replay()
+        t3 = time.perf_counter()
+        svc.tick += 1
+        svc.n_routed += top
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(1e3 * v)
+    torch.cuda.synchronize()
+
+    def full(n):
+        for i in range(n):
+            a1, a2, tk = svc.route_stream(x, prefs=prefs)
+            svc.feedback_stream(tk, serve_votes(votes, 9000 + i,
+                                                envd.utils[:len(x)], a1,
+                                                a2))
+    full(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full(8)
+    torch.cuda.synchronize()
+    ms_full = 1e3 * (time.perf_counter() - t0) / 8
+    prof = profile_ticks(full, ms_full, 2 * cfg.sgld_steps, ticks=4,
+                         groups=SERVE_GROUPS)
+    pct = lambda v, q: float(np.percentile(v, q))
+    record = dict(
+        batches=len(batches), requests=n_req, buckets=list(STREAM_BUCKETS),
+        max_wait_s=STREAM_MAX_WAIT, batches_per_bucket=buckets_used,
+        padding_efficiency=n_req / sum(fb.bucket for _, fb, _ in batches),
+        capture_s=capture_s, graphs=graphs,
+        launches=launches,
+        launches_per_act={k: v / len(batches) for k, v in launches.items()},
+        launches_source="torch.profiler kernel names over a pass of the "
+                        "formed batches through the graphs",
+        route_stream_ms_by_bucket={b: statistics.median(v)
+                                   for b, v in sorted(by_bucket.items())},
+        route_stream_enqueue_ms=statistics.median(enqueue_ms[2:]),
+        route_stream_host_split_ms={k: statistics.median(v[2:])
+                                    for k, v in split.items()},
+        draw_plan_entries=len(prog.plan.entries),
+        feedback_stream_ms=statistics.median(fb_ms),
+        route_stream_ms=statistics.median(route_ms),
+        route_batch_ms=statistics.median(t_route),
+        feedback_batch_ms=statistics.median(t_fb),
+        stream_qps=n_req / wall, route_batch_qps=n_req / t_wall,
+        stream_p50_ms=1e3 * pct(lat, 50), stream_p99_ms=1e3 * pct(lat, 99),
+        route_batch_p50_ms=1e3 * pct(t_lat, 50),
+        route_batch_p99_ms=1e3 * pct(t_lat, 99),
+        ms_per_full_batch=ms_full, profile=prof,
+        bitwise_batches=len(batches), restored_batches=RESTORE_TICKS,
+        service_stats=svc.service_stats())
+    del svc, twin
+    record["padding_identity"] = {
+        p: stream_padding_identity(dev, seed, params, p)
+        for p in ("fgts", "eps_greedy")}
+    record["autopilot"] = stream_autopilot(dev, seed, params, votes,
+                                           batches[:STREAM_AP])
+    return record
+
+
+def stream_padding_identity(dev, seed, params, policy):
+    """The same batches (PAD_SIZES rows, votes one batch late) through a
+    ladder (128, 256) and a ladder (256,): pairs, tickets, folded counts,
+    posterior and ring bitwise equal."""
+    import torch
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.launch.serve import POLICIES
+    fac = None if policy == "fgts" else POLICIES[policy]
+    runs = []
+    for buckets in ((128, 256), (256,)):
+        svc, envd, _, _, _ = serve_setup(seed, dev, None, params,
+                                         buckets=buckets,
+                                         policy_factory=fac)
+        votes, out, issued, row = KeyedDraws(seed + 301), [], None, 0
+        for i, n in enumerate(PAD_SIZES):
+            x, u = envd.x[row:row + n], envd.utils[row:row + n]
+            row += n
+            a1, a2, tk = svc.route_stream(x)
+            got = None if issued is None else svc.feedback_stream(*issued)
+            out.append((a1, a2, tk, got))
+            issued = (tk, serve_votes(votes, i, u, a1, a2))
+        runs.append((svc, out))
+    for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
+        check(all(torch.equal(p, q) for p, q in zip(a[:3], b[:3]))
+              and (a[3] is None or int(a[3]) == int(b[3])),
+              f"stream padding {policy}: batch {i} of {PAD_SIZES[i]} rows "
+              f"differs between buckets 128 and 256")
+    same_service(runs[0][0], runs[1][0], f"stream padding {policy}")
+    return dict(batches=len(PAD_SIZES), sizes=list(PAD_SIZES),
+                bitwise=True)
+
+
+def stream_autopilot(dev, seed, params, votes, batches):
+    """8 formed batches through a streaming service under the autopilot
+    (votes one batch late): no host sync, the controller ticks once a
+    batch; launches by the profiler's kernel names over a second pass of
+    the batches: ``dueling_score`` and ``dueling_select`` once and
+    ``sgld_potential_grad`` 40 times per replayed route graph."""
+    import contextlib
+    import torch
+    svc, envd, _, cfg, _ = serve_setup(seed, dev, None, params,
+                                       autopilot=True,
+                                       buckets=STREAM_BUCKETS)
+    graphs = svc.compiled_program_counts()
+
+    def run(guard):
+        issued = None
+        for i, (row, fb, _) in enumerate(batches):
+            x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
+            with guard("route_stream (autopilot)"):
+                a1, a2, tk = svc.route_stream(x)
+            if issued is not None:
+                with guard("feedback_stream (autopilot)"):
+                    svc.feedback_stream(*issued)
+            issued = (tk, serve_votes(votes, i, u, a1, a2))
+    run(no_sync)
+    torch.cuda.synchronize()
+    n = len(batches)
+    st = svc.autopilot_status()
+    check(int(st["tick"]) == n and math.isfinite(st["lambda"]),
+          f"stream autopilot: controller tick {st['tick']}")
+    launches = replay_launches(lambda: run(
+        lambda what: contextlib.nullcontext()))
+    check(launches == dict(sgld_potential_grad=2 * cfg.sgld_steps * n,
+                           dueling_select=n, dueling_score=n),
+          f"stream autopilot: replayed launches {launches}")
+    check(svc.compiled_program_counts() == graphs,
+          "stream autopilot: graphs captured anew")
+    return dict(batches=n, launches=launches, lam=st["lambda"],
+                cost_ema=st["cost_ema"])
+
+
+def refresh_world(seed, dev, params):
+    """The refresh loop's world in the encoder's geometry (d 256, no
+    metadata): RouterBench's 11 models in 16 slots from the fine-tuned
+    encoder's ``excel_perf_cost`` embeddings, REFRESH_REQUESTS online
+    queries encoded, their categories, the offline split."""
+    from repro_torch.data import pipeline
+    enc_cfg, params, split, _ = ccft_setup(seed, dev, REFRESH_REQUESTS,
+                                           params)
+    a = pipeline.routerbench_model_embeddings(
+        params, enc_cfg, split, "excel_perf_cost", with_metadata=False)
+    envd = pipeline.routerbench_env(params, enc_cfg, split,
+                                    with_metadata=False)
+    return enc_cfg, params, split, a, envd
+
+
+def phase_refresh(dev, seed, params):
+    """The online representation refresh loop on the card: a streaming
+    service with ``RefreshConfig(every=2048)`` routes the RouterBench
+    stream (categories recorded); once 2048 duels are logged,
+    ``export_log`` -> ``refresh_table`` (``EncoderConfig()``, the
+    fine-tuned encoder, ``RefreshConfig()``'s 2 x 20 steps of 64 pairs)
+    -> ``apply_table``, then streaming goes on with no graph captured
+    anew. Seconds per cycle and the cycle's attention launches (exact:
+    8 forward and 8 backward a step, one encode of the offline split);
+    card against CPU on the exported log."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import fgts
+    from repro_torch.core import model_pool as mp
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.data.pool import build_entries
+    from repro_torch.refresh import RefreshConfig, refresh_table
+    from repro_torch.serving import RouterService, RouterServiceConfig
+    enc_cfg, params, split, a, envd = refresh_world(seed, dev, params)
+    rcfg = RefreshConfig(every=REFRESH_EVERY)
+    cfg = fgts.FGTSConfig(n_models=K_MAX, dim=a.shape[1], horizon=HORIZON,
+                          eta=8.0, mu=0.2, sgld_steps=20, sgld_eps=5e-4,
+                          sgld_minibatch=64, n_chains=8, force_distinct=True)
+    # a model's cost: its mean over the benchmarks (Tab. 3's cost columns)
+    entries = build_entries([f"rb{i}" for i in range(a.shape[0])], a,
+                            split.cost.mean(dim=1).tolist())
+    svc = RouterService(entries, params, enc_cfg, RouterServiceConfig(
+        fgts=cfg, k_max=K_MAX, seed=seed, feedback_capacity=SERVE_CAP,
+        feedback_expiry=SERVE_EXPIRY, buckets=STREAM_BUCKETS,
+        refresh=rcfg), device=dev)
+    graphs = svc.compiled_program_counts()
+    votes = KeyedDraws(seed + 401)
+    batches = stream_batches(seed, (("poisson:12800", REFRESH_REQUESTS),))
+    offline = (split.offline_tokens, split.offline_mask, split.offline_cats)
+    cats = split.online_cats.to(dev)
+    issued, cycles, regrets, exported = None, [], [], None
+    for i, (row, fb, _) in enumerate(batches):
+        x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
+        with no_sync("route_stream (refresh)"):
+            a1, a2, tk = svc.route_stream(x, cats=cats[row:row + fb.n])
+        rows = torch.arange(fb.n, device=dev)
+        regrets.append(torch.mean(u.amax(-1) - 0.5 * (
+            u[rows, a1.long()] + u[rows, a2.long()])))
+        if issued is not None:
+            with no_sync("feedback_stream (refresh)"):
+                svc.feedback_stream(*issued)
+        issued = (tk, serve_votes(votes, i, u, a1, a2))
+        if svc.refresh_due():
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            log = svc.export_log()
+            table, info = refresh_table(KeyedDraws(seed + 9), log, params,
+                                        enc_cfg, offline, rcfg, K_MAX,
+                                        costs=svc.costs)
+            svc.apply_table(table)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            # 2 encodes a step and one of the offline split, a launch a
+            # layer each
+            steps = rcfg.epochs * rcfg.steps_per_epoch
+            fwd = (2 * steps + 1) * enc_cfg.n_layers
+            check(counts["flash_attention_bwd"] == 2 * enc_cfg.n_layers
+                  * steps and counts["flash_attention"] == fwd,
+                  f"refresh: attention launches {counts} in {steps} steps")
+            check(torch.equal(mp.get_pool(svc.state).a_emb, table)
+                  and bool(torch.isfinite(table).all()),
+                  "refresh: the refreshed table is not the pool's")
+            cycles.append(dict(batch=i, seconds=time.perf_counter() - t0,
+                               n_duels=info["n_duels"], log_count=log[
+                                   "count"], losses=info["losses"],
+                               launches={k: v for k, v in counts.items()
+                                         if v}, mix=info["mix"].tolist()))
+            exported = log
+    check(len(cycles) == 1, f"refresh: {len(cycles)} cycles, not 1")
+    check(svc.compiled_program_counts() == graphs,
+          f"refresh: graphs captured anew {svc.compiled_program_counts()}")
+    stats = svc.service_stats()
+    check(stats["table_swaps"] == 1 and stats["n_routed"]
+          == REFRESH_REQUESTS, f"refresh: service_stats {stats}")
+    reg = torch.stack(regrets).tolist()
+    check(all(math.isfinite(r) for r in reg), "refresh: regret not finite")
+    at = cycles[0]["batch"]
+    record = dict(requests=REFRESH_REQUESTS, batches=len(batches),
+                  every=REFRESH_EVERY, config=dict(
+                      n_categories=rcfg.n_categories, epochs=rcfg.epochs,
+                      steps_per_epoch=rcfg.steps_per_epoch,
+                      batch=rcfg.batch, capacity=rcfg.capacity,
+                      weighting=rcfg.weighting),
+                  cycles=cycles, seconds_per_cycle=cycles[0]["seconds"],
+                  graphs=graphs, service_stats=stats,
+                  regret_before=sum(reg[:at + 1]) / (at + 1),
+                  regret_after=sum(reg[at + 1:]) / max(len(reg) - at - 1,
+                                                       1))
+    record["card_vs_cpu"] = refresh_card_vs_cpu(dev, seed, exported,
+                                                params, enc_cfg, offline,
+                                                svc.costs)
+    return record
+
+
+def refresh_card_vs_cpu(dev, seed, log, params, enc_cfg, offline, costs):
+    """The refresh job's pieces on the card and on the CPU from one
+    exported log: ``category_mix`` exactly, ``duel_scores`` (IPW, scatter
+    adds in another order) to rtol 1e-6, and one ``refresh_table`` of 1
+    epoch x 2 steps under ``HostDraws`` at the default lr 1e-3: losses to
+    rtol 1e-4, the table to 1e-4 of its largest magnitude, and the
+    fine-tuning's step (refreshed minus input weights, leaf by leaf) to
+    REFRESH_STEP_TOL of the CPU step's largest magnitude. Control: the
+    card's step on the same draws with uniform row weights (the live mix
+    ignored) must land more than 10 x that limit away from the CPU's
+    step."""
+    import torch
+    from repro_torch.contrastive import finetune_categorical
+    from repro_torch.core.draws import HostDraws
+    from repro_torch.models.layers import tree_map
+    from repro_torch.refresh import (RefreshConfig, category_mix,
+                                     duel_scores, refresh_table)
+    rcfg = RefreshConfig(epochs=1, steps_per_epoch=2)
+    before = [w.cpu() for w in tree_leaves(params)]
+
+    def step(p):
+        return [w.cpu() - b for w, b in zip(tree_leaves(p), before)]
+
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        mix = category_mix(torch.as_tensor(log["cat"]), rcfg.n_categories,
+                           device=where)
+        sc = duel_scores(log["a1"], log["a2"], log["y"], log["cat"],
+                         log["prop"], K_MAX, rcfg.n_categories,
+                         device=where)
+        table, info = refresh_table(
+            HostDraws(seed), log, tree_map(lambda w: w.to(where), params),
+            enc_cfg, tuple(v.to(where) for v in offline), rcfg, K_MAX,
+            costs=costs.to(where))
+        out[where.type] = (mix.cpu(), sc.cpu(), table.cpu(), info["losses"],
+                           step(info["params"]))
+    (gm, gs, gt, gl, gd), (cm, cs, ct, cl, cd) = out["cuda"], out["cpu"]
+    ctl, _ = finetune_categorical(
+        HostDraws(seed), params, *(v.to(dev) for v in offline), enc_cfg,
+        epochs=rcfg.epochs, steps_per_epoch=rcfg.steps_per_epoch,
+        batch=rcfg.batch, lr=rcfg.lr)
+
+    def gap(d):
+        return max(float((a - b).abs().max()) for a, b in zip(d, cd))
+    scale = max(float(d.abs().max()) for d in cd)
+    s_err, s_ctl = gap(gd), gap(step(ctl))
+    check(torch.equal(gm, cm), "refresh card vs cpu: category mix")
+    check(torch.allclose(gs, cs, rtol=1e-6, atol=1e-7),
+          f"refresh card vs cpu: duel scores {float((gs - cs).abs().max())}")
+    t_err = float((gt - ct).abs().max())
+    check(t_err <= 1e-4 * float(ct.abs().max()),
+          f"refresh card vs cpu: table differs by {t_err}")
+    check(all(abs(g - c) <= 1e-4 * abs(c) for g, c in zip(gl, cl)),
+          f"refresh card vs cpu: losses {gl} vs {cl}")
+    check(scale >= 0.5 * rcfg.lr and s_err <= REFRESH_STEP_TOL * scale,
+          f"refresh card vs cpu: the encoder's step differs by {s_err} "
+          f"(step {scale})")
+    check(s_ctl > 10 * REFRESH_STEP_TOL * scale,
+          f"refresh card vs cpu: the uniform-weights control's step is "
+          f"{s_ctl} from the CPU's (step {scale})")
+    return dict(table_max_abs_err=t_err,
+                scores_max_abs_err=float((gs - cs).abs().max()),
+                losses=dict(card=gl, cpu=cl), step_max_abs=scale,
+                step_max_abs_err=s_err, control_step_max_abs_err=s_ctl,
+                step_tol=REFRESH_STEP_TOL * scale)
+
+
+# ---------------------------------------------------------------------------
 # phases 2 and 3: the candidate LMs' generation path
 # ---------------------------------------------------------------------------
 
@@ -2623,8 +3240,11 @@ def kernels_line(cases, launches, serve_launches):
     fp32 case (the
     SIMT kernel) under ``fp32``, the ``dueling_select`` row its timed
     ``serve`` case under ``serve``. ``serve_launches`` are the launches of
-    the serve phase's runs (the main service's and the autopilot's) for
-    the kernels they launch. The two forward kernels are reached on their
+    the serving runs for the kernels they launch: phase serve's main
+    service and autopilot, phase stream's graph replays and its
+    autopilot's (by the profiler's kernel names), and phase refresh's
+    cycle (``refresh``: the fine-tuning's and the offline encode's
+    attention). The two forward kernels are reached on their
     paths only through the energy trace the runs here add
     (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
@@ -2649,7 +3269,7 @@ def kernels_line(cases, launches, serve_launches):
             bench_bound_ms=bch[pre + "bound_ms"],
             bench_bound_by=bch[pre + "bound_by"]))
         on_serve = {run: c[name] for run, c in serve_launches.items()
-                    if c[name]}
+                    if c.get(name)}
         if on_serve:
             rows[-1]["serve_launches"] = on_serve
         if name == "flash_attention_bwd":
@@ -2695,7 +3315,7 @@ def main() -> int:
     _build.build_all()
     record["build"] = dict(phase="build", seconds=time.perf_counter() - t0,
                            libraries=sorted(_build.SIGNATURES))
-    emit(record["build"])
+    emit_phase(record["build"])
 
     sel, sg, sc, mx, at, atb, ssd, rgl = phase_kernels(dev, args.seed)
     record["kernels"] = dict(phase="kernels", dueling_select=sel,
@@ -2703,27 +3323,33 @@ def main() -> int:
                              sgld_mixed=mx, flash_attention=at,
                              flash_attention_bwd=atb, ssd_scan=ssd,
                              rglru_scan=rgl)
-    emit(record["kernels"])
+    emit_phase(record["kernels"])
 
     runs = phase_slice(dev, args.seed)
     record["slice"] = dict(phase="slice", **runs)
-    emit(record["slice"])
+    emit_phase(record["slice"])
     record["autopilot"] = dict(phase="autopilot",
                                **phase_autopilot(dev, args.seed))
-    emit(record["autopilot"])
+    emit_phase(record["autopilot"])
     record["mixed"] = dict(phase="mixed", **phase_mixed(dev, args.seed))
-    emit(record["mixed"])
+    emit_phase(record["mixed"])
     train, params_ft = phase_train(dev, args.seed)
     record["train"] = dict(phase="train", **train)
-    emit(record["train"])
+    emit_phase(record["train"])
     record["ccft"] = dict(phase="ccft", **phase_ccft(dev, args.seed,
                                                      params_ft))
-    emit(record["ccft"])
+    emit_phase(record["ccft"])
     record["serve"] = dict(phase="serve", **phase_serve(dev, args.seed,
                                                         params_ft))
-    emit(record["serve"])
+    emit_phase(record["serve"])
+    record["stream"] = dict(phase="stream", **phase_stream(dev, args.seed,
+                                                          params_ft))
+    emit_phase(record["stream"])
+    record["refresh"] = dict(phase="refresh",
+                             **phase_refresh(dev, args.seed, params_ft))
+    emit_phase(record["refresh"])
     record["lm"] = dict(phase="lm", **phase_lm(dev, args.seed))
-    emit(record["lm"])
+    emit_phase(record["lm"])
 
     record["card_vs_cpu"] = dict(
         phase="card_vs_cpu", **phase_card_vs_cpu(dev, args.seed),
@@ -2732,7 +3358,7 @@ def main() -> int:
         ccft=phase_ccft_card_vs_cpu(dev, args.seed, params_ft),
         serve=phase_serve_card_vs_cpu(dev, args.seed, params_ft),
         lm=phase_lm_card_vs_cpu(dev, args.seed))
-    emit(record["card_vs_cpu"])
+    emit_phase(record["card_vs_cpu"])
 
     line = kernels_line(
         dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at,
@@ -2743,9 +3369,12 @@ def main() -> int:
              mixed=record["mixed"]["launches"],
              ccft=record["ccft"]["routerbench"]["launches"],
              **{n: r["launches"] for n, r in record["lm"].items()
-                if n != "phase"}),
+                if isinstance(r, dict)}),
         dict(serve=record["serve"]["launches"],
-             serve_autopilot=record["serve"]["autopilot"]["launches"]))
+             serve_autopilot=record["serve"]["autopilot"]["launches"],
+             stream=record["stream"]["launches"],
+             stream_autopilot=record["stream"]["autopilot"]["launches"],
+             refresh=record["refresh"]["cycles"][0]["launches"]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

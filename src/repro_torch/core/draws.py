@@ -199,6 +199,33 @@ def _mix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
+def _fill(seed: int, kind: str, out: torch.Tensor,
+          host: bool) -> torch.Tensor:
+    """Draw ``kind`` ("normal", "uniform" or "gumbel") numbers from
+    ``seed`` into the float32 tensor ``out``: the one place a
+    ``KeyedDraws`` draws, so a draw plan's buffers hold exactly the numbers
+    of a direct draw. ``host``: numpy, copied to ``out``'s device; else the
+    device's one generator, re-seeded."""
+    if host:
+        rng, shape = np.random.default_rng(seed), tuple(out.shape)
+        if kind == "normal":
+            v = rng.standard_normal(shape, dtype=np.float32)
+        elif kind == "uniform":
+            v = rng.random(shape, dtype=np.float32)
+        else:
+            v = rng.gumbel(size=shape).astype(np.float32)
+        return out.copy_(torch.from_numpy(v))
+    g = _GENERATORS.get(out.device)
+    if g is None:
+        g = _GENERATORS[out.device] = torch.Generator(device=out.device)
+    g.manual_seed(seed)
+    if kind == "normal":
+        return out.normal_(generator=g)
+    if kind == "uniform":
+        return out.uniform_(generator=g)
+    return out.exponential_(generator=g).log_().neg_()
+
+
 class KeyedDraws(_Derived):
     """A draw source positioned by a (2,) uint32 key, like a JAX key.
 
@@ -244,40 +271,25 @@ class KeyedDraws(_Derived):
         k = np.asarray(leaf).astype(np.uint32)
         return KeyedDraws(host=self.host, key=(int(k[0]), int(k[1])))
 
-    def _seed(self) -> int:
-        return _mix64(self._word() ^ 0x5EED5EED5EED5EED)
+    def fill(self, kind: str, out: torch.Tensor) -> torch.Tensor:
+        """Draw this key's ``kind`` ("normal", "uniform" or "gumbel")
+        numbers into the float32 tensor ``out`` (its shape and device) and
+        return it."""
+        return _fill(_mix64(self._word() ^ 0x5EED5EED5EED5EED), kind, out,
+                     self.host)
 
-    def _gen(self, device) -> torch.Generator:
-        device = torch.device(device)
-        g = _GENERATORS.get(device)
-        if g is None:
-            g = _GENERATORS[device] = torch.Generator(device=device)
-        g.manual_seed(self._seed())
-        return g
-
-    def _rng(self) -> np.random.Generator:
-        return np.random.default_rng(self._seed())
+    def _draw(self, kind, shape, device):
+        return self.fill(kind, torch.empty(tuple(shape), dtype=torch.float32,
+                                           device=device))
 
     def normal(self, shape, device):
-        if self.host:
-            v = self._rng().standard_normal(shape, dtype=np.float32)
-            return torch.from_numpy(v).to(device)
-        return torch.randn(shape, generator=self._gen(device), device=device,
-                           dtype=torch.float32)
+        return self._draw("normal", shape, device)
 
     def uniform(self, shape, device):
-        if self.host:
-            v = self._rng().random(shape, dtype=np.float32)
-            return torch.from_numpy(v).to(device)
-        return torch.rand(shape, generator=self._gen(device), device=device,
-                          dtype=torch.float32)
+        return self._draw("uniform", shape, device)
 
     def gumbel(self, shape, device):
-        if self.host:
-            v = self._rng().gumbel(size=shape).astype(np.float32)
-            return torch.from_numpy(v).to(device)
-        e = torch.empty(shape, device=device, dtype=torch.float32)
-        return -torch.log(e.exponential_(generator=self._gen(device)))
+        return self._draw("gumbel", shape, device)
 
     def sgld(self, n_chains: int | None, n_steps: int):
         return _KeyedSgld(self, 1 if n_chains is None else n_chains)
@@ -294,3 +306,168 @@ class _KeyedSgld:
         k_idx, k_noise = self.src.fold_in(i).split(2)
         return (k_idx.randint((self.c, m), 0, hi, device),
                 k_noise.normal((self.c, d), device))
+
+
+# ---------------------------------------------------------------------------
+# Draw plans: replaying KeyedDraws through a captured CUDA graph
+# ---------------------------------------------------------------------------
+#
+# A graph replays its kernels, not the host code around them, so it cannot
+# re-seed the card's generator from a new key before every draw as
+# ``KeyedDraws`` does. A ``DrawPlan`` records, from one eager run of a
+# program, each raw draw it makes: the path of ``split``/``fold_in`` steps
+# from the program's root source to the drawing key, the kind and the
+# shape. Before each replay ``DrawPlan.fill`` walks that plan from the
+# call's own root key and draws every entry into a static buffer with
+# ``KeyedDraws.fill``; inside the graph a ``TapeDraws`` hands the buffers
+# out in recorded order. Derived draws (``randint``'s scaling by a ``hi``
+# that lives on the device, ``choice``, ``distinct_pair``'s top-2) run
+# inside the graph on the raw buffers, so the numbers are bitwise those
+# of ``KeyedDraws`` drawing directly.
+
+class DrawPlan:
+    """The raw draws of one program run, in order: (path, kind, shape);
+    a path's steps are ("split", n, i) and ("fold", i)."""
+
+    def __init__(self):
+        self.entries: list[tuple] = []
+
+    def buffers(self, device) -> list[torch.Tensor]:
+        """One static float32 buffer per entry."""
+        return [torch.empty(shape, dtype=torch.float32, device=device)
+                for _, _, shape in self.entries]
+
+    def fill(self, root: "KeyedDraws", bufs: list[torch.Tensor]) -> None:
+        """Draw every entry into ``bufs`` from the key its path reaches
+        from ``root`` (``root``'s own ``split`` / ``fold_in``)."""
+        if not isinstance(root, KeyedDraws):
+            raise TypeError(
+                f"a draw plan replays KeyedDraws; got {type(root).__name__}")
+        for (path, kind, _), buf in zip(self.entries, bufs):
+            src = root
+            for step in path:
+                src = (src.split(step[1])[step[2]] if step[0] == "split"
+                       else src.fold_in(step[1]))
+            src.fill(kind, buf)
+
+
+class PlanRecorder(_Derived):
+    """A ``KeyedDraws`` that records its raw draws into a ``DrawPlan``
+    while drawing them (the eager run a plan is taken from)."""
+
+    def __init__(self, src: "KeyedDraws", plan: DrawPlan | None = None,
+                 path: tuple = ()):
+        self.src, self.path = src, path
+        self.plan = DrawPlan() if plan is None else plan
+
+    def split(self, n: int):
+        return [PlanRecorder(c, self.plan, self.path + (("split", n, i),))
+                for i, c in enumerate(self.src.split(n))]
+
+    def fold_in(self, i: int):
+        return PlanRecorder(self.src.fold_in(i), self.plan,
+                            self.path + (("fold", int(i)),))
+
+    def _raw(self, kind, shape, device):
+        self.plan.entries.append((self.path, kind, tuple(shape)))
+        return getattr(self.src, kind)(shape, device)
+
+    def normal(self, shape, device):
+        return self._raw("normal", shape, device)
+
+    def uniform(self, shape, device):
+        return self._raw("uniform", shape, device)
+
+    def gumbel(self, shape, device):
+        return self._raw("gumbel", shape, device)
+
+    def sgld(self, n_chains: int | None, n_steps: int):
+        return _KeyedSgld(self, 1 if n_chains is None else n_chains)
+
+
+class TapeDraws(_Derived):
+    """The replay side of a ``DrawPlan``: hands out its filled buffers in
+    recorded order (``split`` and ``fold_in`` return the tape itself). A
+    draw of another kind or shape than the plan's raises: the program's
+    draws must not depend on its data."""
+
+    def __init__(self, plan: DrawPlan, bufs: list[torch.Tensor]):
+        self.plan, self.bufs, self.pos = plan, bufs, 0
+
+    def split(self, n: int):
+        return [self] * n
+
+    def fold_in(self, i: int):
+        return self
+
+    def _raw(self, kind, shape, device):
+        if self.pos >= len(self.bufs):
+            raise RuntimeError(f"draw plan exhausted: an extra {kind} "
+                               f"draw of shape {tuple(shape)}")
+        _, want_kind, want_shape = self.plan.entries[self.pos]
+        if (want_kind, want_shape) != (kind, tuple(shape)):
+            raise RuntimeError(
+                f"draw plan entry {self.pos}: {kind} {tuple(shape)} drawn, "
+                f"{want_kind} {want_shape} recorded")
+        self.pos += 1
+        return self.bufs[self.pos - 1]
+
+    def normal(self, shape, device):
+        return self._raw("normal", shape, device)
+
+    def uniform(self, shape, device):
+        return self._raw("uniform", shape, device)
+
+    def gumbel(self, shape, device):
+        return self._raw("gumbel", shape, device)
+
+    def sgld(self, n_chains: int | None, n_steps: int):
+        return _KeyedSgld(self, 1 if n_chains is None else n_chains)
+
+
+class BucketDraws:
+    """The draws of a batch padded to ``rows`` rows from a ladder whose top
+    bucket is ``top``: a per-row draw (leading dimension ``rows``) is made
+    at ``top`` rows and cut to ``rows``, so a live row draws the same
+    numbers in every bucket, whatever the generator's layout. SGLD draws
+    (per chain, not per row) pass through unchanged. It carries the draws
+    an act makes (the raw kinds, ``distinct_pair``, ``sgld``)."""
+
+    def __init__(self, src, rows: int, top: int):
+        self.src, self.rows, self.top = src, rows, top
+
+    def _wide(self, shape) -> tuple | None:
+        shape = tuple(shape)
+        if shape and shape[0] == self.rows and self.rows != self.top:
+            return (self.top,) + shape[1:]
+        return None
+
+    def split(self, n: int):
+        return [BucketDraws(c, self.rows, self.top)
+                for c in self.src.split(n)]
+
+    def fold_in(self, i: int):
+        return BucketDraws(self.src.fold_in(i), self.rows, self.top)
+
+    def _per_row(self, name, shape, device):
+        wide = self._wide(shape)
+        if wide is None:
+            return getattr(self.src, name)(shape, device)
+        return getattr(self.src, name)(wide, device)[:self.rows]
+
+    def normal(self, shape, device):
+        return self._per_row("normal", shape, device)
+
+    def uniform(self, shape, device):
+        return self._per_row("uniform", shape, device)
+
+    def gumbel(self, shape, device):
+        return self._per_row("gumbel", shape, device)
+
+    def distinct_pair(self, b: int, n: int, device):
+        if b == self.rows and b != self.top:
+            return self.src.distinct_pair(self.top, n, device)[:b]
+        return self.src.distinct_pair(b, n, device)
+
+    def sgld(self, n_chains: int | None, n_steps: int):
+        return self.src.sgld(n_chains, n_steps)

@@ -89,12 +89,10 @@ def run(draws, env: EnvData, policy: RoutingPolicy, batch: int = 1,
     and retirements before each tick's act, regret against the best active
     arm; ``aux_fn(state, a1, a2)`` is read after each act and stacked;
     ``pref_fn(step, x_b) -> (B,)`` serves each query under the tilt
-    pref_i*cost_k through ``act_pref``/``update_pref``. Representation
-    refresh (``refresh_schedule``) is not ported yet and raises."""
-    if refresh_schedule is not None:
-        raise NotImplementedError(
-            "refresh_schedule is not ported to repro_torch yet (refresh "
-            "slice); run it on the JAX package")
+    pref_i*cost_k through ``act_pref``/``update_pref``;
+    ``refresh_schedule`` (``refresh.RefreshSchedule``) swaps the pool's
+    whole embedding table at its steps, after that step's membership
+    events and before its act."""
     spec = _as_delay(delay)
     t_total = env.x.shape[0] - env.x.shape[0] % batch
     if t_total == 0:
@@ -108,8 +106,20 @@ def run(draws, env: EnvData, policy: RoutingPolicy, batch: int = 1,
 
     k_init, k_loop = draws.split(2)
     state = policy.init(k_init)
-    if pool_schedule is not None:
+    any_sched = pool_schedule is not None or refresh_schedule is not None
+    if any_sched:
         mp.get_pool(state)        # fail fast on a non-pooled policy
+    if refresh_schedule is not None:
+        from repro_torch.refresh.trainer import apply_refresh
+
+    def fold_pool_events(state, s):
+        """Membership events first, then the table swap due at step s."""
+        pool = mp.get_pool(state)
+        if pool_schedule is not None:
+            pool = mp.apply_events(pool, pool_schedule, s)
+        if refresh_schedule is not None:
+            pool = apply_refresh(pool, refresh_schedule, s)
+        return mp.set_pool(state, pool)
     keys = k_loop.split(n_steps)
     rows = torch.arange(batch, device=dev)
     ones_b = torch.ones((batch,), dtype=torch.bool, device=dev)
@@ -138,17 +148,17 @@ def run(draws, env: EnvData, policy: RoutingPolicy, batch: int = 1,
         return sample_preference(k, env.feedback_scale * u_b[rows, a1l],
                                  env.feedback_scale * u_b[rows, a2l])
 
-    def regret(state, u_b, a1, a2):
-        active = mp.get_pool(state).active if pool_schedule is not None \
-            else None
+    def regret(state, u_b, a1, a2, masked):
+        # against the best active arm: the reference's ticks with any
+        # schedule, its delayed ticks with a pool schedule
+        active = mp.get_pool(state).active if masked else None
         return instant_regret(u_b, a1, a2, active=active)
 
     regrets, aux = [], []
     if spec.trivial:
         for s in range(n_steps):
-            if pool_schedule is not None:
-                state = mp.set_pool(state, mp.apply_events(
-                    mp.get_pool(state), pool_schedule, s))
+            if any_sched:
+                state = fold_pool_events(state, s)
             k_act, k_fb = keys[s].split(2)
             state, a1, a2 = do_act(k_act, state, s)
             y = feedback(k_fb, utils[s], a1, a2)
@@ -157,7 +167,7 @@ def run(draws, env: EnvData, policy: RoutingPolicy, batch: int = 1,
                                            ones_b)
             else:
                 state = policy.update(state, x[s], a1, a2, y)
-            regrets.append(regret(state, utils[s], a1, a2))
+            regrets.append(regret(state, utils[s], a1, a2, any_sched))
             if aux_fn is not None:
                 aux.append(aux_fn(state, a1, a2))
         return _finish(regrets, state, aux, aux_fn)
@@ -191,9 +201,8 @@ def run(draws, env: EnvData, policy: RoutingPolicy, batch: int = 1,
 
     for s in range(n_steps):
         k_act, k_fb, k_lag = keys[s].split(3)
-        if pool_schedule is not None:
-            state = mp.set_pool(state, mp.apply_events(
-                mp.get_pool(state), pool_schedule, s))
+        if any_sched:
+            state = fold_pool_events(state, s)
         slot = s % r
         args = (ring["x"][slot], ring["a1"][slot], ring["a2"][slot],
                 ring["y"][slot])
@@ -248,7 +257,8 @@ def run(draws, env: EnvData, policy: RoutingPolicy, batch: int = 1,
             if prefs is not None:
                 ring["pref"][w] = prefs[s]
             slot_valid[w], slot_issued[w] = True, s
-        regrets.append(regret(state, utils[s], a1, a2))
+        regrets.append(regret(state, utils[s], a1, a2,
+                              pool_schedule is not None))
         if aux_fn is not None:
             aux.append(aux_fn(state, a1, a2))
     return _finish(regrets, state, aux, aux_fn)

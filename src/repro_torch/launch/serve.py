@@ -1,5 +1,5 @@
 """Serving driver: routed inference over a pool of candidate models
-(counterpart of ``repro/launch/serve.py``, synchronous rounds).
+(counterpart of ``repro/launch/serve.py``).
 
 Queries stream in, the ``RouterService`` picks two candidates per query,
 both can generate (``--with-generation``: greedy decode on reduced
@@ -11,10 +11,18 @@ profile, and the posterior adapts online.
         --budget 0.5 --pool-schedule "+arctic-480b@5"
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --rounds 3 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arrival poisson:2000 --buckets 4,8 --rounds 2 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --refresh-every 16
 
-It runs on the CUDA card unless ``--device cpu`` is given. The mesh,
-streaming and refresh flags of the reference exit with the ROADMAP item
-that brings them.
+``--arrival`` serves an event-time arrival stream instead of synchronous
+rounds: requests are cut into dynamic batches (``--max-wait``), padded
+onto the ``--buckets`` ladder and routed through ``route_stream`` (one
+CUDA graph per bucket on the card); it reports routed queries per second
+and p50 / p99 latency (event-time wait plus measured route time).
+``--refresh-every`` runs the online representation refresh loop. It runs
+on the CUDA card unless ``--device cpu`` is given. ``--mesh`` exits with
+the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -31,10 +39,11 @@ from repro_torch.core.btl import sample_preference
 from repro_torch.core.draws import KeyedDraws
 from repro_torch.core.policy import cost_tilt_vector, fgts_policy
 from repro_torch.data.pool import synthetic_pool
-from repro_torch.data.synth import CorpusConfig, sample_queries
+from repro_torch.data.synth import CorpusConfig, make_split, sample_queries
 from repro_torch.device import resolve_device
 from repro_torch.encoder import EncoderConfig, init_encoder
 from repro_torch.models import lm
+from repro_torch.serving import stream
 from repro_torch.serving.router_service import (RouterService,
                                                 RouterServiceConfig)
 
@@ -72,11 +81,6 @@ DEFAULT_POOL = ["granite-3-2b", "qwen2-7b", "mamba2-1.3b",
 # ROADMAP item that brings each
 NOT_YET = {
     "--mesh": "multi-device serving, ROADMAP Queue 1 item 5",
-    "--arrival": "streaming serving, ROADMAP Queue 1 item 2",
-    "--buckets": "streaming serving, ROADMAP Queue 1 item 2",
-    "--max-wait": "streaming serving, ROADMAP Queue 1 item 2",
-    "--refresh-every": "the refresh loop, ROADMAP Queue 1 item 3",
-    "--refresh-naive": "the refresh loop, ROADMAP Queue 1 item 3",
 }
 
 
@@ -128,13 +132,33 @@ def parse_args(argv=None):
                     help="per-request preference tilts: 'grid:V1,V2,...' "
                          "cycles the listed cost weights over batch rows, "
                          "'uniform:LO,HI' samples one per request")
+    ap.add_argument("--refresh-every", type=int, default=0, metavar="DUELS",
+                    help="online representation refresh: once this many new "
+                         "duels are in the log, re-run CCFT against the "
+                         "logged outcomes (inverse-propensity-calibrated) "
+                         "and hot-swap the embedding table (0 = off; "
+                         "implies a dynamic pool)")
+    ap.add_argument("--refresh-naive", action="store_true",
+                    help="refresh ablation: score logged duels without the "
+                         "IPW correction for the router's selection bias")
+    ap.add_argument("--arrival", default=None, metavar="SPEC",
+                    help="serve an event-time arrival stream instead of "
+                         "synchronous rounds: 'poisson:RATE', "
+                         "'bursty:RATE[,BURST]' or "
+                         "'diurnal:RATE[,DEPTH[,PERIOD]]' (requests/sec); "
+                         "total requests = --rounds * --batch")
+    ap.add_argument("--buckets", default="8,16,32,64", metavar="B1,B2,...",
+                    help="pow2 padding-bucket ladder for --arrival (one "
+                         "program, a CUDA graph on the card, per bucket)")
+    ap.add_argument("--max-wait", type=float,
+                    default=stream.DEFAULT_MAX_WAIT, metavar="SECONDS",
+                    help="longest a request may wait for batchmates before "
+                         "its batch is cut")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     for flag in NOT_YET:
-        ap.add_argument(flag, default=None,
-                        action="store_true" if flag == "--refresh-naive"
-                        else "store", help=argparse.SUPPRESS)
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for flag, why in NOT_YET.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
@@ -174,6 +198,23 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
     pref_sampler = make_pref_sampler(args.pref_dist)
 
+    buckets = spec = None
+    if args.arrival:
+        for flag, bad in (("--pool-schedule", args.pool_schedule),
+                          ("--autopilot", args.autopilot),
+                          ("--with-generation", args.with_generation),
+                          ("--feedback-delay", args.feedback_delay)):
+            if bad:
+                raise SystemExit(
+                    f"--arrival streams the core routing loop; {flag} is a "
+                    f"synchronous-rounds feature")
+        try:
+            spec = stream.parse_arrival(args.arrival)
+            buckets = stream.validate_buckets(
+                int(v) for v in args.buckets.split(","))
+        except ValueError as e:
+            raise SystemExit(f"[serve] {e}") from None
+
     events = []
     if args.pool_schedule:
         for tok in args.pool_schedule.split(","):
@@ -198,12 +239,18 @@ def main(argv=None):
     pool = all_entries[:len(pool_names)]
     arrivals = dict(zip(arrival_names, all_entries[len(pool_names):]))
     k_max = len(pool_names) + len(arrival_names) \
-        if (events or args.autopilot) else None
+        if (events or args.autopilot or args.refresh_every) else None
     ap_cfg = None
     if args.autopilot:
         from repro_torch.autopilot import AutopilotConfig
         ap_cfg = AutopilotConfig(every=args.autopilot_every,
                                  budget=args.budget)
+    rcfg = None
+    if args.refresh_every:
+        from repro_torch.refresh import RefreshConfig
+        rcfg = RefreshConfig(every=args.refresh_every, n_categories=n_cats,
+                             causal=not args.refresh_naive, epochs=1,
+                             steps_per_epoch=10, batch=32)
     enc_cfg = EncoderConfig(d_model=emb_dim, n_layers=2, n_heads=4, d_ff=256,
                             max_len=32)
     enc_params = init_encoder(gen, enc_cfg, device=dev)
@@ -218,7 +265,8 @@ def main(argv=None):
                             policy_factory=POLICIES[args.policy],
                             feedback_expiry=args.feedback_expiry,
                             stale_half_life=args.stale_half_life,
-                            k_max=k_max, autopilot=ap_cfg, seed=args.seed),
+                            k_max=k_max, autopilot=ap_cfg, refresh=rcfg,
+                            buckets=buckets, seed=args.seed),
         device=dev)
 
     gen_models = {}
@@ -228,6 +276,30 @@ def main(argv=None):
             gen_models[name] = (cfg, lm.init_params(gen, cfg, device=dev))
 
     cc = CorpusConfig(n_categories=n_cats, seq_len=32)
+    refresh_tick = None
+    if args.refresh_every:
+        from repro_torch.refresh import refresh_table
+        # the offline corpus CCFT was fine-tuned on: the refresh re-runs it
+        # with anchors tilted to the live category mix
+        offline = make_split(torch.Generator().manual_seed(args.seed + 6),
+                             16, cc, dev)
+
+        def refresh_tick(step):
+            if not svc.refresh_due():
+                return
+            table, info = refresh_table(
+                ks[7].fold_in(step), svc.export_log(), enc_params, enc_cfg,
+                offline, rcfg, n_models, costs=svc.costs)
+            svc.apply_table(table)
+            mix = np.round(info["mix"].cpu().numpy(), 2)
+            print(f"[serve] step {step}: representation refresh on "
+                  f"{info['n_duels']} logged duels (mix={mix}, "
+                  f"{'IPW' if rcfg.causal else 'naive'} scores) — table "
+                  f"hot-swapped")
+    if args.arrival:
+        row_of_slot = np.arange(n_models) % skills.shape[0]
+        return _serve_stream(args, spec, buckets, svc, skills, row_of_slot,
+                             cc, n_cats, ks, gen, pref_sampler, refresh_tick)
     regrets, pref_log, duel_cost_log = [], [], []
     in_flight = []            # (due_round, tickets, y): votes on their way
     # slot -> latent-skills row (arrivals may land in any freed slot)
@@ -264,7 +336,8 @@ def main(argv=None):
         x = svc.embed(toks, mask)
         prefs = None if pref_sampler is None else pref_sampler(
             ks[5].fold_in(r), r, args.batch, dev)
-        a1, a2, tickets = svc.route_batch(x, prefs=prefs)
+        a1, a2, tickets = svc.route_batch(
+            x, prefs=prefs, cats=cats if args.refresh_every else None)
         if prefs is not None:
             pref_log.append(prefs.cpu().numpy())
             duel_cost_log.append((0.5 * (svc.costs[a1.long()]
@@ -298,6 +371,8 @@ def main(argv=None):
         for _, due_tickets, due_y in due:
             svc.feedback_batch(due_tickets, due_y)
         svc.expire_pending()
+        if refresh_tick is not None:
+            refresh_tick(r)
         # regret against the best *active* arm
         if svc.dynamic:
             act = torch.from_numpy(svc.active_mask()).to(dev)
@@ -349,6 +424,73 @@ def main(argv=None):
               f"cost_ema={st['cost_ema']:.3f} active={alive} "
               f"candidates={cands}")
     return dict(regrets=regrets, stats=stats)
+
+
+def _serve_stream(args, spec, buckets, svc, skills, row_of_slot, cc, n_cats,
+                  ks, gen, pref_sampler, refresh_tick=None):
+    """Event-time streaming serving: cut the simulated arrival stream into
+    dynamic batches (``--max-wait`` deadline forming), route them through
+    the bucket programs, and report routed queries per second and the
+    latency tails: a request's event-time wait for its batch plus the
+    measured route time (ending in a sync on the card)."""
+    dev = svc.device
+    n_total = args.rounds * args.batch
+    times = stream.arrival_times(spec, n_total, seed=args.seed)
+    batches = stream.form_batches(times, buckets, args.max_wait)
+    print(f"[serve] streaming {args.arrival}: {n_total} requests -> "
+          f"{len(batches)} batches on buckets {buckets} "
+          f"(max_wait {args.max_wait * 1e3:g}ms)")
+    lat, regrets = [], []
+    report = max(len(batches) // 8, 1)
+    t0 = time.time()
+    for i, fb in enumerate(batches):
+        cats = torch.randint(0, n_cats, (fb.n,), generator=gen)
+        toks, mask = sample_queries(gen, cats, cc, dev)
+        cats = cats.to(dev)
+        # embed at bucket width: one encoder shape per bucket, not per n
+        x = svc.embed(stream.pad_rows(toks, fb.bucket),
+                      stream.pad_rows(mask, fb.bucket))[:fb.n]
+        prefs = None if pref_sampler is None else pref_sampler(
+            ks[5].fold_in(i), i, fb.n, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_r = time.time()
+        a1, a2, tickets = svc.route_stream(
+            x, prefs=prefs, cats=cats if refresh_tick is not None else None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        service = time.time() - t_r
+        lat.append(fb.t_form - times[fb.start:fb.start + fb.n] + service)
+        utils = skills[torch.from_numpy(row_of_slot).to(dev)][:, cats].T
+        rows = torch.arange(fb.n, device=dev)
+        y = sample_preference(ks[3].fold_in(i), 8.0 * utils[rows, a1.long()],
+                              8.0 * utils[rows, a2.long()])
+        svc.feedback_stream(tickets, y)
+        if refresh_tick is not None:
+            refresh_tick(i)
+        reg = torch.mean(utils.amax(-1) - 0.5 * (utils[rows, a1.long()]
+                                                 + utils[rows, a2.long()]))
+        regrets.append(reg.item())
+        if i % report == 0:
+            print(f"[serve] batch {i}: n={fb.n} bucket={fb.bucket} "
+                  f"wait_ms={(fb.t_form - times[fb.start]) * 1e3:.1f} "
+                  f"regret={regrets[-1]:.4f} ({time.time() - t0:.1f}s)")
+    wall = time.time() - t0
+    lat = np.concatenate(lat)
+    stats = svc.service_stats()
+    early = np.mean(regrets[:max(len(regrets) // 4, 1)])
+    late = np.mean(regrets[-max(len(regrets) // 4, 1):])
+    pad_eff = n_total / sum(fb.bucket for fb in batches)
+    qps = n_total / wall
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    print(f"[serve] streaming done: qps={qps:.0f} p50={p50 * 1e3:.2f}ms "
+          f"p99={p99 * 1e3:.2f}ms pad={pad_eff:.2f} "
+          f"regret early={early:.4f} late={late:.4f} "
+          f"(adaptive: {'yes' if late < early else 'no'}) "
+          f"routed={stats['n_routed']} folded={stats['n_folded']} "
+          f"unresolved={stats['pending']}")
+    return dict(regrets=regrets, stats=stats, qps=qps, p50_s=p50, p99_s=p99,
+                batches=len(batches), padding_efficiency=pad_eff)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Fixed-capacity pending-duels ring: the async-feedback subsystem
-(counterpart of ``repro/serving/feedback_queue.py``, global addressing).
+(counterpart of ``repro/serving/feedback_queue.py``).
 
 Votes never arrive in lockstep with routing: users answer seconds to
 hours later, out of order, twice or never. ``route_batch`` *issues* duels
@@ -10,6 +10,13 @@ update. Slots are ``ticket % capacity``, so the buffer is a ring: with
 more than ``capacity`` duels in flight the oldest are overwritten and
 their tickets stop validating (expiry by overwrite); ``expire`` adds
 age-based expiry.
+
+Two addressing modes share the ``PendingDuels`` tuple: **global**
+(``enqueue`` / ``resolve``: one ticket counter, slot = ticket % capacity;
+the tick-batch service) and **shard-local** (``enqueue_stream`` /
+``resolve_stream``: a ``(shards,)`` counter, strided tickets ``seq *
+n_shards + shard``, a padding mask; the streaming service, which passes
+one shard).
 
 Tickets, slots and ages are modular int32: a ticket or a tick that
 crosses 2^31 wraps, and every comparison stays right across the wrap as
@@ -23,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.fgts import ring_slots
+from repro_torch.core.fgts import ring_slots, scatter_drop
 from repro_torch.device import resolve_device
 
 
@@ -40,7 +47,9 @@ class PendingDuels(NamedTuple):
     ticket: torch.Tensor       # (C,)  int32: ticket holding the slot
     issued_at: torch.Tensor    # (C,)  int32: service tick at issue
     valid: torch.Tensor        # (C,)  bool: slot holds an unresolved duel
-    next_ticket: torch.Tensor  # ()    int32: tickets issued so far
+    next_ticket: torch.Tensor  # ()    int32: tickets issued so far; in
+    #                            the shard-local mode a (S,) per-shard
+    #                            sequence counter (see enqueue_stream)
     pref: torch.Tensor | None = None  # (C,) f32: per-duel preference
     prop: torch.Tensor | None = None  # (C,) f32: act-time pair propensity
     cat: torch.Tensor | None = None   # (C,) int32: query category (-1)
@@ -74,10 +83,13 @@ def as_i32(v, device) -> torch.Tensor:
     return torch.full((), wrap32(v), dtype=torch.int32, device=device)
 
 
-def init_pending(capacity: int, dim: int, device=None) -> PendingDuels:
+def init_pending(capacity: int, dim: int, device=None,
+                 shards: int | None = None) -> PendingDuels:
     """Empty ring. ``capacity`` must be a power of two: only then does
     slot = ticket % capacity stay injective on live tickets across the
-    int32 wrap."""
+    int32 wrap. ``shards`` switches to the shard-local streaming layout, a
+    (shards,) ``next_ticket`` for ``enqueue_stream``'s strided tickets
+    (a power of two that divides the capacity)."""
     if capacity < 1 or capacity & (capacity - 1):
         raise ValueError(
             f"PendingDuels capacity must be a power of two for "
@@ -85,6 +97,17 @@ def init_pending(capacity: int, dim: int, device=None) -> PendingDuels:
             f"(slot = ticket % capacity only stays injective on live "
             f"tickets when capacity divides 2^32); got {capacity} — round "
             f"up with feedback_queue.next_pow2")
+    if shards is not None:
+        if shards < 1 or shards & (shards - 1):
+            raise ValueError(
+                f"shard-local ring: shards must be a power of two so the "
+                f"strided ticket encoding (ticket = seq * shards + shard) "
+                f"is exactly invertible across the int32 wrap; got "
+                f"{shards}")
+        if capacity % shards:
+            raise ValueError(
+                f"shard-local ring: capacity {capacity} must divide over "
+                f"{shards} shards")
     dev = resolve_device(device)
 
     def z(*shape, dt=torch.int32):
@@ -96,7 +119,7 @@ def init_pending(capacity: int, dim: int, device=None) -> PendingDuels:
         ticket=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
         issued_at=z(capacity),
         valid=z(capacity, dt=torch.bool),
-        next_ticket=z(),
+        next_ticket=z() if shards is None else z(shards),
         pref=z(capacity, dt=torch.float32),
         prop=torch.ones((capacity,), dtype=torch.float32, device=dev),
         cat=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
@@ -194,3 +217,97 @@ def expire(q: PendingDuels, now, max_age: int):
 def pending_count(q: PendingDuels) -> torch.Tensor:
     """In-flight (issued, unresolved, unexpired) duels, a 0-d int32."""
     return torch.sum(q.valid, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Shard-local streaming mode: masked enqueue, strided tickets, local resolve
+# ---------------------------------------------------------------------------
+#
+# Every array these functions touch is one shard's: the (C/S, d) rows of
+# the ring it owns, its element of the per-shard counter, the rows of the
+# batch it routed. ``shard`` is the shard's index and ``n_shards`` the
+# shard count (a power of two); one device passes 0 and 1. A ticket encodes
+# its issuing shard (ticket = seq * n_shards + shard), so enqueue and
+# resolve never address another shard's rows.
+
+def enqueue_stream(q: PendingDuels, x: torch.Tensor, a1: torch.Tensor,
+                   a2: torch.Tensor, now, pref: torch.Tensor,
+                   mask: torch.Tensor, shard, n_shards: int,
+                   prop: torch.Tensor | None = None,
+                   cat: torch.Tensor | None = None):
+    """Masked shard-local issue; returns (ring', tickets (B,)). Rows where
+    ``mask`` is False (bucket padding) are never written and get ticket -1.
+
+    Live rows take consecutive sequence numbers (a cumsum rank, so the
+    slots written are those a compacted batch would write) and their
+    tickets are strided by the shard count; slot = seq % cap. When more
+    live rows than slots arrive in one call only the last ``cap``
+    survive, as ``enqueue``'s expiry by overwrite."""
+    cap, dev = q.x.shape[0], q.x.device
+    mask = mask.to(torch.bool)
+    mask_i = mask.to(torch.int32)
+    rank = torch.cumsum(mask_i, dim=0, dtype=torch.int32) - 1
+    n = torch.sum(mask_i, dtype=torch.int32)
+    seq = (q.next_ticket[0] if q.next_ticket.dim() else q.next_ticket) \
+        + rank
+    shard = as_i32(shard, dev)
+    tickets = torch.where(mask, seq * n_shards + shard, -1)
+    write = mask & (rank >= n - cap)              # over capacity: last C
+    idx = torch.where(write, torch.remainder(seq, cap), cap).long()
+    now = as_i32(now, dev)
+    b = mask.shape[0]
+    if prop is None:
+        prop = torch.ones((b,), dtype=torch.float32, device=dev)
+    if cat is None:
+        cat = torch.full((b,), -1, dtype=torch.int32, device=dev)
+
+    def put(buf, v):                              # index cap: dropped
+        return None if buf is None else scatter_drop(buf, idx, v)
+    return q._replace(
+        x=put(q.x, x), a1=put(q.a1, a1), a2=put(q.a2, a2),
+        ticket=put(q.ticket, tickets), issued_at=put(q.issued_at,
+                                                     now.expand(b)),
+        valid=put(q.valid, torch.ones((b,), dtype=torch.bool, device=dev)),
+        next_ticket=q.next_ticket + n, pref=put(q.pref, pref),
+        prop=put(q.prop, prop), cat=put(q.cat, cat)), tickets
+
+
+def resolve_stream(q: PendingDuels, tickets: torch.Tensor, y: torch.Tensor,
+                   mask: torch.Tensor, now, shard, n_shards: int,
+                   max_age: int | None = None):
+    """Shard-local twin of ``resolve`` with a padding mask; returns
+    (ring', ``ResolvedDuels``).
+
+    A ticket is owned by shard ``ticket % n_shards``; rows this shard does
+    not own, and padding rows, never validate. The sequence number is
+    recovered exactly, ``(ticket - shard) // n_shards``, and the full
+    stored ticket compared, so stale, overwritten, over-age and duplicate
+    deliveries behave as in ``resolve`` (first delivery wins)."""
+    cap, dev = q.x.shape[0], q.x.device
+    tickets = tickets.to(torch.int32)
+    now = as_i32(now, dev)
+    shard = as_i32(shard, dev)
+    owner = torch.remainder(tickets, n_shards) == shard
+    seq = torch.div(tickets - shard, n_shards, rounding_mode="floor")
+    slots = torch.remainder(seq, cap).long()
+    age = now - q.issued_at[slots]                  # int32: wraps
+    matched = (owner & mask.to(torch.bool) & q.valid[slots]
+               & (q.ticket[slots] == tickets))
+    b = tickets.shape[0]
+    rows = torch.arange(b, dtype=torch.int32, device=dev)
+    first = torch.full((cap,), b, dtype=torch.int32, device=dev) \
+        .scatter_reduce(0, slots, torch.where(matched, rows, b), "amin",
+                        include_self=True)
+    matched = matched & (first[slots] == rows)
+    ok = matched & (age >= 0)
+    if max_age is not None:
+        ok = ok & (age <= max_age)
+    hit = torch.zeros((cap,), dtype=torch.int32, device=dev) \
+        .scatter_reduce(0, slots, matched.to(torch.int32), "amax",
+                        include_self=True)
+    batch = ResolvedDuels(
+        x=q.x[slots], a1=q.a1[slots], a2=q.a2[slots], y=y, age=age, ok=ok,
+        pref=None if q.pref is None else q.pref[slots],
+        prop=None if q.prop is None else q.prop[slots],
+        cat=None if q.cat is None else q.cat[slots])
+    return q._replace(valid=q.valid & (hit == 0)), batch

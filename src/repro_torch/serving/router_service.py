@@ -1,6 +1,5 @@
 """Batched routing service: the production wrapper around a RoutingPolicy
-(counterpart of ``repro/serving/router_service.py``, tick-batch path on
-one device).
+(counterpart of ``repro/serving/router_service.py`` on one device).
 
 A deployment keeps one ``RouterService`` per model pool. Requests arrive
 in batches; the service embeds them (encoder), then drives a batched
@@ -17,18 +16,39 @@ into the policy. The ring checkpoints with the posterior and the draw
 source's key, so a restarted service routes exactly the pairs the
 uninterrupted one would have.
 
+Streaming (``cfg.buckets``): ``route_stream`` / ``feedback_stream`` pad a
+formed batch of any size to the next bucket of a power-of-two ladder and
+run one fused program per bucket: route (selection, masked enqueue into a
+shard-local ring, cost accounting, the device tick advanced in place),
+feedback (resolve and masked fold), resolve (for policies without a
+masked fold). On the CPU each runs eagerly; on a card each is captured
+once, at construction, as a CUDA graph over static buffers (the
+counterpart of the reference's ahead-of-time programs with donated
+buffers) and replayed: the graph writes the state, ring, tick and
+accumulators back in place, and every control-plane change writes into
+the same tensors, so nothing is ever captured again. The act's draws
+replay through a ``core.draws.DrawPlan`` filled before each replay.
+
+Refresh (``cfg.refresh``): every issued duel carries its act-time pair
+propensity and query category through the ring, and every fold also
+appends the resolved duels to an exportable ``refresh.DuelLog``;
+``export_log`` / ``refresh_due`` / ``apply_table`` run the cycle.
+
 Host syncs: ``route_batch``, the masked and pref folds of
-``feedback_batch``, ``feedback_direct``, ``spend`` and ``seed_replay``
-never read the card (host scalars enter as fills, counts stay 0-d device
-tensors). The control-plane reads (``pending_count``, ``expire_pending``,
+``feedback_batch``, ``route_stream``, the fused ``feedback_stream``,
+``feedback_direct``, ``spend`` and ``seed_replay`` never read the card
+(host scalars enter as fills, counts stay 0-d device tensors). The
+control-plane reads (``pending_count``, ``expire_pending``,
 ``service_stats``, ``active_mask``, ``autopilot_status``, ``add_model``,
-``restore`` and the compaction fold of policies without a masked update)
+``restore``, ``export_log``, ``refresh_due``, ``apply_table`` with
+refresh, and the compaction fold of policies without a masked update)
 each make one explicit ``.cpu()`` transfer of the tensors they need, and
 say so.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Callable, Optional
 
@@ -38,14 +58,19 @@ import torch
 from repro_torch import autopilot as ap
 from repro_torch.core import fgts
 from repro_torch.core import model_pool as mp
-from repro_torch.core.draws import KeyedDraws
+from repro_torch.core.draws import (BucketDraws, KeyedDraws, PlanRecorder,
+                                    TapeDraws)
 from repro_torch.core.policy import (RoutingPolicy, fgts_policy,
                                      staleness_weight, with_staleness)
 from repro_torch.data.pool import PoolEntry
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.encoder.model import EncoderConfig, encode
+from repro_torch.models.layers import tree_leaves, tree_unflatten
+from repro_torch.refresh import duel_log as dl
+from repro_torch.refresh.trainer import RefreshConfig
 
 from . import feedback_queue as fq
+from . import stream
 
 
 @dataclasses.dataclass
@@ -69,10 +94,18 @@ class RouterServiceConfig:
     feedback_capacity: int = 1024  # max in-flight duels (ring: oldest expire)
     feedback_expiry: Optional[int] = None   # max age in ticks; None = never
     stale_half_life: Optional[float] = None  # age-discount stale votes
-    # -- streaming serving (ROADMAP Queue 1 item 2, streaming part) ---------
+    # -- streaming serving --------------------------------------------------
+    # Padding-bucket ladder (sorted powers of two): route_stream /
+    # feedback_stream run one fused program per bucket (a CUDA graph on a
+    # card), and route_batch / feedback_batch delegate to them. None = the
+    # tick-batch surface.
     buckets: Optional[tuple] = None
-    # -- online representation refresh (ROADMAP Queue 1 item 3) -------------
-    refresh: Optional[object] = None
+    # -- online representation refresh --------------------------------------
+    # Standing CCFT refresh loop (needs k_max): act-time propensities and
+    # query categories ride the ring with every duel, resolved duels fold
+    # into an exportable refresh.DuelLog, apply_table swaps the refreshed
+    # table in. None = no logging.
+    refresh: Optional[RefreshConfig] = None
     # -- pool autopilot -----------------------------------------------------
     autopilot: Optional[ap.AutopilotConfig] = None
 
@@ -114,16 +147,6 @@ class RouterService:
             raise NotImplementedError(
                 "RouterService(mesh=...): the mesh paths come with "
                 "multi-device serving (ROADMAP Queue 1 item 5)")
-        if cfg.buckets is not None:
-            raise NotImplementedError(
-                "RouterServiceConfig(buckets=...): streaming serving "
-                "(route_stream / feedback_stream on one CUDA graph per "
-                "bucket) comes with the streaming part of ROADMAP Queue 1 "
-                "item 2")
-        if cfg.refresh is not None:
-            raise NotImplementedError(
-                "RouterServiceConfig(refresh=...): the representation "
-                "refresh loop comes with ROADMAP Queue 1 item 3")
         if cfg.use_kernel is False:
             raise NotImplementedError(
                 "RouterServiceConfig(use_kernel=False): the plain selection "
@@ -189,15 +212,33 @@ class RouterService:
                 f"argument the factory receives")
         # the ring's wrapping slot arithmetic needs a power-of-two
         # capacity: round the configured one up
-        self.pending = fq.init_pending(fq.next_pow2(cfg.feedback_capacity),
-                                       self.a_emb.shape[1], device=dev)
-        self.tick = 0                  # route_batch calls (the clock)
+        capacity = fq.next_pow2(cfg.feedback_capacity)
+        dim = self.a_emb.shape[1]
+        self.streaming = cfg.buckets is not None
+        if self.streaming:
+            self.buckets = stream.validate_buckets(cfg.buckets)
+            self.pending = fq.init_pending(capacity, dim, device=dev,
+                                           shards=1)
+        else:
+            self.pending = fq.init_pending(capacity, dim, device=dev)
+        self.tick = 0                  # route calls (the clock)
         self.n_routed = 0
+        # online representation refresh: the exportable duel log rides next
+        # to the state and is folded with every feedback batch
+        self.refresh_on = cfg.refresh is not None
+        self.duel_log = None
+        if self.refresh_on:
+            self.duel_log = dl.init_log(fq.next_pow2(cfg.refresh.capacity),
+                                        dim, device=dev)
+            self._count_at_swap = 0    # log.count at the last apply_table
+            self._table_swaps = 0
         # on-device traffic accumulators: the hot path only adds to them;
         # service_stats() reads them. Process-local: not checkpointed.
         self._n_folded = torch.zeros((), dtype=torch.int32, device=dev)
         self._duel_cost = torch.zeros((), dtype=torch.float32, device=dev)
         self._build_programs()
+        if self.streaming:
+            self._build_stream_programs()
 
     def _build_programs(self):
         """The service's programs that add to the policy's own slots: the
@@ -237,6 +278,15 @@ class RouterService:
         self._act_pref = act_pref
         self._update_masked = masked_update
         self._update_pref = masked_update_pref
+        # the act-time pair propensity the refresh log records: the
+        # policy's readout, or 1.0 (IPW then degrades to the naive
+        # estimator)
+        prop_fn = pol.propensity
+        if prop_fn is None:
+            def prop_fn(state, x, a1, a2):
+                return torch.ones(a1.shape, dtype=torch.float32,
+                                  device=a1.device)
+        self._prop = prop_fn
         if not self.dynamic:
             return
 
@@ -273,6 +323,311 @@ class RouterService:
         else:
             self._update_seed = seed
 
+    # -- the live tensors, rebound or written in place ------------------------
+
+    def _live(self) -> dict:
+        """The service's live tensors by name (trees for state, pending and
+        log): the operands and results of the streaming programs."""
+        live = dict(state=self.state, pending=self.pending,
+                    n_folded=self._n_folded, duel_cost=self._duel_cost)
+        if self.refresh_on:
+            live["log"] = self.duel_log
+        if self.streaming:
+            live["tick"] = self._tick_dev
+        return live
+
+    def _commit(self, **new) -> None:
+        """Install new values of live tensors (``state``, ``pending``,
+        ``log``, ``tick``, ``n_folded``, ``duel_cost``). The tick-batch
+        service rebinds them. A streaming service copies them into the
+        tensors it has: its programs (CUDA graphs on a card) read and write
+        those addresses, so they are never rebound, on the CPU too. A new
+        value that shares memory with a live tensor is cloned first, so no
+        copy reads a tensor an earlier copy of the same commit wrote."""
+        if not self.streaming:
+            for name, v in new.items():
+                setattr(self, _LIVE_ATTR[name], v)
+            return
+        live = self._live()
+        ptrs = {t.untyped_storage().data_ptr()
+                for tree in live.values() for t in tree_leaves(tree)}
+        pairs = []
+        for name, v in new.items():
+            dst, src = tree_leaves(live[name]), tree_leaves(v)
+            if len(dst) != len(src):
+                raise ValueError(f"{name}: {len(src)} leaves for "
+                                 f"{len(dst)}")
+            for d, t in zip(dst, src):
+                if t is d:
+                    continue
+                if t.shape != d.shape or t.dtype != d.dtype:
+                    raise ValueError(
+                        f"{name}: a leaf {tuple(t.shape)} {t.dtype} for "
+                        f"{tuple(d.shape)} {d.dtype}")
+                if t.untyped_storage().data_ptr() in ptrs:
+                    t = t.clone()
+                pairs.append((d, t))
+        for d, t in pairs:
+            d.copy_(t)
+
+    # -- streaming serving (cfg.buckets) -------------------------------------
+
+    def _build_stream_programs(self):
+        """The fused per-bucket programs of the streaming surface: route
+        (and route_pref where the policy has ``act_pref``), feedback (with
+        the duel-log fold under refresh) where it has a masked fold, and
+        resolve for the compaction fallback and ``feedback_direct``. Each
+        reads the bucket's staged inputs and the live tensors and writes
+        its results back in place (``_commit``): the counterpart of the
+        reference's donated buffers.
+
+        Padding never changes a live row: padded rows are masked out of
+        the ring, the fold and the log, and every per-row draw is made at
+        the ladder's top bucket and cut (``BucketDraws``). On a card each
+        program is captured once here as a CUDA graph (``_capture``)."""
+        dev, cfg = self.device, self.cfg
+        on_card = dev.type == "cuda"
+        if on_card and not isinstance(self._draws, KeyedDraws):
+            raise ValueError(
+                f"a streaming service on a card replays its act's draws "
+                f"through a draw plan, which needs KeyedDraws; got "
+                f"{type(self._draws).__name__}")
+        # live tensors of distinct memory: a program writes each in place
+        self.state = _cloned(self.state)
+        self._tick_dev = fq.as_i32(self.tick, dev)
+        self._costs_dev = self.costs.clone()
+        d = self.a_emb.shape[1]
+        self._inputs = {b: dict(
+            x=torch.zeros((b, d), dtype=torch.float32, device=dev),
+            mask=torch.zeros((b,), dtype=torch.bool, device=dev),
+            pref=torch.zeros((b,), dtype=torch.float32, device=dev),
+            cat=torch.full((b,), -1, dtype=torch.int32, device=dev),
+            tickets=torch.full((b,), -1, dtype=torch.int32, device=dev),
+            y=torch.zeros((b,), dtype=torch.float32, device=dev),
+            rows=torch.arange(b, device=dev)) for b in self.buckets}
+
+        if self._update_pref is not None:
+            # preference-conditioned fold: each duel under the pref it was
+            # served with (zeros when the caller passed none)
+            def fb_fold(state, res):
+                return self._update_pref(state, res.x, res.a1, res.a2, res.y,
+                                         res.age, res.ok, res.pref)
+        elif self._update_masked is not None:
+            def fb_fold(state, res):
+                return self._update_masked(state, res.x, res.a1, res.a2,
+                                           res.y, res.age, res.ok)
+        else:
+            fb_fold = None
+
+        def resolve(b):
+            inp = self._inputs[b]
+            return fq.resolve_stream(self.pending, inp["tickets"], inp["y"],
+                                     inp["mask"], self._tick_dev, 0, 1,
+                                     max_age=cfg.feedback_expiry)
+
+        def route(b, draws, with_pref):
+            inp = self._inputs[b]
+            x, mask, pref = inp["x"], inp["mask"], inp["pref"]
+            if with_pref:
+                state, a1, a2 = self._act_pref(draws, self.state, x, pref)
+            else:
+                state, a1, a2 = self.policy.act(draws, self.state, x)
+            prop = cat = None
+            if self.refresh_on:
+                prop, cat = self._prop(state, x, a1, a2), inp["cat"]
+            now = self._tick_dev + 1
+            pending, tickets = fq.enqueue_stream(
+                self.pending, x, a1, a2, now, pref, mask, 0, 1, prop=prop,
+                cat=cat)
+            costs = self._costs_dev
+            live = torch.where(mask, costs[a1.long()] + costs[a2.long()],
+                               0.0)
+            self._commit(state=state, pending=pending, tick=now,
+                         duel_cost=self._duel_cost + torch.sum(live))
+            return a1, a2, tickets
+
+        def feedback(b, draws):
+            pending, res = resolve(b)
+            n_ok = torch.sum(res.ok, dtype=torch.int32)
+            new = {}
+            if self.refresh_on:
+                new["log"] = self._fold_log(self.duel_log, res,
+                                            self._tick_dev)
+            self._commit(state=fb_fold(self.state, res), pending=pending,
+                         n_folded=self._n_folded + n_ok, **new)
+            return (n_ok,)
+
+        def resolve_only(b, draws):
+            pending, res = resolve(b)
+            self._commit(pending=pending)
+            return res
+
+        self._graph_pool = torch.cuda.graph_pool_handle() if on_card \
+            else None
+        self._n_captures = 0
+
+        top = self.buckets[-1]
+
+        def build(body, draws):
+            """One program per bucket: eager on the CPU, a CUDA graph on a
+            card (``draws``: the body takes the act's draw source)."""
+            progs = {}
+            for b in self.buckets:
+                fn = functools.partial(body, b)
+                progs[b] = self._capture(fn, b, top, draws) if on_card \
+                    else _StreamProgram(fn, b, top)
+            return progs
+        self._s_route = build(lambda b, dr: route(b, dr, False), True)
+        self._s_route_pref = None if self._act_pref is None else build(
+            lambda b, dr: route(b, dr, True), True)
+        self._s_feedback = None if fb_fold is None else build(feedback,
+                                                              False)
+        self._s_resolve = build(resolve_only, False)
+
+    def _capture(self, body, b: int, top: int, draws: bool):
+        """Capture ``body`` as a CUDA graph. A warm-up run on a side stream
+        first (library handles, kernel attributes, the draw plan from a
+        throwaway key); the live tensors are then put back as they were, so
+        the first replay routes as a service that captured nothing. The
+        capture runs in the global error mode: an operation a graph cannot
+        hold (a host sync, a host-to-device copy) raises; there is no eager
+        retry."""
+        before = [t.clone() for t in self._live_leaves()]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        plan = None
+        with torch.cuda.stream(side):
+            if draws:
+                rec = PlanRecorder(KeyedDraws(0, host=self._draws.host))
+                body(BucketDraws(rec, b, top))
+                plan = rec.plan
+            else:
+                body(None)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for t, v in zip(self._live_leaves(), before):
+            t.copy_(v)
+        tape = None if plan is None else plan.buffers(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="global"):
+            src = None if plan is None else TapeDraws(plan, tape)
+            outs = body(None if src is None else BucketDraws(src, b, top))
+        if src is not None and src.pos != len(tape):
+            raise RuntimeError(
+                f"bucket {b}: the capture drew {src.pos} of the plan's "
+                f"{len(tape)} draws")
+        self._n_captures += 1
+        return _StreamProgram(body, b, top, graph=graph, outs=outs,
+                              plan=plan, tape=tape)
+
+    def _live_leaves(self) -> list:
+        return [t for tree in self._live().values() for t in tree_leaves(tree)]
+
+    def _stage(self, b: int, n: int, **rows) -> None:
+        """Write a formed batch of ``n`` rows into bucket ``b``'s input
+        buffers (padding rows zeroed) and set its mask. No host sync for
+        device tensors."""
+        inp = self._inputs[b]
+        for name, v in rows.items():
+            buf = inp[name]
+            buf[:n].copy_(v)
+            buf[n:].zero_()
+        torch.lt(inp["rows"], n, out=inp["mask"])
+
+    def route_stream(self, x, prefs=None, cats=None):
+        """Route a formed batch of any size up to the ladder's top: pad to
+        the smallest bucket >= n, run the bucket's fused route program
+        (selection, masked ring enqueue, cost accounting, the device tick
+        advanced), cut the padding off. Returns (a1 (n,), a2 (n,), tickets
+        (n,)) as ``route_batch``; the live rows route bitwise as an
+        unpadded batch would. ``cats`` (n,) are the refresh log's query
+        categories (-1 = unknown). No host sync for device inputs."""
+        if not self.streaming:
+            raise RuntimeError(
+                "route_stream needs RouterServiceConfig(buckets=...): the "
+                "tick-batch service builds no bucket programs")
+        dev = self.device
+        x = as_f32(x, dev)
+        n = x.shape[0]
+        b = stream.bucket_for(n, self.buckets)
+        if prefs is None:
+            prog, pref_row = self._s_route[b], None
+        else:
+            if self._s_route_pref is None:
+                raise ValueError(
+                    f"policy '{self.policy.name}' has no act_pref path — "
+                    f"per-request prefs need a preference-aware policy "
+                    f"(the pooled FGTS/eps-greedy/LinUCB families)")
+            pref_row = as_f32(prefs, dev)
+            if tuple(pref_row.shape) != (n,):
+                raise ValueError(
+                    f"prefs shape {tuple(pref_row.shape)} != ({n},) — one "
+                    f"scalar cost weight per query row")
+            prog = self._s_route_pref[b]
+        rows = dict(x=x)
+        if pref_row is None:
+            self._inputs[b]["pref"].zero_()
+        else:
+            rows["pref"] = pref_row
+        if self.refresh_on:
+            rows["cat"] = self._cat_row(cats, n)
+        self._stage(b, n, **rows)
+        draws = self._next_key()
+        self.tick += 1                 # host mirror of the device clock
+        a1, a2, tickets = prog(draws)
+        self.n_routed += n
+        return a1[:n].clone(), a2[:n].clone(), tickets[:n].clone()
+
+    def feedback_stream(self, tickets, y):
+        """Streaming twin of ``feedback_batch``: pad the delivered votes to
+        the next bucket (padding masked out of the resolve) and run the
+        bucket's fused program, resolve and masked fold (and the duel-log
+        fold under refresh). Same delivery semantics as ``feedback_batch``.
+        Returns the folded count: a 0-d device tensor on the masked path,
+        no host sync; a host int on the compaction fallback (one sync)."""
+        if not self.streaming:
+            raise RuntimeError(
+                "feedback_stream needs RouterServiceConfig(buckets=...): "
+                "the tick-batch service builds no bucket programs")
+        dev = self.device
+        tickets = torch.as_tensor(tickets, device=dev).to(torch.int32)
+        y = as_f32(y, dev)
+        if tickets.shape != y.shape:
+            raise ValueError(
+                f"feedback_stream: tickets shape {tuple(tickets.shape)} != "
+                f"votes shape {tuple(y.shape)} — one vote per delivered "
+                f"ticket")
+        n = tickets.shape[0]
+        b = stream.bucket_for(n, self.buckets)
+        self._stage(b, n, tickets=tickets, y=y)
+        if self._s_feedback is not None:
+            (n_ok,) = self._s_feedback[b]()
+            return n_ok.clone()
+        res = fq.ResolvedDuels(*(None if t is None else t.clone()
+                                 for t in self._s_resolve[b]()))
+        if self.refresh_on:
+            self._commit(log=self._fold_log(self.duel_log, res,
+                                            self._tick_dev))
+        return self._fold_compact(res)
+
+    def compiled_program_counts(self) -> dict:
+        """Programs per streaming surface, ``len(buckets)`` each (on a card
+        each is one captured CUDA graph), and ``captures``, the graphs
+        captured so far: flat across membership changes, table swaps and
+        restores, which write the live tensors in place. The tick-batch
+        service runs eagerly and compiles nothing: {}."""
+        if not self.streaming:
+            return {}
+        counts = {"s_route": len(self._s_route)}
+        if self._s_route_pref is not None:
+            counts["s_route_pref"] = len(self._s_route_pref)
+        if self._s_feedback is not None:
+            counts["s_feedback_log" if self.refresh_on
+                   else "s_feedback"] = len(self._s_feedback)
+        counts["s_resolve"] = len(self._s_resolve)
+        counts["captures"] = self._n_captures
+        return counts
+
     def _clock(self) -> torch.Tensor:
         """The service tick as a wrapping int32 device scalar, made by a
         fill on the device (no host copy, so no sync)."""
@@ -296,9 +651,12 @@ class RouterService:
 
         ``prefs`` (B,) float are per-request cost weights: row i is scored
         under the extra tilt ``prefs[i] * cost_k`` and the duel records its
-        pref, so the fold conditions on it. ``cats`` are the refresh log's
-        query categories; with refresh off (always, until ROADMAP Queue 1
-        item 3) they are ignored. No host sync."""
+        pref, so the fold conditions on it. ``cats`` (B,) int are the
+        query categories the refresh log records (-1 = unknown); with
+        refresh off they are ignored. In streaming mode this delegates to
+        ``route_stream``. No host sync."""
+        if self.streaming:
+            return self.route_stream(x, prefs=prefs, cats=cats)
         dev = self.device
         x = as_f32(x, dev)
         b = x.shape[0]
@@ -322,8 +680,14 @@ class RouterService:
         # clock first, then issue at the new tick: feedback redeemed before
         # the next routing round reports age 0
         self.tick += 1
+        prop = cat_row = None
+        if self.refresh_on:
+            # the act-time propensity and the category ride the ring with
+            # the duel, into the log when it resolves
+            prop = self._prop(self.state, x, a1, a2)
+            cat_row = self._cat_row(cats, b)
         self.pending, tickets = fq.enqueue(
-            self.pending, x, a1, a2, self._clock(), pref_row)
+            self.pending, x, a1, a2, self._clock(), pref_row, prop, cat_row)
         self.n_routed += b
         self._duel_cost = self._duel_cost + self.spend(a1) + self.spend(a2)
         return a1, a2, tickets
@@ -338,7 +702,10 @@ class RouterService:
         batch, rejected rows dropped inside the scatter, with no host sync:
         the return value is then the folded count as a 0-d device tensor.
         Policies without one take ``_fold_compact`` (a host sync, host
-        int)."""
+        int). With refresh the resolved duels also fold into the duel log.
+        In streaming mode this delegates to ``feedback_stream``."""
+        if self.streaming:
+            return self.feedback_stream(tickets, y)
         dev = self.device
         tickets = torch.as_tensor(tickets, device=dev).to(torch.int32)
         y = as_f32(y, dev)
@@ -350,6 +717,8 @@ class RouterService:
         self.pending, res = fq.resolve(self.pending, tickets, y,
                                        self._clock(),
                                        max_age=self.cfg.feedback_expiry)
+        if self.refresh_on:
+            self.duel_log = self._fold_log(self.duel_log, res, self._clock())
         n_ok = torch.sum(res.ok, dtype=torch.int32)    # lazy device count
         if self._update_pref is not None and res.pref is not None:
             # each duel updates under the pref it was served with
@@ -365,6 +734,17 @@ class RouterService:
             return n_ok
         return self._fold_compact(res)
 
+    @staticmethod
+    def _fold_log(log: dl.DuelLog, res: fq.ResolvedDuels, now) -> dl.DuelLog:
+        """Append the validated rows of a resolved batch to the duel log."""
+        return dl.fold(log, res.x, res.a1, res.a2, res.y, res.pref, res.prop,
+                       res.cat, now - res.age, res.ok)
+
+    def _cat_row(self, cats, b: int) -> torch.Tensor:
+        if cats is None:
+            return torch.full((b,), -1, dtype=torch.int32, device=self.device)
+        return torch.as_tensor(cats, device=self.device).to(torch.int32)
+
     def _fold_compact(self, res: fq.ResolvedDuels) -> int:
         """Compaction fold for policies without a masked update. Shaping
         the compacted batch needs the survivor count on the host: this
@@ -372,7 +752,7 @@ class RouterService:
         ok = res.ok.cpu()
         keep = torch.nonzero(ok)[:, 0]
         n_host = keep.shape[0]
-        self._n_folded = self._n_folded + n_host
+        self._commit(n_folded=self._n_folded + n_host)
         if n_host == 0:
             return 0
         if n_host == ok.shape[0]:
@@ -382,25 +762,33 @@ class RouterService:
             x, a1, a2, yv, age = (res.x[keep], res.a1[keep], res.a2[keep],
                                   res.y[keep], res.age[keep])
         if self.policy.update_delayed is not None:
-            self.state = self.policy.update_delayed(self.state, x, a1, a2,
-                                                    yv, age)
+            state = self.policy.update_delayed(self.state, x, a1, a2, yv, age)
         else:
-            self.state = self.policy.update(self.state, x, a1, a2, yv)
+            state = self.policy.update(self.state, x, a1, a2, yv)
+        self._commit(state=state)
         return n_host
 
     def feedback_direct(self, x, a1, a2, y, tickets=None):
         """Fold a feedback batch in directly, bypassing the ring (callers
         that kept the duel data, e.g. offline replay). Pass the batch's
-        ``tickets`` to also clear its ring slots. No host sync."""
+        ``tickets`` to also clear its ring slots (in streaming mode through
+        the bucket's resolve program). No host sync."""
         dev = self.device
         y = as_f32(y, dev)
         if tickets is not None:
             t = torch.as_tensor(tickets, device=dev).to(torch.int32)
-            self.pending, _ = fq.resolve(self.pending, t, y, self._clock(),
-                                         max_age=self.cfg.feedback_expiry)
-        self.state = self.policy.update(self.state, as_f32(x, dev),
-                                  torch.as_tensor(a1, device=dev),
-                                  torch.as_tensor(a2, device=dev), y)
+            if self.streaming:
+                n = t.shape[0]
+                b = stream.bucket_for(n, self.buckets)
+                self._stage(b, n, tickets=t, y=y)
+                self._s_resolve[b]()
+            else:
+                self.pending, _ = fq.resolve(
+                    self.pending, t, y, self._clock(),
+                    max_age=self.cfg.feedback_expiry)
+        self._commit(state=self.policy.update(
+            self.state, as_f32(x, dev), torch.as_tensor(a1, device=dev),
+            torch.as_tensor(a2, device=dev), y))
 
     def pending_count(self) -> int:
         """In-flight duels (issued, unresolved, unexpired). Syncs: one
@@ -414,9 +802,9 @@ class RouterService:
         count."""
         if self.cfg.feedback_expiry is None:
             return 0
-        self.pending, dropped = fq.expire(
-            self.pending, self._clock(),
-            self.cfg.feedback_expiry)
+        pending, dropped = fq.expire(self.pending, self._clock(),
+                                     self.cfg.feedback_expiry)
+        self._commit(pending=pending)
         dropped = dropped.cpu()
         return int(dropped)
 
@@ -432,17 +820,57 @@ class RouterService:
         n_folded = self._n_folded.cpu()
         duel_cost = self._duel_cost.cpu()
         pending = fq.pending_count(self.pending).cpu()
-        return {"tick": self.tick, "n_routed": self.n_routed,
-                "n_folded": int(n_folded), "duel_cost": float(duel_cost),
-                "pending": int(pending)}
+        out = {"tick": self.tick, "n_routed": self.n_routed,
+               "n_folded": int(n_folded), "duel_cost": float(duel_cost),
+               "pending": int(pending)}
+        if self.refresh_on:
+            logged = self.duel_log.count.cpu()
+            out["duels_logged"] = int(logged)
+            out["table_swaps"] = self._table_swaps
+        return out
+
+    # -- online representation refresh (cfg.refresh) -------------------------
+
+    def _require_refresh(self, what: str):
+        if not self.refresh_on:
+            raise RuntimeError(
+                f"{what} needs the refresh loop: construct the service "
+                f"with RouterServiceConfig(refresh=RefreshConfig(...))")
+
+    def _log_count(self) -> int:
+        """The duel log's write head on the host. Syncs: one transfer."""
+        count = self.duel_log.count.cpu()
+        return int(count)
+
+    def export_log(self) -> dict:
+        """Host export of the logged duels, the input of the offline
+        refresh job (``refresh.refresh_table``). Syncs: one transfer of the
+        whole log."""
+        self._require_refresh("export_log")
+        return dl.export(self.duel_log)
+
+    def refresh_due(self) -> bool:
+        """True once ``cfg.refresh.every`` new duels were folded into the
+        log since the last ``apply_table`` (always False when every=0).
+        Syncs: one transfer of the log's count."""
+        if not self.refresh_on or self.cfg.refresh.every <= 0:
+            return False
+        return self._log_count() - self._count_at_swap >= \
+            self.cfg.refresh.every
 
     def apply_table(self, table, replay=None) -> None:
         """Swap in a whole (K_max, d) embedding table (a row write of the
-        pool's table and a generation bump; costs and membership stay).
-        The posterior is kept unless ``replay=(x, a1, a2, y)`` re-seeds it
-        through ``seed_replay``."""
+        pool's table and a generation bump; costs and membership stay), in
+        place in streaming mode, so no program is captured again. The
+        posterior is kept unless ``replay=(x, a1, a2, y)`` re-seeds it
+        through ``seed_replay``. With refresh, re-anchors the cadence at
+        the log's count (syncs: one transfer)."""
         self._require_dynamic("apply_table")
-        self.state = self._table_swap(self.state, as_f32(table, self.device))
+        self._commit(state=self._table_swap(self.state,
+                                            as_f32(table, self.device)))
+        if self.refresh_on:
+            self._count_at_swap = self._log_count()
+            self._table_swaps += 1
         if replay is not None:
             self.seed_replay(*replay)
 
@@ -534,8 +962,8 @@ class RouterService:
             raise ValueError(f"arm {k} is not active")
         if mask.sum() <= 1:
             raise RuntimeError("cannot retire the last active arm")
-        self.state = self._pool_retire(self.state, k)
-        self.costs = mp.get_pool(self.state).costs.clone()
+        self._commit(state=self._pool_retire(self.state, k))
+        self._sync_costs()
 
     def swap_model(self, k: int, entry: PoolEntry, replay=None) -> None:
         """Replace slot ``k``'s model in place (a retrained successor):
@@ -548,12 +976,19 @@ class RouterService:
             self.seed_replay(*replay)
 
     def _set_slot(self, slot: int, entry: PoolEntry) -> None:
-        self.state = self._pool_set(
+        self._commit(state=self._pool_set(
             self.state, as_f32(entry.embedding, self.device),
-            as_f32(entry.cost_per_1k_tokens, self.device), slot)
+            as_f32(entry.cost_per_1k_tokens, self.device), slot))
         self.pool[slot] = entry
         self._ever_used[slot] = True
+        self._sync_costs()
+
+    def _sync_costs(self) -> None:
+        """Re-read the cost mirror from the pool (and, in streaming mode,
+        the route programs' cost buffer, in place)."""
         self.costs = mp.get_pool(self.state).costs.clone()
+        if self.streaming:
+            self._costs_dev.copy_(self.costs)
 
     def seed_replay(self, x, a1, a2, y) -> int:
         """Offline -> online seeding: fold a batch of historical duels into
@@ -570,9 +1005,10 @@ class RouterService:
         if self._update_masked is not None:
             age = torch.zeros((b,), dtype=torch.int32, device=dev)
             ok = torch.ones((b,), dtype=torch.bool, device=dev)
-            self.state = self._update_seed(self.state, x, a1, a2, y, age, ok)
+            self._commit(state=self._update_seed(self.state, x, a1, a2, y,
+                                                 age, ok))
         else:
-            self.state = self._update_seed(self.state, x, a1, a2, y)
+            self._commit(state=self._update_seed(self.state, x, a1, a2, y))
         return b
 
     # -- persistence (posterior, ring and key survive restarts) --------------
@@ -589,6 +1025,9 @@ class RouterService:
             # survives a restart
             payload["ever_used"] = torch.tensor(self._ever_used,
                                                 dtype=torch.bool)
+        if self.refresh_on:
+            # the refresh loop's evidence restarts with the posterior
+            payload["duel_log"] = self.duel_log
         return payload
 
     def save(self, path: str, step: int | None = None) -> str:
@@ -612,14 +1051,56 @@ class RouterService:
                 f"incompatible router checkpoint at {path} step {step}: "
                 f"structure/shape mismatch with policy "
                 f"'{self.policy.name}' — {e}") from e
-        self.state = payload["state"]
         self._draws = self._draws.from_leaf(payload["key"])
-        self.pending = payload["pending"]
         self.tick = int(payload["tick"])
         self.n_routed = int(payload["n_routed"])
+        restored = dict(state=payload["state"], pending=payload["pending"])
+        if self.streaming:
+            # re-seat the device clock behind the restored host tick
+            restored["tick"] = fq.as_i32(self.tick, self.device)
+        if self.refresh_on:
+            restored["log"] = payload["duel_log"]
+        self._commit(**restored)
         if self.dynamic:
             # the pool travels with the state: re-sync the cost mirror
             # (entry names are host bookkeeping, not checkpointed)
-            self.costs = mp.get_pool(self.state).costs.clone()
+            self._sync_costs()
             self._ever_used = [bool(v) for v in payload["ever_used"]]
+        if self.refresh_on:
+            # the cadence marker is process-local: re-anchor it at the
+            # restored log head, so a restart fires no spurious refresh
+            self._count_at_swap = self._log_count()
         return step
+
+
+# _commit's names of the live tensors, as attributes of the service
+_LIVE_ATTR = dict(state="state", pending="pending", log="duel_log",
+                  tick="_tick_dev", n_folded="_n_folded",
+                  duel_cost="_duel_cost")
+
+
+def _cloned(tree):
+    """``tree`` with every tensor leaf cloned (distinct memory)."""
+    return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
+
+
+class _StreamProgram:
+    """One fused streaming program at one bucket. ``program(draws)`` runs
+    it: eagerly (``graph`` None), or by filling the draw plan's buffers
+    from the act's source ``draws`` and replaying the captured graph,
+    whose outputs are the tensors ``outs`` the capture returned (the
+    caller copies what it keeps: the next replay overwrites them)."""
+
+    def __init__(self, body, rows: int, top: int, *, graph=None, outs=None,
+                 plan=None, tape=None):
+        self.body, self.rows, self.top = body, rows, top
+        self.graph, self.outs, self.plan, self.tape = graph, outs, plan, tape
+
+    def __call__(self, draws=None):
+        if self.graph is None:
+            return self.body(None if draws is None
+                             else BucketDraws(draws, self.rows, self.top))
+        if self.plan is not None:
+            self.plan.fill(draws, self.tape)
+        self.graph.replay()
+        return self.outs

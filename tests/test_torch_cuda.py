@@ -40,7 +40,12 @@ A reduced mamba2-1.3b and recurrentgemma-9b prefill and decode on the
 card match their CPU run to 2e-4. Decoding past the end of a full-context
 cache raises ``ValueError`` for an int position; a tensor position trips
 the asynchronous assert, which poisons the CUDA context, so that case runs
-in a subprocess.
+in a subprocess. A streaming service's CUDA graphs (one per bucket and
+program) route bitwise as a tick-batch twin's eager ``route_batch``
+(with refresh: the duel logs alike, propensities to rtol 1e-6), padded
+buckets route bitwise as tight ones for FGTS and eps-greedy, control-plane
+calls capture nothing anew, and ``route_stream`` / ``feedback_stream``
+replay with no host sync.
 """
 import re
 
@@ -1303,7 +1308,7 @@ def test_decode_past_a_full_cache_trips_the_device_assert(cuda_device):
 # the routing service
 # ---------------------------------------------------------------------------
 
-def _service(dev, draws, autopilot=False, d=32, k=5, k_max=8):
+def _service(dev, draws, autopilot=False, d=32, k=5, k_max=8, **cfg_kw):
     from repro_torch.autopilot import AutopilotConfig
     from repro_torch.core.fgts import FGTSConfig
     from repro_torch.data.pool import build_entries
@@ -1318,7 +1323,7 @@ def _service(dev, draws, autopilot=False, d=32, k=5, k_max=8):
                         force_distinct=True),
         k_max=k_max, feedback_capacity=64, feedback_expiry=3,
         autopilot=AutopilotConfig(every=2, quota=0.5, budget=0.5)
-        if autopilot else None)
+        if autopilot else None, **cfg_kw)
     return RouterService(entries, None, None, cfg, device=dev, draws=draws)
 
 
@@ -1397,3 +1402,172 @@ def test_router_service_hot_path_does_not_sync(cuda_device, autopilot):
     assert counts["sgld_potential_grad"] == 2 * 4 * 5
     assert counts["dueling_score"] == (5 if autopilot else 0)
     assert [int(n) for *_, n in out[1:]] == [16] * 4
+
+
+# ---------------------------------------------------------------------------
+# streaming: one CUDA graph per padding bucket
+# ---------------------------------------------------------------------------
+
+STREAM_SIZES = (16, 5, 8, 11, 16, 1)
+
+
+def _stream_rounds(svc, dev, xs, grid, sizes=STREAM_SIZES, seed=2,
+                   between=None, top=16):
+    """Route formed batches of ``sizes`` rows (prefs cycling, categories
+    cycling) and deliver each batch's votes a batch late, shuffled with up
+    to two duplicates (``top`` rows at most); ``between(r)`` runs control-plane
+    calls before round r.
+    Returns the pairs, tickets and folded counts of every round."""
+    from repro_torch.core.draws import KeyedDraws
+    votes = KeyedDraws(seed)
+    out, prev = [], None
+    for r, n in enumerate(sizes):
+        if between is not None:
+            between(r)
+        rows = torch.arange(n, device=dev)
+        a1, a2, tk = svc.route_batch(xs[r, :n], prefs=grid[(rows + r) % 3],
+                                     cats=(rows + r) % 3)
+        y = torch.where(votes.fold_in(r).uniform((n,), dev) < 0.5, 1.0, -1.0)
+        got = None
+        if prev is not None:
+            m = prev[0].shape[0]
+            perm = torch.argsort(votes.fold_in(100 + r).uniform((m,), dev))
+            idx = torch.cat([perm, perm[:min(2, top - m)]])
+            got = svc.feedback_batch(prev[0][idx], prev[1][idx])
+        prev = (tk, y)
+        out.append((a1, a2, tk, got))
+    return out
+
+
+def _same_rounds(got, want, what):
+    for r, ((a1, a2, tk, n), (b1, b2, tb, m)) in enumerate(zip(got, want)):
+        assert torch.equal(a1, b1) and torch.equal(a2, b2), (what, r)
+        assert torch.equal(tk, tb), (what, r)
+        assert (n is None) == (m is None) and (n is None
+                                               or int(n) == int(m)), (what, r)
+
+
+def _same_state(a, b):
+    from repro_torch.models.layers import tree_leaves
+    for u, v in zip(tree_leaves(a.state), tree_leaves(b.state)):
+        assert torch.equal(u, v)
+    for f in ("x", "a1", "a2", "ticket", "issued_at", "valid", "pref"):
+        assert torch.equal(getattr(a.pending, f), getattr(b.pending, f)), f
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+def test_stream_graphs_route_as_the_tick_batch_service(cuda_device,
+                                                       refresh):
+    """The streaming service's captured graphs (buckets 8 and 16, formed
+    batches of 1 to 16 rows) route bitwise as a tick-batch twin's eager
+    ``route_batch`` on the same device-mode ``KeyedDraws``: pairs,
+    tickets, folded counts, the posterior and the ring; under refresh the
+    duel logs agree (propensities, a cuBLAS product of the padded batch,
+    to rtol 1e-6)."""
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.refresh import RefreshConfig
+    kw = dict(refresh=RefreshConfig(capacity=64, n_categories=3)) \
+        if refresh else {}
+    gen = torch.Generator().manual_seed(7)
+    xs = torch.randn((len(STREAM_SIZES), 16, 32), generator=gen) \
+        .to(cuda_device)
+    grid = torch.tensor([0.0, 0.5, 2.0], device=cuda_device)
+    svc = _service(cuda_device, KeyedDraws(5), buckets=(8, 16), **kw)
+    twin = _service(cuda_device, KeyedDraws(5), **kw)
+    counts = svc.compiled_program_counts()
+    assert counts["captures"] == 8 and counts["s_route"] == 2
+    got = _stream_rounds(svc, cuda_device, xs, grid)
+    want = _stream_rounds(twin, cuda_device, xs, grid)
+    _same_rounds(got, want, "stream vs tick-batch")
+    _same_state(svc, twin)
+    assert svc.tick == twin.tick == int(svc._tick_dev)
+    assert svc.compiled_program_counts() == counts
+    if refresh:
+        a, b = svc.export_log(), twin.export_log()
+        assert a["count"] == b["count"] > 0
+        for f in ("x", "a1", "a2", "y", "pref", "cat", "issued_at"):
+            np.testing.assert_array_equal(a[f], b[f])
+        np.testing.assert_allclose(a["prop"], b["prop"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["fgts", "eps_greedy"])
+def test_stream_padding_identity_on_the_card(cuda_device, policy):
+    """The same formed batches through a ladder of (8,) and of (16,) (8
+    rows of padding): pairs, tickets, folded counts and the posterior
+    bitwise equal under device-mode ``KeyedDraws``."""
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.launch.serve import POLICIES
+    gen = torch.Generator().manual_seed(8)
+    sizes = (8, 3, 8, 5)
+    xs = torch.randn((len(sizes), 8, 32), generator=gen).to(cuda_device)
+    grid = torch.tensor([0.0, 0.5, 2.0], device=cuda_device)
+    runs = []
+    for buckets in ((8,), (16,)):
+        svc = _service(cuda_device, KeyedDraws(6), buckets=buckets,
+                       policy_factory=POLICIES[policy])
+        runs.append((svc, _stream_rounds(svc, cuda_device, xs, grid,
+                                         sizes, top=8)))
+    _same_rounds(runs[0][1], runs[1][1], f"{policy}: bucket 8 vs 16")
+    _same_state(runs[0][0], runs[1][0])
+
+
+def test_stream_control_plane_captures_nothing(cuda_device):
+    """``add_model``, ``retire_model``, ``apply_table``, ``seed_replay``
+    and ``expire_pending`` between streamed batches write the live tensors
+    in place: no graph is captured again, and the service keeps routing
+    bitwise as its tick-batch twin doing the same calls."""
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.data.pool import PoolEntry
+    gen = torch.Generator().manual_seed(9)
+    xs = torch.randn((len(STREAM_SIZES), 16, 32), generator=gen) \
+        .to(cuda_device)
+    grid = torch.tensor([0.0, 0.5, 2.0], device=cuda_device)
+    table = torch.randn((8, 32), generator=gen).to(cuda_device)
+    new = PoolEntry("new", "new", 0.3, torch.randn(32, generator=gen)
+                    .numpy())
+    x_off = torch.randn((8, 32), generator=gen).to(cuda_device)
+
+    def control(svc):
+        def between(r):
+            if r == 2:
+                svc.add_model(new)
+                svc.retire_model(0)
+            if r == 3:
+                svc.apply_table(table)
+                svc.seed_replay(x_off, torch.full((8,), 5, device=cuda_device),
+                                torch.arange(8, device=cuda_device) % 4 + 1,
+                                torch.ones(8, device=cuda_device))
+            svc.expire_pending()
+        return between
+    svc = _service(cuda_device, KeyedDraws(4), buckets=(8, 16))
+    twin = _service(cuda_device, KeyedDraws(4))
+    counts = svc.compiled_program_counts()
+    got = _stream_rounds(svc, cuda_device, xs, grid, between=control(svc))
+    want = _stream_rounds(twin, cuda_device, xs, grid,
+                          between=control(twin))
+    assert svc.compiled_program_counts() == counts
+    _same_rounds(got, want, "after control-plane calls")
+    _same_state(svc, twin)
+
+
+@pytest.mark.parametrize("autopilot", [False, True])
+def test_stream_hot_path_does_not_sync(cuda_device, autopilot):
+    """``route_stream`` and the fused ``feedback_stream`` replay their
+    graphs with no host sync (``set_sync_debug_mode("error")``); a replay
+    adds nothing to the launch counters (they count Python calls)."""
+    from repro_torch.core.draws import KeyedDraws
+    svc = _service(cuda_device, KeyedDraws(4), autopilot=autopilot,
+                   buckets=(8, 16))
+    gen = torch.Generator().manual_seed(3)
+    xs = torch.randn((len(STREAM_SIZES), 16, 32), generator=gen) \
+        .to(cuda_device)
+    grid = torch.tensor([0.0, 0.5, 2.0], device=cuda_device)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _stream_rounds(svc, cuda_device, xs, grid)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sum(kernels.launch_counts().values()) == 0
+    assert [int(n) for *_, n in out[1:]] == list(STREAM_SIZES[:-1])

@@ -310,7 +310,5 @@ def test_averaged_runs_and_torch_draws():
         lambda d: tenv.run(d, envd, pol, batch=4), TorchDraws(0, "cpu"), 3)
     assert curves.shape == (3, 16) and mean.shape == (16,)
     assert not torch.equal(curves[0], curves[1])   # a stream, not a replay
-    with pytest.raises(NotImplementedError):
-        tenv.run(TorchDraws(0, "cpu"), envd, pol, refresh_schedule=object())
     with pytest.raises(ValueError):
         tenv.run(TorchDraws(0, "cpu"), envd, pol, batch=17)

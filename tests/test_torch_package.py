@@ -53,7 +53,8 @@ def test_port_imports_neither_jax_nor_reference():
                                     "tools/score_sweep.py",
                                     "examples/train_encoder_e2e_torch.py",
                                     "examples/routed_serving_e2e_torch.py",
-                                    "tools/bwd_variants.py"])
+                                    "tools/bwd_variants.py",
+                                    "tools/fill_variants.py"])
 def test_card_scripts_import_neither_jax_nor_reference(script):
     """The scripts that run the port on the card import no JAX either: the
     machine with the card has none."""

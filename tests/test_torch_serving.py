@@ -381,16 +381,12 @@ def test_service_guard_rails():
                           device="cpu")
 
 
-@pytest.mark.parametrize("what", ["buckets", "refresh", "mesh",
-                                  "use_kernel"])
+@pytest.mark.parametrize("what", ["mesh", "use_kernel"])
 def test_paths_not_yet_ported_name_their_roadmap_item(what):
     fcfg = tfgts.FGTSConfig(n_models=K, dim=D, horizon=8)
     pool = _entries(tpool.PoolEntry, *_pool_data(0, K))
     cfg = trs.RouterServiceConfig(
-        fgts=fcfg, k_max=K if what == "refresh" else None,
-        buckets=(8,) if what == "buckets" else None,
-        refresh=object() if what == "refresh" else None,
-        use_kernel=False if what == "use_kernel" else None)
+        fgts=fcfg, use_kernel=False if what == "use_kernel" else None)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         trs.RouterService(pool, None, None, cfg, device="cpu",
                           mesh=object() if what == "mesh" else None)
@@ -753,9 +749,8 @@ def test_greedy_decode_runs_every_default_pool_family(arch):
 
 @pytest.mark.parametrize("flag", sorted(tserve.NOT_YET))
 def test_serve_launcher_names_missing_paths(flag):
-    extra = [] if flag == "--refresh-naive" else ["1"]
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item"):
-        tserve.parse_args(["--device", "cpu", flag] + extra)
+        tserve.parse_args(["--device", "cpu", flag, "1"])
 
 
 def test_routed_serving_example_runs_on_cpu(capsys):

@@ -44,7 +44,14 @@ in each line's ``wall_s``):
    D 128, causal, S = T = 2048, fp32 and bf16) and gemma2-9b's (H 16,
    KV 8, D 256, soft cap 50, window 4096, S = T = 8192, bf16) and
    recurrentgemma-9b's at the lm path's prefill (B 2, H 16, KV 1, D 256,
-   window 2048, S = T = 4096, bf16). The
+   window 2048, S = T = 4096, bf16), and in bf16 as ``transpose(1, 2)``
+   views, the lm path's MoE, vision and encoder-decoder heads:
+   granite-moe-3b-a800m's (B 2, H 24, KV 8, D 64, causal, S = T = 4096),
+   arctic-480b's and llava-next-34b's (H 56, KV 8, D 128, B 2 and 1),
+   seamless-m4t-medium's encoder (B 2, H = KV 16, D 64, bidir, S = T =
+   1024), decoder (causal, S = T = 4096) and cross attention (S 4096
+   queries over T 1024 keys, no mask), and cross attention at ragged S
+   333 and T 1000. The
    ssd family holds ``ssd_scan`` to rtol = atol = 2e-4 and the rglru
    family ``rglru_scan`` to 1e-5 (the reference's tolerances) on the
    reference's test shapes, ragged S,
@@ -103,14 +110,23 @@ in each line's ``wall_s``):
      the online env (4096 queries, d = 256 + 14) -> ``env.run`` over FGTS;
      then MixInstruct (1200 queries) -> eq. 6 embeddings -> ``env.run``.
      The encoder alone is timed per 256-query batch;
-   - lm: mamba2-1.3b and recurrentgemma-9b at their full configs (bf16,
-     random weights made on the card from the seed): B 2 prompts of
-     S 4096 random tokens -> ``lm.prefill`` -> 8 greedy
+   - lm: mamba2-1.3b, recurrentgemma-9b, granite-moe-3b-a800m,
+     seamless-m4t-medium and llava-next-34b at their full configs, and
+     arctic-480b at one of its 35 units (bf16, random weights made on the
+     card from the seed): B 2 prompts of S 4096 random tokens (seamless:
+     with 1024 random frames for its encoder; llava: B 1, 2880 random
+     patches before 1216 tokens) -> ``lm.prefill`` -> 8 greedy
      ``lm.decode_step``s. The launch counts must be exact per prefill
-     (48 ``ssd_scan``; 26 ``rglru_scan`` and 12 ``flash_attention``) and
-     untouched by decode; one more prefill and two more decode steps run
-     under the profiler for the idle share, kernels per prefill or token
-     and each kernel's share of the prefill.
+     (48 ``ssd_scan``; 26 ``rglru_scan`` and 12 ``flash_attention``; 32;
+     1; 36: 12 encoder, 12 self, 12 cross; 60) and untouched by decode;
+     granite-moe's every ``moe_ffn`` call of the warm-up prefill and
+     decode step runs under ``set_sync_debug_mode("error")``; one more
+     prefill and two more decode steps run under the profiler for the
+     idle share, kernels per prefill or token and each kernel's share of
+     the prefill; an MoE model's FFNs run once more on their prefill
+     inputs under the profiler (GEMMs, sort, gathers and scatters), and
+     each layer reports its tokens per expert (min, max) and the share of
+     assignments dropped at capacity factor 1.25.
    - serve: ``RouterService``'s tick-batch path over the slice's world
      (11 live arms in 16 slots, d 768, B 256 per ``route_batch``, 8
      chains x 20 SGLD steps, minibatch 64, ring capacity 4096, expiry 8
@@ -183,10 +199,15 @@ in each line's ``wall_s``):
    one ``train_step`` from the fine-tuned weights on one
    ``HostDraws`` pair batch: loss to rtol 1e-5, every gradient leaf to 1e-4
    of its max. Then each LM at full width in fp32 at a cut depth (mamba2
-   2 layers, recurrentgemma 3), B 2 x S 500, prefill and 4 decode steps:
-   logits within 1e-4 of max |logit|, greedy tokens equal outside
+   2 layers, recurrentgemma 3, granite-moe 2, arctic 1 with 16 experts,
+   seamless 2 + 2 over 256 frames, llava 1 with 64 patches), B 2 x S 500
+   (the recurrent models) or 128 (B 1 for llava), prefill and 4 decode
+   steps: logits within 1e-4 of max |logit|, greedy tokens equal outside
    near-ties, cache leaves within 1e-4 of their largest magnitude,
-   ``slot_pos`` equal.
+   ``slot_pos`` equal. Every MoE call is checked layer by layer from the
+   CPU's input to it: experts and dropped assignments equal, sparse and
+   dense outputs within 1e-4, on the tokens without a near-tied router
+   decision.
 
 Before the last line it prints the kernels line and the card's name and
 power limit; the last line is the device record. Any failed check exits
@@ -800,6 +821,27 @@ def attn_cases(gen, dev):
         # recurrentgemma-9b's local layers at the lm path's prefill
         attn_case("recurrentgemma_bf16", 2, 16, 1, 4096, 4096, 256, gen, dev,
                   window=2048, timed=True, **bf),
+        # the MoE, vision and encoder-decoder models' layers at the lm
+        # path's prefill: granite-moe-3b-a800m, arctic-480b (B 2) and
+        # llava-next-34b (B 1, patches and text); seamless-m4t-medium's
+        # encoder (bidirectional over 1024 frames), its decoder's causal
+        # self-attention, and its cross attention (S 4096 queries over the
+        # T 1024 memory keys, no mask), then cross attention at ragged S
+        # and T
+        attn_case("granite_moe_bf16", 2, 24, 8, 4096, 4096, 64, gen, dev,
+                  timed=True, strided=True, **bf),
+        attn_case("arctic_bf16", 2, 56, 8, 4096, 4096, 128, gen, dev,
+                  timed=True, strided=True, **bf),
+        attn_case("llava_bf16", 1, 56, 8, 4096, 4096, 128, gen, dev,
+                  timed=True, strided=True, **bf),
+        attn_case("seamless_enc_bf16", 2, 16, 16, 1024, 1024, 64, gen, dev,
+                  causal=False, timed=True, strided=True, **bf),
+        attn_case("seamless_self_bf16", 2, 16, 16, 4096, 4096, 64, gen, dev,
+                  timed=True, strided=True, **bf),
+        attn_case("seamless_cross_bf16", 2, 16, 16, 4096, 1024, 64, gen, dev,
+                  causal=False, timed=True, strided=True, **bf),
+        attn_case("cross_ragged_bf16", 2, 16, 16, 333, 1000, 64, gen, dev,
+                  causal=False, strided=True, **bf),
     ]
     return cases
 
@@ -2973,15 +3015,42 @@ def refresh_card_vs_cpu(dev, seed, log, params, enc_cfg, offline, costs):
 # phases 2 and 3: the candidate LMs' generation path
 # ---------------------------------------------------------------------------
 
-LM_B, LM_S, LM_STEPS = 2, 4096, 8
+LM_STEPS = 8
+# each model's run at its full config: batch, prompt tokens, the front
+# end's rows (vision patches before the text, or audio frames for the
+# encoder), and what is cut (arctic-480b: 27.7 GB of bf16 weights a unit,
+# and init peaks at the stack plus one unit, so one unit)
+LM_RUNS = {
+    "mamba2-1.3b": dict(batch=2, tokens=4096),
+    "recurrentgemma-9b": dict(batch=2, tokens=4096),
+    "granite-moe-3b-a800m": dict(batch=2, tokens=4096),
+    "arctic-480b": dict(batch=2, tokens=4096, cut=dict(n_units=1)),
+    "seamless-m4t-medium": dict(batch=2, tokens=4096, frames=1024),
+    "llava-next-34b": dict(batch=1, tokens=1216, patches=2880),
+}
 # the kernels of each model's prefill, with their launches per prefill
+# (seamless: 12 encoder, 12 self and 12 cross attention layers)
 LM_PATHS = {
     "mamba2-1.3b": {"ssd_scan": 48},
     "recurrentgemma-9b": {"rglru_scan": 26, "flash_attention": 12},
+    "granite-moe-3b-a800m": {"flash_attention": 32},
+    "arctic-480b": {"flash_attention": 1},
+    "seamless-m4t-medium": {"flash_attention": 36},
+    "llava-next-34b": {"flash_attention": 60},
 }
+# the models whose every moe_ffn call (prefill and decode) runs under
+# set_sync_debug_mode("error") in the warm-up
+LM_NO_SYNC = ("granite-moe-3b-a800m",)
 # each kernel's name in a profile
 KERNEL_SYMBOLS = {"ssd_scan": "ssd_kernel", "rglru_scan": "rglru_kernel",
                   "flash_attention": "flash_attention_kernel"}
+# the MoE FFN's kernels by profiler name (lower case, first match wins):
+# its GEMMs (the expert products and the router), the sort of the
+# dispatch, its gathers and scatters; the rest "other" (softmax, SiLU,
+# casts, fills)
+MOE_GROUPS = {"gemm": ("gemm", "cutlass", "xmma", "nvjet"),
+              "sort": ("sort", "radix"),
+              "gather_scatter": ("index", "scatter", "gather", "catarray")}
 
 
 def tree_leaves(tree):
@@ -3006,8 +3075,7 @@ def profile_prefill(run, prefill_ms, wrappers):
     busy = sum(us for _, us, _ in kern) / 1e3
     share = lambda pred: (sum(us for k, us, _ in kern if pred(k)) / 1e3
                           / busy if busy else None)
-    gemm = lambda k: any(w in k.lower()
-                         for w in ("gemm", "cutlass", "xmma", "nvjet"))
+    gemm = lambda k: any(w in k.lower() for w in MOE_GROUPS["gemm"])
     return dict(
         device_busy_ms=busy, device_idle_share=1.0 - busy / prefill_ms,
         device_kernels_per_prefill=sum(n for _, _, n in kern),
@@ -3017,45 +3085,166 @@ def profile_prefill(run, prefill_ms, wrappers):
         top_kernels=[[k[:70], us / 1e3, n] for k, us, n in kern[:8]])
 
 
-def greedy_steps(params, cache, logits, cfg, n):
-    """``n`` more greedy decode steps after ``logits`` (positions past the
-    timed run's; they write into ``cache``, which is not used after)."""
+def greedy_steps(params, cache, logits, cfg, start, n):
+    """``n`` more greedy decode steps after ``logits`` from position
+    ``start`` (past the timed run's; they write into ``cache``, which is
+    not used after)."""
     from repro_torch.models import lm
     for i in range(n):
         logits, cache = lm.decode_step(params, cache, logits.argmax(-1),
-                                       LM_S + LM_STEPS + i, cfg)
+                                       start + i, cfg)
+
+
+def lm_config(name, cut=None):
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[name], **(cut or {}))
+
+
+def lm_batch(cfg, b, n_tokens, gen, dev, *, patches=0, frames=0):
+    """Random prompt tokens and the front end's rows (fp32, cast by the
+    model): ``patches`` (B, P, d) before the text, ``frames`` (B, F, d)
+    for the encoder. Returns (batch, decoder positions)."""
+    import torch
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, n_tokens),
+                                   generator=gen, device=dev)}
+    if patches:
+        out["patches"] = torch.randn((b, patches, cfg.d_model),
+                                     generator=gen, device=dev)
+    if frames:
+        out["frames"] = torch.randn((b, frames, cfg.d_model), generator=gen,
+                                    device=dev)
+    return out, n_tokens + patches
+
+
+class MoeSpy:
+    """Wraps ``models.moe.moe_ffn`` while in a ``with``: counts the calls
+    (``calls``: prefill, a sequence; ``decode_calls``: one token) and keeps
+    each call's (expert params, input, impl) in ``records`` (the prefill's
+    only, unless ``decode`` is set). With ``no_sync`` each call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside
+    ``moe_ffn`` fails the phase."""
+
+    def __init__(self, what, no_sync=False, decode=False):
+        self.what, self.no_sync, self.decode = what, no_sync, decode
+        self.records, self.calls, self.decode_calls = [], 0, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = moe.moe_ffn
+        moe.moe_ffn = self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_ffn = self.real
+
+    def __call__(self, params, x, cfg, impl="sparse"):
+        import torch
+        one = x.shape[1] == 1
+        self.decode_calls += one
+        self.calls += not one
+        if not one or self.decode:
+            self.records.append((params, x, impl))
+        if not self.no_sync:
+            return self.real(params, x, cfg, impl)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.real(params, x, cfg, impl)
+        except RuntimeError as e:
+            raise CheckFailed(f"lm {self.what}: moe_ffn ({impl}) "
+                              f"synchronised with the card: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def moe_layer_stats(records, cfg, factor=1.25):
+    """Per MoE layer of a prefill, from its input: tokens per expert (min,
+    max) and the share of assignments dropped at ``factor``."""
+    import torch
+    from repro_torch.models import moe
+    rows = []
+    for p, x, _ in records:
+        n = x.shape[0] * x.shape[1]
+        _, idx, _ = moe._route(p, x.reshape(n, -1), cfg)
+        counts = torch.zeros((cfg.n_experts,), device=x.device).index_add_(
+            0, idx.reshape(-1), torch.ones((idx.numel(),), device=x.device))
+        over = (counts - moe.capacity(n, cfg, factor)).clamp(min=0).sum()
+        rows.append(torch.stack([counts.min(), counts.max(),
+                                 over / idx.numel()]))
+    t = torch.stack(rows).T.tolist()
+    n = records[0][1].shape[0] * records[0][1].shape[1]
+    return dict(capacity_factor=factor, capacity=moe.capacity(n, cfg, factor),
+                assignments=n * cfg.top_k,
+                tokens_per_expert_min=[int(v) for v in t[0]],
+                tokens_per_expert_max=[int(v) for v in t[1]],
+                dropped_share=t[2])
+
+
+def moe_profile(records, cfg, busy_ms):
+    """The prefill's MoE FFNs again, each on its recorded input, under
+    ``torch.profiler`` (device activity only): device ms by ``MOE_GROUPS``
+    over all the layers, and each group's share of the prefill's busy
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for p, x, impl in records:
+            moe.moe_ffn(p, x, cfg, impl)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys([*MOE_GROUPS, "other"], 0.0)
+    for key, us, _ in _kernel_events(prof):
+        g = next((g for g, subs in MOE_GROUPS.items()
+                  if any(x in key.lower() for x in subs)), "other")
+        ms[g] += us / 1e3
+    total = sum(ms.values())
+    return dict(layers=len(records), device_ms=total, device_ms_by_group=ms,
+                share_of_prefill=total / busy_ms,
+                share_of_prefill_by_group={g: v / busy_ms
+                                           for g, v in ms.items()})
 
 
 def phase_lm(dev, seed):
-    """mamba2-1.3b and recurrentgemma-9b at their full configs (random bf16
-    weights from a generator on the card): B 2 prompts of S 4096 random
-    tokens, ``lm.prefill`` (cache_len S + 8), then 8 greedy
-    ``lm.decode_step``s, as ``examples/routed_serving_e2e.py::
-    greedy_decode`` does. One warm-up run first; then the launch counts
-    are reset, the path runs timed, and the counts are read after the
-    prefill and after the decode: each kernel of the model's prefill
-    exactly ``LM_PATHS`` times, nothing from decode. One more prefill and
-    two more decode steps run under the profiler (device activity only)."""
+    """The candidate LMs at their full configs (``LM_RUNS``; random bf16
+    weights from a generator on the card): ``lm.prefill`` of the prompt
+    (cache_len S + 10: the timed and the profiled steps), then 8 greedy
+    ``lm.decode_step``s, as
+    ``examples/routed_serving_e2e.py::greedy_decode`` does. One warm-up
+    run first (for ``LM_NO_SYNC``: every ``moe_ffn`` call under
+    ``set_sync_debug_mode("error")``; each MoE layer's prefill input kept);
+    then the launch counts are reset, the path runs timed, and the counts
+    are read after the prefill and after the decode: each kernel of the
+    model's prefill exactly ``LM_PATHS`` times, nothing from decode. One
+    more prefill and two more decode steps run under the profiler (device
+    activity only); for an MoE model, its FFNs once more on the kept
+    inputs, profiled by kernel group, and per layer the tokens per expert
+    and the dropped share at capacity factor 1.25."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import ARCHS
     from repro_torch.models import lm
     out = {}
     for name, per_prefill in LM_PATHS.items():
-        cfg = ARCHS[name]
+        run = LM_RUNS[name]
+        cfg = lm_config(name, run.get("cut"))
+        b = run["batch"]
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params = lm.init_params(gen, cfg, device=dev)
-        tok = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=gen,
-                            device=dev)
+        batch, s = lm_batch(cfg, b, run["tokens"], gen, dev,
+                            patches=run.get("patches", 0),
+                            frames=run.get("frames", 0))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev)
         leaves = tree_leaves(params)
-        cache_len = LM_S + LM_STEPS
-        batch = {"tokens": tok}
-        last, cache = lm.prefill(params, batch, cfg, cache_len)  # warm-up
-        lm.decode_step(params, cache, last.argmax(-1), LM_S, cfg)
+        cache_len = s + LM_STEPS + 2
+        with MoeSpy(name, no_sync=name in LM_NO_SYNC) as spy:
+            last, cache = lm.prefill(params, batch, cfg, cache_len)  # warm-up
+            lm.decode_step(params, cache, last.argmax(-1), s, cfg)
         del last, cache
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3070,7 +3259,7 @@ def phase_lm(dev, seed):
         nxt = last.argmax(-1)
         for i in range(LM_STEPS):
             generated.append(nxt)
-            lg, cache = lm.decode_step(params, cache, nxt, LM_S + i, cfg)
+            lg, cache = lm.decode_step(params, cache, nxt, s + i, cfg)
             logits.append(lg)
             nxt = lg.argmax(-1)
         torch.cuda.synchronize()
@@ -3085,7 +3274,7 @@ def phase_lm(dev, seed):
         check(counts == per, f"lm {name}: decode launched a kernel: "
                              f"{counts} after the prefill's {per}")
         lg = torch.stack(logits)
-        check(lg.shape == (LM_STEPS + 1, LM_B, cfg.vocab_size)
+        check(lg.shape == (LM_STEPS + 1, b, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()),
               f"lm {name}: logits {tuple(lg.shape)} / not finite")
         toks = torch.stack(generated, dim=1)
@@ -3095,9 +3284,13 @@ def phase_lm(dev, seed):
         out[name] = dict(
             params=sum(t.numel() for t in leaves),
             weights_gb=sum(t.numel() * t.element_size() for t in leaves)
-            / 1e9, init_s=init_s, batch=LM_B, prompt_len=LM_S,
+            / 1e9, init_s=init_s, init_peak_memory_gb=init_peak / 1e9,
+            n_layers=cfg.n_layers,
+            n_enc_layers=cfg.n_enc_layers, cut=run.get("cut"), batch=b,
+            prompt_len=s, prompt_tokens=run["tokens"],
+            patches=run.get("patches", 0), frames=run.get("frames", 0),
             decode_steps=LM_STEPS, prefill_ms=prefill_ms,
-            prompt_tokens_per_s=LM_B * LM_S / (t1 - t0),
+            prompt_tokens_per_s=b * s / (t1 - t0),
             decode_ms_per_token=1e3 * (t2 - t1) / LM_STEPS,
             peak_memory_gb=peak / 1e9, launches_per_prefill=per,
             launches=counts, generated=toks.tolist(),
@@ -3105,65 +3298,171 @@ def phase_lm(dev, seed):
                 lambda: lm.prefill(params, batch, cfg, cache_len),
                 prefill_ms, per_prefill),
             decode_profile=profile_ticks(
-                lambda n: greedy_steps(params, cache, logits[-1], cfg, n),
+                lambda n: greedy_steps(params, cache, logits[-1], cfg,
+                                       s + LM_STEPS, n),
                 1e3 * (t2 - t1) / LM_STEPS))
-        del params, leaves, cache, logits, lg, last
+        if cfg.n_experts:
+            moe_layers = sum(sp.ffn.startswith("moe")
+                             for sp in cfg.all_specs())
+            check(spy.calls == moe_layers and spy.decode_calls == moe_layers,
+                  f"lm {name}: {spy.calls} / {spy.decode_calls} moe_ffn "
+                  f"calls in the warm-up prefill / decode step, want "
+                  f"{moe_layers}")
+            out[name].update(
+                moe_calls_without_sync=(spy.calls + spy.decode_calls
+                                        if spy.no_sync else 0),
+                moe_layers=moe_layer_stats(spy.records, cfg),
+                moe_profile=moe_profile(
+                    spy.records, cfg,
+                    out[name]["profile"]["device_busy_ms"]))
+        del params, leaves, cache, logits, lg, last, spy, batch
         torch.cuda.empty_cache()
     return out
 
 
 # full width in fp32 at a smaller depth, for the card against the CPU
+# (arctic-480b also at 16 of its 128 experts, so the CPU can run it)
 LM_CPU_CUTS = {"mamba2-1.3b": dict(n_units=2),
-               "recurrentgemma-9b": dict(n_units=1, remainder=())}
+               "recurrentgemma-9b": dict(n_units=1, remainder=()),
+               "granite-moe-3b-a800m": dict(n_units=2),
+               "arctic-480b": dict(n_units=1, n_experts=16),
+               "seamless-m4t-medium": dict(n_units=2, enc_n_units=2,
+                                           enc_frames=256),
+               "llava-next-34b": dict(n_units=1, n_frontend_tokens=64)}
+# batch and prompt tokens of each card-vs-CPU run (S 500: a ragged SSD
+# tail for the recurrent models)
+LM_CPU_RUNS = {"mamba2-1.3b": (2, 500), "recurrentgemma-9b": (2, 500),
+               "granite-moe-3b-a800m": (2, 128), "arctic-480b": (2, 128),
+               "seamless-m4t-medium": (2, 128), "llava-next-34b": (1, 128)}
+
+
+def moe_layer_check(name, cfg, g_records, c_records, dev):
+    """Each MoE call of the card-vs-CPU run (prefill layers, then decode
+    steps) on the card from the CPU's input to it, against the CPU:
+    experts equal, and (where no decision flipped in the call) the kept
+    and dropped assignments equal, on every token whose CPU gap between
+    the k-th and (k+1)-th router logit exceeds ``NEAR_TIE`` of the largest
+    |logit|; the sparse and dense outputs on those tokens within 1e-4 of
+    their largest magnitude. Also the card's own run: the calls where its
+    experts differ from the CPU's (e2e flips, each at a near-tie, else the
+    check fails)."""
+    import torch
+    from repro_torch.models import moe
+    cpu = torch.device("cpu")
+    k, e = cfg.top_k, cfg.n_experts
+    rows, e2e_flips = [], []
+    prefill_calls = sum(x.shape[1] > 1 for _, x, _ in c_records)
+    for i, ((gp, gx, _), (cp, cx, _)) in enumerate(zip(g_records,
+                                                       c_records)):
+        what = (f"prefill layer {i}" if i < prefill_calls else
+                f"decode call {i - prefill_calls}")
+        n = cx.shape[0] * cx.shape[1]
+        xf = cx.reshape(n, -1)
+        logits = xf @ cp["router"]
+        top = torch.sort(logits, dim=-1, descending=True).values
+        near = (top[:, k - 1] - top[:, k]) <= NEAR_TIE * float(
+            logits.abs().max())
+        _, c_idx, _ = moe._route(cp, xf, cfg)
+        _, g_idx, _ = moe._route(gp, xf.to(dev), cfg)
+        flip = (g_idx.to(cpu) != c_idx).any(-1)
+        check(not bool((flip & ~near).any()),
+              f"lm card vs cpu {name}: {what}: experts differ outside "
+              f"near-ties")
+        _, e2e_idx, _ = moe._route(gp, gx.reshape(n, -1), cfg)
+        e2e = (e2e_idx.to(cpu) != c_idx).any(-1)
+        check(not bool((e2e & ~near).any()),
+              f"lm card vs cpu {name}: {what}: the card's run chose other "
+              f"experts outside near-ties")
+        if bool(e2e.any()):
+            e2e_flips.append(what)
+        c = moe.capacity(n, cfg)
+        c_keep = (moe.dispatch(c_idx, e, c)[2] < e * c).reshape(n, k)
+        g_keep = (moe.dispatch(g_idx, e, c)[2] < e * c).to(cpu).reshape(n, k)
+        if not bool(flip.any()):
+            check(torch.equal(g_keep, c_keep),
+                  f"lm card vs cpu {name}: {what}: dropped assignments "
+                  f"differ")
+        ok = ~near & ~flip & (g_keep == c_keep).all(-1)
+        row = dict(call=what, tokens=n, near_ties=int(near.sum()),
+                   flips=int(flip.sum()), dropped=int((~c_keep).sum()))
+        for impl in ("sparse", "dense"):
+            want = moe.moe_ffn(cp, cx, cfg, impl)[0].reshape(n, -1)
+            got = moe.moe_ffn(gp, cx.to(dev), cfg, impl)[0].to(
+                cpu).reshape(n, -1)
+            rows_ok = ok if impl == "sparse" else ~near
+            err = float((got - want)[rows_ok].abs().max()) if bool(
+                rows_ok.any()) else 0.0
+            scale = float(want.abs().max())
+            row[f"{impl}_max_rel_err"] = err / scale
+            check(err <= 1e-4 * scale,
+                  f"lm card vs cpu {name}: {what}: moe_ffn {impl} off by "
+                  f"{err}")
+        rows.append(row)
+    return rows, e2e_flips
 
 
 def phase_lm_card_vs_cpu(dev, seed):
-    """Each model at full width in fp32 (``LM_CPU_CUTS`` depth), weights
-    made once on the card from the seed and copied to the CPU; B 2 prompts
-    of S 500 (a ragged SSD tail), prefill and 4 decode steps on the card
-    and on the CPU, both fed the CPU's greedy tokens. Every step's logits
-    within 1e-4 of the largest |logit|, the card's greedy token equal to
-    the CPU's outside near-ties, every cache leaf within 1e-4 of its
-    largest magnitude, ``slot_pos`` equal."""
-    import dataclasses
+    """Each model at full width in fp32 (``LM_CPU_CUTS``), weights made
+    once on the card from the seed and copied to the CPU; the prompts of
+    ``LM_CPU_RUNS`` (with the cut's patches or frames), prefill and 4
+    decode steps on the card and on the CPU, both fed the CPU's greedy
+    tokens. Every step's logits within 1e-4 of the largest |logit|, the
+    card's greedy token equal to the CPU's outside near-ties, every cache
+    leaf within 1e-4 of its largest magnitude, ``slot_pos`` equal. An MoE
+    model also runs ``moe_layer_check`` on every MoE call; where the card's
+    own run flipped an expert at a near-tie (not a fault), the logit and
+    cache limits are reported, not applied, and the record names the
+    calls."""
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.models import lm
     from repro_torch.models.layers import tree_map
-    b, s, steps = 2, 500, 4
+    steps = 4
     cpu = torch.device("cpu")
     out = {}
     for name, cut in LM_CPU_CUTS.items():
-        cfg = dataclasses.replace(ARCHS[name], dtype="float32", **cut)
+        cfg = lm_config(name, dict(cut, dtype="float32"))
+        b, n_tok = LM_CPU_RUNS[name]
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = lm.init_params(gen, cfg, device=dev)
-        tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                            device=dev)
+        batch, s = lm_batch(
+            cfg, b, n_tok, gen, dev,
+            patches=cfg.n_frontend_tokens if cfg.frontend == "vision" else 0,
+            frames=cfg.enc_frames if cfg.is_encdec else 0)
         cparams = tree_map(lambda t: t.to(cpu), params)
-        g_last, g_cache = lm.prefill(params, {"tokens": tok}, cfg, s + steps)
-        c_last, c_cache = lm.prefill(cparams, {"tokens": tok.to(cpu)}, cfg,
-                                     s + steps)
+        cbatch = {k: v.to(cpu) for k, v in batch.items()}
+        with MoeSpy(name, decode=True) as g_spy:
+            g_last, g_cache = lm.prefill(params, batch, cfg, s + steps)
+        with MoeSpy(name, decode=True) as c_spy:
+            c_last, c_cache = lm.prefill(cparams, cbatch, cfg, s + steps)
         pairs = [(g_last.to(cpu), c_last)]
         nxt = c_last.argmax(-1)
         for i in range(steps):
-            g_lg, g_cache = lm.decode_step(params, g_cache, nxt.to(dev),
-                                           s + i, cfg)
-            c_lg, c_cache = lm.decode_step(cparams, c_cache, nxt, s + i, cfg)
+            with g_spy:
+                g_lg, g_cache = lm.decode_step(params, g_cache, nxt.to(dev),
+                                               s + i, cfg)
+            with c_spy:
+                c_lg, c_cache = lm.decode_step(cparams, c_cache, nxt, s + i,
+                                               cfg)
             pairs.append((g_lg.to(cpu), c_lg))
             nxt = c_lg.argmax(-1)
+        moe_rows, flips = (moe_layer_check(name, cfg, g_spy.records,
+                                           c_spy.records, dev)
+                           if cfg.n_experts else (None, []))
+        strict = not flips
         logit_err = bad = ties = 0
         for g, c in pairs:
             err = float((g - c).abs().max())
             logit_err = max(logit_err, err / float(c.abs().max()))
-            check(err <= 1e-4 * float(c.abs().max()),
+            check(not strict or err <= 1e-4 * float(c.abs().max()),
                   f"lm card vs cpu {name}: logits differ by {err}")
             miss = g.argmax(-1) != c.argmax(-1)
             tie = top2_gap(c) <= NEAR_TIE * float(c.abs().max())
             bad, ties = bad + int((miss & ~tie).sum()), ties + int(
                 (miss & tie).sum())
-        check(bad == 0, f"lm card vs cpu {name}: {bad} greedy tokens differ "
-                        f"outside near-ties")
+        check(not strict or bad == 0,
+              f"lm card vs cpu {name}: {bad} greedy tokens differ outside "
+              f"near-ties")
         cache_err = 0.0
         for g, c in zip(tree_leaves(g_cache), tree_leaves(c_cache)):
             g = g.to(cpu)
@@ -3174,16 +3473,18 @@ def phase_lm_card_vs_cpu(dev, seed):
             err = float((g - c).abs().max())
             scale = max(float(c.abs().max()), 1e-30)
             cache_err = max(cache_err, err / scale)
-            check(err <= 1e-4 * scale,
+            check(not strict or err <= 1e-4 * scale,
                   f"lm card vs cpu {name}: a cache leaf differs by {err}")
-        out[name] = dict(n_layers=cfg.n_layers, batch=b, prompt_len=s,
-                         decode_steps=steps, max_rel_logit_err=logit_err,
+        out[name] = dict(n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+                         cut=cut, batch=b, prompt_len=s, decode_steps=steps,
+                         max_rel_logit_err=logit_err,
                          max_rel_cache_err=cache_err, token_mismatches=bad,
-                         near_ties=ties)
-        del params, cparams, g_cache, c_cache
+                         near_ties=ties, moe_layer_check=moe_rows,
+                         moe_near_tie_flips_e2e=flips,
+                         limits_applied=strict)
+        del params, cparams, g_cache, c_cache, g_spy, c_spy
         torch.cuda.empty_cache()
     return out
-
 
 # ---------------------------------------------------------------------------
 
@@ -3220,14 +3521,16 @@ KERNELS = [
 # the bf16 cases of flash_attention timed beside its fp32 main and bench,
 # the fp32 case of ssd_scan (the SIMT kernel) beside its bf16 ones, and
 # the serve case of dueling_select beside its main and bench
-ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16")
+ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16", "granite_moe_bf16",
+                   "arctic_bf16", "llava_bf16", "seamless_enc_bf16",
+                   "seamless_self_bf16", "seamless_cross_bf16")
 SSD_FP32_TIMED = ("main_fp32",)
 SELECT_TIMED = ("serve",)
 # the timed attn_bwd cases beside main and bench
 ATTN_BWD_TIMED = ("main_large", "e5b", "minilm_d24")
 
 
-def kernels_line(cases, launches, serve_launches):
+def kernels_line(cases, launches, serve_launches, lm_launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
@@ -3244,7 +3547,9 @@ def kernels_line(cases, launches, serve_launches):
     service and autopilot, phase stream's graph replays and its
     autopilot's (by the profiler's kernel names), and phase refresh's
     cycle (``refresh``: the fine-tuning's and the offline encode's
-    attention). The two forward kernels are reached on their
+    attention). ``lm_launches`` are each lm model's launches per prefill
+    (phase ``lm``), under ``lm_launches`` of each kernel that model's
+    prefill launches. The two forward kernels are reached on their
     paths only through the energy trace the runs here add
     (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
@@ -3272,6 +3577,10 @@ def kernels_line(cases, launches, serve_launches):
                     if c.get(name)}
         if on_serve:
             rows[-1]["serve_launches"] = on_serve
+        on_lm = {model: c[name] for model, c in lm_launches.items()
+                 if c.get(name)}
+        if on_lm:
+            rows[-1]["lm_launches"] = on_lm
         if name == "flash_attention_bwd":
             rows[-1].update(plan=m["plan"], bench_plan=bch["plan"],
                             device_us_by_kernel=m["device_us_by_kernel"],
@@ -3374,7 +3683,9 @@ def main() -> int:
              serve_autopilot=record["serve"]["autopilot"]["launches"],
              stream=record["stream"]["launches"],
              stream_autopilot=record["stream"]["autopilot"]["launches"],
-             refresh=record["refresh"]["cycles"][0]["launches"]))
+             refresh=record["refresh"]["cycles"][0]["launches"]),
+        {n: r["launches_per_prefill"] for n, r in record["lm"].items()
+         if isinstance(r, dict)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,8 +1,6 @@
 """Architecture registry (counterpart of ``repro/configs/__init__.py``):
 the reference's ten candidate-LM configurations as port ``ModelConfig``s,
-field for field. The port runs mamba2-1.3b and recurrentgemma-9b end to
-end; the MoE, cross-attention and vision parts of the others raise in
-``models/blocks.py`` and ``models/lm.py``.
+field for field; the port runs each of them end to end (``models/lm.py``).
 """
 from __future__ import annotations
 

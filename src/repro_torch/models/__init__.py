@@ -1,2 +1,2 @@
-"""Model layers of the port (counterpart of ``repro.models``): so far the
-attention and gated-MLP blocks the query encoder runs."""
+"""Model layers of the port (counterpart of ``repro.models``): the blocks
+of the query encoder and of the candidate LMs."""

@@ -1,5 +1,5 @@
-"""Full-sequence attention: GQA, causal / sliding-window / bidirectional,
-with the Gemma-2 logit soft cap and RoPE (counterpart of
+"""Full-sequence attention: GQA, causal / sliding-window / bidirectional
+/ cross, with the Gemma-2 logit soft cap and RoPE (counterpart of
 ``repro/models/attention.py``).
 
 The reference computes this contraction with XLA einsums and keeps its
@@ -13,7 +13,9 @@ outside any kernel. Two things follow from the kernel's interface:
   positions. The two agree whenever each row's positions run
   consecutively (``arange(S)`` plus a per-row offset, kv positions equal
   to query positions), which is every full-sequence caller's case (the
-  encoder, prefill from position 0);
+  encoder, prefill from position 0). Cross attention (mode 'cross': K/V
+  from ``kv_src``, the encoder's memory, no RoPE on either side, no mask)
+  runs on the same wrapper unmasked, with S queries over T != S keys;
 * bf16 attention rounds p in three different places. The card's bf16
   kernel rounds the unnormalised p to bf16 before P.V (fp32 scores, sums
   and accumulator); the CPU plain version keeps p in fp32 throughout; the
@@ -32,8 +34,15 @@ token). Decoding at a position at or past the end of a full-context cache
 raises (``ValueError`` for an int position; for a tensor position an
 asynchronous assert, which needs no host sync: ``RuntimeError`` on the
 CPU, a device-side assert on the card); the reference clamps the slot and
-overwrites the last key. Cross attention and ``cfg.attn_q_chunk`` raise
-``NotImplementedError``: they come with the encoder-decoder models.
+overwrites the last key. Decode mode 'cross' attends to the encoder's
+memory, projected anew (soft cap applied) and leaves the cache untouched,
+as the reference's does.
+
+``cfg.attn_q_chunk`` is accepted and changes nothing: the reference's
+blockwise loop over query chunks is its XLA stand-in for a flash kernel,
+bounding the live scores at (B, H, q_chunk, T); the flash kernel here
+bounds them already, and chunking the rows of a row-wise softmax leaves
+every row's value as it is.
 """
 from __future__ import annotations
 
@@ -89,10 +98,6 @@ def self_attention_kv(params: dict, x: torch.Tensor,
     """Self-attention of x (B,S,d) at ``positions`` (B,S) on the flash
     wrapper. Returns (out (B,S,d), k, v): the roped keys and the values
     (B,S,KV,hd) it attended to, which prefill writes into the cache."""
-    if cfg.attn_q_chunk:
-        raise NotImplementedError(
-            "attn_q_chunk is not ported: the flash kernel bounds the live "
-            "scores already")
     causal, win = _mask(mode, window)
     q, k, v = _project_qkv(params, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -104,15 +109,35 @@ def self_attention_kv(params: dict, x: torch.Tensor,
     return out, k, v
 
 
+def cross_attention_kv(params: dict, x: torch.Tensor,
+                       kv_src: torch.Tensor, cfg: ModelConfig):
+    """Attention of x (B,S,d) over the memory ``kv_src`` (B,T,d) on the
+    flash wrapper: no RoPE, no mask, the soft cap. Returns (out (B,S,d),
+    k, v): the memory's keys and values (B,T,KV,hd), biases included,
+    which prefill writes into the cross cache."""
+    q, k, v = _project_qkv(params, x, kv_src, cfg)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=False, window=0,
+                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
+    out = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+    return out, k, v
+
+
 def full_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, *, mode: str, window: int = 0,
                    kv_src: torch.Tensor | None = None,
                    kv_positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence self-attention of x (B,S,d) at ``positions`` (B,S);
-    mode 'causal' | 'local' | 'bidir'. Returns (B,S,d)."""
-    if mode == "cross" or kv_src is not None or kv_positions is not None:
-        raise NotImplementedError(
-            "cross attention comes with the encoder-decoder models")
+    """Full-sequence attention of x (B,S,d) at ``positions`` (B,S); mode
+    'causal' | 'local' | 'bidir' (self-attention) or 'cross' (over the
+    memory ``kv_src`` (B,T,d), whose ``kv_positions`` mask nothing).
+    Returns (B,S,d)."""
+    if mode == "cross":
+        if kv_src is None:
+            raise ValueError("mode 'cross' needs kv_src")
+        return cross_attention_kv(params, x, kv_src, cfg)[0]
+    if kv_src is not None or kv_positions is not None:
+        raise ValueError(f"mode {mode!r} is self-attention: kv_src and "
+                         f"kv_positions belong to mode 'cross'")
     return self_attention_kv(params, x, positions, cfg, mode=mode,
                              window=window)[0]
 
@@ -164,12 +189,18 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos,
     """One-token decode of x (B,1,d) at absolute position ``pos`` (an int
     or a 0-d integer tensor). Mode 'causal': the cache holds the whole
     context; mode 'local': a ring buffer, slot ``pos % cache_len``. The
-    token's K/V and position are written into ``cache`` in place.
+    token's K/V and position are written into ``cache`` in place. Mode
+    'cross': attend to ``enc_memory`` (B,T,d), the cache untouched.
     Returns (out (B,1,d), cache)."""
+    if mode == "cross":
+        q, k, v = _project_qkv(params, x, enc_memory, cfg)
+        scores = _gqa_scores(q, k).to(torch.float32) * (cfg.hd ** -0.5)
+        scores = softcap(scores, cfg.attn_softcap)
+        p = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bshk,hkd->bsd", _gqa_out(p, v), params["wo"])
+        return out, cache
     if mode not in ("causal", "local"):
-        raise NotImplementedError(
-            f"decode mode {mode!r}: cross attention comes with the "
-            f"encoder-decoder models")
+        raise ValueError(f"unknown decode mode {mode!r}")
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
     if mode == "causal":

@@ -3,9 +3,7 @@
 ``LayerSpec`` and ``ModelConfig`` keep the reference's field names and
 defaults, so a reference configuration builds a port object field for
 field, and ``reduced()`` and ``param_count()`` give what the reference's
-give. The port runs the attention mixers (global, local, bidirectional),
-the RG-LRU and SSD mixers and the gated MLP; cross attention and the MoE
-FFNs are named here and raise in ``models/blocks.py``.
+give. The port runs every mixer and FFN named here.
 """
 from __future__ import annotations
 

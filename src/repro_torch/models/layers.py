@@ -56,7 +56,9 @@ def normal(gen: torch.Generator, shape, std: float, dtype,
     ``dtype`` and moved to ``device``."""
     z = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (z * std).to(dtype=dtype, device=device)
+    # in place: one fp32 temporary (arctic-480b's stacked experts are 18 GB
+    # of fp32 each)
+    return z.mul_(std).to(dtype=dtype, device=device)
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,

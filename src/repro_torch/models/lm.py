@@ -1,11 +1,14 @@
-"""Decoder-only LM: full-sequence forward, prefill and one-token decode
-(counterpart of ``repro/models/lm.py``).
+"""The candidate LMs: decoder-only (dense, MoE, SSM, hybrid, VLM) and
+encoder-decoder (audio); full-sequence forward, prefill and one-token
+decode (counterpart of ``repro/models/lm.py``).
 
 The parameter tree is the reference's: ``units`` holds the pattern's
 blocks with every leaf stacked over a leading ``n_units`` axis (the
 reference scans that axis; here a Python loop takes views ``t[i]``),
-then ``remainder``, ``final_norm`` and the head (``embed`` when tied). The
-caches stack the same way. So the reference's parameters and caches map
+then ``remainder``, ``final_norm`` and the head (``embed`` when tied),
+``vis_proj`` for the vision front end, and for an encoder-decoder model
+``enc_units`` (stacked over ``enc_n_units``) and ``enc_norm``. The caches
+stack the same way. So the reference's parameters and caches map
 onto the port's leaf for leaf (``convert.lm_params_from_numpy``,
 ``convert.lm_cache_from_numpy``). ``decode_step`` updates the cache in
 place rather than returning a new one, as the reference's functional
@@ -13,9 +16,13 @@ update does.
 
 The embedding is scaled by sqrt(d_model) rounded to the weights' type
 first, as ``jnp.asarray(d_model ** 0.5, dtype)`` is (45.25 for d_model
-2048 in bf16, not 45.2548). Training (``loss_fn``) comes with the training
-slice; the vision front end and the encoder-decoder models raise
-``NotImplementedError``.
+2048 in bf16, not 45.2548). The vision front end prepends
+``batch["patches"] @ vis_proj`` to the token embeddings, with positions
+running over patches and text together; an encoder-decoder model encodes
+``batch["frames"]`` once (bidirectional units, then ``enc_norm``) and its
+cross-attention layers attend to that memory, whose K/V prefill writes
+into the cache, so decode needs no memory. Training (``loss_fn``) comes
+with the training slice.
 """
 from __future__ import annotations
 
@@ -25,18 +32,12 @@ from repro_torch.device import resolve_device
 
 from . import blocks as blk
 from .config import ModelConfig
-from .layers import init_embedding, rms_norm, softcap, stack_trees, tree_map
+from .layers import (init_embedding, normal, rms_norm, softcap, stack_trees,
+                     tree_map)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check(cfg: ModelConfig) -> None:
-    if cfg.frontend == "vision" or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the vision front end and the encoder-decoder "
-            f"models are not ported yet")
 
 
 def _stacked_unit_init(gen, cfg, specs, n_units, dtype, device):
@@ -61,7 +62,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Random weights from ``gen``, drawn on the generator's device (a
     generator on the card draws a 9 B-parameter model in seconds) and
     moved to ``device``."""
-    _check(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     p: dict = {
@@ -76,6 +76,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
                                       dev)
+    if cfg.frontend == "vision":
+        p["vis_proj"] = normal(gen, (cfg.d_model, cfg.d_model),
+                               cfg.d_model ** -0.5, dtype, dev)
+    if cfg.is_encdec:
+        p["enc_units"] = _stacked_unit_init(gen, cfg, cfg.enc_pattern,
+                                            cfg.enc_n_units, dtype, dev)
+        p["enc_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                    device=dev)
     return p
 
 
@@ -90,18 +98,39 @@ def _embed(params, tokens, cfg):
 
 
 def _embed_inputs(params, batch, cfg):
-    """The decoder input sequence and its positions from the batch."""
-    _check(cfg)
+    """The decoder input sequence and its positions from the batch: the
+    patches' projection before the token embeddings for the vision front
+    end, positions over both."""
     x = _embed(params, batch["tokens"], cfg)
+    if cfg.frontend == "vision" and "patches" in batch:
+        vis = batch["patches"].to(_dtype(cfg)) @ params["vis_proj"]
+        x = torch.cat([vis, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     return x, positions
 
 
-def _units(params):
-    n = params["units"]["0"]["norm1"].shape[0]
-    return [tree_map(lambda t: t[i], params["units"]) for i in range(n)]
+def _units(params, stack="units"):
+    """Views of each unit of the stacked ``params[stack]``."""
+    n = params[stack]["0"]["norm1"].shape[0]
+    return [tree_map(lambda t: t[i], params[stack]) for i in range(n)]
+
+
+def _encode(params, frames, cfg):
+    """The encoder's memory (B,T,d) of ``frames`` (B,T,d): the
+    bidirectional units, then ``enc_norm``."""
+    x = frames.to(_dtype(cfg))
+    b, t, _ = x.shape
+    pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    for u in _units(params, "enc_units"):
+        for i, spec in enumerate(cfg.enc_pattern):
+            x, _ = blk.block_fwd(u[str(i)], x, pos, cfg, spec)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _memory(params, batch, cfg):
+    return _encode(params, batch["frames"], cfg) if cfg.is_encdec else None
 
 
 def _logits(params, x, cfg):
@@ -110,8 +139,13 @@ def _logits(params, x, cfg):
     return softcap((x @ head.T).to(torch.float32), cfg.logit_softcap)
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig):
-    """Full-sequence logits. Returns (logits (B,S,V) float32, aux_loss)."""
+def forward(params: dict, batch: dict, cfg: ModelConfig,
+            moe_impl: str | None = None):
+    """Full-sequence logits. Returns (logits (B,S,V) float32, aux_loss, the
+    sum of the MoE layers' load-balance losses). For vision inputs the
+    logits cover patches and text; ``moe_impl`` None defers to
+    ``cfg.moe_impl``."""
+    enc_memory = _memory(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = [(u[str(i)], spec) for u in _units(params)
@@ -119,41 +153,50 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
     layers += [(params["remainder"][str(i)], spec)
                for i, spec in enumerate(cfg.remainder)]
     for lp, spec in layers:
-        x, a = blk.block_fwd(lp, x, positions, cfg, spec)
+        x, a = blk.block_fwd(lp, x, positions, cfg, spec,
+                             enc_memory=enc_memory, moe_impl=moe_impl)
         aux = aux + a
     return _logits(params, x, cfg), aux
 
 
 def init_cache(batch: int, cfg: ModelConfig, cache_len: int,
-               device=None) -> dict:
-    _check(cfg)
+               enc_len: int = 0, device=None) -> dict:
+    """An empty decode cache; a cross-attention layer's memory K/V take
+    ``enc_len`` slots."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     cache: dict = {"units": stack_trees([
-        blk.init_unit_cache(batch, cfg, cfg.pattern, cache_len, dtype, dev)
+        blk.init_unit_cache(batch, cfg, cfg.pattern, cache_len, dtype, dev,
+                            enc_len)
         for _ in range(cfg.n_units)])}
     if cfg.remainder:
         cache["remainder"] = blk.init_unit_cache(batch, cfg, cfg.remainder,
-                                                 cache_len, dtype, dev)
+                                                 cache_len, dtype, dev,
+                                                 enc_len)
     return cache
 
 
-def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int):
-    """Full-context prefill. Returns (last_logits (B,V), cache)."""
+def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
+            moe_impl: str | None = None):
+    """Full-context prefill (an encoder-decoder model encodes its frames
+    once). Returns (last_logits (B,V), cache)."""
+    enc_memory = _memory(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
+    kw = dict(enc_memory=enc_memory, moe_impl=moe_impl)
     caches = []
     for u in _units(params):
         c = {}
         for i, spec in enumerate(cfg.pattern):
             x, c[str(i)] = blk.block_prefill(u[str(i)], x, positions, cfg,
-                                             spec, cache_len)
+                                             spec, cache_len, **kw)
         caches.append(c)
     cache: dict = {"units": stack_trees(caches)}
     if cfg.remainder:
         rc = {}
         for i, spec in enumerate(cfg.remainder):
             x, rc[str(i)] = blk.block_prefill(params["remainder"][str(i)], x,
-                                              positions, cfg, spec, cache_len)
+                                              positions, cfg, spec, cache_len,
+                                              **kw)
         cache["remainder"] = rc
     return _logits(params, x[:, -1], cfg), cache
 
@@ -164,8 +207,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
     (an int or a 0-d integer tensor). The step is written into ``cache``
     in place, through views ``t[i]`` of its stacked leaves (the reference
     returns a new cache; here that would copy every cache leaf on every
-    token). Returns (logits (B,V), cache)."""
-    _check(cfg)
+    token). The cross-attention layers read the memory's K/V from the
+    cache. Returns (logits (B,V), cache)."""
     x = _embed(params, tokens, cfg)[:, None]
     for i, u in enumerate(_units(params)):
         uc = tree_map(lambda t: t[i], cache["units"])

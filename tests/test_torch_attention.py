@@ -16,7 +16,10 @@
   rounding of p fits the tolerance the card tests hold the kernel to.
 * ``models.attention.full_attention`` for modes bidir / causal / local
   (GQA, with and without a soft cap) against the reference's from the same
-  parameters, to 2e-5.
+  parameters, to 2e-5; mode 'cross' over a memory of T 37 keys for S 24
+  queries (no RoPE, no mask) and ``decode_attention``'s mode 'cross' the
+  same; ``cfg.attn_q_chunk`` 16 at S 64 against the reference's blockwise
+  loop with the same config.
 * ``decode_attention`` at a position past the end of a full-context cache
   raises (the reference clamps the slot: a reference caveat, not copied),
   for an int and for a tensor position, and leaves the cache untouched;
@@ -250,19 +253,110 @@ def test_full_attention_matches_reference(mode, cap):
                                **TOL["float32"])
 
 
-def test_full_attention_raises_for_later_slices():
+def test_full_attention_local_mode_needs_a_window():
     tc = port_config(attn_config(0.0))
     p = {k: torch.from_numpy(v) for k, v in attn_params(tc, 0).items()}
     x = torch.zeros((1, 4, tc.d_model))
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError):
-        tattn.full_attention(p, x, pos, tc, mode="cross", kv_src=x)
-    with pytest.raises(NotImplementedError):
-        tattn.full_attention(p, x, pos,
-                             dataclasses.replace(tc, attn_q_chunk=2),
-                             mode="causal")
     with pytest.raises(ValueError, match="window"):
         tattn.full_attention(p, x, pos, tc, mode="local", window=0)
+
+
+def test_full_attention_refuses_a_memory_outside_mode_cross():
+    """A memory belongs to mode 'cross', which needs one."""
+    tc = port_config(attn_config(0.0))
+    p = {k: torch.from_numpy(v) for k, v in attn_params(tc, 0).items()}
+    x = torch.zeros((1, 4, tc.d_model))
+    pos = torch.arange(4)[None]
+    with pytest.raises(ValueError, match="kv_src"):
+        tattn.full_attention(p, x, pos, tc, mode="causal", kv_src=x)
+    with pytest.raises(ValueError, match="kv_src"):
+        tattn.full_attention(p, x, pos, tc, mode="cross")
+
+
+def cross_inputs(jc, s=24, t=37, seed=9):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, s, jc.d_model)).astype(np.float32)
+    mem = rng.standard_normal((2, t, jc.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(s, dtype=np.int32), (2, 1))
+    kv_pos = np.tile(np.arange(t, dtype=np.int32), (2, 1))
+    return x, mem, pos, kv_pos
+
+
+def with_bias(params, cfg, seed):
+    """The projections with non-zero QKV biases, as a qkv_bias model's."""
+    rng = np.random.default_rng(seed)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return dict(params, **{k: (0.1 * rng.standard_normal(s)).astype(
+        np.float32) for k, s in (("bq", (h, hd)), ("bk", (kv, hd)),
+                                 ("bv", (kv, hd)))})
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("cap", [0.0, 20.0])
+def test_cross_attention_matches_reference(cap, bias):
+    """Mode 'cross', S 24 queries over T 37 memory keys, GQA."""
+    jc = attn_config(cap)
+    tc = port_config(jc)
+    params = attn_params(jc, seed=10)
+    if bias:
+        params = with_bias(params, jc, 11)
+    x, mem, pos, kv_pos = cross_inputs(jc)
+    want = jattn.full_attention({k: jnp.asarray(v) for k, v in params.items()},
+                                jnp.asarray(x), jnp.asarray(pos), jc,
+                                mode="cross", kv_src=jnp.asarray(mem),
+                                kv_positions=jnp.asarray(kv_pos))
+    got = tattn.full_attention({k: torch.from_numpy(v)
+                                for k, v in params.items()},
+                               torch.from_numpy(x), torch.from_numpy(pos), tc,
+                               mode="cross", kv_src=torch.from_numpy(mem),
+                               kv_positions=torch.from_numpy(kv_pos))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
+
+
+@pytest.mark.parametrize("cap", [0.0, 20.0])
+def test_cross_decode_attention_matches_reference(cap):
+    """Decode mode 'cross': one token over the memory, soft cap applied,
+    the cache returned untouched."""
+    jc = attn_config(cap)
+    tc = port_config(jc)
+    params = with_bias(attn_params(jc, seed=12), jc, 13)
+    x, mem, _, _ = cross_inputs(jc, s=1)
+    jcache = jattn.init_kv_cache(2, 4, jc, jnp.float32)
+    tcache = tattn.init_kv_cache(2, 4, tc, torch.float32, "cpu")
+    want, wc = jattn.decode_attention(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        jcache, jnp.int32(3), jc, mode="cross", enc_memory=jnp.asarray(mem))
+    got, gc = tattn.decode_attention(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x), tcache, 3, tc, mode="cross",
+        enc_memory=torch.from_numpy(mem))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
+    assert gc is tcache and bool((gc["slot_pos"] == -1).all())
+    assert not bool(gc["k"].any()) and not bool(gc["v"].any())
+
+
+@pytest.mark.parametrize("mode", ["bidir", "causal", "local"])
+def test_attn_q_chunk_matches_reference(mode):
+    """``attn_q_chunk`` 16 at S 64: the reference attends in 4 query
+    blocks; the port's flash path gives the same rows."""
+    jc = dataclasses.replace(attn_config(20.0), attn_q_chunk=16)
+    tc = port_config(jc)
+    assert tc.attn_q_chunk == 16
+    params = attn_params(jc, seed=14)
+    x, _, pos, _ = cross_inputs(jc, s=64, seed=15)
+    want = jattn.full_attention({k: jnp.asarray(v) for k, v in params.items()},
+                                jnp.asarray(x), jnp.asarray(pos), jc,
+                                mode=mode, window=jc.window)
+    got = tattn.full_attention({k: torch.from_numpy(v)
+                                for k, v in params.items()},
+                               torch.from_numpy(x), torch.from_numpy(pos), tc,
+                               mode=mode, window=tc.window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
 
 
 @pytest.mark.parametrize("as_tensor", [False, True])

@@ -37,7 +37,14 @@ kernels; the rest: the SIMT kernel), and a misaligned bf16 slice raises;
 each RG-LRU case proves which kernel ran (the TMA kernel where
 ``rglru_scan.uses_tma`` holds, else the first one).
 A reduced mamba2-1.3b and recurrentgemma-9b prefill and decode on the
-card match their CPU run to 2e-4. Decoding past the end of a full-context
+card match their CPU run to 2e-4, and so do the four architectures of the
+MoE, cross-attention and vision paths, with one attention launch per
+attention layer (seamless: encoder, self and cross) and none from decode.
+The MoE FFN (sparse and dense) matches its CPU run to 1e-4 of the output's
+largest magnitude with the same experts and the same dropped assignments,
+and runs with no host sync; bf16 attention with S != T and no mask (cross
+attention) matches the plain version, and the cross projections at
+seamless's widths meet the TMA rule. Decoding past the end of a full-context
 cache raises ``ValueError`` for an int position; a tensor position trips
 the asynchronous assert, which poisons the CUDA context, so that case runs
 in a subprocess. A streaming service's CUDA graphs (one per bucket and
@@ -1571,3 +1578,171 @@ def test_stream_hot_path_does_not_sync(cuda_device, autopilot):
         torch.cuda.set_sync_debug_mode(0)
     assert sum(kernels.launch_counts().values()) == 0
     assert [int(n) for *_, n in out[1:]] == list(STREAM_SIZES[:-1])
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN, cross attention and the new LM paths
+# ---------------------------------------------------------------------------
+
+def _moe_setup(name, dev, n_tok=256, seed=0):
+    from repro_torch.models import moe as tmoe
+    cfg = ARCHS[name].reduced()
+    gen = torch.Generator().manual_seed(seed)
+    params = tmoe.init_moe(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((2, n_tok // 2, cfg.d_model), generator=gen)
+    card = tenc.tree_map(lambda w: w.to(dev), params)
+    return tmoe, cfg, params, card, x
+
+
+@pytest.mark.parametrize("impl", ["sparse", "dense"])
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "arctic-480b"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda_device, name, impl):
+    """Reduced widths, 256 tokens at capacity factor 0.5 (so the sparse
+    dispatch drops): the same experts and drops, outputs to 1e-4 of the
+    largest magnitude, the aux loss to 1e-5."""
+    tmoe, cfg, params, card, x = _moe_setup(name, cuda_device)
+    if impl == "sparse":
+        run = lambda p, xx: tmoe.moe_ffn_sparse(p, xx, cfg, 0.5)
+    else:
+        run = lambda p, xx: tmoe.moe_ffn(p, xx, cfg, impl="dense")
+    want, waux = run(params, x)
+    got, aux = run(card, x.to(cuda_device))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    assert abs(float(aux) - float(waux)) <= 1e-5
+    xf = x.reshape(-1, cfg.d_model)
+    _, wi, _ = tmoe._route(params, xf, cfg)
+    _, gi, _ = tmoe._route(card, xf.to(cuda_device), cfg)
+    assert torch.equal(gi.cpu(), wi)
+    c = tmoe.capacity(xf.shape[0], cfg, 0.5)
+    wd = tmoe.dispatch(wi, cfg.n_experts, c)[0]
+    gd = tmoe.dispatch(gi, cfg.n_experts, c)[0]
+    assert torch.equal(gd.cpu(), wd)
+    assert bool((wd == cfg.n_experts * c).any())
+
+
+@pytest.mark.parametrize("impl", ["sparse", "dense"])
+def test_moe_ffn_does_not_sync(cuda_device, impl):
+    """``moe_ffn`` under ``set_sync_debug_mode("error")``: a host sync
+    anywhere inside raises."""
+    tmoe, cfg, _, card, x = _moe_setup("arctic-480b", cuda_device)
+    x = x.to(cuda_device)
+    tmoe.moe_ffn(card, x, cfg, impl=impl)        # warm (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = tmoe.moe_ffn(card, x, cfg, impl=impl)
+        out1, _ = tmoe.moe_ffn(card, x[:, :1], cfg, impl=impl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == x.shape and out1.shape == (2, 1, cfg.d_model)
+    assert bool(torch.isfinite(out).all()) and float(aux) > 0.0
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d", [
+    (2, 16, 16, 333, 1000, 64),       # ragged, T > S
+    (2, 16, 16, 1000, 333, 64),       # S > T
+    (1, 24, 8, 130, 257, 64),         # GQA, both ragged
+    (1, 8, 8, 64, 1024, 128),
+])
+def test_flash_attention_bf16_cross_shapes_match_plain(cuda_device, b, h,
+                                                       kv, s, t, d):
+    """Cross attention's call: no mask, S queries over T != S keys."""
+    rng = np.random.default_rng(s * t + d)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = on(b, h, s, d), on(b, kv, t, d), on(b, kv, t, d)
+    before = tfa.flash_attention.launches
+    o = tfa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    p = tfa.flash_attention_plain(q, k, v, causal=False)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               p.float().cpu().numpy(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+def test_cross_attention_passes_the_tma_rule(cuda_device):
+    """``cross_attention_kv`` at seamless-m4t-medium's widths in bf16 (S
+    260 over a memory of 1000 frames) hands the kernel views that TMA
+    loads, and matches the plain version."""
+    from repro_torch.models import attention as tattn
+    cfg = ARCHS["seamless-m4t-medium"]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = tattn.init_attn(gen, cfg, torch.bfloat16, cuda_device)
+    x = torch.randn((2, 260, cfg.d_model), generator=gen,
+                    device=cuda_device).bfloat16()
+    mem = torch.randn((2, 1000, cfg.d_model), generator=gen,
+                      device=cuda_device).bfloat16()
+    before = tfa.flash_attention.launches
+    out, k, v = tattn.cross_attention_kv(params, x, mem, cfg)
+    assert tfa.flash_attention.launches == before + 1
+    assert k.shape == (2, 1000, cfg.n_kv_heads, cfg.hd)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    want = tfa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=False)
+    want = torch.einsum("bshk,hkd->bsd", want.transpose(1, 2), params["wo"])
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _lm_batch(cfg, n_tok, seed):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, n_tok)))}
+    if cfg.frontend == "vision":
+        out["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32))
+    if cfg.is_encdec:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_frames, cfg.d_model), dtype=np.float32))
+    return out
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "arctic-480b",
+                                  "seamless-m4t-medium", "llava-next-34b"])
+def test_lm_new_paths_on_the_card_match_the_cpu(cuda_device, name):
+    """A reduced fp32 model from one CPU generator: prefill of 120 tokens
+    (llava: 16 patches before them) and 2 greedy decode steps, logits and
+    every cache leaf to 2e-4; one attention launch per attention layer of
+    the prefill (seamless: 2 encoder, 2 self, 2 cross), none from
+    decode."""
+    cfg = ARCHS[name].reduced(max_units=2)
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    card = tenc.tree_map(lambda w: w.to(cuda_device), params)
+    batch = _lm_batch(cfg, 120, 9)
+    s = 120 + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0)
+    runs = {}
+    for where, p in ((torch.device("cpu"), params), (cuda_device, card)):
+        kernels.reset_launch_counts()
+        last, cache = tlm.prefill(p, {k: v.to(where) for k, v in
+                                      batch.items()}, cfg, cache_len=s + 2)
+        counts = kernels.launch_counts()
+        logits = [last]
+        nxt = last.argmax(-1).cpu()
+        for step in range(2):
+            lg, cache = tlm.decode_step(p, cache, nxt.to(where), s + step,
+                                        cfg)
+            logits.append(lg)
+            nxt = lg.argmax(-1).cpu()
+        assert kernels.launch_counts() == counts
+        runs[where.type] = (logits, cache, counts)
+    torch.cuda.synchronize()
+    n_attn = cfg.n_layers + cfg.n_enc_layers + sum(
+        sp.mixer == "xattn" for sp in cfg.all_specs())
+    assert runs["cuda"][2]["flash_attention"] == n_attn
+    assert all(n == 0 for n in runs["cpu"][2].values())
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    flat_g, flat_c = [], []
+    tenc.tree_map(flat_g.append, runs["cuda"][1])
+    tenc.tree_map(flat_c.append, runs["cpu"][1])
+    for g, c in zip(flat_g, flat_c):
+        if c.dtype == torch.int32:
+            assert torch.equal(g.cpu(), c)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
+                                       atol=2e-4)

@@ -4,7 +4,11 @@ same parameters (the reference's, carried over with
 
 * the layers: ``rms_norm`` (gain 1 + scale, eps 1e-6), ``rope_freqs`` and
   ``apply_rope`` (split halves, numpy float32 frequencies), ``gated_mlp``;
-* ``block_fwd`` for the three attention mixers with the gated MLP;
+* ``block_fwd`` for the three attention mixers with the gated MLP; a
+  cross-attention block (causal self-attention, then attention to an
+  encoder memory of T != S) through ``block_fwd``, ``block_prefill``
+  (its cache: the self K/V and the memory's ``xk`` / ``xv``) and
+  ``block_step`` (the cached memory, no soft cap), with a soft cap set;
 * ``encode`` at a tiny configuration, at ``EncoderConfig()`` (the repo's
   widest encoder) and at the paper benchmarks' ``minilm`` encoder (head
   dim 24), to atol 2e-5, with padded positions;
@@ -103,23 +107,59 @@ def test_block_fwd_matches(mixer):
     assert float(aux) == 0.0
 
 
-@pytest.mark.parametrize("mixer,ffn,match", [
-    (tconfig.MIXER_CROSS_ATTN, tconfig.FFN_MLP, "encoder-decoder"),
-    (tconfig.MIXER_GLOBAL_ATTN, tconfig.FFN_MOE, "MoE"),
-])
-def test_block_fwd_raises_for_later_slices(mixer, ffn, match):
-    """The layers no slice has ported yet (cross attention, MoE FFNs)."""
-    spec = tconfig.LayerSpec(mixer, ffn)
-    tc = tconfig.ModelConfig(
-        name="later", family="moe", d_model=8, n_heads=1, n_kv_heads=1,
-        d_ff=8, vocab_size=8, n_units=1, pattern=(spec,))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=match):
-        tblocks.init_block(gen, tc, spec, torch.float32, "cpu")
-    x = torch.zeros((1, 2, 8))
-    with pytest.raises(NotImplementedError, match=match):
-        tblocks.block_fwd({}, x, torch.zeros((1, 2), dtype=torch.int32), tc,
-                          spec)
+def _close_trees(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _close_trees(got[k], want[k])
+        return
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_cross_attention_block_matches(cap):
+    spec = jconfig.LayerSpec(jconfig.MIXER_CROSS_ATTN, jconfig.FFN_MLP)
+    jc = jconfig.ModelConfig(
+        name="xblock-test", family="audio", d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=96, vocab_size=8, pattern=(spec,),
+        n_units=1, qkv_bias=True, attn_softcap=cap, dtype="float32")
+    params = jax.device_get(jblocks.init_block(jax.random.PRNGKey(3), jc,
+                                               spec, jnp.float32))
+    params = dict(params, norm_x=rng_f32(10, 64, scale=0.3),
+                  xattn=dict(params["xattn"], bk=rng_f32(11, 2, 16,
+                                                         scale=0.1)))
+    tc = port_config(jc)
+    tp = convert.lm_params_from_numpy(params, "cpu")
+    assert set(tp) == {"norm1", "mixer", "norm_x", "xattn", "norm2", "ffn"}
+    s, t = 12, 19
+    x, mem = rng_f32(12, 2, s, 64), rng_f32(13, 2, t, 64)
+    pos = np.tile(np.arange(s, dtype=np.int32), (2, 1))
+    want, _ = jblocks.block_fwd(params, jnp.asarray(x), jnp.asarray(pos), jc,
+                                spec, enc_memory=jnp.asarray(mem))
+    got, aux = tblocks.block_fwd(tp, torch.from_numpy(x),
+                                 torch.from_numpy(pos), tc, tc.pattern[0],
+                                 enc_memory=torch.from_numpy(mem))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(aux) == 0.0
+    want, jcache = jblocks.block_prefill(params, jnp.asarray(x),
+                                         jnp.asarray(pos), jc, spec, s + 1,
+                                         enc_memory=jnp.asarray(mem))
+    got, tcache = tblocks.block_prefill(tp, torch.from_numpy(x),
+                                        torch.from_numpy(pos), tc,
+                                        tc.pattern[0], s + 1,
+                                        enc_memory=torch.from_numpy(mem))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert tcache["xk"].shape == (2, t, 2, 16)
+    _close_trees(tcache, jax.device_get(jcache))
+    x1 = rng_f32(14, 2, 1, 64)
+    want, jcache = jblocks.block_step(params, jnp.asarray(x1), jcache,
+                                      jnp.int32(s), jc, spec)
+    got, tcache = tblocks.block_step(tp, torch.from_numpy(x1), tcache, s, tc,
+                                     tc.pattern[0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _close_trees(tcache, jax.device_get(jcache))
 
 
 def _tokens(cfg, b, seed):

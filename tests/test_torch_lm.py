@@ -8,9 +8,15 @@ d_model 256):
   ``linear_scan``) and the mixers (``ssd_fwd``, ``rglru_fwd``);
 * ``lm.forward``; ``lm.prefill`` at S 200 (past the reduced window of 128,
   so the local-attention cache is filled as a ring) with every cache leaf;
-  then 3 ``lm.decode_step``s; for mamba2-1.3b and recurrentgemma-9b, and
-  for qwen2-7b (global attention, QKV bias), gemma2-9b (local and global
-  attention, soft caps) and granite-3-2b, whose layers the port also runs;
+  then 3 ``lm.decode_step``s; for mamba2-1.3b and recurrentgemma-9b, for
+  qwen2-7b (global attention, QKV bias), gemma2-9b (local and global
+  attention, soft caps) and granite-3-2b, and for granite-moe-3b-a800m
+  (MoE FFNs, sparse prefill, dense decode), arctic-480b (MoE beside a
+  dense residual MLP), seamless-m4t-medium (the encoder over ``frames``,
+  cross attention, the memory's K/V in the cache) and llava-next-34b
+  (``patches`` before the text): every architecture of ``configs``;
+* the MoE models with ``moe_impl="dense"``, llava with and without
+  patches, seamless's encoder memory and its cross K/V cache leaves;
 * a decode continued from the reference's own prefill cache
   (``convert.lm_cache_from_numpy``).
 
@@ -44,7 +50,9 @@ from repro_torch.models.layers import tree_map
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-4, atol=2e-4)
 PORTED = ("mamba2-1.3b", "recurrentgemma-9b", "qwen2-7b", "gemma2-9b",
-          "granite-3-2b")
+          "granite-3-2b", "granite-moe-3b-a800m", "arctic-480b",
+          "seamless-m4t-medium", "llava-next-34b")
+MOE = ("granite-moe-3b-a800m", "arctic-480b")
 S, CACHE_LEN, STEPS = 200, 208, 3
 
 
@@ -70,6 +78,27 @@ def params(name):
 def tokens(cfg, b=2, s=S, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def batch(cfg, b=2, s=S, seed=0, patches=True):
+    """Tokens, and the front end's inputs: ``patches`` (B, 16, d) for the
+    vision model, ``frames`` (B, 32, d) for the encoder-decoder one."""
+    out = {"tokens": tokens(cfg, b, s, seed)}
+    rng = np.random.default_rng(seed + 100)
+    if cfg.frontend == "vision" and patches:
+        out["patches"] = rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal(
+            (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in out.items()},
+            {k: torch.from_numpy(v) for k, v in out.items()})
+
+
+def seq_len(cfg, b):
+    """The decoder's sequence length of a batch: patches and text."""
+    return b["tokens"].shape[1] + (b["patches"].shape[1]
+                                   if "patches" in b else 0)
 
 
 def close(got, want, **tol):
@@ -148,11 +177,13 @@ def test_mixer_forward_matches_reference(name, mixer):
 def test_forward_matches_reference(name):
     jc, tc = cfgs(name)
     jp, tp = params(name)
-    tok = tokens(jc)
-    want, _ = jlm.forward(jp, {"tokens": jnp.asarray(tok)}, jc, remat=False)
-    got, aux = tlm.forward(tp, {"tokens": torch.from_numpy(tok)}, tc)
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    jb, tb = batch(jc)
+    want, waux = jlm.forward(jp, jb, jc, remat=False)
+    got, aux = tlm.forward(tp, tb, tc)
+    assert got.dtype == torch.float32 and got.shape[1] == seq_len(jc, jb)
     close(got, want)
+    close(aux, waux)
+    assert (float(aux) > 0.0) == (name in MOE)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -160,16 +191,16 @@ def test_prefill_and_decode_match_reference(name):
     """Prefill at S 200 (every cache leaf), then 3 greedy decode steps."""
     jc, tc = cfgs(name)
     jp, tp = params(name)
-    tok = tokens(jc)
-    jlast, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(tok)}, jc,
-                                cache_len=CACHE_LEN)
-    tlast, tcache = tlm.prefill(tp, {"tokens": torch.from_numpy(tok)}, tc,
-                                cache_len=CACHE_LEN)
+    jb, tb = batch(jc)
+    s = seq_len(jc, jb)
+    cache_len = CACHE_LEN + s - S
+    jlast, jcache = jlm.prefill(jp, jb, jc, cache_len=cache_len)
+    tlast, tcache = tlm.prefill(tp, tb, tc, cache_len=cache_len)
     close(tlast, jlast)
     compare_trees(tcache, jax.device_get(jcache))
     nxt = np.array(jnp.argmax(jlast, axis=-1), np.int32)
     for step in range(STEPS):
-        pos = S + step
+        pos = s + step
         jl, jcache = jlm.decode_step(jp, jcache, jnp.asarray(nxt),
                                      jnp.int32(pos), jc)
         tl, tcache = tlm.decode_step(tp, tcache, torch.from_numpy(nxt), pos,
@@ -275,16 +306,90 @@ def test_causal_conv_matches_reference(mixer, dtype):
 def test_init_cache_matches_reference_layout():
     for name in PORTED:
         jc, tc = cfgs(name)
-        want = jax.device_get(jlm.init_cache(2, jc, CACHE_LEN))
-        compare_trees(tlm.init_cache(2, tc, CACHE_LEN, device="cpu"), want)
+        want = jax.device_get(jlm.init_cache(2, jc, CACHE_LEN,
+                                             jc.enc_frames))
+        compare_trees(tlm.init_cache(2, tc, CACHE_LEN, tc.enc_frames,
+                                     device="cpu"), want)
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "arctic-480b",
-                                  "llava-next-34b", "seamless-m4t-medium"])
-def test_unported_parts_raise(name):
-    _, tc = cfgs(name)
-    with pytest.raises(NotImplementedError):
-        tlm.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
+@pytest.mark.parametrize("name", ["seamless-m4t-medium",
+                                  "granite-moe-3b-a800m", "arctic-480b",
+                                  "llava-next-34b"])
+def test_new_models_decode_from_the_reference_cache(name):
+    """The reference's prefill cache (seamless: its cross K/V leaves) in
+    the port's decode."""
+    jc, tc = cfgs(name)
+    jp, tp = params(name)
+    jb, _ = batch(jc, seed=5)
+    s = seq_len(jc, jb)
+    _, jcache = jlm.prefill(jp, jb, jc, cache_len=s + 1)
+    tcache = convert.lm_cache_from_numpy(jax.device_get(jcache), "cpu")
+    nxt = np.array(jb["tokens"])[:, -1]
+    jl, _ = jlm.decode_step(jp, jcache, jnp.asarray(nxt), jnp.int32(s), jc)
+    tl, _ = tlm.decode_step(tp, tcache, torch.from_numpy(nxt), s, tc)
+    close(tl, jl)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_dense_dispatch_matches_reference(name):
+    """``moe_impl="dense"`` through ``forward`` and ``prefill``."""
+    jc, tc = cfgs(name)
+    jp, tp = params(name)
+    jb, tb = batch(jc, s=40, seed=6)
+    want, waux = jlm.forward(jp, jb, jc, moe_impl="dense", remat=False)
+    got, aux = tlm.forward(tp, tb, tc, moe_impl="dense")
+    close(got, want)
+    close(aux, waux)
+    jlast, jcache = jlm.prefill(jp, jb, jc, cache_len=48, moe_impl="dense")
+    tlast, tcache = tlm.prefill(tp, tb, tc, cache_len=48, moe_impl="dense")
+    close(tlast, jlast)
+    compare_trees(tcache, jax.device_get(jcache))
+
+
+@pytest.mark.parametrize("with_patches", [True, False])
+def test_vision_patches_come_before_the_text(with_patches):
+    """llava: ``patches @ vis_proj`` then the tokens, positions over both;
+    without patches, the text alone."""
+    name = "llava-next-34b"
+    jc, tc = cfgs(name)
+    jp, tp = params(name)
+    assert tp["vis_proj"].shape == (tc.d_model, tc.d_model)
+    jb, tb = batch(jc, s=24, seed=7, patches=with_patches)
+    wx, wpos = jlm._embed_inputs(jp, jb, jc)
+    gx, gpos = tlm._embed_inputs(tp, tb, tc)
+    close(gx, wx)
+    np.testing.assert_array_equal(gpos.numpy(), np.asarray(wpos))
+    assert gx.shape[1] == 24 + (tc.n_frontend_tokens if with_patches else 0)
+    want, _ = jlm.forward(jp, jb, jc, remat=False)
+    got, _ = tlm.forward(tp, tb, tc)
+    close(got, want)
+
+
+def test_encoder_memory_and_cross_cache_match_reference():
+    """seamless: ``_encode`` of the frames (bidirectional units, then
+    ``enc_norm``), and the cross K/V prefill writes: (units, B, frames,
+    KV, hd), the memory's projections with their biases."""
+    name = "seamless-m4t-medium"
+    jc, tc = cfgs(name)
+    jp, tp = params(name)
+    assert set(tp) >= {"enc_units", "enc_norm"}
+    jb, tb = batch(jc, s=30, seed=8)
+    want = jlm._encode(jp, jb["frames"], jc)
+    got = tlm._encode(tp, tb["frames"], tc)
+    assert got.shape == (2, tc.enc_frames, tc.d_model)
+    close(got, want)
+    _, jcache = jlm.prefill(jp, jb, jc, cache_len=32)
+    _, tcache = tlm.prefill(tp, tb, tc, cache_len=32)
+    for leaf in ("xk", "xv"):
+        g = tcache["units"]["0"][leaf]
+        assert g.shape == (tc.n_units, 2, tc.enc_frames, tc.n_kv_heads,
+                           tc.hd)
+        close(g, jax.device_get(jcache["units"]["0"][leaf]))
+    w = tp["units"]["0"]["xattn"]
+    xk0 = torch.einsum("btd,dhk->bthk", got, w["wk"][0])
+    if "bk" in w:
+        xk0 = xk0 + w["bk"][0]
+    close(tcache["units"]["0"]["xk"][0], xk0.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -83,7 +83,20 @@ in each line's ``wall_s``):
    rows with no live key, D 16 and 8, D 30, ragged GQA at D 128 and
    strided views; timed cases split the device time by kernel name; its
    bound counts 10 D operations per live pair, its library yardstick is
-   SDPA's backward (``torch.autograd.grad`` over a kept graph).
+   SDPA's backward (``torch.autograd.grad`` over a kept graph). The
+   attn_bwd_bf16 family holds the same kernels built for bf16 (and the
+   bf16 forward's lse, against the plain version's) within 2e-2 of each
+   gradient's max |g| at the training paths' heads, timed (granite-3-2b
+   ``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal; gemma2-9b
+   ``bench``: B 1, H 16, KV 8, S = T 8192, D 256, soft cap 50, window
+   4096; recurrentgemma-9b's local layer; seamless's encoder and cross
+   attention), with rows that have no live key, ragged S/T, views and
+   both configurations forced; its bound is at the bf16 rate. The
+   rglru_bwd family holds ``rglru_scan``'s gradient (the backward kernel)
+   to autograd of the plain recurrence at 1e-5 of each gradient's max
+   (B 1 and 2, S 4096, D 4096, timed against the plain reverse loop; h0,
+   D 98, S 1, a channel with log_a = 0 and its non-finite values); and
+   ``ssd_scan`` must refuse a grad-requiring input on the card.
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
    8 chains, minibatch 64):
    - slice: ``env.run`` with the FGTS.CDB policy on a pooled ``ModelPool``
@@ -187,6 +200,17 @@ in each line's ``wall_s``):
    encode batches) run under ``torch.profiler`` (device activity only) for
    the device busy time per tick, its idle share against the unprofiled
    run's ms per tick and the kernels per tick.
+   - lm_train: ``launch.steps.make_train_step`` (AdamW in place, each
+     unit rematerialised) on the card at full width (``LM_TRAIN_RUNS``):
+     granite-3-2b at full depth (B 2 x 4096), recurrentgemma-9b (1 unit
+     and the remainder, B 1 x 4096), gemma2-9b (1 unit, B 1 x 8192),
+     qwen2-7b (4 units), granite-moe-3b-a800m (full depth) and
+     seamless-m4t-medium (full depth, 1024 frames) at B 2 x 4096, and
+     llava-next-34b (1 unit, 2880 patches + 1216 tokens); a warm-up step,
+     then 3 timed steps with exact launch counts per step
+     (``LM_TRAIN_PATHS``), finite losses, peak memory, tokens/s, and one
+     profiled step's device time by kernel group with the optimizer on its
+     own; mamba2-1.3b's step must raise ``NotImplementedError``.
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
    versions) from one numpy-made draw set, for the FGTS slice, for the
    autopilot (a control tick every 2 acts) and for the ccft path (whose
@@ -207,7 +231,10 @@ in each line's ``wall_s``):
    ``slot_pos`` equal. Every MoE call is checked layer by layer from the
    CPU's input to it: experts and dropped assignments equal, sparse and
    dense outputs within 1e-4, on the tokens without a near-tied router
-   decision.
+   decision. Then ``lm.loss_fn`` and its gradient (units rematerialised)
+   at the same cut depths in fp32 (granite-3-2b at 2 units too; not
+   mamba2), B 2 x 32 tokens (llava: 64 patches + 32 tokens): the loss
+   within 1e-5 relative, every gradient leaf within 1e-4 of its max.
 
 Before the last line it prints the kernels line and the card's name and
 power limit; the last line is the device record. Any failed check exits
@@ -216,6 +243,7 @@ non-zero; without a CUDA card the script fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -242,6 +270,8 @@ def check(ok, what):
 
 
 T_START = time.perf_counter()
+# with --out: each phase's line is also appended here as it is printed
+PHASE_LOG = None
 
 
 def emit(obj):
@@ -249,9 +279,13 @@ def emit(obj):
 
 
 def emit_phase(record):
-    """A phase's line, with the script's wall time so far."""
+    """A phase's line, with the script's wall time so far (also appended
+    to ``PHASE_LOG``, so a run that fails later keeps its phases)."""
     record["wall_s"] = time.perf_counter() - T_START
     emit(record)
+    if PHASE_LOG is not None:
+        with open(PHASE_LOG, "a") as f:
+            f.write(json.dumps(record) + "\n")
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -280,14 +314,66 @@ def time_ms(fn, runs=5, calls=20, warmup=3):
     return statistics.median(times)
 
 
-def _kernel_events(prof):
-    """(name, device us, launches) of every device kernel in a profile
-    (events on the device only, so a host op and its kernel are not both
-    counted)."""
+# the kernel of ``torch.cuda._sleep``, which pads a profile's two ends,
+# and the host's wait before the window closes
+PROFILE_MARKER = "spin_kernel"
+PROFILE_DRAIN_S = 0.02
+
+
+@contextlib.contextmanager
+def cuda_profile():
+    """``torch.profiler`` over the card's activity only, padded at both
+    ends by a marker kernel (``PROFILE_MARKER``, about a millisecond of
+    spinning, synced), the host waiting ``PROFILE_DRAIN_S`` before the
+    window closes, then an empty session. CUPTI hands its activity records
+    over late: on an H100 a window closed right after its last sync could
+    lose the records of its last milliseconds (a whole CUDA graph replay
+    of phase ``stream``'s pass, or part of one), and the first marker's
+    record is lost in most windows, which is why the run waits behind it.
+    ``_window_whole`` says whether a profile holds its closing marker, and
+    so everything before it. Records handed over after a session has
+    ended land in the empty session, not in the next measured one: they
+    showed up as stale kernels in the next session's launch counts, and
+    the late hand-over as a CUDA graph capture invalidated from another
+    thread."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1 << 21)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 21)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_DRAIN_S)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+
+
+def _device_events(prof):
+    """The profile's events on the device only (so a host op and its kernel
+    are not both counted), by name."""
     from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _window_whole(prof):
+    """Whether the profile recorded ``cuda_profile``'s closing marker: the
+    device event that starts last is a marker."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return bool(dev) and PROFILE_MARKER in max(
+        dev, key=lambda e: e.time_range.start).name
+
+
+def _kernel_events(prof):
+    """(name, device us, launches) of every device kernel in a profile,
+    ``cuda_profile``'s markers left out."""
     out = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in _device_events(prof):
+        if PROFILE_MARKER in e.key:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -300,21 +386,24 @@ def _kernel_events(prof):
 def device_ms(fn, calls=20, attempts=3):
     """Device time per call of ``fn`` (all the kernels it launches) from
     ``torch.profiler``'s CUDA activity. A profile that records no device
-    activity (seen once in a run of this script on an H100) is taken
-    again, up to ``attempts`` times; None when none records any."""
+    activity (seen once in a run of this script on an H100), or not its
+    closing marker (``_window_whole``), is taken again, up to ``attempts``
+    times; None when none records any."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    ms = None
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_profile() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         total = sum(us for _, us, _ in _kernel_events(prof))
         if total > 0:
-            return total / calls / 1e3
-    return None
+            ms = total / calls / 1e3
+            if _window_whole(prof):
+                break
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -847,14 +936,18 @@ def attn_cases(gen, dev):
 
 
 ATTN_BWD_TOL = 1e-4     # rtol = atol = 1e-4 of each gradient's max |g|
+# bf16: within 2e-2 of each gradient's max |g| (dq, dk, dv are rounded to
+# bf16 at the store); the forward's lse within 1e-4 + 1e-5 |lse|
+ATTN_BWD_BF16_TOL = 2e-2
 # SDPA's backward against the kernel's: the same function, to 1e-2 of max
-# |g| (a wrong mask or scale would be off by far more)
-LIB_BWD_TOL = 1e-2
+# |g| in fp32, 5e-2 in bf16 (a wrong mask or scale would be off by far
+# more)
+LIB_BWD_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
 
 
 def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
                   window=0, cap=0.0, strided=False, cfg=None, expect=None,
-                  timed=False):
+                  timed=False, dtype="float32", calls=20):
     """One ``flash_attention_bwd`` case against ``flash_attention_bwd_plain``
     on the card, both from the kernel forward's o and lse, in the
     configuration ``bwd_plan`` picks or, with ``cfg``, the one it names
@@ -866,7 +959,12 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
     name, the bound (10 D operations per live (row, key) pair at the fp32
     rate; q, k, v, o, dO, lse, dq, dk and dv moved once) and, without a
     soft cap, the time of SDPA's backward (``torch.autograd.grad`` over a
-    kept SDPA graph on the same inputs; the forward is not timed)."""
+    kept SDPA graph on the same inputs; the forward is not timed).
+    ``dtype`` bfloat16 runs the bf16 forward (its lse is checked against
+    the plain version's) and the backward kernels built for bf16, within
+    ``ATTN_BWD_BF16_TOL`` of each gradient's max |g|, with the bound at
+    the bf16 tensor-core rate and bf16 bytes; ``calls`` sets the timed
+    calls per measurement (fewer for the long rows)."""
     from repro_torch.kernels import flash_attention as fa
     plan = fa.bwd_plan
     if cfg is not None:
@@ -874,20 +972,22 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
     try:
         return _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev,
                               causal=causal, window=window, cap=cap,
-                              strided=strided, expect=expect, timed=timed)
+                              strided=strided, expect=expect, timed=timed,
+                              dtype=dtype, calls=calls)
     finally:
         fa.bwd_plan = plan
 
 
 def device_split(fn, calls=20, attempts=3):
     """Device us per call of ``fn`` by kernel name (``torch.profiler``; a
-    profile that records no device activity is taken again)."""
+    profile that records no device activity, or not its closing marker,
+    is taken again, as in ``device_ms``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    out = None
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_profile() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -897,17 +997,21 @@ def device_split(fn, calls=20, attempts=3):
                 "(anonymous namespace)::", "").split("(")[0]
             split[name] = split.get(name, 0.0) + us / calls
         if split:
-            return split
-    return None
+            out = split
+            if _window_whole(prof):
+                break
+    return out
 
 
 def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
-                   cap, strided, expect, timed):
+                   cap, strided, expect, timed, dtype, calls):
     import torch
     from repro_torch.kernels import flash_attention as fa
+    bf16 = dtype == "bfloat16"
     q_shape, kv_shape = (((b, s, h, d), (b, t, kv, d)) if strided
                          else ((b, h, s, d), (b, kv, t, d)))
-    mk = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    mk = lambda shape: torch.randn(shape, generator=gen, device=dev).to(
+        getattr(torch, dtype))
     q, k, v, do = mk(q_shape), mk(kv_shape), mk(kv_shape), mk(q_shape)
     if strided:
         q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -919,22 +1023,42 @@ def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
     plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     want = plain()
     plan = fa.bwd_plan(b, h, kv, s, t, d, causal, window)
-    out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, causal=causal,
-               window=window, softcap=cap, strided=strided,
+    out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, dtype=dtype,
+               causal=causal, window=window, softcap=cap, strided=strided,
                plan=plan._asdict())
     if expect is not None:
         check(plan.cfg == expect, f"attn_bwd {name}: plan {plan} is not "
                                   f"configuration {expect}")
+    if bf16:
+        # the bf16 forward's lse (log2 units inside the kernel) against
+        # the plain version's natural one; -inf on rows with no live key
+        _, want_lse = fa._plain_forward(q, k, v, scale=None, want_lse=True,
+                                        **kw)
+        dead = ~torch.isfinite(want_lse)
+        check(torch.equal(~torch.isfinite(lse), dead)
+              and bool((lse[dead] == -torch.inf).all()),
+              f"attn_bwd {name}: the bf16 lse is not -inf exactly on the "
+              f"rows with no live key")
+        lerr = (lse[~dead] - want_lse[~dead]).abs()
+        out["lse_max_abs_err"] = float(lerr.max())
+        check(bool((lerr <= 1e-4 + 1e-5 * want_lse[~dead].abs()).all()),
+              f"attn_bwd {name}: the bf16 lse is off by "
+              f"{out['lse_max_abs_err']}")
+        del want_lse, lerr
     errs = []
     for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(bool(torch.isfinite(g).all()),
-              f"attn_bwd {name}: non-finite {gname}")
+        check(g.dtype == q.dtype and bool(torch.isfinite(g).all()),
+              f"attn_bwd {name}: non-finite {gname} or not {dtype}")
+        g, w = g.float(), w.float()
         diff = (g - w).abs()
         top = float(w.abs().max())
         errs.append(float(diff.max()))
-        check(bool((diff <= ATTN_BWD_TOL * (top + w.abs())).all()),
-              f"attn_bwd {name}: {gname} off by {errs[-1]} (max |g| {top})")
+        ok = (errs[-1] <= ATTN_BWD_BF16_TOL * top if bf16 else
+              bool((diff <= ATTN_BWD_TOL * (top + w.abs())).all()))
+        check(ok, f"attn_bwd {name}: {gname} off by {errs[-1]} (max |g| "
+                  f"{top})")
         out[f"{gname}_max_rel_err"] = errs[-1] / max(top, 1e-30)
+        del diff
     out["max_abs_err"] = max(errs)
     for _ in range(2):
         again = kern()
@@ -948,15 +1072,21 @@ def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
     if timed:
         mask = fa.live_mask(s, t, causal=causal, window=window, device=dev)
         live = int(mask.sum())
-        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
-        out["ms"], out["plain_ms"] = time_ms(kern), time_ms(plain)
-        out["device_ms"], out["plain_device_ms"] = (device_ms(kern),
-                                                    device_ms(plain))
-        out["device_us_by_kernel"] = device_split(kern)
+        nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+                  + 4 * lse.numel())
+        runs = 5 if calls >= 20 else 3
+        out["ms"] = time_ms(kern, runs=runs, calls=calls)
+        out["plain_ms"] = time_ms(plain, runs=runs, calls=calls)
+        # the kernel's device time is the sum of its split by kernel name
+        # (one profile, not two)
+        out["device_us_by_kernel"] = device_split(kern, calls=calls)
         check(out["device_us_by_kernel"] is not None,
               f"attn_bwd {name}: three profiles recorded no device activity")
-        out["bound_ms"], out["bound_by"] = bound(nbytes,
-                                                 10.0 * b * h * live * d)
+        out["device_ms"] = sum(out["device_us_by_kernel"].values()) / 1e3
+        out["plain_device_ms"] = device_ms(plain, calls=calls)
+        out["bound_ms"], out["bound_by"] = bound(
+            nbytes, 10.0 * b * h * live * d,
+            BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
         out["library_ms"] = None
         if not cap:
             sdpa_kw = (dict(is_causal=causal) if not window
@@ -966,16 +1096,17 @@ def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
                 ql, kl, vl, enable_gqa=h != kv, **sdpa_kw)
             lib = lambda: torch.autograd.grad(o_l, (ql, kl, vl), do,
                                               retain_graph=True)
-            rel = max(float((x - y).abs().max()) / float(y.abs().max())
+            rel = max(float((x.float() - y.float()).abs().max())
+                      / float(y.float().abs().max())
                       for x, y in zip(lib(), got))
             out["library_max_rel_err"] = rel
-            check(rel <= LIB_BWD_TOL,
+            check(rel <= LIB_BWD_TOL[dtype],
                   f"attn_bwd {name}: SDPA's backward computes another "
                   f"function (off by {rel} of max |g|)")
             out["library_mask"] = ("dense bool" if window else
                                    "is_causal" if causal else "none")
-            out["library_ms"] = time_ms(lib)
-            out["library_device_ms"] = device_ms(lib)
+            out["library_ms"] = time_ms(lib, runs=runs, calls=calls)
+            out["library_device_ms"] = device_ms(lib, calls=calls)
             del o_l, ql, kl, vl
     return out
 
@@ -1024,6 +1155,45 @@ def attn_bwd_cases(gen, dev):
                       window=40, strided=True),
         attn_bwd_case("strided_d32_cap", 2, 4, 4, 90, 90, 32, gen, dev,
                       causal=False, cap=20.0, strided=True),
+    ]
+
+
+def attn_bwd_bf16_cases(gen, dev):
+    """The attn_bwd_bf16 family: ``flash_attention_bwd`` built for bf16
+    (and the bf16 forward's lse) at the training paths' heads, timed:
+    granite-3-2b's (``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal),
+    gemma2-9b's (``bench``: B 1, H 16, KV 8, S = T 8192, D 256, soft cap
+    50, window 4096), recurrentgemma-9b's local layer (B 1, H 16, KV 1,
+    S = T 4096, D 256, window 2048), seamless-m4t-medium's encoder (B 2,
+    H = KV 16, S = T 1024, D 64, bidir) and cross attention (S 4096 over
+    T 1024, no mask); then the edges: rows with no live key, ragged S/T
+    at D 256 and D 32, ``transpose(1, 2)`` views, and Small and Large
+    forced."""
+    bf = dict(dtype="bfloat16")
+    big = dict(bf, timed=True, calls=3)
+    return [
+        attn_bwd_case("main", 2, 32, 8, 4096, 4096, 64, gen, dev,
+                      strided=True, **big),
+        attn_bwd_case("bench", 1, 16, 8, 8192, 8192, 256, gen, dev,
+                      window=4096, cap=50.0, strided=True, **big),
+        attn_bwd_case("recurrentgemma", 1, 16, 1, 4096, 4096, 256, gen, dev,
+                      window=2048, strided=True, **big),
+        attn_bwd_case("seamless_enc", 2, 16, 16, 1024, 1024, 64, gen, dev,
+                      causal=False, strided=True, **big),
+        attn_bwd_case("seamless_cross", 2, 16, 16, 4096, 1024, 64, gen, dev,
+                      causal=False, strided=True, **big),
+        attn_bwd_case("dead_rows_d256_cap", 1, 4, 2, 300, 130, 256, gen, dev,
+                      window=64, cap=30.0, **bf),
+        attn_bwd_case("dead_rows_d32_small", 8, 4, 1, 100, 40, 32, gen, dev,
+                      window=8, cfg=0, **bf),
+        attn_bwd_case("ragged_gqa_d128", 1, 8, 2, 200, 333, 128, gen, dev,
+                      causal=False, **bf),
+        attn_bwd_case("strided_window_d64", 2, 8, 2, 150, 150, 64, gen, dev,
+                      window=40, strided=True, **bf),
+        attn_bwd_case("small_d128", 4, 4, 2, 64, 64, 128, gen, dev,
+                      causal=False, cfg=0, **bf),
+        attn_bwd_case("large_forced_d64", 4, 4, 2, 64, 64, 64, gen, dev,
+                      cfg=1, **bf),
     ]
 
 
@@ -1157,6 +1327,104 @@ def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False):
     return out
 
 
+def rglru_bwd_case(name, b, s, d, gen, dev, *, h0=False, clamp=False,
+                   timed=False):
+    """The RG-LRU gradient on the card: ``rglru_scan`` with inputs that
+    require grad (through ``RglruScan``: the forward kernel, then
+    ``rglru_scan_bwd``) against autograd of the plain recurrence on the
+    same inputs, for the loss sum(h * wh) + sum(h_last * wl): log_a, x and
+    h0 gradients within 1e-5 of each one's largest finite magnitude, the
+    same non-finite values where ``clamp`` sets a channel's log_a to 0.
+    Timed cases time ``rglru_scan_bwd`` alone (from the forward's h)
+    against its plain version ``rglru_scan_bwd_plain``; the bound: 24
+    bytes per element (log_a, x, h and dh read; dlog_a and dx written)
+    plus dh_last and h0 / dh0."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    log_a = -0.1 * torch.randn((b, s, d), generator=gen, device=dev).abs()
+    if clamp:
+        log_a[:, :, 3] = 0.0
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    hh = torch.randn((b, d), generator=gen, device=dev) if h0 else None
+    wh = torch.randn((b, s, d), generator=gen, device=dev)
+    wl = torch.randn((b, d), generator=gen, device=dev)
+    leaves = [t for t in (log_a, x, hh) if t is not None]
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in leaves]
+        h, hl = fn(ins[0], ins[1], ins[2] if h0 else None)
+        return torch.autograd.grad((h * wh).sum() + (hl * wl).sum(), ins)
+    before = rg.rglru_scan_bwd.launches
+    got = grads(rg.rglru_scan)
+    torch.cuda.synchronize()
+    check(rg.rglru_scan_bwd.launches == before + 1,
+          f"rglru_bwd {name}: the gradient did not run rglru_scan_bwd")
+    want = grads(rg.rglru_scan_plain)
+    out = dict(case=name, B=b, S=s, D=d, h0=h0, clamp=clamp)
+    errs = []
+    for gname, g, w in zip(("dlog_a", "dx", "dh0"), got, want):
+        fin = torch.isfinite(w)
+        check(torch.equal(torch.isfinite(g), fin)
+              and torch.equal(g[~fin].isnan(), w[~fin].isnan())
+              and torch.equal(g[~fin & ~w.isnan()], w[~fin & ~w.isnan()]),
+              f"rglru_bwd {name}: {gname}'s non-finite values differ")
+        top = float(w[fin].abs().max())
+        errs.append(float((g[fin] - w[fin]).abs().max()))
+        check(errs[-1] <= RGLRU_TOL * top,
+              f"rglru_bwd {name}: {gname} off by {errs[-1]} (max {top})")
+        out[f"{gname}_max_rel_err"] = errs[-1] / max(top, 1e-30)
+        out[f"{gname}_nonfinite"] = int((~fin).sum())
+    out["max_abs_err"] = max(errs)
+    del got, want
+    if timed:
+        with torch.no_grad():
+            h, _ = rg.rglru_scan(log_a, x, hh)
+        args = (log_a, x, hh, h, wh, wl)
+        kern = lambda: rg.rglru_scan_bwd(*args)
+        plain = lambda: rg.rglru_scan_bwd_plain(*args)
+        nbytes = 24 * b * s * d + 4 * b * d * (1 + 2 * bool(h0))
+        out["ms"], out["device_ms"] = time_ms(kern), device_ms(kern)
+        # the plain version walks S in Python: one call each
+        out["plain_ms"] = time_ms(plain, runs=1, calls=1, warmup=0)
+        out["plain_device_ms"] = device_ms(plain, calls=1)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 12.0 * b * s * d)
+        out["library_ms"] = None
+    return out
+
+
+def rglru_bwd_cases(gen, dev):
+    """The rglru_bwd family: recurrentgemma-9b's training shape (``main``:
+    B 1, S 4096, D 4096) and B 2 (``bench``), then h0, D 98, S 1 and a
+    channel with log_a = 0."""
+    return [
+        rglru_bwd_case("main", 1, 4096, 4096, gen, dev, timed=True),
+        rglru_bwd_case("bench", 2, 4096, 4096, gen, dev, timed=True),
+        rglru_bwd_case("h0_ragged", 2, 300, 512, gen, dev, h0=True),
+        rglru_bwd_case("d98_h0", 2, 300, 98, gen, dev, h0=True),
+        rglru_bwd_case("s1_h0", 2, 1, 4096, gen, dev, h0=True),
+        rglru_bwd_case("clamp_h0", 1, 77, 64, gen, dev, h0=True, clamp=True),
+    ]
+
+
+def ssd_refuses_grad(dev):
+    """A grad-requiring input to ``ssd_scan`` on the card raises
+    ``NotImplementedError`` (no backward kernel yet: its outputs would
+    carry no gradient), before any launch."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    x = torch.randn((1, 64, 2, 64), device=dev, requires_grad=True)
+    bt = torch.randn((1, 64, 128), device=dev)
+    dtt = torch.rand((1, 64, 2), device=dev)
+    before = ss.ssd_scan.launches
+    try:
+        ss.ssd_scan(x, bt, bt, -dtt, dtt)
+    except NotImplementedError as e:
+        check(ss.ssd_scan.launches == before,
+              "ssd_scan launched before refusing a gradient")
+        return str(e)
+    raise CheckFailed("ssd_scan took a grad-requiring input on the card")
+
+
 def scan_cases(gen, dev):
     """The ssd and rglru families: the reference's test shapes
     (``tests/test_kernels.py:43-67``), the edges (ragged S, S < chunk,
@@ -1169,6 +1437,7 @@ def scan_cases(gen, dev):
                (2, 200, 4, 64, 32, 64, True), (1, 256, 2, 32, 64, 128, False),
                (2, 96, 8, 64, 128, 32, True)])]
     ssd_refuses_misaligned(dev)
+    ssd_refuses_grad(dev)
     bf = dict(dtype="bfloat16")
     ssd += [
         ssd_case("ragged_h0_bf16", 2, 300, 8, 64, 128, 128, gen, dev,
@@ -1213,9 +1482,11 @@ def scan_cases(gen, dev):
 
 
 def phase_kernels(dev, seed):
+    """Every family of kernel cases, and the wall seconds each took."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    stamps = [time.perf_counter()]
     sel = [
         select_case("main", 256, 16, 768, gen, dev, mask_kind="k", live=11,
                     timed=True),
@@ -1249,6 +1520,7 @@ def phase_kernels(dev, seed):
                     dev, distinct=False, dup=True, cfg=1),
         select_case("k1_large", 64, 1, 768, gen, dev, cfg=1),
     ]
+    stamps.append(time.perf_counter())
     sg = [
         sgld_case("main", 8, 64, 16, 768, 4096, gen, dev, timed=True),
         sgld_case("main_j2", 8, 64, 16, 768, 4096, gen, dev, j=2),
@@ -1264,6 +1536,7 @@ def phase_kernels(dev, seed):
         sgld_case("ties_across_tiles_j2", 3, 301, 300, 64, 500, gen, dev,
                   ties=True, j=2),
     ]
+    stamps.append(time.perf_counter())
     sc = [
         score_case("main", 1, K_MAX, DIM, 16, gen, dev, posterior=True,
                    live=K_LIVE, timed=True),
@@ -1284,6 +1557,7 @@ def phase_kernels(dev, seed):
         score_case("small_d98_dup_zero", 5, 37, 98, 3, gen, dev, dup=True,
                    zeros=True),
     ]
+    stamps.append(time.perf_counter())
     mx = [
         mixed_case("main", 8, 64, K_MAX, DIM, 4096, gen, dev, timed=True),
         mixed_case("bench", 8, 1024, 1024, DIM, 4096, gen, dev, timed=True),
@@ -1304,8 +1578,28 @@ def phase_kernels(dev, seed):
         mixed_case("c1", 1, 64, K_MAX, DIM, 4096, gen, dev),
         mixed_case("d98_ragged", 3, 37, 5, 98, 500, gen, dev),
     ]
-    return ((sel, sg, sc, mx, attn_cases(gen, dev), attn_bwd_cases(gen, dev))
-            + scan_cases(gen, dev))
+    stamps.append(time.perf_counter())
+    at = attn_cases(gen, dev)
+    stamps.append(time.perf_counter())
+    atb = attn_bwd_cases(gen, dev)
+    stamps.append(time.perf_counter())
+    atb16 = attn_bwd_bf16_cases(gen, dev)
+    stamps.append(time.perf_counter())
+    # the plain backward at S 8192 reserved tens of GB: hand them back
+    # before the paths, whose CUDA graph captures must not meet a full
+    # cache (freeing cached blocks is not allowed while capturing)
+    torch.cuda.empty_cache()
+    ssd, rgl = scan_cases(gen, dev)
+    stamps.append(time.perf_counter())
+    rgb = rglru_bwd_cases(gen, dev)
+    stamps.append(time.perf_counter())
+    torch.cuda.empty_cache()
+    names = ("dueling_select", "sgld_potential", "dueling_score",
+             "sgld_mixed", "flash_attention", "flash_attention_bwd",
+             "flash_attention_bwd_bf16", "ssd_scan+rglru_scan",
+             "rglru_scan_bwd")
+    seconds = {n: b - a for n, a, b in zip(names, stamps, stamps[1:])}
+    return sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb, seconds
 
 
 # ---------------------------------------------------------------------------
@@ -1428,9 +1722,8 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
     names, first match wins, the rest "other") adds device ms per tick by
     group."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_profile() as prof:
         t0 = time.perf_counter()
         run(ticks)
         torch.cuda.synchronize()
@@ -1465,17 +1758,17 @@ def replay_launches(run, attempts=3):
     ``torch.profiler``'s kernel names (``SERVE_GROUPS``: wrapper ->
     substrings of its kernels' names): a CUDA graph's replay makes no
     Python call, so the wrappers do not count it. A profile that records
-    no device activity at all (see ``device_ms``) is taken again,
-    ``run()`` with it, up to ``attempts`` times."""
+    no device activity at all (see ``device_ms``), or not its closing
+    marker (``_window_whole``), is taken again, ``run()`` with it, up to
+    ``attempts`` times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(attempts):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_profile() as prof:
             run()
             torch.cuda.synchronize()
         kern = _kernel_events(prof)
-        if kern:
+        if kern and _window_whole(prof):
             break
     out = dict.fromkeys(SERVE_GROUPS, 0)
     for key, _, n in kern:
@@ -3066,9 +3359,8 @@ def profile_prefill(run, prefill_ms, wrappers):
     prefill, and the share of busy time of each port kernel, of the GEMMs
     (cuBLAS / CUTLASS kernels) and of the heaviest kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_profile() as prof:
         run()
         torch.cuda.synchronize()
     kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
@@ -3187,10 +3479,9 @@ def moe_profile(records, cfg, busy_ms):
     over all the layers, and each group's share of the prefill's busy
     time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import moe
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_profile() as prof:
         for p, x, impl in records:
             moe.moe_ffn(p, x, cfg, impl)
         torch.cuda.synchronize()
@@ -3320,6 +3611,188 @@ def phase_lm(dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm_train: make_train_step on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_STEPS = 3
+# each training run: batch, sequence (text, or patches + text for llava),
+# and its depth cut. granite-3-2b trains at full width and depth (the
+# reference's train_4k length); the rest at full width. The cuts keep this
+# script's wall time down, not 80 GB: each cut run keeps the fewest units
+# that run its layers, and its record's peak_memory_gb and
+# units_fit_reckoned say how much deeper 80 GB would let it go. At full
+# depth none of the four cut models fits one card: their weights,
+# gradients and AdamW moments alone take 12 bytes a parameter (~110 GB for
+# the 9 B models, ~91 GB for qwen2-7b, ~410 GB for llava-next-34b).
+LM_TRAIN_RUNS = {
+    "granite-3-2b": dict(batch=2, seq=4096),
+    # the RG-LRU backward and the local-window attention backward at D 256
+    # with MQA: one unit (2 RG-LRU + 1 local) plus the remainder (2 RG-LRU)
+    "recurrentgemma-9b": dict(batch=1, seq=4096, cut=dict(n_units=1)),
+    # soft cap 50 and window 4096 at D 256, at S 8192 so the window bites:
+    # 1 of 21 units (1 local + 1 global layer)
+    "gemma2-9b": dict(batch=1, seq=8192, cut=dict(n_units=1)),
+    # the qkv biases: 4 of 28 units
+    "qwen2-7b": dict(batch=2, seq=4096, cut=dict(n_units=4)),
+    # the MoE FFN's gradient, full depth (3.3 B parameters, ~40 GB with
+    # grads and moments)
+    "granite-moe-3b-a800m": dict(batch=2, seq=4096),
+    # bidirectional encoder over 1024 frames, cross attention at S 4096
+    # over T 1024, full depth (12 + 12 units)
+    "seamless-m4t-medium": dict(batch=2, seq=4096),
+    # vis_proj's gradient, 2880 patches + 1216 tokens: 1 of 60 units
+    "llava-next-34b": dict(batch=1, seq=4096, cut=dict(n_units=1)),
+}
+# each run's kernel launches per training step (forward, the units'
+# rematerialised forward, backward): remat runs a unit's attention and
+# RG-LRU forward twice, the remainder's once
+LM_TRAIN_PATHS = {
+    "granite-3-2b": {"flash_attention": 80, "flash_attention_bwd": 40},
+    "recurrentgemma-9b": {"flash_attention": 2, "flash_attention_bwd": 1,
+                          "rglru_scan": 6, "rglru_scan_bwd": 4},
+    "gemma2-9b": {"flash_attention": 4, "flash_attention_bwd": 2},
+    "qwen2-7b": {"flash_attention": 8, "flash_attention_bwd": 4},
+    "granite-moe-3b-a800m": {"flash_attention": 64,
+                             "flash_attention_bwd": 32},
+    "seamless-m4t-medium": {"flash_attention": 72,
+                            "flash_attention_bwd": 36},
+    "llava-next-34b": {"flash_attention": 2, "flash_attention_bwd": 1},
+}
+# the training step's device time by kernel group (first match wins; the
+# optimizer is profiled on its own)
+TRAIN_GROUPS = {
+    "attention_fwd": ("flash_attention_kernel",),
+    "attention_bwd": ("bwd_kv_kernel", "bwd_q_kernel", "bwd_reduce_kernel",
+                      "delta_kernel"),
+    "rglru": ("rglru_kernel", "rglru_bwd_kernel"),
+    "gemm": ("gemm", "cutlass", "xmma", "nvjet", "Kernel2"),
+}
+
+
+def phase_lm_train(dev, seed):
+    """``launch.steps.make_train_step`` (AdamW in place, weight decay 0.1,
+    lr 3e-4, each unit rematerialised) at full width for each model of
+    ``LM_TRAIN_RUNS``, bf16 weights made on the card from the seed and
+    ``launch.train.synthetic_batch`` batches from ``TorchDraws``. Per run:
+    one warm-up step, then the launch counts are reset and 3 timed steps
+    run (host ms each, synchronised); the counts per step must equal
+    ``LM_TRAIN_PATHS`` exactly and every loss must be finite. Then one
+    step's two halves run under the profiler (device activity only): the
+    loss and gradients by kernel group (``TRAIN_GROUPS``), and the AdamW
+    update as the optimizer group; the idle share is against the
+    unprofiled step. Peak memory over the timed steps; for a cut run also
+    the state a unit adds (weight and gradient in the leaf's dtype, fp32
+    moments, and the unit's saved bf16 input) and the depth that the
+    card's memory would hold at that rate (reckoned, not run).
+    mamba2-1.3b's step
+    must raise ``NotImplementedError`` (the SSD scan has no backward
+    kernel yet) before any launch."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init, adamw_update_
+    out = {}
+    for name, run in LM_TRAIN_RUNS.items():
+        cfg = lm_config(name, run.get("cut"))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        params = lm.init_params(gen, cfg, device=dev)
+        opt = adamw_init(params)
+        draws = TorchDraws(seed, dev)
+        batches = [train_lib.synthetic_batch(draws, cfg, run["batch"],
+                                             run["seq"], dev)
+                   for _ in range(LM_TRAIN_STEPS + 2)]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step = steps_lib.make_train_step(cfg)
+        params, opt, m0 = step(params, opt, batches[0])       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        losses, ms = [float(m0["loss"])], []
+        for b in batches[1:LM_TRAIN_STEPS + 1]:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        per_step = {k: v / LM_TRAIN_STEPS for k, v in counts.items() if v}
+        want = LM_TRAIN_PATHS[name]
+        check(per_step == want, f"lm_train {name}: launches per step "
+                                f"{per_step}, want {want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"lm_train {name}: non-finite losses {losses}")
+        step_ms = statistics.median(ms)
+        b_last = batches[-1]
+        grads = []
+        fwd_bwd = profile_ticks(
+            lambda n: grads.append(steps_lib.loss_and_grads(
+                params, b_last, cfg)[2]), step_ms, ticks=1,
+            groups=TRAIN_GROUPS)
+        opt_prof = profile_ticks(
+            lambda n: adamw_update_(params, grads[-1], opt, 3e-4,
+                                    weight_decay=0.1), step_ms, ticks=1)
+        del grads
+        busy = (fwd_bwd["device_busy_ms_per_tick"]
+                + opt_prof["device_busy_ms_per_tick"])
+        groups = dict(fwd_bwd["device_ms_per_tick_by_group"],
+                      optimizer=opt_prof["device_busy_ms_per_tick"])
+        tokens = run["batch"] * run["seq"]
+        leaves = tree_leaves(params)
+        depth = {}
+        if run.get("cut"):
+            unit_gb = (sum(t.numel() * (2 * t.element_size() + 8)
+                           for t in tree_leaves(params["units"]))
+                       / cfg.n_units + 2 * tokens * cfg.d_model) / 1e9
+            card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+            depth = dict(
+                n_units=cfg.n_units,
+                full_n_units=lm_config(name).n_units,
+                unit_state_gb=unit_gb,
+                units_fit_reckoned=min(
+                    lm_config(name).n_units,
+                    cfg.n_units + int((card_gb - peak / 1e9) // unit_gb)))
+        out[name] = dict(
+            params=sum(t.numel() for t in leaves), n_layers=cfg.n_layers,
+            n_enc_layers=cfg.n_enc_layers, cut=run.get("cut"),
+            batch=run["batch"], seq=run["seq"], tokens_per_step=tokens,
+            init_s=init_s, losses=losses, ms_per_step=ms,
+            median_ms_per_step=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+            device_ms_per_step=busy, device_idle_share=1.0 - busy / step_ms,
+            device_ms_by_group=groups,
+            device_kernels_per_step=(fwd_bwd["device_kernels_per_tick"]
+                                     + opt_prof["device_kernels_per_tick"]),
+            top_kernels=fwd_bwd["top_kernels_ms_per_tick"],
+            peak_memory_gb=peak / 1e9, **depth, launches_per_step=per_step,
+            launches=counts)
+        del params, opt, batches, b_last, leaves, step
+        torch.cuda.empty_cache()
+    # mamba2-1.3b: the SSD scan refuses a gradient on the card
+    cfg = lm_config("mamba2-1.3b").reduced()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = lm.init_params(gen, cfg, device=dev)
+    b = train_lib.synthetic_batch(TorchDraws(seed, dev), cfg, 1, 64, dev)
+    kernels.reset_launch_counts()
+    try:
+        steps_lib.loss_and_grads(params, b, cfg)
+    except NotImplementedError as e:
+        check(kernels.launch_counts()["ssd_scan"] == 0,
+              "lm_train mamba2-1.3b: ssd_scan launched before refusing")
+        out["mamba2-1.3b"] = dict(refused=str(e))
+    else:
+        raise CheckFailed("lm_train mamba2-1.3b: a training step ran with "
+                          "no SSD backward kernel")
+    return out
+
+
 # full width in fp32 at a smaller depth, for the card against the CPU
 # (arctic-480b also at 16 of its 128 experts, so the CPU can run it)
 LM_CPU_CUTS = {"mamba2-1.3b": dict(n_units=2),
@@ -3412,13 +3885,16 @@ def phase_lm_card_vs_cpu(dev, seed):
     model also runs ``moe_layer_check`` on every MoE call; where the card's
     own run flipped an expert at a near-tie (not a fault), the logit and
     cache limits are reported, not applied, and the record names the
-    calls."""
+    calls. Each model of ``LM_TRAIN_CPU_CUTS`` then runs
+    ``lm_train_check`` on the same weights (the others, granite-3-2b, on
+    their own). Returns (the prefill and decode records, the training
+    records)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import tree_map
     steps = 4
     cpu = torch.device("cpu")
-    out = {}
+    out, train = {}, {}
     for name, cut in LM_CPU_CUTS.items():
         cfg = lm_config(name, dict(cut, dtype="float32"))
         b, n_tok = LM_CPU_RUNS[name]
@@ -3482,15 +3958,85 @@ def phase_lm_card_vs_cpu(dev, seed):
                          near_ties=ties, moe_layer_check=moe_rows,
                          moe_near_tie_flips_e2e=flips,
                          limits_applied=strict)
-        del params, cparams, g_cache, c_cache, g_spy, c_spy
+        del g_cache, c_cache, g_spy, c_spy
+        if name in LM_TRAIN_CPU_CUTS:
+            train[name] = lm_train_check(name, cfg, params, cparams, seed,
+                                         dev)
+        del params, cparams
         torch.cuda.empty_cache()
-    return out
+    for name, cut in LM_TRAIN_CPU_CUTS.items():
+        if name in train:
+            continue
+        cfg = lm_config(name, dict(cut, dtype="float32"))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = lm.init_params(gen, cfg, device=dev)
+        cparams = tree_map(lambda t: t.to(cpu), params)
+        train[name] = lm_train_check(name, cfg, params, cparams, seed, dev)
+        del params, cparams
+        torch.cuda.empty_cache()
+    return out, train
+
+# the training check of the card against the CPU: LM_CPU_CUTS' models
+# but mamba2-1.3b (its SSD scan has no backward kernel), and granite-3-2b
+# at 2 units; batch and sequence (llava: its 64 cut patches + 32 tokens)
+LM_TRAIN_CPU_CUTS = dict(
+    {k: v for k, v in LM_CPU_CUTS.items() if k != "mamba2-1.3b"},
+    **{"granite-3-2b": dict(n_units=2)})
+LM_TRAIN_CPU_RUNS = {"llava-next-34b": (1, 96)}
+LM_TRAIN_CPU_RUN = (2, 32)
+
+
+def lm_train_check(name, cfg, params, cparams, seed, dev):
+    """``launch.steps.loss_and_grads`` (``lm.loss_fn`` and its gradient,
+    units rematerialised) in fp32 on the card's ``params`` and their CPU
+    copy ``cparams``, on the same ``synthetic_batch`` (``HostDraws``,
+    ``LM_TRAIN_CPU_RUNS``): the loss within 1e-5 relative and every
+    gradient leaf within 1e-4 of its largest magnitude on the CPU."""
+    import torch
+    from repro_torch.core.draws import HostDraws
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    cpu = torch.device("cpu")
+    start = time.perf_counter()
+    b, seq = LM_TRAIN_CPU_RUNS.get(name, LM_TRAIN_CPU_RUN)
+    cbatch = train_lib.synthetic_batch(HostDraws(seed), cfg, b, seq, cpu)
+    gbatch = {k: v.to(dev) for k, v in cbatch.items()}
+    t0 = time.perf_counter()
+    g_loss, _, g_grads = steps_lib.loss_and_grads(params, gbatch, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c_loss, _, c_grads = steps_lib.loss_and_grads(cparams, cbatch, cfg)
+    t2 = time.perf_counter()
+    g_loss, c_loss = float(g_loss), float(c_loss)
+    check(math.isfinite(g_loss) and abs(g_loss - c_loss) <= 1e-5 * abs(
+        c_loss), f"lm_train card vs cpu {name}: loss {g_loss} against "
+                 f"{c_loss}")
+    worst, worst_leaf = 0.0, None
+    names, g_leaves = _named_leaves(g_grads)
+    for leaf, g, c in zip(names, g_leaves, tree_leaves(c_grads)):
+        c = c.to(dev)               # the CPU's gradient, compared on the card
+        top = float(c.abs().max())
+        rel = float((g - c).abs().max()) / max(top, 1e-30)
+        check(rel <= 1e-4, f"lm_train card vs cpu {name}: gradient {leaf} "
+                           f"off by {rel} of its max")
+        if rel > worst:
+            worst, worst_leaf = rel, leaf
+    return dict(n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+                cut=LM_TRAIN_CPU_CUTS[name], batch=b, seq=seq,
+                loss_card=g_loss, loss_cpu=c_loss,
+                loss_rel_err=abs(g_loss - c_loss) / abs(c_loss),
+                max_rel_grad_err=worst, worst_leaf=worst_leaf,
+                leaves=len(names), card_s=t1 - t0, cpu_s=t2 - t1,
+                check_s=time.perf_counter() - start)
+
 
 # ---------------------------------------------------------------------------
 
 SGLD_SRC = "src/repro_torch/kernels/csrc/sgld_potential.cu"
 # name, source, TPU kernel replaced (its pl.pallas_call), phase-1 cases,
-# field prefix in the cases, the path run whose launches count
+# field prefix in the cases, the path run whose launches count[, the
+# wrapper whose launch count it is, where the name is not one]
 KERNELS = [
     ("dueling_select", "src/repro_torch/kernels/csrc/dueling_select.cu",
      "src/repro/kernels/dueling_score.py:234", "select", "", "sync"),
@@ -3515,7 +4061,21 @@ KERNELS = [
      "src/repro/kernels/ssd_scan.py:109", "ssd", "", "mamba2-1.3b"),
     ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
      "src/repro/kernels/rglru_scan.py:72", "rglru", "", "recurrentgemma-9b"),
+    ("flash_attention_bwd_bf16",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "none: gradient of _attn_kernel (src/repro/kernels/flash_attention.py"
+     ":23) in bf16, which the reference takes by XLA autodiff of "
+     "src/repro/models/attention.py::_attend", "attn_bwd_bf16", "",
+     "lm_train:granite-3-2b", "flash_attention_bwd"),
+    ("rglru_scan_bwd", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+     "none: gradient of src/repro/models/rglru.py::linear_scan "
+     "(lax.associative_scan), which the reference takes by XLA autodiff",
+     "rglru_bwd", "", "lm_train:recurrentgemma-9b", "rglru_scan_bwd"),
 ]
+# the rows whose kernels the LM training paths launch (the bf16 attention
+# backward has its own row; the fp32 one is the encoder's)
+LM_TRAIN_ROWS = ("flash_attention", "flash_attention_bwd_bf16", "rglru_scan",
+                 "rglru_scan_bwd")
 
 
 # the bf16 cases of flash_attention timed beside its fp32 main and bench,
@@ -3528,9 +4088,11 @@ SSD_FP32_TIMED = ("main_fp32",)
 SELECT_TIMED = ("serve",)
 # the timed attn_bwd cases beside main and bench
 ATTN_BWD_TIMED = ("main_large", "e5b", "minilm_d24")
+ATTN_BWD_BF16_TIMED = ("recurrentgemma", "seamless_enc", "seamless_cross")
 
 
-def kernels_line(cases, launches, serve_launches, lm_launches):
+def kernels_line(cases, launches, serve_launches, lm_launches,
+                 train_launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
@@ -3549,19 +4111,26 @@ def kernels_line(cases, launches, serve_launches, lm_launches):
     cycle (``refresh``: the fine-tuning's and the offline encode's
     attention). ``lm_launches`` are each lm model's launches per prefill
     (phase ``lm``), under ``lm_launches`` of each kernel that model's
-    prefill launches. The two forward kernels are reached on their
+    prefill launches; ``train_launches`` each lm_train model's launches
+    per training step, under ``lm_train_launches`` of the rows in
+    ``LM_TRAIN_ROWS``. The bf16 attention backward's and the RG-LRU
+    backward's ``launches`` are those of the granite-3-2b and the
+    recurrentgemma-9b training runs (3 steps), and the bf16 backward row
+    carries its other timed cases under ``more``. The two forward kernels
+    are reached on their
     paths only through the energy trace the runs here add
     (``fgts.chain_energy`` on the slice runs,
     ``extensions.mixed_chain_energy`` on the mixed run): the policies' own
     act and update launch the gradient kernels alone."""
     rows = []
-    for name, src, replaces, fam, pre, run in KERNELS:
+    for name, src, replaces, fam, pre, run, *counter in KERNELS:
+        counter = counter[0] if counter else name
         fam_cases = cases[fam]
         m = next(r for r in fam_cases if r["case"] == "main")
         bch = next(r for r in fam_cases if r["case"] == "bench")
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[run][name],
+            launches=launches[run][counter],
             max_abs_err=max(r[pre + "max_abs_err"] for r in fam_cases),
             ms=m[pre + "ms"], plain_ms=m[pre + "plain_ms"],
             bound_ms=m[pre + "bound_ms"], bound_by=m[pre + "bound_by"],
@@ -3581,13 +4150,18 @@ def kernels_line(cases, launches, serve_launches, lm_launches):
                  if c.get(name)}
         if on_lm:
             rows[-1]["lm_launches"] = on_lm
-        if name == "flash_attention_bwd":
+        on_train = {model: c[counter] for model, c in train_launches.items()
+                    if c.get(counter)}
+        if name in LM_TRAIN_ROWS and on_train:
+            rows[-1]["lm_train_launches"] = on_train
+        if name in ("flash_attention_bwd", "flash_attention_bwd_bf16"):
             rows[-1].update(plan=m["plan"], bench_plan=bch["plan"],
                             device_us_by_kernel=m["device_us_by_kernel"],
                             bench_device_us_by_kernel=bch[
                                 "device_us_by_kernel"])
         extra = dict(flash_attention=("bf16", ATTN_BF16_TIMED),
                      flash_attention_bwd=("more", ATTN_BWD_TIMED),
+                     flash_attention_bwd_bf16=("more", ATTN_BWD_BF16_TIMED),
                      ssd_scan=("fp32", SSD_FP32_TIMED),
                      dueling_select=("serve", SELECT_TIMED)).get(name)
         if extra:
@@ -3604,8 +4178,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
-                    help="also write every phase's full record here (JSON)")
+                    help="also write every phase's full record here (JSON); "
+                         "each phase line is appended to FILE.phases.jsonl "
+                         "as it ends")
     args = ap.parse_args()
+    global PHASE_LOG
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        PHASE_LOG = f"{args.out}.phases.jsonl"
+        Path(PHASE_LOG).unlink(missing_ok=True)
 
     import torch
     if not torch.cuda.is_available():
@@ -3626,12 +4207,15 @@ def main() -> int:
                            libraries=sorted(_build.SIGNATURES))
     emit_phase(record["build"])
 
-    sel, sg, sc, mx, at, atb, ssd, rgl = phase_kernels(dev, args.seed)
+    (sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb,
+     family_s) = phase_kernels(dev, args.seed)
     record["kernels"] = dict(phase="kernels", dueling_select=sel,
                              sgld_potential=sg, dueling_score=sc,
                              sgld_mixed=mx, flash_attention=at,
-                             flash_attention_bwd=atb, ssd_scan=ssd,
-                             rglru_scan=rgl)
+                             flash_attention_bwd=atb,
+                             flash_attention_bwd_bf16=atb16, ssd_scan=ssd,
+                             rglru_scan=rgl, rglru_scan_bwd=rgb,
+                             seconds=family_s)
     emit_phase(record["kernels"])
 
     runs = phase_slice(dev, args.seed)
@@ -3659,33 +4243,49 @@ def main() -> int:
     emit_phase(record["refresh"])
     record["lm"] = dict(phase="lm", **phase_lm(dev, args.seed))
     emit_phase(record["lm"])
+    record["lm_train"] = dict(phase="lm_train",
+                              **phase_lm_train(dev, args.seed))
+    emit_phase(record["lm_train"])
 
-    record["card_vs_cpu"] = dict(
-        phase="card_vs_cpu", **phase_card_vs_cpu(dev, args.seed),
-        autopilot=phase_autopilot_card_vs_cpu(dev, args.seed),
-        train=phase_train_card_vs_cpu(dev, args.seed, params_ft),
-        ccft=phase_ccft_card_vs_cpu(dev, args.seed, params_ft),
-        serve=phase_serve_card_vs_cpu(dev, args.seed, params_ft),
-        lm=phase_lm_card_vs_cpu(dev, args.seed))
+    part_s = {}
+
+    def part(key, fn, *fn_args):
+        t0 = time.perf_counter()
+        got = fn(dev, args.seed, *fn_args)
+        part_s[key] = time.perf_counter() - t0
+        return got
+    cvc = dict(phase="card_vs_cpu", **part("slice", phase_card_vs_cpu))
+    cvc["autopilot"] = part("autopilot", phase_autopilot_card_vs_cpu)
+    cvc["train"] = part("train", phase_train_card_vs_cpu, params_ft)
+    cvc["ccft"] = part("ccft", phase_ccft_card_vs_cpu, params_ft)
+    cvc["serve"] = part("serve", phase_serve_card_vs_cpu, params_ft)
+    # lm_train's share of "lm" is the sum of its records' check_s
+    cvc["lm"], cvc["lm_train"] = part("lm", phase_lm_card_vs_cpu)
+    record["card_vs_cpu"] = dict(cvc, seconds=part_s)
     emit_phase(record["card_vs_cpu"])
 
+    trained = {n: r for n, r in record["lm_train"].items()
+               if isinstance(r, dict) and "launches" in r}
     line = kernels_line(
         dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at,
-             attn_bwd=atb, ssd=ssd, rglru=rgl),
+             attn_bwd=atb, attn_bwd_bf16=atb16, ssd=ssd, rglru=rgl,
+             rglru_bwd=rgb),
         dict(sync=runs["sync"]["launches"],
              train=record["train"]["launches"],
              autopilot=record["autopilot"]["launches"],
              mixed=record["mixed"]["launches"],
              ccft=record["ccft"]["routerbench"]["launches"],
              **{n: r["launches"] for n, r in record["lm"].items()
-                if isinstance(r, dict)}),
+                if isinstance(r, dict)},
+             **{f"lm_train:{n}": r["launches"] for n, r in trained.items()}),
         dict(serve=record["serve"]["launches"],
              serve_autopilot=record["serve"]["autopilot"]["launches"],
              stream=record["stream"]["launches"],
              stream_autopilot=record["stream"]["autopilot"]["launches"],
              refresh=record["refresh"]["cycles"][0]["launches"]),
         {n: r["launches_per_prefill"] for n, r in record["lm"].items()
-         if isinstance(r, dict)})
+         if isinstance(r, dict)},
+        {n: r["launches_per_step"] for n, r in trained.items()})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

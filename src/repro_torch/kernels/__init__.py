@@ -6,7 +6,8 @@ integer attribute ``launches``. Nothing is compiled at import: see
 ``_build``. (The ``dueling_score``, ``flash_attention``, ``ssd_scan`` and
 ``rglru_scan`` functions are reached through their modules, e.g.
 ``kernels.flash_attention.flash_attention``, whose names they would shadow
-here; ``flash_attention_bwd`` lives beside ``flash_attention``.)
+here; ``flash_attention_bwd`` lives beside ``flash_attention`` and
+``rglru_scan_bwd`` beside ``rglru_scan``.)
 """
 from . import dueling_score as _scores
 from . import flash_attention as _flash
@@ -30,6 +31,7 @@ WRAPPERS = {
     "flash_attention_bwd": _flash.flash_attention_bwd,
     "ssd_scan": _ssd.ssd_scan,
     "rglru_scan": _rglru.rglru_scan,
+    "rglru_scan_bwd": _rglru.rglru_scan_bwd,
 }
 
 

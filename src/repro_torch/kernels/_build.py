@@ -61,21 +61,21 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, o, B, H, KV, S, T, D, (batch, head, seq) strides of q,
-        # k, v and o, scale, softcap, causal, window, [fp32: lse (B,H,S)
-        # or NULL,] stream; fp32 / bf16
+        # k, v and o, scale, softcap, causal, window, lse (B,H,S) or NULL,
+        # stream; fp32 / bf16
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, *[L] * 12,
                                    F, F, I, I, P, P],
         "flash_attention_sm90_launch": [P, P, P, P, I, I, I, I, I, I,
-                                        *[L] * 12, F, F, I, I, P],
+                                        *[L] * 12, F, F, I, I, P, P],
     },
     "flash_attention_bwd": {
         # q, k, v, o, lse, do, dq, dk, dv, Large's delta (B,H,S) and
         # partials scratch or NULL, the part table, B, H, KV, S, T, D,
         # (batch, head, seq) strides of q, k, v, o, do, dq, dk and dv,
         # scale, softcap, causal, window, configuration, key tile, parts,
-        # stream; fp32
+        # is_bf16 (q, k, v, o, do, dq, dk, dv), stream
         "flash_attention_bwd_launch": [*[P] * 12, I, I, I, I, I, I,
-                                       *[L] * 24, F, F, I, I, I, I, I, P],
+                                       *[L] * 24, F, F, I, I, I, I, I, I, P],
     },
     "ssd_scan": {
         # x, bt, ct, log_a, dt, h0, y, h_last, B, S, H, P, N, chunk,
@@ -92,6 +92,8 @@ SIGNATURES = {
         # log_a, x, h0, h, h_last, B, S, D, stream
         "rglru_scan_launch": [P, P, P, P, P, I, I, I, P],
         "rglru_scan_sm90_launch": [P, P, P, P, P, I, I, I, P],
+        # log_a, x, h0, h, dh, dh_last, dlog_a, dx, dh0, B, S, D, stream
+        "rglru_scan_bwd_launch": [*[P] * 9, I, I, I, P],
     },
 }
 

@@ -388,6 +388,7 @@ constexpr int kThreads = 384;          // consumers 0-255, producer 256-383
 constexpr int kConsumerThreads = 256;
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -409,6 +410,7 @@ struct Cfg {
 struct Params {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // (B,H,S) row log-sum-exp in natural units, or null
   int S, T, H, group, BH, n_q;
   long long vb, vh, vs, ob, oh, os;
   float scale, scale_log2, cap;
@@ -623,6 +625,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_sm90(
       const int i = row0 + 8 * r;
       if (i >= p.S) continue;
       const bool dead = any_dead && i >= dead_from;
+      // m and the sums are in log2 units (p = 2^(s log2 e - m)), so the
+      // natural log-sum-exp the backward recomputes P = exp(s - lse) from
+      // is (m + log2 l) ln 2; -inf for a row with no live key (m = -inf,
+      // l = 0), as the fp32 kernel writes it
+      if (p.lse != nullptr && (lane & 3) == 0)
+        p.lse[((long long)b * p.H + h) * p.S + i] =
+            (m[r] + log2f(l[r])) * kLn2;
       const float inv_l = dead ? 0.f : 1.f / l[r];
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -638,9 +647,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_sm90(
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int Tn, const Strides& st,
-                   float scale, float cap, int causal, int window,
-                   cudaStream_t stream) {
+                   float* lse, int B, int H, int KV, int S, int Tn,
+                   const Strides& st, float scale, float cap, int causal,
+                   int window, cudaStream_t stream) {
   using C = Cfg<D>;
   constexpr cuuint64_t E = sizeof(__nv_bfloat16);
   CUtensorMap tq, tk, tv;
@@ -662,7 +671,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const int n_q = (S + kBQ - 1) / kBQ;
   const Params p{static_cast<const __nv_bfloat16*>(v),
-                 static_cast<__nv_bfloat16*>(o), S, Tn, H, H / KV, B * H, n_q,
+                 static_cast<__nv_bfloat16*>(o), lse, S, Tn, H, H / KV,
+                 B * H, n_q,
                  st.vb, st.vh, st.vs, st.ob, st.oh, st.os, scale,
                  scale * kLog2e, cap, causal, window};
   kern<<<n_q * B * H, kThreads, C::kSmem, stream>>>(tq, tk, tv, p);
@@ -691,13 +701,13 @@ cudaError_t launch_fp32(int D, const void* q, const void* k, const void* v,
 }
 
 cudaError_t launch_bf16(int D, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int KV, int S, int Tn,
-                        const Strides& st, float scale, float cap, int causal,
-                        int window, cudaStream_t stream) {
+                        void* o, float* lse, int B, int H, int KV, int S,
+                        int Tn, const Strides& st, float scale, float cap,
+                        int causal, int window, cudaStream_t stream) {
 #define FA_CASE(DIM)                                                        \
   case DIM:                                                                 \
-    return tc::launch<DIM>(q, k, v, o, B, H, KV, S, Tn, st, scale, cap,     \
-                           causal, window, stream);
+    return tc::launch<DIM>(q, k, v, o, lse, B, H, KV, S, Tn, st, scale,     \
+                           cap, causal, window, stream);
   switch (D) {
     FA_CASE(32)
     FA_CASE(64)
@@ -726,15 +736,16 @@ extern "C" int flash_attention_launch(
 }
 
 // bf16 q, k, v, o: the Hopper kernel (base addresses and strides 16-byte
-// aligned, the head dim contiguous; D 32, 64, 128 or 256)
+// aligned, the head dim contiguous; D 32, 64, 128 or 256); lse (B,H,S)
+// float32 or null
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int Tn, int D, long long qb, long long qh, long long qs,
     long long kb, long long kh, long long ks, long long vb, long long vh,
     long long vs, long long ob, long long oh, long long os, float scale,
-    float cap, int causal, int window, void* stream) {
+    float cap, int causal, int window, void* lse, void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   return static_cast<int>(launch_bf16(
-      D, q, k, v, o, B, H, KV, S, Tn, st, scale, cap, causal, window,
-      static_cast<cudaStream_t>(stream)));
+      D, q, k, v, o, static_cast<float*>(lse), B, H, KV, S, Tn, st, scale,
+      cap, causal, window, static_cast<cudaStream_t>(stream)));
 }

@@ -1,11 +1,20 @@
-// flash_attention_bwd: the gradient of the fp32 attention of
-// flash_attention.cu (GQA, causal and sliding-window masks, the logit soft
-// cap, any S and T, head dims 1-256), FlashAttention-2's backward.
+// flash_attention_bwd: the gradient of the attention of flash_attention.cu
+// (GQA, causal and sliding-window masks, the logit soft cap, any S and T,
+// head dims 1-256), FlashAttention-2's backward, for fp32 and bf16 inputs.
 //
 // Replaces no Pallas kernel: it is the gradient of _attn_kernel (:23) of
 // src/repro/kernels/flash_attention.py, which the reference takes by XLA's
 // autodiff of its einsum attention (src/repro/models/attention.py,
-// _attend). The encoder trains through it.
+// _attend). The encoder trains through it in fp32, the LMs in bf16.
+//
+// bf16 runs the same kernels, instantiated for bf16 q, k, v, o and dO: each
+// load widens to fp32 as it is staged into shared memory (plain loads,
+// since cp.async copies bytes and cannot convert), so every product, sum,
+// Delta and partial is the fp32 kernel's; dq, dk and dv are rounded to
+// bf16 at their store, because autograd wants the input's type. The lse
+// it reads is fp32 in natural units (the bf16 forward writes it so). This
+// is the simple design, right before fast: it leaves the tensor cores
+// idle (a wgmma / TMA backward is later work).
 //
 // With x = scale q_i.k_j, s = cap tanh(x / cap) (s = x without a cap), the
 // forward's row log-sum-exp lse_i over the live keys, o its output and dO
@@ -59,6 +68,7 @@
 // nothing.
 // expf and tanhf, not the fast intrinsics, as in the forward. A plan fixes
 // every summation order, so results repeat bitwise.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,28 +101,92 @@ struct Strides {
   long long q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];
 };
 
+// E: the element type of q, k, v, o, dO, dq, dk and dv (float or bf16);
+// lse, Delta and the partials are fp32 whatever E is
+template <typename E>
 struct Args {
-  const float *q, *k, *v, *o, *g, *lse;
+  const E *q, *k, *v, *o, *g;
+  const float* lse;
   const int* parts;    // the part table, [n_parts][kPartInts]
-  float *delta, *dq, *dk, *dv, *part;
+  float* delta;
+  E *dq, *dk, *dv;
+  float* part;
   int B, H, KV, S, Tn, dim, group, causal, window, vec;
   int n_parts;         // dK/dV blocks per (batch, kv head)
   float scale, cap;
   Strides st;
 };
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename E>
+__device__ __forceinline__ E from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rows [row0, row0 + n) of a (rows, dim) tensor into shared memory as
+// fp32, laid out as attn::load_rows lays them (row r's 16-byte chunk c at
+// chunk c ^ (r % 8)), zeros past `limit` rows and `dim` columns. fp32 goes
+// by cp.async; bf16 is widened as it is staged, by plain loads (cp.async
+// copies bytes and cannot convert them), 8 bytes a chunk where `vec`
+template <int DP, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long stride, int row0, int n,
+                                           int limit, int dim, bool vec) {
+  load_rows<DP, NT>(dst, src, stride, row0, n, limit, dim, 0, vec);
+}
+
+template <int DP, int NT>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const __nv_bfloat16* src,
+                                           long long stride, int row0, int n,
+                                           int limit, int dim, bool vec) {
+  constexpr int C = DP / 4;
+  for (int e = threadIdx.x; e < n * C; e += NT) {
+    const int r = e / C, c = e % C, i = row0 + r;
+    const int cols = i < limit ? max(0, min(4, dim - 4 * c)) : 0;
+    float w[4] = {0.f, 0.f, 0.f, 0.f};
+    if (cols > 0) {
+      const __nv_bfloat16* p = src + i * stride + 4 * c;
+      if (vec) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(p);
+        const float2 lo =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        w[0] = lo.x, w[1] = lo.y, w[2] = hi.x, w[3] = hi.y;
+      } else {
+        for (int u = 0; u < cols; ++u) w[u] = __bfloat162float(p[u]);
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * DP + 4 * (c ^ (r & 7))) =
+        make_float4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // Delta at (b * H + h) * S + i: a warp per row (Large)
-__global__ void __launch_bounds__(kBlock) delta_kernel(const Args a) {
+template <typename E>
+__global__ void __launch_bounds__(kBlock) delta_kernel(const Args<E> a) {
   const long long rows = (long long)a.B * a.H * a.S;
   const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
   const long long i = row % a.S, bh = row / a.S;
   const long long h = bh % a.H, b = bh / a.H;
-  const float* op = a.o + b * a.st.o[0] + h * a.st.o[1] + i * a.st.o[2];
-  const float* gp = a.g + b * a.st.g[0] + h * a.st.g[1] + i * a.st.g[2];
+  const E* op = a.o + b * a.st.o[0] + h * a.st.o[1] + i * a.st.o[2];
+  const E* gp = a.g + b * a.st.g[0] + h * a.st.g[1] + i * a.st.g[2];
   float sum = 0.f;
-  for (int c = lane; c < a.dim; c += 32) sum = fmaf(op[c], gp[c], sum);
+  for (int c = lane; c < a.dim; c += 32)
+    sum = fmaf(to_f32(op[c]), to_f32(gp[c]), sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -252,10 +326,10 @@ __device__ __forceinline__ void dots(const float* X, const float* Y,
 // s of the tile's (r0 + 8 u, c0 + 4 v) -> P (into Ps if WANT_P) and P dcap
 // (into Ds); DEAD_P: a row with no live key takes P = 1/T on every key
 // (the block holds them all)
-template <typename T, int KP, bool WANT_P, bool DEAD_P>
+template <typename T, int KP, bool WANT_P, bool DEAD_P, typename A>
 __device__ __forceinline__ void probs(const float (&s)[T::TM][T::TN],
                                       const float* Ls, float* Ps, float* Ds,
-                                      int i0, int j0, const Args& a) {
+                                      int i0, int j0, const A& a) {
   constexpr int LDP = KP + 4;
   const int r0 = T::m0(), c0 = T::n0();
   const long long dead_from =
@@ -298,12 +372,12 @@ __device__ __forceinline__ void dscores(const float (&dp)[T::TM][T::TN],
 // rows [i0, i0 + BQ) x keys [j0, j0 + KP): P (if WANT_P) and dS into
 // shared memory, row-major at a row stride of KP + 4, every warp both for
 // its tile. Ends with the block synchronised.
-template <int DP, int KP, int BQ, bool WANT_P, bool DEAD_P>
+template <int DP, int KP, int BQ, bool WANT_P, bool DEAD_P, typename A>
 __device__ __forceinline__ void scores(const float* Qs, const float* Gs,
                                        const float* Ks, const float* Vs,
                                        const float* Ls, const float* Es,
                                        float* Ps, float* Ds, int i0, int j0,
-                                       const Args& a) {
+                                       const A& a) {
   using T = Tile<BQ, KP, 1, kWarps>;
   float s[T::TM][T::TN];
   dots<T, DP>(Qs, Ks, s);
@@ -389,7 +463,8 @@ __device__ __forceinline__ void accumulate_q(
   }
 }
 
-// four floats of a row at column c (< dim) of a global tensor
+// four floats of a row at column c (< dim) of a global tensor, rounded to
+// bf16 for a bf16 one (autograd wants the input's type)
 __device__ __forceinline__ void store4(float* dst, int c, int dim,
                                        const float* w, int vec) {
   if (vec) {
@@ -399,14 +474,29 @@ __device__ __forceinline__ void store4(float* dst, int c, int dim,
   }
 }
 
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, int c, int dim,
+                                       const float* w, int vec) {
+  if (vec) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(w[0], w[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(w[2], w[3]);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst + c) = raw;
+  } else {
+    for (int e = 0; e < 4 && c + e < dim; ++e)
+      dst[c + e] = __float2bfloat16_rn(w[e]);
+  }
+}
+
 // dq rows i0 + m0 + 8 u of head h, scaled
-template <int DP, int BQ>
+template <int DP, int BQ, typename A>
 __device__ __forceinline__ void store_dq(
-    const Args& a, int b, int h, int i0,
+    const A& a, int b, int h, int i0,
     const float (&acc)[QTile<DP, BQ>::TM][4 * QTile<DP, BQ>::TN]) {
   using T = QTile<DP, BQ>;
   const int r0 = T::m0(), c0 = T::n0();
-  float* dqp = a.dq + b * a.st.dq[0] + h * a.st.dq[1];
+  auto* dqp = a.dq + b * a.st.dq[0] + h * a.st.dq[1];
 #pragma unroll
   for (int u = 0; u < T::TM; ++u) {
     const int i = i0 + r0 + 8 * u;
@@ -439,9 +529,9 @@ struct KvPlan {
 // registers. FUSED (Small): the one part holds every key and walks every
 // row, and the block also writes dQ; else (Large) dK/dV only, raw partials
 // where the key tile has several parts.
-template <int DP, int KP, int BQ, bool FUSED>
+template <typename E, int DP, int KP, int BQ, bool FUSED>
 __global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
-    bwd_kv_kernel(const Args a) {
+    bwd_kv_kernel(const Args<E> a) {
   using KT = KvTile<DP, KP>;
   using QT = QTile<DP, BQ>;
   constexpr int LDP = KP + 4;
@@ -472,18 +562,18 @@ __global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
   auto issue = [&](int step) {
     const int h = head_of(step), i0 = row_of(step);
     const long long bh = (long long)b * a.H + h;
-    load_rows<DP, kBlock>(Qs, a.q + b * a.st.q[0] + h * a.st.q[1], a.st.q[2],
-                          i0, BQ, a.S, a.dim, 0, a.vec);
-    load_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1], a.st.g[2],
-                          i0, BQ, a.S, a.dim, 0, a.vec);
+    stage_rows<DP, kBlock>(Qs, a.q + b * a.st.q[0] + h * a.st.q[1],
+                           a.st.q[2], i0, BQ, a.S, a.dim, a.vec);
+    stage_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1],
+                           a.st.g[2], i0, BQ, a.S, a.dim, a.vec);
     load_col<kBlock>(Ls, a.lse + bh * a.S, i0, BQ, a.S);
     if (!FUSED) load_col<kBlock>(Es, a.delta + bh * a.S, i0, BQ, a.S);
     copy_commit();
   };
-  load_rows<DP, kBlock>(Ks, a.k + b * a.st.k[0] + kvh * a.st.k[1], a.st.k[2],
-                        j0, KP, a.Tn, a.dim, 0, a.vec);
-  load_rows<DP, kBlock>(Vs, a.v + b * a.st.v[0] + kvh * a.st.v[1], a.st.v[2],
-                        j0, KP, a.Tn, a.dim, 0, a.vec);
+  stage_rows<DP, kBlock>(Ks, a.k + b * a.st.k[0] + kvh * a.st.k[1],
+                         a.st.k[2], j0, KP, a.Tn, a.dim, a.vec);
+  stage_rows<DP, kBlock>(Vs, a.v + b * a.st.v[0] + kvh * a.st.v[1],
+                         a.st.v[2], j0, KP, a.Tn, a.dim, a.vec);
   copy_commit();
 
   float acc[KT::TM][4 * KT::TN];  // raw dV (warps 0-3) or dK (warps 4-7)
@@ -503,9 +593,10 @@ __global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
         const long long i = i0 + r;
         float sum = 0.f;
         if (i < a.S) {
-          const float* op = a.o + b * a.st.o[0] + h * a.st.o[1] + i * a.st.o[2];
-          const float* gp = a.g + b * a.st.g[0] + h * a.st.g[1] + i * a.st.g[2];
-          for (int c = lane; c < a.dim; c += 32) sum = fmaf(op[c], gp[c], sum);
+          const E* op = a.o + b * a.st.o[0] + h * a.st.o[1] + i * a.st.o[2];
+          const E* gp = a.g + b * a.st.g[0] + h * a.st.g[1] + i * a.st.g[2];
+          for (int c = lane; c < a.dim; c += 32)
+            sum = fmaf(to_f32(op[c]), to_f32(gp[c]), sum);
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -539,13 +630,13 @@ __global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
   if (!FUSED && first && dead_from < a.S) {
     for (int gi = 0; gi < a.group; ++gi) {
       const int h = kvh * a.group + gi;
-      const float* gp = a.g + b * a.st.g[0] + h * a.st.g[1];
+      const E* gp = a.g + b * a.st.g[0] + h * a.st.g[1];
       __syncthreads();  // the last head's Dead is read
       for (int c = threadIdx.x; c < DP; c += kBlock) {
         float sum = 0.f;
         if (c < a.dim)
           for (long long i = dead_from; i < a.S; ++i)
-            sum += gp[i * a.st.g[2] + c];
+            sum += to_f32(gp[i * a.st.g[2] + c]);
         Dead[c] = sum / (float)a.Tn;
       }
       __syncthreads();
@@ -578,8 +669,8 @@ __global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
     return;
   }
   const float mul = dk ? a.scale : 1.f;
-  float* out = dk ? a.dk + b * a.st.dk[0] + kvh * a.st.dk[1]
-                  : a.dv + b * a.st.dv[0] + kvh * a.st.dv[1];
+  E* out = dk ? a.dk + b * a.st.dk[0] + kvh * a.st.dk[1]
+              : a.dv + b * a.st.dv[0] + kvh * a.st.dv[1];
   const long long row_st = dk ? a.st.dk[2] : a.st.dv[2];
 #pragma unroll
   for (int u = 0; u < KT::TM; ++u) {
@@ -599,8 +690,8 @@ __global__ void __launch_bounds__(kBlock, (KvPlan<DP, KP, BQ>::kMinBlocks))
 // Large: dK and dV of every key tile with several parts, the parts'
 // partials summed in part order; a block per (part, batch x kv head), of
 // which the first part of each such key tile works
-template <int DP, int KP>
-__global__ void __launch_bounds__(kBlock) bwd_reduce_kernel(const Args a) {
+template <typename E, int DP, int KP>
+__global__ void __launch_bounds__(kBlock) bwd_reduce_kernel(const Args<E> a) {
   const int p = blockIdx.x, kvb = blockIdx.y;
   const int* row = a.parts + p * kPartInts;
   const int n_q = row[kParts];
@@ -617,8 +708,9 @@ __global__ void __launch_bounds__(kBlock) bwd_reduce_kernel(const Args a) {
       sv += base[q * slot + KP * DP + e];
     }
     a.dk[b * a.st.dk[0] + kvh * a.st.dk[1] + j * a.st.dk[2] + c] =
-        sk * a.scale;
-    a.dv[b * a.st.dv[0] + kvh * a.st.dv[1] + j * a.st.dv[2] + c] = sv;
+        from_f32<E>(sk * a.scale);
+    a.dv[b * a.st.dv[0] + kvh * a.st.dv[1] + j * a.st.dv[2] + c] =
+        from_f32<E>(sv);
   }
 }
 
@@ -636,9 +728,9 @@ struct QPlan {
 // Large: a block per (BQ query rows, batch x head), the causal row tiles
 // longest first; Q and dO resident, K and V double-buffered over the live
 // kv tiles; s and dO.v again, dS through shared memory, dQ in registers
-template <int DP, int BQ, int BK>
+template <typename E, int DP, int BQ, int BK>
 __global__ void __launch_bounds__(kBlock, (QPlan<DP, BQ, BK>::kMinBlocks))
-    bwd_q_kernel(const Args a) {
+    bwd_q_kernel(const Args<E> a) {
   using QT = QTile<DP, BQ>;
   constexpr int LDP = BK + 4;
   extern __shared__ float4 smem4[];
@@ -655,8 +747,8 @@ __global__ void __launch_bounds__(kBlock, (QPlan<DP, BQ, BK>::kMinBlocks))
   if (a.causal) qt = nq - 1 - qt;  // longest first
   const int bh = blockIdx.x % bhs, h = bh % a.H, b = bh / a.H;
   const int kvh = h / a.group, q0 = qt * BQ;
-  const float* kp = a.k + b * a.st.k[0] + kvh * a.st.k[1];
-  const float* vp = a.v + b * a.st.v[0] + kvh * a.st.v[1];
+  const E* kp = a.k + b * a.st.k[0] + kvh * a.st.k[1];
+  const E* vp = a.v + b * a.st.v[0] + kvh * a.st.v[1];
 
   // keys live for some row of this block: [k_lo, k_hi)
   const int q_last = min(q0 + BQ, a.S) - 1;
@@ -667,18 +759,18 @@ __global__ void __launch_bounds__(kBlock, (QPlan<DP, BQ, BK>::kMinBlocks))
 
   auto issue_kv = [&](int it, int stage) {
     const int k0 = (n_lo + it) * BK;
-    load_rows<DP, kBlock>(Ks + stage * BK * DP, kp, a.st.k[2], k0, BK, a.Tn,
-                          a.dim, 0, a.vec);
-    load_rows<DP, kBlock>(Vs + stage * BK * DP, vp, a.st.v[2], k0, BK, a.Tn,
-                          a.dim, 0, a.vec);
+    stage_rows<DP, kBlock>(Ks + stage * BK * DP, kp, a.st.k[2], k0, BK,
+                           a.Tn, a.dim, a.vec);
+    stage_rows<DP, kBlock>(Vs + stage * BK * DP, vp, a.st.v[2], k0, BK,
+                           a.Tn, a.dim, a.vec);
     copy_commit();
   };
   if (n_tiles > 0) {
     const long long bhl = (long long)b * a.H + h;
-    load_rows<DP, kBlock>(Qs, a.q + b * a.st.q[0] + h * a.st.q[1], a.st.q[2],
-                          q0, BQ, a.S, a.dim, 0, a.vec);
-    load_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1], a.st.g[2],
-                          q0, BQ, a.S, a.dim, 0, a.vec);
+    stage_rows<DP, kBlock>(Qs, a.q + b * a.st.q[0] + h * a.st.q[1],
+                           a.st.q[2], q0, BQ, a.S, a.dim, a.vec);
+    stage_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1],
+                           a.st.g[2], q0, BQ, a.S, a.dim, a.vec);
     load_col<kBlock>(Ls, a.lse + bhl * a.S, q0, BQ, a.S);
     load_col<kBlock>(Es, a.delta + bhl * a.S, q0, BQ, a.S);
     issue_kv(0, 0);  // one group with Q, dO, lse and Delta
@@ -720,57 +812,108 @@ cudaError_t allow_smem(K kern, size_t bytes) {
   return err;
 }
 
-template <int DP, int KP, bool FUSED>
-cudaError_t run_kv(const Args& a, cudaStream_t stream) {
+template <typename E, int DP, int KP, bool FUSED>
+cudaError_t run_kv(const Args<E>& a, cudaStream_t stream) {
   constexpr size_t smem = KvPlan<DP, KP, KP>::kSmemBytes;
-  cudaError_t err = allow_smem(bwd_kv_kernel<DP, KP, KP, FUSED>, smem);
+  cudaError_t err = allow_smem(bwd_kv_kernel<E, DP, KP, KP, FUSED>, smem);
   if (err != cudaSuccess) return err;
-  bwd_kv_kernel<DP, KP, KP, FUSED>
+  bwd_kv_kernel<E, DP, KP, KP, FUSED>
       <<<a.n_parts * a.KV * a.B, kBlock, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // keys: the plan's key tile (and query rows a step)
-template <int DP>
-cudaError_t launch(const Args& a, int cfg, int keys, cudaStream_t stream) {
+template <int DP, typename E>
+cudaError_t launch(const Args<E>& a, int cfg, int keys, cudaStream_t stream) {
   if (cfg == 0) {  // Small: one launch, one part holding every key
     if (a.n_parts != 1 || a.Tn > keys) return cudaErrorInvalidValue;
-    if (keys == 32) return run_kv<DP, 32, true>(a, stream);
+    if (keys == 32) return run_kv<E, DP, 32, true>(a, stream);
     if constexpr (DP <= 128)
-      if (keys == 64) return run_kv<DP, 64, true>(a, stream);
+      if (keys == 64) return run_kv<E, DP, 64, true>(a, stream);
     return cudaErrorInvalidValue;
   }
   constexpr int KP = DP <= 128 ? 64 : 32;            // dK/dV
   constexpr int QB = 64, BK = DP <= 128 ? 64 : 16;   // dQ
   if (cfg != 1 || keys != KP) return cudaErrorInvalidValue;
   const long long rows = (long long)a.B * a.H * a.S;
-  delta_kernel<<<(rows + kWarps - 1) / kWarps, kBlock, 0, stream>>>(a);
+  delta_kernel<E><<<(rows + kWarps - 1) / kWarps, kBlock, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = run_kv<DP, KP, false>(a, stream);
+  err = run_kv<E, DP, KP, false>(a, stream);
   if (err != cudaSuccess) return err;
   if (a.part != nullptr) {
-    bwd_reduce_kernel<DP, KP>
+    bwd_reduce_kernel<E, DP, KP>
         <<<dim3(a.n_parts, a.KV * a.B), kBlock, 0, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   constexpr size_t smem_q = QPlan<DP, QB, BK>::kSmemBytes;
-  err = allow_smem(bwd_q_kernel<DP, QB, BK>, smem_q);
+  err = allow_smem(bwd_q_kernel<E, DP, QB, BK>, smem_q);
   if (err != cudaSuccess) return err;
   const long long nq = (a.S + QB - 1) / QB;
-  bwd_q_kernel<DP, QB, BK><<<nq * a.B * a.H, kBlock, smem_q, stream>>>(a);
+  bwd_q_kernel<E, DP, QB, BK><<<nq * a.B * a.H, kBlock, smem_q, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Args of element type E from the C entry point's untyped arguments, then
+// the launch at the built head dim
+template <typename E>
+cudaError_t launch_typed(const void* q, const void* k, const void* v,
+                         const void* o, const void* lse, const void* g,
+                         void* dq, void* dk, void* dv, void* delta,
+                         void* part, const void* parts, int B, int H, int KV,
+                         int S, int Tn, int D, const long long* st,
+                         float scale, float cap, int causal, int window,
+                         int cfg, int keys, int n_parts, cudaStream_t stream) {
+  Args<E> a;
+  a.q = static_cast<const E*>(q);
+  a.k = static_cast<const E*>(k);
+  a.v = static_cast<const E*>(v);
+  a.o = static_cast<const E*>(o);
+  a.g = static_cast<const E*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.parts = static_cast<const int*>(parts);
+  a.dq = static_cast<E*>(dq);
+  a.dk = static_cast<E*>(dk);
+  a.dv = static_cast<E*>(dv);
+  a.delta = static_cast<float*>(delta);
+  a.part = static_cast<float*>(part);
+  a.B = B, a.H = H, a.KV = KV, a.S = S, a.Tn = Tn, a.dim = D;
+  a.group = H / KV, a.causal = causal, a.window = window;
+  a.n_parts = n_parts;
+  a.scale = scale, a.cap = cap;
+  long long* dst[8] = {a.st.q, a.st.k, a.st.v, a.st.o,
+                       a.st.g, a.st.dq, a.st.dk, a.st.dv};
+  for (int x = 0; x < 8; ++x)
+    for (int y = 0; y < 3; ++y) dst[x][y] = st[3 * x + y];
+  const void* ptrs[8] = {q, k, v, o, g, dq, dk, dv};
+  // fp32: 16-byte copies and stores; bf16: 8-byte loads and stores (the
+  // same rule: every address 16-byte aligned, strides and D multiples of 4)
+  a.vec = attn::aligned16(ptrs, 8, st, 24, D);
+  if (parts == nullptr || n_parts < 1) return cudaErrorInvalidValue;
+  switch (attn::built_dim(D)) {
+    case 32:
+      return launch<32>(a, cfg, keys, stream);
+    case 64:
+      return launch<64>(a, cfg, keys, stream);
+    case 128:
+      return launch<128>(a, cfg, keys, stream);
+    case 256:
+      return launch<256>(a, cfg, keys, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// fp32 q (B,H,S,D), k and v (B,KV,T,D), o and dO like q, lse (B,H,S)
-// contiguous; dq, dk and dv written whole. configuration 0 Small, 1
-// Large, with its key tile `keys` and its part table (n_parts rows of
-// kPartInts int32 on the card); Large takes a (B,H,S) Delta scratch and,
-// where a key tile has several parts, a partials scratch of n_parts x KV x
-// B x 2 x keys x DP floats (else NULL). D in [1, 256].
+// q (B,H,S,D), k and v (B,KV,T,D), o and dO like q, all fp32 or all bf16
+// (is_bf16), with dq, dk and dv of the same type written whole; lse
+// (B,H,S) fp32 contiguous. configuration 0 Small, 1 Large, with its key
+// tile `keys` and its part table (n_parts rows of kPartInts int32 on the
+// card); Large takes a (B,H,S) fp32 Delta scratch and, where a key tile
+// has several parts, an fp32 partials scratch of n_parts x KV x B x 2 x
+// keys x DP floats (else NULL). D in [1, 256].
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* g, void* dq, void* dk, void* dv,
@@ -781,46 +924,18 @@ extern "C" int flash_attention_bwd_launch(
     long long gs, long long dqb, long long dqh, long long dqs, long long dkb,
     long long dkh, long long dks, long long dvb, long long dvh,
     long long dvs, float scale, float cap, int causal, int window, int cfg,
-    int keys, int n_parts, void* stream) {
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.o = static_cast<const float*>(o);
-  a.lse = static_cast<const float*>(lse);
-  a.g = static_cast<const float*>(g);
-  a.parts = static_cast<const int*>(parts);
-  a.dq = static_cast<float*>(dq);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  a.delta = static_cast<float*>(delta);
-  a.part = static_cast<float*>(part);
-  a.B = B, a.H = H, a.KV = KV, a.S = S, a.Tn = Tn, a.dim = D;
-  a.group = H / KV, a.causal = causal, a.window = window;
-  a.n_parts = n_parts;
-  a.scale = scale, a.cap = cap;
-  a.st = Strides{{qb, qh, qs},    {kb, kh, ks},    {vb, vh, vs},
-                 {ob, oh, os},    {gb, gh, gs},    {dqb, dqh, dqs},
-                 {dkb, dkh, dks}, {dvb, dvh, dvs}};
-  const void* ptrs[8] = {q, k, v, o, g, dq, dk, dv};
-  const long long* strides[8] = {a.st.q, a.st.k, a.st.v, a.st.o,
-                                 a.st.g, a.st.dq, a.st.dk, a.st.dv};
-  a.vec = 1;
-  for (const long long* x : strides)
-    a.vec = a.vec && attn::aligned16(ptrs, 8, x, 3, D);
-  if (parts == nullptr || n_parts < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+    int keys, int n_parts, int is_bf16, void* stream) {
+  const long long st[24] = {qb,  qh,  qs,  kb,  kh,  ks,  vb,  vh,
+                            vs,  ob,  oh,  os,  gb,  gh,  gs,  dqb,
+                            dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs};
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (attn::built_dim(D)) {
-    case 32:
-      return static_cast<int>(launch<32>(a, cfg, keys, s));
-    case 64:
-      return static_cast<int>(launch<64>(a, cfg, keys, s));
-    case 128:
-      return static_cast<int>(launch<128>(a, cfg, keys, s));
-    case 256:
-      return static_cast<int>(launch<256>(a, cfg, keys, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(
+      is_bf16 ? launch_typed<__nv_bfloat16>(q, k, v, o, lse, g, dq, dk, dv,
+                                            delta, part, parts, B, H, KV, S,
+                                            Tn, D, st, scale, cap, causal,
+                                            window, cfg, keys, n_parts, s)
+              : launch_typed<float>(q, k, v, o, lse, g, dq, dk, dv, delta,
+                                    part, parts, B, H, KV, S, Tn, D, st,
+                                    scale, cap, causal, window, cfg, keys,
+                                    n_parts, s));
 }

@@ -185,6 +185,83 @@ __global__ void __launch_bounds__(kThreads) rglru_kernel_sm90(
   if (live) h_last[(size_t)b * D + d] = state;
 }
 
+// ---------------------------------------------------------------------------
+// rglru_bwd_kernel: the gradient of the recurrence (no TPU kernel: the
+// reference differentiates lax.associative_scan by XLA's autodiff,
+// src/repro/models/rglru.py::linear_scan). With g_t the gradient that
+// reaches h_t, g_t = dh_t + a_{t+1} g_{t+1} (plus dh_last at t = S - 1):
+//   dx_t     = g_t sqrt(max(1 - e_t, 0)),                e_t = exp(2 log_a_t)
+//   dlog_a_t = g_t (a_t h_{t-1} - e_t x_t / sqrt(max(1 - e_t, 0)))
+//   dh0      = a_0 g_0
+// with h_{-1} = h0 (or 0). Where 1 - e_t is 0 (log_a_t = 0: the clamp) the
+// reference's gradient through sqrt at 0 is +-inf (NaN where g_t x_t = 0),
+// and so is this one. A reverse linear scan: one thread per (batch,
+// channel) walks S backwards with the carried a_{t+1} g_{t+1} in a
+// register, the next kBwdPF steps' loads (log_a, x, h_{t-1}, dh) in flight
+// while it computes the current ones, as rglru_kernel does forwards. Bound:
+// bytes (24 per element: four reads, two writes). 32 threads a block, so
+// B * D / 32 blocks (128 at B 1, D 4096) spread over the SMs.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdPF = 16;
+constexpr int kBwdThreads = 32;
+
+__global__ void __launch_bounds__(kBwdThreads) rglru_bwd_kernel(
+    const float* __restrict__ log_a, const float* __restrict__ x,
+    const float* __restrict__ h0, const float* __restrict__ h,
+    const float* __restrict__ dh, const float* __restrict__ dh_last,
+    float* __restrict__ dlog_a, float* __restrict__ dx,
+    float* __restrict__ dh0, int S, int D) {
+  const int d = blockIdx.x * kBwdThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  if (d >= D) return;
+  const size_t base = (size_t)b * S * D + d;
+  const float h_init = h0 ? h0[(size_t)b * D + d] : 0.f;
+  float carry = dh_last[(size_t)b * D + d];  // a_{t+1} g_{t+1}, dh_last at S-1
+
+  float la_c[kBwdPF], x_c[kBwdPF], g_c[kBwdPF], hp_c[kBwdPF];
+  float la_n[kBwdPF], x_n[kBwdPF], g_n[kBwdPF], hp_n[kBwdPF];
+  // step t's log_a, x, dh and h_{t-1}; nothing for t < 0
+  auto load = [&](int t, float& la, float& xv, float& gv, float& hp) {
+    const bool ok = t >= 0;
+    const size_t at = base + (size_t)(ok ? t : 0) * D;
+    la = ok ? log_a[at] : 0.f;
+    xv = ok ? x[at] : 0.f;
+    gv = ok ? dh[at] : 0.f;
+    hp = t > 0 ? h[at - D] : h_init;
+  };
+#pragma unroll
+  for (int u = 0; u < kBwdPF; ++u)
+    load(S - 1 - u, la_c[u], x_c[u], g_c[u], hp_c[u]);
+  for (int t0 = S - 1; t0 >= 0; t0 -= kBwdPF) {
+#pragma unroll
+    for (int u = 0; u < kBwdPF; ++u)
+      load(t0 - kBwdPF - u, la_n[u], x_n[u], g_n[u], hp_n[u]);
+#pragma unroll
+    for (int u = 0; u < kBwdPF; ++u) {
+      const int t = t0 - u;
+      if (t >= 0) {
+        const float a = expf(la_c[u]);
+        const float e = expf(2.f * la_c[u]);
+        const float sq = sqrtf(fmaxf(1.f - e, 0.f));
+        const float g = g_c[u] + carry;
+        const size_t at = base + (size_t)t * D;
+        dx[at] = g * sq;
+        dlog_a[at] = g * (a * hp_c[u] - e * x_c[u] / sq);
+        carry = a * g;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdPF; ++u) {
+      la_c[u] = la_n[u];
+      x_c[u] = x_n[u];
+      g_c[u] = g_n[u];
+      hp_c[u] = hp_n[u];
+    }
+  }
+  if (dh0 != nullptr) dh0[(size_t)b * D + d] = carry;
+}
+
 }  // namespace
 
 extern "C" int rglru_scan_launch(const void* log_a, const void* x, const void* h0, void* h,
@@ -210,5 +287,19 @@ extern "C" int rglru_scan_sm90_launch(const void* log_a, const void* x, const vo
   dim3 grid((D + kCh - 1) / kCh, B);
   rglru_kernel_sm90<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       tla, tx, (const float*)h0, (float*)h, (float*)h_last, S, D);
+  return (int)cudaGetLastError();
+}
+
+// the backward: contiguous (B,S,D) log_a, x, h (the forward's output) and
+// dh, dh_last (B,D); h0 and dh0 (B,D) or both NULL; writes dlog_a and dx
+extern "C" int rglru_scan_bwd_launch(const void* log_a, const void* x, const void* h0,
+                                     const void* h, const void* dh, const void* dh_last,
+                                     void* dlog_a, void* dx, void* dh0, int B, int S,
+                                     int D, void* stream) {
+  dim3 grid((D + kBwdThreads - 1) / kBwdThreads, B);
+  rglru_bwd_kernel<<<grid, kBwdThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)log_a, (const float*)x, (const float*)h0, (const float*)h,
+      (const float*)dh, (const float*)dh_last, (float*)dlog_a, (float*)dx, (float*)dh0, S,
+      D);
   return (int)cudaGetLastError();
 }

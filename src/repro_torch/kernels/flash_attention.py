@@ -37,9 +37,13 @@ Gradients: when grad mode is on and q, k or v requires grad,
 (B,H,S) of the scaled, soft-capped, masked scores and whose backward is
 ``flash_attention_bwd``: FlashAttention-2's backward, which recomputes
 P = exp(s - lse) from q and k (the plain version on the CPU;
-``csrc/flash_attention_bwd.cu`` on the card, fp32 only: bf16 raises until
-LM training needs it). A row with no live key gave the mean of v, so its
-gradient is dO/T to every value and nothing to q or k. The reference has
+``csrc/flash_attention_bwd.cu`` on the card, fp32 and bf16: bf16 widens
+its loads to fp32 and rounds dq, dk and dv to bf16 at the store). The bf16
+forward keeps its row maximum in log2 units (it computes exp2); it writes
+``lse`` as (m + log2 l) ln 2, the natural log-sum-exp the backward
+recomputes P in. A row with no live key gave the mean of v, so its
+gradient is dO/T to every value and nothing to q or k (its ``lse`` is
+-inf in both types; the backward tells such rows by index). The reference has
 no backward kernel; it trains through XLA's autodiff of its einsum
 attention, the function this backward differentiates. ``bwd_plan`` picks
 the backward's configuration on the card: Small, one launch that owns all
@@ -222,7 +226,7 @@ def _check_cuda(q, k, v, window) -> None:
 
 def _forward(q, k, v, *, causal, window, softcap, scale, want_lse):
     """(out, lse or None) by device: the plain version on the CPU, a kernel
-    on the card (the fp32 kernel writes ``lse`` only when asked)."""
+    on the card (either kernel writes ``lse`` only when asked)."""
     if q.device.type == "cpu":
         return _plain_forward(q, k, v, causal=causal, window=window,
                               softcap=softcap, scale=scale,
@@ -232,10 +236,6 @@ def _forward(q, k, v, *, causal, window, softcap, scale, want_lse):
     kvh, t = k.shape[1], k.shape[2]
     q, k, v = (_inner_contiguous(x) for x in (q, k, v))
     tma = q.dtype == torch.bfloat16
-    if tma and want_lse:
-        raise NotImplementedError(
-            "bf16 attention has no backward kernel: it comes with LM "
-            "training; the encoder trains in fp32")
     if tma:
         for name, x in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, x)
@@ -249,13 +249,10 @@ def _forward(q, k, v, *, causal, window, softcap, scale, want_lse):
                for st in _outer_strides(x, tma)]
     args = (P(q), P(k), P(v), P(out), b, h, kvh, s, t, d, *strides,
             float(scale), float(softcap), int(bool(causal)), int(window))
+    launch = (lib.flash_attention_sm90_launch if tma
+              else lib.flash_attention_launch)
     with torch.cuda.device(q.device):
-        if tma:
-            code = lib.flash_attention_sm90_launch(*args,
-                                                   _build.stream(q.device))
-        else:
-            code = lib.flash_attention_launch(*args, P(lse),
-                                              _build.stream(q.device))
+        code = launch(*args, P(lse), _build.stream(q.device))
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -448,17 +445,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     sums rowsum(dO o), the dK/dV parts, their ordered sum where a key
     tile's walk was cut, dQ) and count the call in
     ``flash_attention_bwd.launches``; every tensor is read and written
-    through its batch, head and sequence strides. bf16 on the card raises
-    ``NotImplementedError``."""
+    through its batch, head and sequence strides. bf16 CUDA tensors run
+    the same kernels built for bf16: loads widen to fp32, all arithmetic
+    is fp32, dq, dk and dv are rounded to bf16 at the store."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, softcap=softcap,
                                          scale=scale)
     _check_cuda(q, k, v, window)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{q.dtype} attention has no backward kernel: the bf16 backward "
-            f"comes with LM training; the encoder trains in fp32")
     b, h, s, d = q.shape
     kvh, t = k.shape[1], k.shape[2]
     for name, x in (("o", o), ("do", do)):
@@ -491,7 +485,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             P(q), P(k), P(v), P(o), P(lse), P(do), P(dq), P(dk), P(dv),
             P(delta), P(part), P(table), b, h, kvh, s, t, d, *strides,
             float(scale), float(softcap), int(causal), window, plan.cfg,
-            plan.keys, plan.parts, _build.stream(q.device))
+            plan.keys, plan.parts, int(q.dtype == torch.bfloat16),
+            _build.stream(q.device))
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

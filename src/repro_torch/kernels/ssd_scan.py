@@ -38,6 +38,12 @@ chosen by a rule on dtype and shape:
   multiples of 16 and N <= 128.
 
 One wrapper call counts one launch, whichever kernels it runs.
+
+There is no backward kernel yet. A CUDA call with grad mode on and an input
+that requires grad raises ``NotImplementedError``: the kernel writes its
+outputs into ``torch.empty`` tensors with no ``grad_fn``, so without the
+refusal every parameter before the scan would silently get no gradient.
+A CPU call runs the plain version, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -121,6 +127,14 @@ def ssd_scan(x: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor,
         return ssd_scan_plain(x, bt, ct, log_a, dt, h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, bt, ct, log_a, dt, h0)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: its gradient on the card "
+            "comes with the next slice (ROADMAP Queue 1 item 4.5); the "
+            "kernel's outputs would carry no gradient, so a grad-requiring "
+            "input is refused (run under torch.no_grad, or on the CPU)")
     if x.dim() != 4 or bt.dim() != 3 or ct.shape != bt.shape:
         raise ValueError(f"shapes x {tuple(x.shape)}, bt {tuple(bt.shape)}, "
                          f"ct {tuple(ct.shape)}: want (B,S,H,P), (B,S,N) x2")

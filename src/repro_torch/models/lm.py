@@ -21,12 +21,24 @@ first, as ``jnp.asarray(d_model ** 0.5, dtype)`` is (45.25 for d_model
 running over patches and text together; an encoder-decoder model encodes
 ``batch["frames"]`` once (bidirectional units, then ``enc_norm``) and its
 cross-attention layers attend to that memory, whose K/V prefill writes
-into the cache, so decode needs no memory. Training (``loss_fn``) comes
-with the training slice.
+into the cache, so decode needs no memory.
+
+Training: ``loss_fn`` is the reference's masked next-token loss plus the
+MoE load-balance term. ``forward`` rematerialises each unit of ``units``
+(``remat=True``, the default, as the reference's ``jax.checkpoint`` of
+``_unit_fwd``): with grad mode on, each unit runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps
+only the unit's input and runs the unit again in the backward. The
+encoder's units are always rematerialised, as the reference's ``_encode``
+does; the remainder never is. Units are taken from the stacked leaves by
+``unbind``, whose backward stacks the units' gradients once, where a view
+``t[i]`` per unit would add a full-size zero tensor into the leaf's
+gradient per unit.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -112,20 +124,49 @@ def _embed_inputs(params, batch, cfg):
 
 
 def _units(params, stack="units"):
-    """Views of each unit of the stacked ``params[stack]``."""
+    """Views of each unit of the stacked ``params[stack]`` (``unbind``)."""
     n = params[stack]["0"]["norm1"].shape[0]
-    return [tree_map(lambda t: t[i], params[stack]) for i in range(n)]
+    parts = tree_map(lambda t: t.unbind(0), params[stack])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def _unit_fwd(uparams, x, positions, cfg, specs, enc_memory=None,
+              moe_impl=None):
+    """One unit's blocks in order. Returns (x, the unit's aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(specs):
+        x, a = blk.block_fwd(uparams[str(i)], x, positions, cfg, spec,
+                             enc_memory=enc_memory, moe_impl=moe_impl)
+        aux = aux + a
+    return x, aux
+
+
+def _stack_fwd(params, stack, x, positions, cfg, specs, enc_memory=None,
+               moe_impl=None, remat=True):
+    """The units of ``params[stack]`` in order, each under
+    ``checkpoint(use_reentrant=False)`` when ``remat`` and grad mode is on.
+    Returns (x, the units' summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
+    for u in _units(params, stack):
+        if remat:
+            x, a = checkpoint(_unit_fwd, u, x, positions, cfg, specs,
+                              enc_memory, moe_impl, use_reentrant=False)
+        else:
+            x, a = _unit_fwd(u, x, positions, cfg, specs, enc_memory,
+                             moe_impl)
+        aux = aux + a
+    return x, aux
 
 
 def _encode(params, frames, cfg):
     """The encoder's memory (B,T,d) of ``frames`` (B,T,d): the
-    bidirectional units, then ``enc_norm``."""
+    bidirectional units (rematerialised under grad, as the reference's
+    are), then ``enc_norm``."""
     x = frames.to(_dtype(cfg))
     b, t, _ = x.shape
     pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
-    for u in _units(params, "enc_units"):
-        for i, spec in enumerate(cfg.enc_pattern):
-            x, _ = blk.block_fwd(u[str(i)], x, pos, cfg, spec)
+    x, _ = _stack_fwd(params, "enc_units", x, pos, cfg, cfg.enc_pattern)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -140,23 +181,47 @@ def _logits(params, x, cfg):
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig,
-            moe_impl: str | None = None):
+            moe_impl: str | None = None, remat: bool = True,
+            unroll: bool = False):
     """Full-sequence logits. Returns (logits (B,S,V) float32, aux_loss, the
     sum of the MoE layers' load-balance losses). For vision inputs the
     logits cover patches and text; ``moe_impl`` None defers to
-    ``cfg.moe_impl``."""
+    ``cfg.moe_impl``. ``remat`` rematerialises each unit under grad (see
+    the module's notes). ``unroll`` is accepted and changes nothing: the
+    reference unrolls its ``lax.scan`` over units so that XLA's cost model
+    counts every layer; here the units always run as a Python loop."""
+    del unroll
     enc_memory = _memory(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = [(u[str(i)], spec) for u in _units(params)
-              for i, spec in enumerate(cfg.pattern)]
-    layers += [(params["remainder"][str(i)], spec)
-               for i, spec in enumerate(cfg.remainder)]
-    for lp, spec in layers:
-        x, a = blk.block_fwd(lp, x, positions, cfg, spec,
-                             enc_memory=enc_memory, moe_impl=moe_impl)
+    x, aux = _stack_fwd(params, "units", x, positions, cfg, cfg.pattern,
+                        enc_memory=enc_memory, moe_impl=moe_impl,
+                        remat=remat)
+    for i, spec in enumerate(cfg.remainder):
+        x, a = blk.block_fwd(params["remainder"][str(i)], x, positions, cfg,
+                             spec, enc_memory=enc_memory, moe_impl=moe_impl)
         aux = aux + a
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            moe_impl: str | None = None, aux_coef: float = 0.01,
+            unroll: bool = False):
+    """The mean next-token negative log-likelihood over the labels that
+    are >= 0, plus ``aux_coef`` times the MoE load-balance loss. For vision
+    inputs the logits of the text (the last ``labels.shape[1]`` positions)
+    are scored. Returns (loss, {"nll", "aux"}). A label below 0 is masked
+    out; it is gathered at index 0 (the reference's ``take_along_axis``
+    wraps it instead), which the zero mask makes no difference to."""
+    logits, aux = forward(params, batch, cfg, moe_impl=moe_impl,
+                          unroll=unroll)
+    labels = batch["labels"].long()
+    if cfg.frontend == "vision" and "patches" in batch:
+        logits = logits[:, -labels.shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss + aux_coef * aux, {"nll": loss, "aux": aux}
 
 
 def init_cache(batch: int, cfg: ModelConfig, cache_len: int,

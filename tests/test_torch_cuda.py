@@ -27,9 +27,16 @@ head dims 8 to 30 on the kernel built for 32. The backward kernels match
 ``flash_attention_bwd_plain`` to 1e-4 of each gradient's largest
 magnitude under each ``bwd_plan`` configuration forced (Small raises
 ``ValueError`` past its key tile), count one launch per call, repeat
-bitwise and run the plan's kernels by profiler name (Small one); bf16 has
-no backward and raises; the encoder's gradients on the card match the CPU's
-to 1e-4 of each leaf's largest magnitude. The SSD scan
+bitwise and run the plan's kernels by profiler name (Small one); the bf16
+backward (the same kernels built for bf16) matches it to 2e-2 of each
+gradient's largest magnitude at each bf16 head dim, the bf16 forward's
+lse matches the plain version's, and bf16 autograd goes through both
+kernels; the encoder's gradients on the card match the CPU's
+to 1e-4 of each leaf's largest magnitude. The RG-LRU gradient (its
+backward kernel) matches autograd of the plain recurrence to 1e-5, a
+grad-requiring ``ssd_scan`` input raises ``NotImplementedError``, and two
+training steps of reduced granite-3-2b and recurrentgemma-9b on the card
+match the CPU's. The SSD scan
 matches to rtol = atol = 2e-4 and the RG-LRU scan to 1e-5 (the
 reference's kernel tolerances); each SSD case proves by the profiler's
 kernel names which kernel ran (bf16 at P 64, N 128, chunk 128: the Hopper
@@ -981,17 +988,218 @@ def test_flash_attention_bwd_kernels_per_call(cuda_device, b, h, kv, s, t,
     assert len(names) == plan.launches
 
 
-def test_flash_attention_bwd_refuses_bf16(cuda_device):
-    """bf16 has no backward kernel: the backward and a bf16 forward that
-    needs one (an input requires grad) raise ``NotImplementedError``."""
-    x = torch.zeros((1, 2, 8, 64), device=cuda_device, dtype=torch.bfloat16)
-    lse = torch.zeros((1, 2, 8), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tfa.flash_attention_bwd(x, x, x, x, lse, x)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tfa.flash_attention(x.requires_grad_(True), x, x)
+# bf16 backward cases: causal, window, soft cap, GQA / MQA, S != T, rows
+# with no live key, strided views, at each of bf16's head dims
+BF16_BWD_CASES = [
+    # b, h, kv, s, t, d, causal, window, cap, strided
+    (2, 4, 2, 64, 64, 64, True, 0, 0.0, False),       # Small, GQA
+    (2, 4, 1, 300, 300, 64, True, 0, 0.0, True),      # MQA, strided
+    (1, 4, 2, 200, 333, 128, False, 0, 0.0, False),   # S != T
+    (1, 4, 1, 300, 130, 256, True, 64, 30.0, False),  # dead rows, cap
+    (2, 8, 8, 100, 100, 32, True, 40, 0.0, True),     # window, D 32
+    (2, 4, 4, 40, 32, 256, False, 0, 50.0, False),    # Small at D 256
+    (1, 2, 2, 90, 1000, 64, False, 0, 0.0, True),     # cross, T > S
+]
+
+
+def _bf16_bwd_inputs(b, h, kv, s, t, d, causal, window, cap, strided, dev):
+    ins, kw = _bwd_inputs(b, h, kv, s, t, d, causal, window, cap, strided,
+                          dev)
+    q, k, v, _, _, do = (x.to(torch.bfloat16) for x in ins)
+    if strided:   # keep the (B,S,H,D) layout the casts dropped
+        q, k, v, do = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("cfg", [None, 0, 1])
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,strided",
+                         BF16_BWD_CASES)
+def test_flash_attention_bwd_bf16_matches_plain(cuda_device, monkeypatch,
+                                                cfg, b, h, kv, s, t, d,
+                                                causal, window, cap,
+                                                strided):
+    """The bf16 backward (the plan's configuration, and each forced where it
+    runs) against ``flash_attention_bwd_plain`` from the bf16 forward's o
+    and lse: bf16 dq, dk and dv within 2e-2 of their largest magnitude,
+    one counted launch per call, a bitwise repeat, dq exactly 0 on rows
+    with no live key."""
+    ins, kw = _bf16_bwd_inputs(b, h, kv, s, t, d, causal, window, cap,
+                               strided, cuda_device)
+    if cfg is not None:
+        if cfg == 0 and t > tfa.bwd_small_keys(tfa.kernel_head_dim(d)):
+            return
+        _force_bwd(monkeypatch, cfg)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(*ins, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    want = tfa.flash_attention_bwd_plain(*ins, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * top
+    again = tfa.flash_attention_bwd(*ins, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if window and s > t + window - 1:
+        assert not bool(got[0][:, :, t + window - 1:].any())
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", [
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0),
+    (1, 4, 1, 300, 100, 256, True, 4, 0.0),      # rows with no live key
+    (2, 2, 2, 128, 384, 128, False, 0, 50.0),
+    (1, 8, 2, 300, 300, 32, True, 100, 20.0),
+])
+def test_flash_attention_bf16_lse_matches_plain(cuda_device, b, h, kv, s, t,
+                                                d, causal, window, cap):
+    """The bf16 forward's row log-sum-exp (kept in log2 units inside the
+    kernel, written as (m + log2 l) ln 2) against the plain version's
+    natural one on the same bf16 inputs: within 1e-4 + 1e-5 |lse|, and -inf
+    on exactly the rows with no live key."""
+    rng = np.random.default_rng(s + d)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device).to(torch.bfloat16)
+    q, k, v = on(b, h, s, d), on(b, kv, t, d), on(b, kv, t, d)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    _, want = tfa._plain_forward(q, k, v, scale=None, want_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    dead = ~torch.isfinite(want)
+    assert torch.equal(~torch.isfinite(lse), dead)
+    assert bool((lse[dead] == -torch.inf).all())
+    err = (lse[~dead] - want[~dead]).abs()
+    assert bool((err <= 1e-4 + 1e-5 * want[~dead].abs()).all()), err.max()
+    np.testing.assert_allclose(
+        o.float().cpu().numpy(),
+        tfa.flash_attention_plain(q, k, v, **kw).float().cpu().numpy(),
+        rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_bf16_autograd(cuda_device):
+    """A bf16 ``flash_attention`` with inputs that require grad runs through
+    ``FlashAttention`` (the forward kernel keeps lse, the backward is the
+    bf16 backward kernel: one launch each) and gives autograd of the plain
+    version's gradients within 2e-2 of their largest magnitude."""
+    rng = np.random.default_rng(7)
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device).to(torch.bfloat16)
+    q, k, v, g = on(2, 8, 200, 64), on(2, 2, 200, 64), on(2, 2, 200, 64), \
+        on(2, 8, 200, 64)
+    kw = dict(causal=True, window=50, softcap=30.0)
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention(*ins, **kw)
+    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+    got = torch.autograd.grad(out, ins, g)
+    assert (tfa.flash_attention.launches - before[0],
+            tfa.flash_attention_bwd.launches - before[1]) == (1, 1)
+    ref = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(tfa.flash_attention_plain(*ref, **kw), ref,
+                               g.float())
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        top = float(w.abs().max())
+        assert float((a.float() - w).abs().max()) <= 2e-2 * top
+
+
+# the RG-LRU gradient: ragged S against the prefetch of 16 steps, h0, D 98
+# (no multiple of 4), S 1, and a channel with log_a = 0 (the clamp)
+@pytest.mark.parametrize("b,s,d,with_h0,clamp", [
+    (2, 200, 512, True, False), (1, 33, 96, False, False),
+    (2, 1, 96, True, False), (2, 50, 98, True, False),
+    (1, 77, 64, True, True),
+])
+def test_rglru_scan_grad_matches_plain_autograd(cuda_device, b, s, d,
+                                                with_h0, clamp):
+    """With inputs that require grad, ``rglru_scan`` runs through
+    ``RglruScan`` (one forward and one ``rglru_scan_bwd`` launch) and its
+    gradients for log_a, x and h0 match autograd of the plain recurrence
+    to 1e-5 of each one's largest finite magnitude; at a log_a = 0
+    channel both give the same non-finite values."""
+    rng = np.random.default_rng(s + d)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    log_a, x = -f(b, s, d).abs() * 0.1, f(b, s, d)
+    if clamp:
+        log_a[:, :, 3] = 0.0
+    h0 = f(b, d) if with_h0 else None
+    wh, wl = f(b, s, d), f(b, d)
+    leaves = [t for t in (log_a, x, h0) if t is not None]
+    mine = [t.clone().requires_grad_(True) for t in leaves]
+    plain = [t.clone().requires_grad_(True) for t in leaves]
+    before = (trg.rglru_scan.launches, trg.rglru_scan_bwd.launches)
+    h, hl = trg.rglru_scan(*mine[:2], mine[2] if with_h0 else None)
+    assert h.requires_grad and hl.requires_grad
+    got = torch.autograd.grad((h * wh).sum() + (hl * wl).sum(), mine)
+    assert (trg.rglru_scan.launches - before[0],
+            trg.rglru_scan_bwd.launches - before[1]) == (1, 1)
+    ph, phl = trg.rglru_scan_plain(*plain[:2],
+                                   plain[2] if with_h0 else None)
+    want = torch.autograd.grad((ph * wh).sum() + (phl * wl).sum(), plain)
+    for a, w in zip(got, want):
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(a), fin)
+        assert torch.equal(a[~fin].isnan(), w[~fin].isnan())
+        assert torch.equal(a[~fin & ~w.isnan()], w[~fin & ~w.isnan()])
+        top = float(w[fin].abs().max())
+        assert float((a[fin] - w[fin]).abs().max()) <= 1e-5 * top
+    assert bool(torch.isfinite(got[1]).all())
+
+
+def test_ssd_scan_refuses_grad_requiring_inputs(cuda_device):
+    """``ssd_scan`` has no backward kernel yet: a CUDA call with an input
+    that requires grad raises ``NotImplementedError`` (its outputs would
+    carry no gradient); under ``torch.no_grad`` it runs."""
+    rng = np.random.default_rng(0)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    x, bt, ct = f(1, 64, 2, 32), f(1, 64, 16), f(1, 64, 16)
+    log_a, dt = -f(1, 64, 2).abs(), f(1, 64, 2).abs()
+    before = tss.ssd_scan.launches
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tss.ssd_scan(x.requires_grad_(True), bt, ct, log_a, dt, chunk=32)
+    assert tss.ssd_scan.launches == before
     with torch.no_grad():
-        assert tfa.flash_attention(x, x, x).dtype == torch.bfloat16
+        y, _ = tss.ssd_scan(x, bt, ct, log_a, dt, chunk=32)
+    assert y.shape == (1, 64, 2, 32)
+
+
+@pytest.mark.parametrize("name", ["granite-3-2b", "recurrentgemma-9b"])
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, name):
+    """Two ``make_train_step``s of a reduced model (fp32, 2 units; the
+    attention backward and, for recurrentgemma, the RG-LRU backward on the
+    card) from the same weights on the same batches as the CPU: the first
+    step's gradients within 1e-4 of each leaf's largest magnitude, both
+    steps' losses within 1e-5 relative, finite."""
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
+    from repro_torch.core.draws import HostDraws
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init
+    cfg = ARCHS[name].reduced(max_units=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = tlm.init_params(gen, cfg, device=cuda_device)
+    cparams = tree_map(lambda t: t.cpu(), params)
+    batches = [ttrain.synthetic_batch(HostDraws(i), cfg, 2, 64, "cpu")
+               for i in range(2)]
+    _, _, g = tsteps.loss_and_grads(params, {k: v.to(cuda_device) for k, v
+                                             in batches[0].items()}, cfg)
+    _, _, cg = tsteps.loss_and_grads(cparams, batches[0], cfg)
+    for a, w in zip(tree_leaves(g), tree_leaves(cg)):
+        top = float(w.abs().max())
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * max(top, 1e-30)
+    step = tsteps.make_train_step(cfg, lr=1e-4)
+    opt, copt = adamw_init(params), adamw_init(cparams)
+    for bt in batches:
+        params, opt, m = step(params, opt, {k: v.to(cuda_device)
+                                            for k, v in bt.items()})
+        cparams, copt, cm = step(cparams, copt, bt)
+        assert np.isfinite(float(m["loss"]))
+        assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-5 * abs(
+            float(cm["loss"]))
 
 
 def test_encoder_gradients_on_the_card_match_the_cpu(cuda_device):

@@ -84,14 +84,20 @@ in each line's ``wall_s``):
    strided views; timed cases split the device time by kernel name; its
    bound counts 10 D operations per live pair, its library yardstick is
    SDPA's backward (``torch.autograd.grad`` over a kept graph). The
-   attn_bwd_bf16 family holds the same kernels built for bf16 (and the
-   bf16 forward's lse, against the plain version's) within 2e-2 of each
+   attn_bwd_bf16 family holds the bf16 backward (at head dims 64, 128 and
+   256 the Hopper design, ``csrc/flash_attention_bwd_sm90.cu``,
+   configuration 2; at 32 the SIMT kernels built for bf16) and the bf16
+   forward's lse (against the plain version's) within 2e-2 of each
    gradient's max |g| at the training paths' heads, timed (granite-3-2b
-   ``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal; gemma2-9b
-   ``bench``: B 1, H 16, KV 8, S = T 8192, D 256, soft cap 50, window
-   4096; recurrentgemma-9b's local layer; seamless's encoder and cross
-   attention), with rows that have no live key, ragged S/T, views and
-   both configurations forced; its bound is at the bf16 rate. The
+   ``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal, and the same
+   forced to Large, ``main_large``; gemma2-9b ``bench``: B 1, H 16, KV 8,
+   S = T 8192, D 256, soft cap 50, window 4096; recurrentgemma-9b's local
+   layer; seamless's encoder and cross attention), with rows that have no
+   live key, ragged S/T, views, the Hopper design's tile edges and Small
+   and Large forced (Large also at D 256 with rows that have no live key);
+   its bound is at the bf16 rate, and the Hopper design's own 14 D
+   operations a live pair (18 D at head dim 256) stand beside it
+   (``design_ops_ms``). The
    rglru_bwd family holds ``rglru_scan``'s gradient (the backward kernel)
    to autograd of the plain recurrence at 1e-5 of each gradient's max
    (B 1 and 2, S 4096, D 4096, timed against the plain reverse loop; h0,
@@ -210,7 +216,10 @@ in each line's ``wall_s``):
      then 3 timed steps with exact launch counts per step
      (``LM_TRAIN_PATHS``), finite losses, peak memory, tokens/s, and one
      profiled step's device time by kernel group with the optimizer on its
-     own; mamba2-1.3b's step must raise ``NotImplementedError``.
+     own; granite-3-2b's loss and gradients under the bf16 attention
+     backward's Hopper design against the same step forced to Large (the
+     SIMT kernels): equal losses, every leaf within 2e-2 of its max;
+     mamba2-1.3b's step must raise ``NotImplementedError``.
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
    versions) from one numpy-made draw set, for the FGTS slice, for the
    autopilot (a control tick every 2 acts) and for the ccft path (whose
@@ -961,10 +970,13 @@ def attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal=True,
     soft cap, the time of SDPA's backward (``torch.autograd.grad`` over a
     kept SDPA graph on the same inputs; the forward is not timed).
     ``dtype`` bfloat16 runs the bf16 forward (its lse is checked against
-    the plain version's) and the backward kernels built for bf16, within
+    the plain version's) and the bf16 backward (at head dims 64, 128 and
+    256 the Hopper design, else the SIMT kernels built for bf16), within
     ``ATTN_BWD_BF16_TOL`` of each gradient's max |g|, with the bound at
-    the bf16 tensor-core rate and bf16 bytes; ``calls`` sets the timed
-    calls per measurement (fewer for the long rows)."""
+    the bf16 tensor-core rate and bf16 bytes (and, for the Hopper design,
+    ``design_ops_ms``: its 14 D operations a live pair, 18 D at head dim
+    256, at that rate); ``calls`` sets the timed calls per measurement
+    (fewer for the long rows)."""
     from repro_torch.kernels import flash_attention as fa
     plan = fa.bwd_plan
     if cfg is not None:
@@ -1022,7 +1034,7 @@ def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
     torch.cuda.synchronize()
     plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     want = plain()
-    plan = fa.bwd_plan(b, h, kv, s, t, d, causal, window)
+    plan = fa.bwd_plan(b, h, kv, s, t, d, causal, window, q.dtype)
     out = dict(case=name, B=b, H=h, KV=kv, S=s, T=t, D=d, dtype=dtype,
                causal=causal, window=window, softcap=cap, strided=strided,
                plan=plan._asdict())
@@ -1087,6 +1099,12 @@ def _attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, *, causal, window,
         out["bound_ms"], out["bound_by"] = bound(
             nbytes, 10.0 * b * h * live * d,
             BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
+        if plan.cfg == fa.BWD_SM90:
+            # the Hopper design's own work, beside the 10 D bound: 14 D a
+            # live pair (two passes each recompute S and dP), 18 D at head
+            # dim 256 (both dK/dV warpgroups compute S^T and dP^T)
+            out["design_ops_ms"] = (18.0 if d == 256 else 14.0) * b * h * \
+                live * d / BF16_FLOP_PER_S * 1e3
         out["library_ms"] = None
         if not cap:
             sdpa_kw = (dict(is_causal=causal) if not window
@@ -1159,29 +1177,40 @@ def attn_bwd_cases(gen, dev):
 
 
 def attn_bwd_bf16_cases(gen, dev):
-    """The attn_bwd_bf16 family: ``flash_attention_bwd`` built for bf16
-    (and the bf16 forward's lse) at the training paths' heads, timed:
-    granite-3-2b's (``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal),
-    gemma2-9b's (``bench``: B 1, H 16, KV 8, S = T 8192, D 256, soft cap
-    50, window 4096), recurrentgemma-9b's local layer (B 1, H 16, KV 1,
-    S = T 4096, D 256, window 2048), seamless-m4t-medium's encoder (B 2,
-    H = KV 16, S = T 1024, D 64, bidir) and cross attention (S 4096 over
-    T 1024, no mask); then the edges: rows with no live key, ragged S/T
-    at D 256 and D 32, ``transpose(1, 2)`` views, and Small and Large
-    forced."""
+    """The attn_bwd_bf16 family: ``flash_attention_bwd`` in bf16 (and the
+    bf16 forward's lse) at the training paths' heads, timed:
+    granite-3-2b's (``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal;
+    the Hopper design, and ``main_large`` the same forced to the SIMT
+    kernels' Large), gemma2-9b's (``bench``: B 1, H 16, KV 8, S = T 8192,
+    D 256, soft cap 50, window 4096), recurrentgemma-9b's local layer (B 1,
+    H 16, KV 1, S = T 4096, D 256, window 2048), qwen2-7b's (B 2, H 28,
+    KV 4, S = T 4096, D 128, causal), seamless-m4t-medium's
+    encoder (B 2, H = KV 16, S = T 1024, D 64, bidir) and cross attention
+    (S 4096 over T 1024, no mask), all the Hopper design; then the edges:
+    rows with no live key, ragged S/T at D 256 and D 32, ``transpose(1,
+    2)`` views, the Hopper design's tile edges (MQA with S and T one past
+    and one short of its tiles, T > S under a soft cap at D 128, dead rows
+    at group 4), and Small and Large forced (Large at D 64 and at D 256
+    with dead rows and a cap)."""
     bf = dict(dtype="bfloat16")
     big = dict(bf, timed=True, calls=3)
     return [
         attn_bwd_case("main", 2, 32, 8, 4096, 4096, 64, gen, dev,
-                      strided=True, **big),
+                      strided=True, expect=2, **dict(big, calls=10)),
         attn_bwd_case("bench", 1, 16, 8, 8192, 8192, 256, gen, dev,
-                      window=4096, cap=50.0, strided=True, **big),
+                      window=4096, cap=50.0, strided=True, expect=2, **big),
+        attn_bwd_case("main_large", 2, 32, 8, 4096, 4096, 64, gen, dev,
+                      strided=True, cfg=1, **big),
         attn_bwd_case("recurrentgemma", 1, 16, 1, 4096, 4096, 256, gen, dev,
-                      window=2048, strided=True, **big),
+                      window=2048, strided=True, expect=2, **big),
+        attn_bwd_case("qwen2", 2, 28, 4, 4096, 4096, 128, gen, dev,
+                      strided=True, expect=2, **big),
         attn_bwd_case("seamless_enc", 2, 16, 16, 1024, 1024, 64, gen, dev,
-                      causal=False, strided=True, **big),
+                      causal=False, strided=True, expect=2,
+                      **dict(big, calls=10)),
         attn_bwd_case("seamless_cross", 2, 16, 16, 4096, 1024, 64, gen, dev,
-                      causal=False, strided=True, **big),
+                      causal=False, strided=True, expect=2,
+                      **dict(big, calls=10)),
         attn_bwd_case("dead_rows_d256_cap", 1, 4, 2, 300, 130, 256, gen, dev,
                       window=64, cap=30.0, **bf),
         attn_bwd_case("dead_rows_d32_small", 8, 4, 1, 100, 40, 32, gen, dev,
@@ -1190,10 +1219,18 @@ def attn_bwd_bf16_cases(gen, dev):
                       causal=False, **bf),
         attn_bwd_case("strided_window_d64", 2, 8, 2, 150, 150, 64, gen, dev,
                       window=40, strided=True, **bf),
+        attn_bwd_case("sm90_mqa_tile_edges", 2, 4, 1, 255, 257, 128, gen,
+                      dev, causal=False, strided=True, expect=2, **bf),
+        attn_bwd_case("sm90_t_past_s_cap", 1, 4, 1, 65, 700, 128, gen, dev,
+                      causal=False, cap=20.0, expect=2, **bf),
+        attn_bwd_case("sm90_dead_rows_group4", 1, 8, 2, 260, 100, 64, gen,
+                      dev, window=30, expect=2, **bf),
         attn_bwd_case("small_d128", 4, 4, 2, 64, 64, 128, gen, dev,
                       causal=False, cfg=0, **bf),
         attn_bwd_case("large_forced_d64", 4, 4, 2, 64, 64, 64, gen, dev,
                       cfg=1, **bf),
+        attn_bwd_case("large_forced_d256_dead_rows", 1, 4, 2, 300, 130, 256,
+                      gen, dev, window=64, cap=30.0, cfg=1, **bf),
     ]
 
 
@@ -1934,7 +1971,9 @@ def ccft_setup(seed, dev, t_online, params=None):
 # (``benchmarks/common.py:63-70``): 150 generic steps, then 4 epochs of 40
 # CCFT steps, 64 pairs a step
 PRETRAIN_STEPS, FT_EPOCHS, FT_STEPS, PAIRS = 150, 4, 40, 64
-# a training step's device time by kernel family (profiler kernel names)
+# a training step's device time by kernel family (profiler kernel names;
+# "bwd_kv_kernel" and "bwd_q_kernel" also match the bf16 Hopper design's
+# bwd_kv_kernel_sm90 and bwd_q_kernel_sm90)
 STEP_GROUPS = {
     "attention_fwd": ("flash_attention_kernel",),
     "attention_bwd": ("bwd_kv_kernel", "bwd_q_kernel", "bwd_reduce_kernel",
@@ -3659,8 +3698,10 @@ LM_TRAIN_PATHS = {
                             "flash_attention_bwd": 36},
     "llava-next-34b": {"flash_attention": 2, "flash_attention_bwd": 1},
 }
-# the training step's device time by kernel group (first match wins; the
-# optimizer is profiled on its own)
+# the training step's device time by kernel group (first match wins, by
+# substring: attention_bwd's names also match the Hopper design's
+# bwd_kv_kernel_sm90 and bwd_q_kernel_sm90; the optimizer is profiled on
+# its own)
 TRAIN_GROUPS = {
     "attention_fwd": ("flash_attention_kernel",),
     "attention_bwd": ("bwd_kv_kernel", "bwd_q_kernel", "bwd_reduce_kernel",
@@ -3668,6 +3709,54 @@ TRAIN_GROUPS = {
     "rglru": ("rglru_kernel", "rglru_bwd_kernel"),
     "gemm": ("gemm", "cutlass", "xmma", "nvjet", "Kernel2"),
 }
+
+
+# the model whose training step is run once more with the bf16 attention
+# backward forced to the SIMT kernels' Large configuration
+BWD_DESIGN_CHECK = "granite-3-2b"
+
+
+def bwd_design_check(params, batch, cfg):
+    """``launch.steps.loss_and_grads`` at full width under the plan's bf16
+    attention backward (the Hopper design at head dim 64) against the same
+    step with every ``flash_attention_bwd`` call forced to Large (the SIMT
+    kernels built for bf16, the design before it): the losses equal (the
+    forward is the same kernels) and every gradient leaf within
+    ``ATTN_BWD_BF16_TOL`` of its largest magnitude under Large."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_lib
+    t0 = time.perf_counter()
+    heads = (2, cfg.n_heads, cfg.n_kv_heads, 4096, 4096, cfg.hd, True,
+             cfg.window, torch.bfloat16)
+    plan = fa.bwd_plan
+    check(plan(*heads).cfg == fa.BWD_SM90,
+          f"lm_train {cfg.name}: the plan does not take the Hopper design")
+    loss, _, grads = steps_lib.loss_and_grads(params, batch, cfg)
+    fa.bwd_plan = lambda *args: plan(*args, cfg=fa.BWD_LARGE)
+    try:
+        loss_large, _, grads_large = steps_lib.loss_and_grads(params, batch,
+                                                              cfg)
+    finally:
+        fa.bwd_plan = plan
+    loss, loss_large = float(loss), float(loss_large)
+    check(loss == loss_large, f"lm_train {cfg.name}: the loss {loss} under "
+                              f"the Hopper design is not Large's {loss_large}")
+    worst, worst_leaf = 0.0, None
+    names, leaves = _named_leaves(grads)
+    for leaf, g, w in zip(names, leaves, tree_leaves(grads_large)):
+        top = float(w.float().abs().max())
+        rel = float((g.float() - w.float()).abs().max()) / max(top, 1e-30)
+        check(rel <= ATTN_BWD_BF16_TOL,
+              f"lm_train {cfg.name}: gradient {leaf} under the Hopper design "
+              f"off Large's by {rel} of its max")
+        if rel > worst:
+            worst, worst_leaf = rel, leaf
+    torch.cuda.synchronize()
+    return dict(plan=plan(*heads)._asdict(), against_cfg=fa.BWD_LARGE,
+                loss=loss, loss_large=loss_large, leaves=len(names),
+                max_rel_grad_err=worst, worst_leaf=worst_leaf,
+                seconds=time.perf_counter() - t0)
 
 
 def phase_lm_train(dev, seed):
@@ -3681,7 +3770,10 @@ def phase_lm_train(dev, seed):
     step's two halves run under the profiler (device activity only): the
     loss and gradients by kernel group (``TRAIN_GROUPS``), and the AdamW
     update as the optimizer group; the idle share is against the
-    unprofiled step. Peak memory over the timed steps; for a cut run also
+    unprofiled step. granite-3-2b's step also runs once more with the
+    bf16 attention backward forced from the Hopper design to Large
+    (``bwd_design_check``). Peak memory over the timed steps; for a cut
+    run also
     the state a unit adds (weight and gradient in the leaf's dtype, fp32
     moments, and the unit's saved bf16 input) and the depth that the
     card's memory would hold at that rate (reckoned, not run).
@@ -3740,6 +3832,8 @@ def phase_lm_train(dev, seed):
             lambda n: adamw_update_(params, grads[-1], opt, 3e-4,
                                     weight_decay=0.1), step_ms, ticks=1)
         del grads
+        design = (bwd_design_check(params, b_last, cfg)
+                  if name == BWD_DESIGN_CHECK else None)
         busy = (fwd_bwd["device_busy_ms_per_tick"]
                 + opt_prof["device_busy_ms_per_tick"])
         groups = dict(fwd_bwd["device_ms_per_tick_by_group"],
@@ -3772,6 +3866,8 @@ def phase_lm_train(dev, seed):
             top_kernels=fwd_bwd["top_kernels_ms_per_tick"],
             peak_memory_gb=peak / 1e9, **depth, launches_per_step=per_step,
             launches=counts)
+        if design:
+            out[name]["bwd_design_check"] = design
         del params, opt, batches, b_last, leaves, step
         torch.cuda.empty_cache()
     # mamba2-1.3b: the SSD scan refuses a gradient on the card
@@ -4062,7 +4158,7 @@ KERNELS = [
     ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
      "src/repro/kernels/rglru_scan.py:72", "rglru", "", "recurrentgemma-9b"),
     ("flash_attention_bwd_bf16",
-     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
      "none: gradient of _attn_kernel (src/repro/kernels/flash_attention.py"
      ":23) in bf16, which the reference takes by XLA autodiff of "
      "src/repro/models/attention.py::_attend", "attn_bwd_bf16", "",
@@ -4088,7 +4184,8 @@ SSD_FP32_TIMED = ("main_fp32",)
 SELECT_TIMED = ("serve",)
 # the timed attn_bwd cases beside main and bench
 ATTN_BWD_TIMED = ("main_large", "e5b", "minilm_d24")
-ATTN_BWD_BF16_TIMED = ("recurrentgemma", "seamless_enc", "seamless_cross")
+ATTN_BWD_BF16_TIMED = ("main_large", "recurrentgemma", "qwen2",
+                       "seamless_enc", "seamless_cross")
 
 
 def kernels_line(cases, launches, serve_launches, lm_launches,
@@ -4154,6 +4251,8 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
                     if c.get(counter)}
         if name in LM_TRAIN_ROWS and on_train:
             rows[-1]["lm_train_launches"] = on_train
+        if name == "flash_attention_bwd_bf16":
+            rows[-1]["design_ops_ms"] = m.get("design_ops_ms")
         if name in ("flash_attention_bwd", "flash_attention_bwd_bf16"):
             rows[-1].update(plan=m["plan"], bench_plan=bch["plan"],
                             device_us_by_kernel=m["device_us_by_kernel"],
@@ -4169,7 +4268,7 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
                 r["case"]: {k: r.get(k) for k in (
                     "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
                     "library_device_ms", "plain_ms", "plain_device_ms",
-                    "plan", "device_us_by_kernel")}
+                    "plan", "device_us_by_kernel", "design_ops_ms")}
                 for r in fam_cases if r["case"] in extra[1]}
     return {"kernels": rows}
 

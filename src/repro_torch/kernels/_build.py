@@ -77,6 +77,14 @@ SIGNATURES = {
         "flash_attention_bwd_launch": [*[P] * 12, I, I, I, I, I, I,
                                        *[L] * 24, F, F, I, I, I, I, I, I, P],
     },
+    "flash_attention_bwd_sm90": {
+        # bf16 q, k, v, o, lse, do, dq, dk, dv, the stats scratch (2 x B*H
+        # x S rounded up to 128, fp32), the part table, B, H, KV, S, T, D,
+        # (batch, head, seq) strides of q, k, v, o, do, dq, dk and dv,
+        # scale, softcap, causal, window, parts, stream
+        "flash_attention_bwd_sm90_launch": [*[P] * 11, I, I, I, I, I, I,
+                                            *[L] * 24, F, F, I, I, I, P],
+    },
     "ssd_scan": {
         # x, bt, ct, log_a, dt, h0, y, h_last, B, S, H, P, N, chunk,
         # (batch, seq, head) strides of x, (batch, seq) of bt and ct,

@@ -5,16 +5,19 @@
 // Replaces no Pallas kernel: it is the gradient of _attn_kernel (:23) of
 // src/repro/kernels/flash_attention.py, which the reference takes by XLA's
 // autodiff of its einsum attention (src/repro/models/attention.py,
-// _attend). The encoder trains through it in fp32, the LMs in bf16.
+// _attend). The encoder trains through it in fp32; bf16 takes it only at
+// head dim 32 (no model of the repo has it), or where a configuration here
+// is forced: at head dims 64, 128 and 256 bf16 runs
+// flash_attention_bwd_sm90.cu, on the tensor cores
+// (kernels/flash_attention.py::bwd_plan picks by dtype and head dim).
 //
 // bf16 runs the same kernels, instantiated for bf16 q, k, v, o and dO: each
 // load widens to fp32 as it is staged into shared memory (plain loads,
 // since cp.async copies bytes and cannot convert), so every product, sum,
 // Delta and partial is the fp32 kernel's; dq, dk and dv are rounded to
 // bf16 at their store, because autograd wants the input's type. The lse
-// it reads is fp32 in natural units (the bf16 forward writes it so). This
-// is the simple design, right before fast: it leaves the tensor cores
-// idle (a wgmma / TMA backward is later work).
+// it reads is fp32 in natural units (the bf16 forward writes it so). The
+// tensor cores stay idle here.
 //
 // With x = scale q_i.k_j, s = cap tanh(x / cap) (s = x without a cap), the
 // forward's row log-sum-exp lse_i over the live keys, o its output and dO

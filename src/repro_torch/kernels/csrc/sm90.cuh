@@ -350,6 +350,21 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
 
 // The instructions, bf16 x bf16 -> fp32, scale_d = 0 overwrites d. "ss":
 // A and B from shared memory (A K-major); "rs": A from registers.
+// D (64 x 32, fp32) += A (64 x 16, smem) * B (32 x 16, smem)
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
 // D (64 x 64, fp32) += A (64 x 16, smem) * B (64 x 16, smem)
 template <int TransB>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
@@ -505,6 +520,11 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128],
 }
 
 // The same, chosen by the accumulator's size: N = 2 * its length.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_m64n32k16<TransB>(d, da, db, scale_d);
+}
 template <int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {

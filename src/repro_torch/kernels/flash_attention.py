@@ -35,21 +35,27 @@ Gradients: when grad mode is on and q, k or v requires grad,
 ``flash_attention`` runs through ``FlashAttention``, an
 ``autograd.Function`` whose forward also keeps the row log-sum-exp ``lse``
 (B,H,S) of the scaled, soft-capped, masked scores and whose backward is
-``flash_attention_bwd``: FlashAttention-2's backward, which recomputes
-P = exp(s - lse) from q and k (the plain version on the CPU;
-``csrc/flash_attention_bwd.cu`` on the card, fp32 and bf16: bf16 widens
-its loads to fp32 and rounds dq, dk and dv to bf16 at the store). The bf16
-forward keeps its row maximum in log2 units (it computes exp2); it writes
-``lse`` as (m + log2 l) ln 2, the natural log-sum-exp the backward
-recomputes P in. A row with no live key gave the mean of v, so its
-gradient is dO/T to every value and nothing to q or k (its ``lse`` is
--inf in both types; the backward tells such rows by index). The reference has
-no backward kernel; it trains through XLA's autodiff of its einsum
-attention, the function this backward differentiates. ``bwd_plan`` picks
-the backward's configuration on the card: Small, one launch that owns all
+``flash_attention_bwd``, which recomputes P = exp(s - lse) from q and k
+(the plain version on the CPU). On the card ``bwd_plan`` picks by dtype
+and head dim: bf16 at head dims 64, 128 and 256 runs
+``csrc/flash_attention_bwd_sm90.cu``, FlashAttention-3's backward on the
+tensor cores (a dQ pass, then a dK/dV pass; wgmma and TMA; P and dS
+rounded to bf16 before their products, as the reference's bf16 autodiff
+rounds them); fp32, and bf16 at head dim 32, run
+``csrc/flash_attention_bwd.cu``, FlashAttention-2's backward on the CUDA
+cores (bf16 widens its loads to fp32 and rounds dq, dk and dv to bf16 at
+the store) in one of two configurations: Small, one launch that owns all
 of a (batch, kv head)'s keys (the encoders' short sequences), or Large,
 for long rows (a Delta launch, a dK/dV walk cut into balanced parts with
-an ordered sum of their partials, a dQ launch).
+an ordered sum of their partials, a dQ launch). The bf16 forward keeps its
+row maximum in log2 units (it computes exp2); it writes ``lse`` as (m +
+log2 l) ln 2, the natural log-sum-exp the backward recomputes P in. A row
+with no live key gave the mean of v, so its gradient is dO/T to every
+value and nothing to q or k (its ``lse`` is -inf in both types; the
+backward tells such rows by index). The reference has no backward kernel;
+it trains through XLA's autodiff of its einsum attention, the function
+this backward differentiates. Every configuration fixes its summation
+order: a call repeats bitwise.
 """
 from __future__ import annotations
 
@@ -305,8 +311,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale=scale, want_lse=True)
 
 
-# the backward's plans (csrc/flash_attention_bwd.cu runs them)
-BWD_SMALL, BWD_LARGE = 0, 1
+# the backward's plans (csrc/flash_attention_bwd.cu runs Small and Large,
+# csrc/flash_attention_bwd_sm90.cu the Hopper design)
+BWD_SMALL, BWD_LARGE, BWD_SM90 = 0, 1, 2
+BWD_SM90_HEAD_DIMS = (64, 128, 256)   # the bf16 head dims it takes
+BWD_SM90_ROWS = 64                # its dK/dV pass's rows a step
+BWD_SM90_QUERY_ROWS = 128         # its dQ pass's rows a block
+
 # set from tools/bwd_variants.py --sweep (its timings are in PERF.md)
 BWD_SMALL_MAX_STEPS = 16          # Small: the longest walk the sweep timed
 BWD_SMALL_SHORT_WALK = 2          # Small on any grid: walks this short
@@ -315,12 +326,19 @@ BWD_PART_STEPS = 16               # Large: the most steps a dK/dV part walks
 BWD_PART_INTS = 8                 # int32 a row of the part table
 
 
+def bwd_sm90_keys(d: int) -> int:
+    """The Hopper design's dK/dV key tile at head dim ``d``: 128 keys, two
+    warpgroups of 64; 64 at 256, whose warpgroups split the columns."""
+    return 64 if d == 256 else 128
+
+
 class BwdPlan(NamedTuple):
-    """A ``flash_attention_bwd`` launch: ``cfg`` 0 Small, 1 Large; ``keys``
-    a dK/dV block's key tile and ``rows`` its query rows a step; Large cuts
-    a key tile's walk into parts of at most ``steps_per_part`` (head, row
-    tile) steps, ``parts`` dK/dV blocks per (batch, kv head) in all;
-    ``launches`` kernels per call."""
+    """A ``flash_attention_bwd`` launch: ``cfg`` 0 Small, 1 Large, 2 the
+    Hopper design (``BWD_SM90``); ``keys`` a dK/dV block's key tile and
+    ``rows`` its query rows a step; Large cuts a key tile's walk into parts
+    of at most ``steps_per_part`` (head, row tile) steps (the Hopper design
+    walks each key tile in one part), ``parts`` dK/dV blocks per (batch, kv
+    head) in all; ``launches`` kernels per call."""
     cfg: int
     keys: int
     rows: int
@@ -336,21 +354,21 @@ def bwd_small_keys(dp: int) -> int:
     return 64 if dp <= 128 else 32
 
 
-def _walks(s: int, t: int, keys: int, *, causal: bool, window: int,
-           small: bool) -> list[tuple[int, int]]:
+def _walks(s: int, t: int, keys: int, rows: int, *, causal: bool,
+           window: int, small: bool) -> list[tuple[int, int]]:
     """(first row tile, row tiles) each key tile of ``keys`` keys walks per
-    head, in row tiles of as many rows: under Small every row tile; under
-    Large those holding a live key for the tile."""
+    head, in row tiles of ``rows`` rows: under Small every row tile; else
+    those holding a live key for the tile."""
     out = []
     for jt in range(-(-t // keys)):
         if small:
-            out.append((0, -(-s // keys)))
+            out.append((0, -(-s // rows)))
             continue
         j0, j_last = jt * keys, min(jt * keys + keys, t) - 1
         i_lo = j0 if causal else 0
         i_hi = min(s, j_last + window) if window > 0 else s
-        t_lo = i_lo // keys
-        out.append((t_lo, -(-i_hi // keys) - t_lo if i_hi > i_lo else 0))
+        t_lo = i_lo // rows
+        out.append((t_lo, -(-i_hi // rows) - t_lo if i_hi > i_lo else 0))
     return out
 
 
@@ -363,10 +381,11 @@ def bwd_parts(s: int, t: int, group: int, plan: BwdPlan, *, causal: bool,
     group at row tile first + n % (row tiles). Small walks every row tile
     of its one key tile in one part; Large only the row tiles holding a
     live key for the tile, a walk of L steps cut into max(1, ceil(L /
-    steps_per_part)) parts of floor-divided lengths."""
+    steps_per_part)) parts of floor-divided lengths; the Hopper design as
+    Large, in one part a key tile."""
     out = []
     for jt, (t_lo, n_rows) in enumerate(_walks(
-            s, t, plan.keys, causal=causal, window=window,
+            s, t, plan.keys, plan.rows, causal=causal, window=window,
             small=plan.cfg == BWD_SMALL)):
         n = group * n_rows
         cuts = 1 if plan.cfg == BWD_SMALL or n <= plan.steps_per_part else \
@@ -378,14 +397,20 @@ def bwd_parts(s: int, t: int, group: int, plan: BwdPlan, *, causal: bool,
 
 
 def bwd_plan(b: int, h: int, kv: int, s: int, t: int, d: int, causal: bool,
-             window: int, cfg: int | None = None,
+             window: int, dtype: torch.dtype = torch.float32,
+             cfg: int | None = None,
              steps_per_part: int | None = None) -> BwdPlan:
     """The ``flash_attention_bwd`` launch on the card for q (b,h,s,d) over
-    k, v (b,kv,t,d). Small's one block per (batch, kv head) walks the
-    group's heads times the row tiles in series; it is taken where T fits
-    its key tile (``bwd_small_keys``), the walk is at most
-    ``BWD_SMALL_MAX_STEPS`` steps, and either Large would pad (Small's key
-    tile is the smaller: T <= 32 below head dim 256), the walk is at most
+    k, v (b,kv,t,d) of ``dtype``. bf16 at head dims 64, 128 and 256
+    (``BWD_SM90_HEAD_DIMS``) takes the Hopper design (``BWD_SM90``: a dQ
+    pass, then a dK/dV pass whose blocks each walk one key tile of
+    ``bwd_sm90_keys(d)`` keys in one part, in steps of ``BWD_SM90_ROWS``
+    rows); fp32, and bf16 at head dim 32, the SIMT kernels. Among those,
+    Small's one block per (batch, kv head) walks the group's heads times
+    the row tiles in series; it is taken where T fits its key tile
+    (``bwd_small_keys``), the walk is at most ``BWD_SMALL_MAX_STEPS``
+    steps, and either Large would pad (Small's key tile is the smaller:
+    T <= 32 below head dim 256), the walk is at most
     ``BWD_SMALL_SHORT_WALK`` steps, or Small's blocks (b kv) number at
     least ``BWD_SMALL_MIN_BLOCKS``, about one an SM. Large otherwise, each
     key tile's walk cut into parts of at most ``BWD_PART_STEPS`` steps.
@@ -394,8 +419,23 @@ def bwd_plan(b: int, h: int, kv: int, s: int, t: int, d: int, causal: bool,
     they cannot run."""
     dp = kernel_head_dim(d)
     group = h // kv
-    if cfg not in (None, BWD_SMALL, BWD_LARGE):
+    if cfg not in (None, BWD_SMALL, BWD_LARGE, BWD_SM90):
         raise ValueError(f"flash_attention_bwd: no configuration {cfg}")
+    sm90 = dtype == torch.bfloat16 and d in BWD_SM90_HEAD_DIMS
+    if cfg == BWD_SM90 and not sm90:
+        raise ValueError(f"flash_attention_bwd: no configuration {cfg} for "
+                         f"{dtype} at head dim {d}: the Hopper design takes "
+                         f"bf16 at head dims {BWD_SM90_HEAD_DIMS}")
+    if cfg == BWD_SM90 or (cfg is None and sm90):
+        if steps_per_part is not None:
+            raise ValueError("flash_attention_bwd: the Hopper design walks "
+                             "each key tile in one part")
+        keys = bwd_sm90_keys(d)
+        walks = _walks(s, t, keys, BWD_SM90_ROWS, causal=causal,
+                       window=window, small=False)
+        return BwdPlan(BWD_SM90, keys, BWD_SM90_ROWS,
+                       max(1, group * max(n for _, n in walks)), len(walks),
+                       2)
     fits = t <= bwd_small_keys(dp)
     if cfg == BWD_SMALL and not fits:
         raise ValueError(f"flash_attention_bwd: Small takes at most "
@@ -416,7 +456,7 @@ def bwd_plan(b: int, h: int, kv: int, s: int, t: int, d: int, causal: bool,
     if steps_per_part is not None and steps_per_part < 1:
         raise ValueError(f"flash_attention_bwd: {steps_per_part} steps a "
                          f"part")
-    walks = _walks(s, t, kp, causal=causal, window=window, small=False)
+    walks = _walks(s, t, kp, kp, causal=causal, window=window, small=False)
     plan = BwdPlan(BWD_LARGE, kp, kp, steps_per_part or BWD_PART_STEPS, 0,
                    0)
     parts = len(bwd_parts(s, t, group, plan, causal=causal, window=window))
@@ -440,14 +480,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: float | None = None):
     """(dq, dk, dv) of ``flash_attention`` (see
     ``flash_attention_bwd_plain``). CPU tensors take the plain version;
-    fp32 CUDA tensors launch ``csrc/flash_attention_bwd.cu`` in the
-    configuration ``bwd_plan`` picks (Small: one kernel; Large: the row
-    sums rowsum(dO o), the dK/dV parts, their ordered sum where a key
-    tile's walk was cut, dQ) and count the call in
-    ``flash_attention_bwd.launches``; every tensor is read and written
-    through its batch, head and sequence strides. bf16 CUDA tensors run
-    the same kernels built for bf16: loads widen to fp32, all arithmetic
-    is fp32, dq, dk and dv are rounded to bf16 at the store."""
+    CUDA tensors launch the configuration ``bwd_plan`` picks and count the
+    call in ``flash_attention_bwd.launches``; every tensor is read and
+    written through its batch, head and sequence strides. bf16 at head
+    dims 64, 128 and 256: ``csrc/flash_attention_bwd_sm90.cu`` (the Hopper
+    design: a dQ pass that also writes the rows' lse and rowsum(dO o), then
+    the dK/dV pass; wgmma on the tensor cores, TMA loads, so q, k, v, o and
+    dO must meet ``_check_tma``'s rule, else ``ValueError``; P and dS
+    rounded to bf16 before their products, as the reference's bf16 autodiff
+    rounds them). fp32, and bf16 at head dim 32:
+    ``csrc/flash_attention_bwd.cu`` (Small: one kernel; Large: the row sums
+    rowsum(dO o), the dK/dV parts, their ordered sum where a key tile's walk
+    was cut, dQ), fp32 arithmetic on the CUDA cores, bf16 loads widened to
+    fp32 and dq, dk and dv rounded to bf16 at the store."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, softcap=softcap,
@@ -463,11 +508,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
                          f"({b}, {h}, {s}) float32")
     causal, window = bool(causal), int(window)
-    plan = bwd_plan(b, h, kvh, s, t, d, causal, window)
+    plan = bwd_plan(b, h, kvh, s, t, d, causal, window, q.dtype)
     table = _part_table(s, t, h // kvh, plan, causal, window, q.device)
     q, k, v, o, do = (_inner_contiguous(x) for x in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scale = d ** -0.5 if scale is None else scale
+    P = _build.ptr
+    sm90 = plan.cfg == BWD_SM90
+    strides = [ctypes.c_longlong(st) for x in (q, k, v, o, do, dq, dk, dv)
+               for st in _outer_strides(x, sm90)]
+    if sm90:
+        for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            _check_tma(name, x)
+        s_pad = -(-s // BWD_SM90_QUERY_ROWS) * BWD_SM90_QUERY_ROWS
+        stats = torch.empty((2, b * h, s_pad), dtype=torch.float32,
+                            device=q.device)
+        lib = _build.library("flash_attention_bwd_sm90")
+        with torch.cuda.device(q.device):
+            code = lib.flash_attention_bwd_sm90_launch(
+                P(q), P(k), P(v), P(o), P(lse), P(do), P(dq), P(dk), P(dv),
+                P(stats), P(table), b, h, kvh, s, t, d, *strides,
+                float(scale), float(softcap), int(causal), window,
+                plan.parts, _build.stream(q.device))
+        _build.check(code, "flash_attention_bwd")
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
     delta = part = None
     if plan.cfg == BWD_LARGE:
         delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -475,11 +541,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             part = torch.empty((plan.parts * kvh * b * 2 * plan.keys *
                                 kernel_head_dim(d),), dtype=torch.float32,
                                device=q.device)
-    scale = d ** -0.5 if scale is None else scale
     lib = _build.library("flash_attention_bwd")
-    P = _build.ptr
-    strides = [ctypes.c_longlong(st) for x in (q, k, v, o, do, dq, dk, dv)
-               for st in _outer_strides(x, False)]
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_launch(
             P(q), P(k), P(v), P(o), P(lse), P(do), P(dq), P(dk), P(dv),

@@ -489,9 +489,12 @@ class RouterService:
         first (library handles, kernel attributes, the draw plan from a
         throwaway key); the live tensors are then put back as they were, so
         the first replay routes as a service that captured nothing. The
-        capture runs in the global error mode: an operation a graph cannot
-        hold (a host sync, a host-to-device copy) raises; there is no eager
-        retry."""
+        capture runs in the thread-local error mode: an operation a graph
+        cannot hold (a host sync, a host-to-device copy) on this thread
+        raises; there is no eager retry. A call from another thread of the
+        process that a global-mode capture forbids (a ``cudaMalloc``)
+        leaves the capture whole; one that waits on the capturing stream
+        (a device-wide sync) still breaks it."""
         before = [t.clone() for t in self._live_leaves()]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -509,7 +512,7 @@ class RouterService:
         tape = None if plan is None else plan.buffers(self.device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="global"):
+                              capture_error_mode="thread_local"):
             src = None if plan is None else TapeDraws(plan, tape)
             outs = body(None if src is None else BucketDraws(src, b, top))
         if src is not None and src.pos != len(tape):

@@ -45,10 +45,20 @@
   GQA, ragged S/T); and Large's split walk with its ordered sum of
   partials, emulated here from the table, against
   ``flash_attention_bwd_plain`` and ``jax.vjp`` of ``attention_ref``.
+* The Hopper design (``BWD_SM90``, ``csrc/flash_attention_bwd_sm90.cu``):
+  the plan takes it at every model's bf16 heads (head dims 64, 128 and
+  256) and nowhere else, refuses it where it cannot run, and its two passes
+  meet every live pair exactly once; its arithmetic, emulated here in fp32
+  on bf16 inputs (its tiles and summation order, P and dS rounded to bf16
+  before their products, dP and every sum in fp32), against ``jax.vjp`` of
+  the reference's ``_attend`` in bf16 and against the fp32 gradients, to
+  2e-2 of each gradient's largest magnitude (the card tests' tolerance).
 
 Inputs are made with numpy from a seed and handed to both sides.
 """
 import dataclasses
+import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +71,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.models import attention as jattn
 from repro.models import config as jconfig
 from repro_torch import kernels
+from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import attention as tattn
 from repro_torch.models import config as tconfig
@@ -540,7 +551,7 @@ def test_bwd_plan_forced_small_raises_where_it_cannot_run(t, d, ok):
         assert tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0).cfg == 1
     assert tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=1).cfg == 1
     with pytest.raises(ValueError, match="no configuration"):
-        tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=2)
+        tfa.bwd_plan(2, 4, 2, 40, t, d, True, 0, cfg=3)
 
 
 @pytest.mark.parametrize("d", tfa.HEAD_DIMS)
@@ -585,13 +596,34 @@ COVER_SHAPES = [
     (1, 4, 1, 200, 90, 128, True, 20),    # window: rows 109.. dead
     (1, 2, 1, 70, 33, 256, False, 9),     # bidir window, D 256 tiles
     (2, 8, 2, 64, 64, 64, False, 0),      # the encoders' shape, group 4
+    (1, 4, 2, 400, 300, 128, True, 150),  # causal window over 3 key tiles
+    (1, 2, 1, 300, 260, 64, False, 40),   # bidir window: row 299 dead
 ]
 
 
-def _cover(s, t, group, causal, window, plan):
+def _sm90_q_tiles(s, t, d, causal, window):
+    """The Hopper design's dQ pass as its kernel walks it: (rows, keys) of
+    each key tile a block of ``BWD_SM90_QUERY_ROWS`` rows visits (the keys
+    [k_lo, k_hi) live for some row of the block, in tiles of 128 keys at
+    head dim 64, 64 at 128, 32 at 256)."""
+    qr, qk = tfa.BWD_SM90_QUERY_ROWS, {64: 128, 128: 64, 256: 32}[d]
+    out = []
+    for q0 in range(0, s, qr):
+        q_last = min(q0 + qr, s) - 1
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        k_hi = min(t, q_last + 1) if causal else t
+        if k_hi <= k_lo:
+            continue
+        for n in range(k_lo // qk, -(-k_hi // qk)):
+            out.append((slice(q0, min(s, q0 + qr)),
+                        slice(n * qk, min(t, n * qk + qk))))
+    return out
+
+
+def _cover(s, t, group, causal, window, plan, d=64):
     """How many times each (head of the group, row, key) pair is met by
     the plan's dK/dV parts, read from its part table as the kernel reads
-    it, and (Small) by its fused dQ."""
+    it, and (Small) by its fused dQ or (the Hopper design) its dQ pass."""
     kv_hits = np.zeros((group, s, t), np.int32)
     q_hits = np.zeros((group, s, t), np.int32)
     live = tfa.live_mask(s, t, causal=causal, window=window,
@@ -603,36 +635,50 @@ def _cover(s, t, group, causal, window, plan):
             gi, rt = n // n_rows, t_lo + n % n_rows
             rows = slice(rt * plan.rows, min(s, rt * plan.rows + plan.rows))
             kv_hits[gi, rows, keys] += live[rows, keys]
-            if plan.cfg == 0:
+            if plan.cfg == tfa.BWD_SMALL:
                 q_hits[gi, rows, keys] += live[rows, keys]
+    if plan.cfg == tfa.BWD_SM90:
+        for rows, keys in _sm90_q_tiles(s, t, d, causal, window):
+            q_hits[:, rows, keys] += live[rows, keys]
     return kv_hits, q_hits, live
 
 
-@pytest.mark.parametrize("cfg", [0, 1])
+@pytest.mark.parametrize("cfg", [0, 1, 2])
 @pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", COVER_SHAPES)
 def test_bwd_blocks_cover_every_live_pair_once(cfg, b, h, kv, s, t, d,
                                                causal, window):
     """The dK/dV blocks of a plan (Large: cut into parts) meet every live
     (head, row, key) pair of a kv head exactly once, and so does Small's
-    fused dQ; Large's parts are no longer than ``steps_per_part`` and come
-    longest walk first under a causal mask."""
+    fused dQ and the Hopper design's dQ pass (bf16 at head dims 64, 128 and
+    256; a key tile of 128 keys, 64 at 256, walked in rows of 64, one part
+    each); Large's parts
+    are no longer than ``steps_per_part`` and, as the Hopper design's,
+    come longest walk first under a causal mask."""
     dp = tfa.kernel_head_dim(d)
-    if cfg == 0 and t > tfa.bwd_small_keys(dp):
+    dtype = torch.bfloat16 if cfg == 2 else torch.float32
+    if (cfg == 0 and t > tfa.bwd_small_keys(dp)) or (
+            cfg == 2 and d not in tfa.BWD_SM90_HEAD_DIMS):
         with pytest.raises(ValueError):
-            tfa.bwd_plan(b, h, kv, s, t, d, causal, window, cfg=cfg)
+            tfa.bwd_plan(b, h, kv, s, t, d, causal, window, dtype, cfg=cfg)
         return
     # Large: walks cut finer than the plan would cut them here
-    plan = tfa.bwd_plan(b, h, kv, s, t, d, causal, window, cfg=cfg,
+    plan = tfa.bwd_plan(b, h, kv, s, t, d, causal, window, dtype, cfg=cfg,
                         steps_per_part=3 if cfg == 1 else None)
-    kv_hits, q_hits, live = _cover(s, t, h // kv, causal, window, plan)
+    if cfg == 2:
+        assert plan == tfa.bwd_plan(b, h, kv, s, t, d, causal, window, dtype)
+        assert (plan.keys, plan.rows, plan.launches) == (
+            64 if d == 256 else 128, 64, 2)
+    kv_hits, q_hits, live = _cover(s, t, h // kv, causal, window, plan, d)
     want = np.broadcast_to(live, kv_hits.shape).astype(np.int32)
     np.testing.assert_array_equal(kv_hits, want)
-    if cfg == 0:
+    if cfg != 1:
         np.testing.assert_array_equal(q_hits, want)
     parts = tfa.bwd_parts(s, t, h // kv, plan, causal=causal, window=window)
     assert len(parts) == plan.parts
     assert all(r[4] - r[3] <= plan.steps_per_part for r in parts)
-    if causal and cfg == 1:
+    if cfg == 2:                                  # one part a key tile
+        assert [r[0] for r in parts] == list(range(-(-t // plan.keys)))
+    if causal and cfg != 0:
         lengths = [sum(r[4] - r[3] for r in parts if r[0] == jt)
                    for jt in range(-(-t // plan.keys))]
         assert lengths == sorted(lengths, reverse=True)
@@ -735,3 +781,204 @@ def test_large_split_walk_matches_plain_and_jax_vjp(b, h, kv, s, t, d,
         top = np.abs(r).max()
         assert np.abs(g.numpy() - p.numpy()).max() <= 1e-5 * top, name
         assert np.abs(g.numpy() - r).max() <= 2e-5 * top, name
+
+
+# ---------------------------------------------------------------------------
+# the Hopper design (csrc/flash_attention_bwd_sm90.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(TARCHS))
+def test_bwd_plan_takes_sm90_at_the_models_bf16_heads(name):
+    """Each model's heads at its training length (B 2, S = T 4096, causal,
+    its window): bf16 takes the Hopper design at every model's head dim
+    (64: granite-3-2b, granite-moe, seamless, mamba2's; 128: qwen2, arctic,
+    mistral, llava; 256: gemma2, recurrentgemma), in one part a key tile
+    of 128 keys (64 at 256), and fp32 never takes it."""
+    cfg = TARCHS[name]
+    args = (2, cfg.n_heads, cfg.n_kv_heads, 4096, 4096, cfg.hd, True,
+            cfg.window)
+    plan = tfa.bwd_plan(*args, torch.bfloat16)
+    assert cfg.hd in tfa.BWD_SM90_HEAD_DIMS
+    assert plan.cfg == tfa.BWD_SM90 and plan.launches == 2
+    assert plan.keys == tfa.bwd_sm90_keys(cfg.hd) == (
+        64 if cfg.hd == 256 else 128)
+    assert plan.parts == 4096 // plan.keys
+    assert tfa.bwd_plan(*args).cfg != tfa.BWD_SM90
+    assert tfa.bwd_plan(*args, torch.float32).cfg != tfa.BWD_SM90
+
+
+@pytest.mark.parametrize("dtype,d,cfg,ok", [
+    (torch.bfloat16, 64, 2, True), (torch.bfloat16, 128, 2, True),
+    (torch.bfloat16, 256, 2, True), (torch.bfloat16, 32, 2, False),
+    (torch.bfloat16, 48, 2, False), (torch.float32, 64, 2, False),
+    (torch.bfloat16, 64, 0, True), (torch.bfloat16, 128, 1, True),
+    (torch.bfloat16, 256, 1, True)])
+def test_bwd_plan_forced_sm90_runs_where_it_can(dtype, d, cfg, ok):
+    """The Hopper design is forced only for bf16 at head dims 64, 128 and
+    256, else ``ValueError``; it takes no part length (one part a key
+    tile); the SIMT configurations stay reachable in bf16 by a forced
+    ``cfg``, and bf16 at head dim 32 takes them by default."""
+    args = (2, 4, 2, 64, 64, d, True, 0, dtype)
+    if not ok:
+        with pytest.raises(ValueError, match="no configuration 2"):
+            tfa.bwd_plan(*args, cfg=cfg)
+        return
+    assert tfa.bwd_plan(*args, cfg=cfg).cfg == cfg
+    if cfg == 2:
+        with pytest.raises(ValueError, match="one part"):
+            tfa.bwd_plan(*args, cfg=cfg, steps_per_part=4)
+    assert tfa.bwd_plan(2, 4, 2, 64, 64, 32, True, 0,
+                        torch.bfloat16).cfg != tfa.BWD_SM90
+
+
+def _sm90_variants_tool():
+    import importlib.util
+    path = (Path(__file__).resolve().parents[1] / "tools"
+            / "bwd_sm90_variants.py")
+    spec = importlib.util.spec_from_file_location("bwd_sm90_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", ["libm_exp2", "no_exp", "no_math"])
+def test_sm90_variant_anchors_occur_once(variant):
+    """``tools/bwd_sm90_variants.py`` patches the Hopper backward's source
+    at text anchors: each must occur exactly once in the source as it
+    stands, applied in order, or the tool stops on the card."""
+    tool = _sm90_variants_tool()
+    assert set(tool.PATCHES) == {"default", "libm_exp2", "no_exp",
+                                 "no_math"}
+    src = (Path(kernels.__file__).resolve().parent / "csrc"
+           / f"{tool.SOURCE}.cu").read_text()
+    for anchor, repl in tool.PATCHES[variant]:
+        assert src.count(anchor) == 1, anchor
+        src = src.replace(anchor, repl)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulated_sm90_bwd(q, k, v, o, lse, do, *, causal, window, cap):
+    """(dq, dk, dv) as ``csrc/flash_attention_bwd_sm90.cu`` computes them,
+    in fp32 on bf16 inputs, in its tiles and summation order: the dQ pass
+    walks each 128-row block's key tiles (``_sm90_q_tiles``) over the keys
+    live for some row of the block; the dK/dV pass walks each key tile's
+    (head, 64-row tile) steps as the plan's part table orders them, then
+    adds the rows with no live key (dO / T over the group's heads).
+    P = 2^(s log2 e - lse log2 e) on live pairs (rows past S have lse
+    +inf there), Delta = rowsum(dO o); P is rounded to bf16
+    before dV += P^T dO, dS = P dcap (dP - Delta) to bf16 before dQ += dS K
+    and dK += dS^T Q; S, dP and every sum fp32; dq, dk, dv rounded to bf16
+    after the scale."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    group, scale = h // kvh, d ** -0.5
+    bf = lambda x: x.to(torch.bfloat16).float()
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, do))
+    live = tfa.live_mask(s, t, causal=causal, window=window, device="cpu")
+    delta = (gf * of).sum(-1)                             # (b, h, s)
+    lse2 = lse.float() * LOG2E
+
+    def tile(bb, hh, rows, keys):
+        """P and P dcap (dS / (dP - Delta)) of rows x keys, and dP."""
+        x = qf[bb, hh, rows] @ kf[bb, hh // group, keys].T
+        if cap:
+            th = torch.tanh(x * scale / cap)
+            y, dcap = cap * th * LOG2E, 1.0 - th * th
+        else:
+            y, dcap = x * (scale * LOG2E), 1.0
+        m = live[rows, keys]
+        pr = torch.where(m, torch.exp2(y - lse2[bb, hh, rows, None]), 0.0)
+        dp = gf[bb, hh, rows] @ vf[bb, hh // group, keys].T
+        return pr, pr * dcap, dp
+
+    dq = torch.zeros_like(qf)
+    for bb in range(b):
+        for hh in range(h):
+            for rows, keys in _sm90_q_tiles(s, t, d, causal, window):
+                _, pd, dp = tile(bb, hh, rows, keys)
+                ds = bf(pd * (dp - delta[bb, hh, rows, None]))
+                dq[bb, hh, rows] += ds @ kf[bb, hh // group, keys]
+    plan = tfa.bwd_plan(b, h, kvh, s, t, d, causal, window, torch.bfloat16)
+    assert plan.cfg == tfa.BWD_SM90
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    dead_from = t + window - 1 if window else s
+    for bb in range(b):
+        for kh in range(kvh):
+            for jt, t_lo, n_rows, lo, hi, _, _ in tfa.bwd_parts(
+                    s, t, group, plan, causal=causal, window=window):
+                keys = slice(jt * plan.keys, min(t, jt * plan.keys +
+                                                 plan.keys))
+                for n in range(lo, hi):
+                    hh = kh * group + n // n_rows
+                    rt = t_lo + n % n_rows
+                    rows = slice(rt * plan.rows,
+                                 min(s, rt * plan.rows + plan.rows))
+                    pr, pd, dp = tile(bb, hh, rows, keys)
+                    dv[bb, kh, keys] += bf(pr).T @ gf[bb, hh, rows]
+                    ds = bf(pd * (dp - delta[bb, hh, rows, None]))
+                    dk[bb, kh, keys] += ds.T @ qf[bb, hh, rows]
+            if dead_from < s:
+                dv[bb, kh] += gf[bb, kh * group:(kh + 1) * group,
+                                 dead_from:].sum((0, 1)) / t
+    return bf(dq * scale), bf(dk * scale), bf(dv)
+
+
+_attend_vjp = jax.jit(
+    lambda q, k, v, mask, do, cap: jax.vjp(
+        lambda q, k, v: jattn._attend(
+            q, k, v, mask, types.SimpleNamespace(
+                gqa_impl="grouped", hd=q.shape[-1], attn_softcap=cap)),
+        q, k, v)[1](do), static_argnums=5)
+
+SM90_SHAPES = [
+    # b, h, kv, s, t, d, causal, window, cap
+    (1, 4, 2, 200, 200, 64, True, 0, 0.0),     # GQA causal, ragged tiles
+    (1, 4, 1, 130, 130, 128, True, 0, 30.0),   # MQA, soft cap, D 128
+    (1, 2, 2, 70, 300, 64, False, 0, 0.0),     # S < T, ragged
+    (1, 4, 2, 300, 130, 64, True, 40, 0.0),    # window: rows 169.. dead
+    (1, 2, 1, 150, 90, 128, False, 9, 20.0),   # bidir window, cap, dead
+    (2, 8, 2, 96, 96, 64, True, 16, 0.0),      # window, group 4, B 2
+    (1, 4, 2, 130, 130, 256, True, 40, 30.0),  # D 256: window, cap, GQA
+    (1, 4, 1, 90, 200, 256, False, 0, 0.0),    # D 256: MQA, S < T
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", SM90_SHAPES)
+def test_sm90_bwd_numerics_match_jax_grad_in_bf16(b, h, kv, s, t, d, causal,
+                                                   window, cap):
+    """The emulated Hopper design on bf16 inputs (from the bf16 forward's
+    emulated o and the plain forward's lse) against ``jax.vjp`` of the
+    reference's ``_attend`` in bf16 (it rounds P before P.V, the scores and
+    dP at its einsums' outputs) and against the fp32 gradients
+    (``jax.vjp`` of ``attention_ref`` on the same bf16-rounded inputs):
+    each within 2e-2 of the gradient's largest magnitude."""
+    arrays = qkv(b, h, kv, s, t, d, seed=5 * s + d)
+    do = np.random.default_rng(13).standard_normal((b, h, s, d),
+                                                   dtype=np.float32)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = both([*arrays, do], "bfloat16")
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o = bf16_p_attention(tq, tk, tv, **kw)
+    _, lse = tfa._plain_forward(tq, tk, tv, scale=None, want_lse=True, **kw)
+    got = _emulated_sm90_bwd(tq, tk, tv, o, lse, tdo, causal=causal,
+                             window=window, cap=cap)
+    mask = jnp.asarray(tfa.live_mask(s, t, causal=causal, window=window,
+                                     device="cpu").numpy())[None, None]
+    t_bshd = lambda x: jnp.swapaxes(x, 1, 2)             # (B,H,S,D) <-> (B,S,H,D)
+    ref16 = [t_bshd(g) for g in _attend_vjp(t_bshd(jq), t_bshd(jk),
+                                            t_bshd(jv), mask, t_bshd(jdo),
+                                            float(cap))]
+    f = lambda x: jnp.asarray(x, jnp.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(q, k, v, **kw),
+                     f(jq), f(jk), f(jv))
+    ref32 = vjp(f(jdo))
+    if window and s > t + window - 1:
+        assert not got[0][:, :, t + window - 1:].any()
+    for name, g, r16, r32 in zip(("dq", "dk", "dv"), got, ref16, ref32):
+        assert g.dtype == torch.float32 and g.shape == r32.shape
+        for r in (r16, r32):
+            r = f32(r)
+            top = np.abs(r).max()
+            err = np.abs(g.numpy() - r).max()
+            assert err <= 2e-2 * top, (name, err / top)

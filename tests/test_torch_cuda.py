@@ -28,10 +28,13 @@ head dims 8 to 30 on the kernel built for 32. The backward kernels match
 magnitude under each ``bwd_plan`` configuration forced (Small raises
 ``ValueError`` past its key tile), count one launch per call, repeat
 bitwise and run the plan's kernels by profiler name (Small one); the bf16
-backward (the same kernels built for bf16) matches it to 2e-2 of each
-gradient's largest magnitude at each bf16 head dim, the bf16 forward's
-lse matches the plain version's, and bf16 autograd goes through both
-kernels; the encoder's gradients on the card match the CPU's
+backward (the Hopper design, ``bwd_q_kernel_sm90`` then
+``bwd_kv_kernel_sm90``, at head dims 64, 128 and 256; the SIMT kernels
+built for bf16 at 32, and wherever a SIMT configuration is forced)
+matches it to 2e-2 of each gradient's largest magnitude at each bf16 head
+dim, repeats bitwise and runs the plan's kernels by profiler name, the
+bf16 forward's lse matches the plain version's, and bf16 autograd goes
+through both kernels; the encoder's gradients on the card match the CPU's
 to 1e-4 of each leaf's largest magnitude. The RG-LRU gradient (its
 backward kernel) matches autograd of the plain recurrence to 1e-5, a
 grad-requiring ``ssd_scan`` input raises ``NotImplementedError``, and two
@@ -902,7 +905,7 @@ BWD_CASES = [
 
 def _force_bwd(monkeypatch, cfg):
     """Make ``flash_attention_bwd`` launch configuration ``cfg`` (0 Small,
-    1 Large) whatever ``bwd_plan`` would pick."""
+    1 Large, 2 the Hopper design) whatever ``bwd_plan`` would pick."""
     plan = tfa.bwd_plan
     monkeypatch.setattr(tfa, "bwd_plan",
                         lambda *args: plan(*args, cfg=cfg))
@@ -999,6 +1002,18 @@ BF16_BWD_CASES = [
     (2, 8, 8, 100, 100, 32, True, 40, 0.0, True),     # window, D 32
     (2, 4, 4, 40, 32, 256, False, 0, 50.0, False),    # Small at D 256
     (1, 2, 2, 90, 1000, 64, False, 0, 0.0, True),     # cross, T > S
+    # the Hopper design's tile edges: its dQ blocks of 128 rows, its key
+    # tiles of 128 (dQ at D 128: 64) walked in rows of 64
+    (1, 8, 2, 129, 129, 64, True, 0, 0.0, False),     # one past, group 4
+    (2, 4, 1, 255, 257, 128, False, 0, 0.0, True),    # MQA, S != T
+    (1, 4, 1, 65, 700, 128, False, 0, 20.0, False),   # T > S, cap, MQA
+    (1, 8, 2, 384, 384, 64, True, 100, 0.0, True),    # window over tiles
+    (1, 4, 2, 260, 100, 64, True, 30, 0.0, False),    # rows 129.. dead
+    # causal at D 128, whose dQ pass walks key tiles of 64
+    (1, 8, 2, 333, 333, 128, True, 0, 0.0, True),     # group 4, ragged
+    (2, 4, 1, 300, 200, 128, True, 50, 0.0, False),   # MQA, rows 249.. dead
+    (2, 16, 1, 333, 333, 256, True, 100, 0.0, True),  # D 256: MQA, window
+    (1, 4, 2, 97, 700, 256, False, 0, 50.0, True),    # D 256: T > S, cap
 ]
 
 
@@ -1013,7 +1028,7 @@ def _bf16_bwd_inputs(b, h, kv, s, t, d, causal, window, cap, strided, dev):
     return (q, k, v, o, lse, do), kw
 
 
-@pytest.mark.parametrize("cfg", [None, 0, 1])
+@pytest.mark.parametrize("cfg", [None, 0, 1, 2])
 @pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,strided",
                          BF16_BWD_CASES)
 def test_flash_attention_bwd_bf16_matches_plain(cuda_device, monkeypatch,
@@ -1021,7 +1036,8 @@ def test_flash_attention_bwd_bf16_matches_plain(cuda_device, monkeypatch,
                                                 causal, window, cap,
                                                 strided):
     """The bf16 backward (the plan's configuration, and each forced where it
-    runs) against ``flash_attention_bwd_plain`` from the bf16 forward's o
+    runs: Small up to its key tile, the Hopper design at head dims 64, 128
+    and 256) against ``flash_attention_bwd_plain`` from the bf16 forward's o
     and lse: bf16 dq, dk and dv within 2e-2 of their largest magnitude,
     one counted launch per call, a bitwise repeat, dq exactly 0 on rows
     with no live key."""
@@ -1029,6 +1045,8 @@ def test_flash_attention_bwd_bf16_matches_plain(cuda_device, monkeypatch,
                                strided, cuda_device)
     if cfg is not None:
         if cfg == 0 and t > tfa.bwd_small_keys(tfa.kernel_head_dim(d)):
+            return
+        if cfg == 2 and d not in tfa.BWD_SM90_HEAD_DIMS:
             return
         _force_bwd(monkeypatch, cfg)
     before = tfa.flash_attention_bwd.launches
@@ -1078,17 +1096,50 @@ def test_flash_attention_bf16_lse_matches_plain(cuda_device, b, h, kv, s, t,
         rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", [
+    (2, 4, 2, 200, 333, 64, False, 0),      # the Hopper design at D 64
+    (1, 8, 2, 300, 300, 128, True, 64),     # ... at D 128, a window
+    (1, 4, 2, 300, 130, 256, True, 64),     # ... at D 256, dead rows
+    (2, 8, 8, 100, 100, 32, True, 40),      # D 32: the SIMT kernels
+])
+def test_flash_attention_bwd_bf16_kernels_per_call(cuda_device, b, h, kv, s,
+                                                   t, d, causal, window):
+    """The kernels a bf16 call runs, by profiler name, are the plan's: at
+    head dims 64, 128 and 256 ``bwd_q_kernel_sm90`` (which also writes the
+    rows' lse and Delta) then ``bwd_kv_kernel_sm90``, once each and
+    nothing else; at 32 the SIMT configuration the plan picks."""
+    ins, kw = _bf16_bwd_inputs(b, h, kv, s, t, d, causal, window, 0.0,
+                               False, cuda_device)
+    plan = tfa.bwd_plan(b, h, kv, s, t, d, causal, window, torch.bfloat16)
+    ran = _device_kernels(lambda: tfa.flash_attention_bwd(*ins, **kw))
+    names = sorted(m.group(0) for n, count in ran for _ in range(count)
+                   for m in [re.search(r"(delta_kernel|bwd_kv_kernel|"
+                                       r"bwd_reduce_kernel|bwd_q_kernel)"
+                                       r"(_sm90)?", n)] if m)
+    if d in tfa.BWD_SM90_HEAD_DIMS:
+        assert plan.cfg == tfa.BWD_SM90
+        assert names == ["bwd_kv_kernel_sm90", "bwd_q_kernel_sm90"], ran
+        assert len(names) == plan.launches == 2
+    else:
+        assert plan.cfg in (tfa.BWD_SMALL, tfa.BWD_LARGE)
+        assert not any(n.endswith("_sm90") for n in names), ran
+        assert len(names) == plan.launches
+
+
 def test_flash_attention_bf16_autograd(cuda_device):
     """A bf16 ``flash_attention`` with inputs that require grad runs through
     ``FlashAttention`` (the forward kernel keeps lse, the backward is the
-    bf16 backward kernel: one launch each) and gives autograd of the plain
-    version's gradients within 2e-2 of their largest magnitude."""
+    bf16 backward, at head dim 64 the Hopper design: one launch each) and
+    gives autograd of the plain version's gradients within 2e-2 of their
+    largest magnitude."""
     rng = np.random.default_rng(7)
     on = lambda *shape: torch.from_numpy(rng.standard_normal(
         shape, dtype=np.float32)).to(cuda_device).to(torch.bfloat16)
     q, k, v, g = on(2, 8, 200, 64), on(2, 2, 200, 64), on(2, 2, 200, 64), \
         on(2, 8, 200, 64)
     kw = dict(causal=True, window=50, softcap=30.0)
+    assert tfa.bwd_plan(2, 8, 2, 200, 200, 64, True, 50,
+                        torch.bfloat16).cfg == tfa.BWD_SM90
     before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
     ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     out = tfa.flash_attention(*ins, **kw)
@@ -1786,6 +1837,67 @@ def test_stream_hot_path_does_not_sync(cuda_device, autopilot):
         torch.cuda.set_sync_debug_mode(0)
     assert sum(kernels.launch_counts().values()) == 0
     assert [int(n) for *_, n in out[1:]] == list(STREAM_SIZES[:-1])
+
+
+def _malloc_from_another_thread(dev, nbytes=(300 << 20) + 4096):
+    """A device allocation larger than anything cached (so ``cudaMalloc``,
+    a call a capture in the global error mode forbids to every thread) on
+    a thread of its own, joined; the errors it raised."""
+    import threading
+    errors = []
+
+    def malloc():
+        try:
+            torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        except RuntimeError as e:
+            errors.append(e)
+    th = threading.Thread(target=malloc)
+    th.start()
+    th.join()
+    return errors
+
+
+def test_stream_capture_error_mode_is_thread_local(cuda_device):
+    """A ``cudaMalloc`` from another thread during the service's graph
+    capture leaves it whole: the graph replays the body. The same call
+    from another thread is refused, or breaks the capture, in the global
+    error mode. A host sync on the capturing thread still raises (no
+    eager retry); it comes last, as a broken capture leaves its memory
+    pool recording. (A device-wide sync from another thread waits on the
+    capturing stream and breaks a capture in either mode.)"""
+    from repro_torch.core.draws import KeyedDraws
+    svc = _service(cuda_device, KeyedDraws(4), buckets=(8,))
+    x = torch.arange(8.0, device=cuda_device)
+    out = torch.zeros_like(x)
+
+    def other_thread_mallocs(_):
+        torch.mul(x, 2.0, out=out)
+        errors = _malloc_from_another_thread(cuda_device)
+        torch.add(out, 1.0, out=out)
+        return errors
+    prog = svc._capture(other_thread_mallocs, 8, 8, False)
+    assert prog.outs == []
+    out.zero_()
+    prog()
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2.0 * x + 1.0)
+
+    errors, broken = [], False
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                              capture_error_mode="global"):
+            errors = other_thread_mallocs(None)
+    except RuntimeError:
+        broken = True
+    torch.cuda.synchronize()
+    assert errors or broken
+
+    def host_sync(_):
+        torch.mul(x, 2.0, out=out)
+        return float(out.sum())
+
+    with pytest.raises(RuntimeError):
+        svc._capture(host_sync, 8, 8, False)
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,9 @@ def test_port_imports_neither_jax_nor_reference():
                                     "examples/train_encoder_e2e_torch.py",
                                     "examples/routed_serving_e2e_torch.py",
                                     "tools/bwd_variants.py",
-                                    "tools/fill_variants.py"])
+                                    "tools/fill_variants.py",
+                                    "tools/bwd_sm90_variants.py",
+                                    "tools/capture_after_profile.py"])
 def test_card_scripts_import_neither_jax_nor_reference(script):
     """The scripts that run the port on the card import no JAX either: the
     machine with the card has none."""

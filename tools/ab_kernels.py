@@ -2,7 +2,7 @@
 """Time the port's timed kernel cases in two checkouts, in turns.
 
     python3 tools/ab_kernels.py --other DIR [--out FILE] [--prefill] [--paths]
-                                [--only attn_bwd]
+                                [--only attn_bwd | --only attn_bwd_bf16]
 
 ``DIR`` is another checkout of this repository (for example the parent
 commit unpacked with ``git archive`` into the ignored ``build/``). Four
@@ -46,9 +46,20 @@ width, then 2 profiled ticks) and keeps
 their ms per tick, device busy ms per tick and idle share. Prints one
 JSON line per worker and a summary line of every time (``*ms`` field) by
 checkout; every record names the card and its power limit. ``--only
-attn_bwd`` times the ``flash_attention_bwd`` cases alone; ``--worker DIR``
-runs one worker on checkout ``DIR`` and prints its record. Needs one CUDA
-card.
+attn_bwd`` times the ``flash_attention_bwd`` cases alone; ``--only
+attn_bwd_bf16`` times the bf16 backward alone (``transpose(1, 2)`` views
+as the models hand them, 10 calls a measurement): granite-3-2b's heads
+(``main``: B 2, H 32, KV 8, S = T 4096, D 64, causal), seamless-m4t's
+encoder (``seamless_enc``: B 2, H = KV 16, S = T 1024, D 64, bidir) and
+cross attention (``seamless_cross``: S 4096 over T 1024), gemma2-9b's
+(``bench``: B 1, H 16, KV 8, S = T 8192, D 256, soft cap 50, window 4096),
+recurrentgemma-9b's local layer (``recurrentgemma``: B 1, H 16, KV 1,
+S = T 4096, D 256, window 2048) and qwen2-7b's (``qwen2``: B 2, H 28,
+KV 4, S = T 4096, D 128, causal; these three 3 calls a measurement), each
+with SDPA's backward beside it where it computes the same function, its
+plan and its device time by kernel name;
+``--worker DIR`` runs one worker on checkout ``DIR`` and prints its
+record. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -74,6 +85,15 @@ ATTN_BWD = {"main": (64, 4, 4, 64, 64, 64, dict(causal=False)),
             "bench": (1, 28, 4, 2048, 2048, 128, dict()),
             "e5b": (64, 4, 4, 32, 32, 32, dict(causal=False)),
             "minilm_d24": (64, 4, 4, 32, 32, 24, dict(causal=False))}
+ATTN_BWD_BF16 = {
+    "main": (2, 32, 8, 4096, 4096, 64, dict()),
+    "seamless_enc": (2, 16, 16, 1024, 1024, 64, dict(causal=False)),
+    "seamless_cross": (2, 16, 16, 4096, 1024, 64, dict(causal=False)),
+    "bench": (1, 16, 8, 8192, 8192, 256, dict(window=4096, cap=50.0,
+                                              calls=3)),
+    "recurrentgemma": (1, 16, 1, 4096, 4096, 256, dict(window=2048,
+                                                       calls=3)),
+    "qwen2": (2, 28, 4, 4096, 4096, 128, dict(calls=3))}
 RGLRU = {"main": (2, 4096, 4096), "bench": (4, 32768, 4096)}
 SELECT = {"main": (256, 16, 768, dict(mask_kind="k", live=11)),
           "bench": (4096, 1024, 768, dict()),
@@ -121,6 +141,15 @@ def worker(root: Path, prefill: bool, paths: bool, only: str | None) -> dict:
     _build.build_all()
     out = dict(root=str(root), build_s=time.perf_counter() - t0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if only == "attn_bwd_bf16":
+        for name, (b, h, kv, s, t, d, kw) in ATTN_BWD_BF16.items():
+            r = cs.attn_bwd_case(name, b, h, kv, s, t, d, gen, dev,
+                                 timed=True, strided=True, dtype="bfloat16",
+                                 **dict(dict(calls=10), **kw))
+            out[f"attn_bwd_bf16_{name}"] = dict(
+                {k: r.get(k) for k in KEYS}, plan=r.get("plan"),
+                kernels_us=r.get("device_us_by_kernel"))
+        return out
     for name, (b, h, kv, s, t, d, kw) in ATTN_BWD.items():
         r = cs.attn_bwd_case(name, b, h, kv, s, t, d, gen, dev, timed=True,
                              **kw)
@@ -222,7 +251,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the records here (JSON)")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--paths", action="store_true")
-    ap.add_argument("--only", choices=["attn_bwd"])
+    ap.add_argument("--only", choices=["attn_bwd", "attn_bwd_bf16"])
     ap.add_argument("--worker", help="run one worker on this checkout")
     args = ap.parse_args()
     if args.worker:

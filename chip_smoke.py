@@ -98,11 +98,23 @@ in each line's ``wall_s``):
    its bound is at the bf16 rate, and the Hopper design's own 14 D
    operations a live pair (18 D at head dim 256) stand beside it
    (``design_ops_ms``). The
-   rglru_bwd family holds ``rglru_scan``'s gradient (the backward kernel)
-   to autograd of the plain recurrence at 1e-5 of each gradient's max
-   (B 1 and 2, S 4096, D 4096, timed against the plain reverse loop; h0,
-   D 98, S 1, a channel with log_a = 0 and its non-finite values); and
-   ``ssd_scan`` must refuse a grad-requiring input on the card.
+   rglru_bwd family holds ``rglru_scan``'s gradient (the backward kernel:
+   the TMA ring read in reverse, ``rglru_bwd_kernel_sm90``, or the first
+   design where TMA cannot load, D 98) to autograd of the plain recurrence
+   at 1e-5 of each gradient's max (B 1 and 2, S 4096, D 4096, timed
+   against the plain reverse loop; h0, D 98, S 1, a channel with log_a = 0
+   and its non-finite values), each case's kernel checked by profiler
+   name. The ssd_bwd family holds ``ssd_scan_bwd``
+   (``csrc/ssd_scan_bwd.cu``) to ``ssd_scan_bwd_plain``: fp32 gradients
+   within 1e-4 of each one's max |g|, bf16-rounded ones within 1e-2,
+   all finite, repeated bitwise, its three kernels by profiler name, on
+   the reference's three test shapes, a ragged S with h0 (bf16 strided and
+   fp32), S < chunk at P 48, S 1, mamba2-1.3b's training shape (``main``:
+   B 2, S 4096, bf16 column slices) and B 1 x S 32768 (``bench``), the
+   decays drawn as the model draws them (chunks past a mean |log_a| of 1,
+   where the reference's gradient overflows); and a grad-requiring
+   ``ssd_scan`` input runs one forward and one backward launch with
+   finite gradients equal to plain autograd's.
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
    8 chains, minibatch 64):
    - slice: ``env.run`` with the FGTS.CDB policy on a pooled ``ModelPool``
@@ -219,7 +231,7 @@ in each line's ``wall_s``):
      own; granite-3-2b's loss and gradients under the bf16 attention
      backward's Hopper design against the same step forced to Large (the
      SIMT kernels): equal losses, every leaf within 2e-2 of its max;
-     mamba2-1.3b's step must raise ``NotImplementedError``.
+     mamba2-1.3b at full depth (B 2 x 4096) through the SSD backward.
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
    versions) from one numpy-made draw set, for the FGTS slice, for the
    autopilot (a control tick every 2 acts) and for the ccft path (whose
@@ -241,8 +253,8 @@ in each line's ``wall_s``):
    CPU's input to it: experts and dropped assignments equal, sparse and
    dense outputs within 1e-4, on the tokens without a near-tied router
    decision. Then ``lm.loss_fn`` and its gradient (units rematerialised)
-   at the same cut depths in fp32 (granite-3-2b at 2 units too; not
-   mamba2), B 2 x 32 tokens (llava: 64 patches + 32 tokens): the loss
+   at the same cut depths in fp32 (granite-3-2b at 2 units too), B 2 x
+   32 tokens (llava: 64 patches + 32 tokens): the loss
    within 1e-5 relative, every gradient leaf within 1e-4 of its max.
 
 Before the last line it prints the kernels line and the card's name and
@@ -1331,12 +1343,15 @@ def ssd_refuses_misaligned(dev):
     return refused
 
 
-def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False):
+def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False,
+               time_plain=True):
     """One ``rglru_scan`` case against the plain version on the card (h
     and h_last to rtol = atol = 1e-5); log_a = -0.1 |normal| and x normal,
     as the reference's test. Timed cases add the bound: 12 bytes per
     element (log_a and x read, h written) plus h0 and h_last, against ~8
-    operations per element."""
+    operations per element; and, unless ``time_plain`` is False, the
+    plain version's times (None then: it walks S in Python, ~1.3 s a call
+    at S 32768)."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
     log_a = -0.1 * torch.randn((b, s, d), generator=gen, device=dev).abs()
@@ -1357,22 +1372,26 @@ def rglru_case(name, b, s, d, gen, dev, *, h0=False, timed=False):
         kern = lambda: rg.rglru_scan(log_a, x, hh)
         plain = lambda: rg.rglru_scan_plain(log_a, x, hh)
         out["ms"], out["device_ms"] = time_ms(kern), device_ms(kern)
-        out["plain_ms"] = time_ms(plain, runs=3, calls=1, warmup=1)
-        out["plain_device_ms"] = device_ms(plain, calls=1)
+        out["plain_ms"] = out["plain_device_ms"] = None
+        if time_plain:
+            out["plain_ms"] = time_ms(plain, runs=3, calls=1, warmup=1)
+            out["plain_device_ms"] = device_ms(plain, calls=1)
         out["bound_ms"], out["bound_by"] = bound(nbytes, 8.0 * b * s * d)
         out["library_ms"] = None
     return out
 
 
 def rglru_bwd_case(name, b, s, d, gen, dev, *, h0=False, clamp=False,
-                   timed=False):
+                   sm90=True, timed=False):
     """The RG-LRU gradient on the card: ``rglru_scan`` with inputs that
     require grad (through ``RglruScan``: the forward kernel, then
     ``rglru_scan_bwd``) against autograd of the plain recurrence on the
     same inputs, for the loss sum(h * wh) + sum(h_last * wl): log_a, x and
     h0 gradients within 1e-5 of each one's largest finite magnitude, the
     same non-finite values where ``clamp`` sets a channel's log_a to 0.
-    Timed cases time ``rglru_scan_bwd`` alone (from the forward's h)
+    ``rglru_scan_bwd`` alone then runs, by profiler name, the Hopper kernel
+    ``rglru_bwd_kernel_sm90`` (``sm90``) or else the first design
+    ``rglru_bwd_kernel``. Timed cases time ``rglru_scan_bwd`` alone (from the forward's h)
     against its plain version ``rglru_scan_bwd_plain``; the bound: 24
     bytes per element (log_a, x, h and dh read; dlog_a and dx written)
     plus dh_last and h0 / dh0."""
@@ -1413,11 +1432,19 @@ def rglru_bwd_case(name, b, s, d, gen, dev, *, h0=False, clamp=False,
         out[f"{gname}_nonfinite"] = int((~fin).sum())
     out["max_abs_err"] = max(errs)
     del got, want
+    with torch.no_grad():
+        h, _ = rg.rglru_scan(log_a, x, hh)
+    args = (log_a, x, hh, h, wh, wl)
+    kern = lambda: rg.rglru_scan_bwd(*args)
+    names = device_split(kern, calls=1) or {}
+    hopper = any("rglru_bwd_kernel_sm90" in k for k in names)
+    first = any(k.endswith("rglru_bwd_kernel") for k in names)
+    check(hopper and not first if sm90 else first and not hopper,
+          f"rglru_bwd {name}: want "
+          f"{'rglru_bwd_kernel_sm90' if sm90 else 'rglru_bwd_kernel'}, "
+          f"profiled {sorted(names)}")
+    out["kernel"] = "sm90" if sm90 else "simt"
     if timed:
-        with torch.no_grad():
-            h, _ = rg.rglru_scan(log_a, x, hh)
-        args = (log_a, x, hh, h, wh, wl)
-        kern = lambda: rg.rglru_scan_bwd(*args)
         plain = lambda: rg.rglru_scan_bwd_plain(*args)
         nbytes = 24 * b * s * d + 4 * b * d * (1 + 2 * bool(h0))
         out["ms"], out["device_ms"] = time_ms(kern), device_ms(kern)
@@ -1431,35 +1458,236 @@ def rglru_bwd_case(name, b, s, d, gen, dev, *, h0=False, clamp=False,
 
 def rglru_bwd_cases(gen, dev):
     """The rglru_bwd family: recurrentgemma-9b's training shape (``main``:
-    B 1, S 4096, D 4096) and B 2 (``bench``), then h0, D 98, S 1 and a
-    channel with log_a = 0."""
+    B 1, S 4096, D 4096) and B 2 (``bench``), then h0, D 98 (the first
+    design: D % 4 != 0), S 1 and a channel with log_a = 0; all but D 98 on
+    the Hopper kernel."""
     return [
         rglru_bwd_case("main", 1, 4096, 4096, gen, dev, timed=True),
         rglru_bwd_case("bench", 2, 4096, 4096, gen, dev, timed=True),
         rglru_bwd_case("h0_ragged", 2, 300, 512, gen, dev, h0=True),
-        rglru_bwd_case("d98_h0", 2, 300, 98, gen, dev, h0=True),
+        rglru_bwd_case("d98_h0", 2, 300, 98, gen, dev, h0=True, sm90=False),
         rglru_bwd_case("s1_h0", 2, 1, 4096, gen, dev, h0=True),
         rglru_bwd_case("clamp_h0", 1, 77, 64, gen, dev, h0=True, clamp=True),
     ]
 
 
-def ssd_refuses_grad(dev):
-    """A grad-requiring input to ``ssd_scan`` on the card raises
-    ``NotImplementedError`` (no backward kernel yet: its outputs would
-    carry no gradient), before any launch."""
+# the SSD backward against ssd_scan_bwd_plain: fp32 gradients to 1e-4 of
+# each one's max |g| (fp32 on the card in another summation order), those
+# rounded to bf16 (dx, dB, dC of bf16 inputs) to 1e-2 (one bf16 rounding
+# of values near the max is 2^-8 of it, and the two sides may round a
+# tie-close value apart)
+SSD_BWD_TOL, SSD_BWD_BF16_TOL = 1e-4, 1e-2
+SSD_BWD_KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
+                   "ssd_bwd_reduce_kernel")
+
+
+def model_decays(b, s, h, gen, dev):
+    """(log_a, dt) (B,S,H) as mamba2-1.3b draws them at its init
+    (``models/ssd.py::init_ssd``, ``ssd_prefill``): per head A = exp(a_log)
+    with a_log = log U(1, 16) and dt_bias = log(expm1(U(1e-3, 0.1))), then
+    dt = softplus(dt_raw + dt_bias) over a unit-normal dt_raw (the
+    projection of a unit-RMS input) and log_a = -A dt. Chunks whose mean
+    |log_a| passes 0.7 overflow exp(cum_i - cum_j) above the diagonal."""
+    import torch
+    from repro_torch.kernels.sgld_update import softplus
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand((h,), generator=gen,
+                                                   device=dev)
+    a = u(1.0, 16.0)
+    bias = torch.log(torch.expm1(u(1e-3, 0.1)))
+    dt = softplus(torch.randn((b, s, h), generator=gen, device=dev) + bias)
+    return -a * dt, dt
+
+
+def ssd_bwd_inputs(b, s, h, p, n, gen, dev, *, dtype, h0, strided, decay):
+    """x, B, C, log_a, dt, h0, dy, dh_last of one SSD backward case (x, B,
+    C as ``ssd_case`` makes them; ``decay`` "ref": log_a = -0.1 dt, dt =
+    softplus(normal), as the reference's test; "model": ``model_decays``)."""
+    import torch
+    dt_ = getattr(torch, dtype)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if strided:
+        xbc = rn(b, s, h * p + 2 * n).to(dt_)
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        bt, ct = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        x, bt, ct = (rn(b, s, h, p).to(dt_), rn(b, s, n).to(dt_),
+                     rn(b, s, n).to(dt_))
+    if decay == "model":
+        log_a, dt = model_decays(b, s, h, gen, dev)
+    else:
+        dt = torch.nn.functional.softplus(rn(b, s, h))
+        log_a = -0.1 * dt
+    hh = rn(b, h, p, n) if h0 else None
+    return x, bt, ct, log_a, dt, hh, rn(b, s, h, p), rn(b, h, p, n)
+
+
+def max_chunk_decay(log_a, chunk):
+    """The largest mean |log_a| over a chunk of any (batch, head) (steps
+    past S count as 0, as the kernels pad them)."""
+    import torch
+    b, s, h = log_a.shape
+    la = torch.nn.functional.pad(log_a.abs(), (0, 0, 0, -s % chunk))
+    return float(la.reshape(b, -1, chunk, h).mean(2).max())
+
+
+def ssd_bwd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
+                 h0=False, strided=False, decay="ref", timed=False):
+    """``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against its plain
+    version ``ssd_scan_bwd_plain`` on the same inputs: every gradient
+    finite and within ``SSD_BWD_TOL`` of its max |g| (``SSD_BWD_BF16_TOL``
+    for the bf16-rounded dx, dB, dC), a second call bitwise equal, one
+    counted launch, and its three kernels by profiler name. Timed cases add
+    call and device ms (by kernel) and the bound: the operations the
+    gradient needs, per (batch, head, chunk) of l live steps 2 l (l + 1)
+    (P + N) for the causal L x L products (dy x^T and W^T dy over P, dCB B
+    and dCB^T C over N) and 10 l N P for the state products (dH B, the dC
+    and dB state terms, the state walks forwards and backwards), plus l
+    (l + 1) N per (batch, chunk) for C.B^T. The rate is the inputs'
+    dtype's, whatever the kernel's route: bf16 x/B/C against the bf16
+    tensor-core peak, with each product that has an fp32 operand (all
+    but C.B^T: dy, the decays and the states are fp32) counted three
+    times, as fp32-exact products take three bf16 pieces of that operand
+    (the forward's Hopper kernel does so); fp32 inputs against the fp32
+    CUDA-core rate. Bytes: the inputs read once and the outputs written
+    once."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
-    x = torch.randn((1, 64, 2, 64), device=dev, requires_grad=True)
-    bt = torch.randn((1, 64, 128), device=dev)
-    dtt = torch.rand((1, 64, 2), device=dev)
-    before = ss.ssd_scan.launches
-    try:
-        ss.ssd_scan(x, bt, bt, -dtt, dtt)
-    except NotImplementedError as e:
-        check(ss.ssd_scan.launches == before,
-              "ssd_scan launched before refusing a gradient")
-        return str(e)
-    raise CheckFailed("ssd_scan took a grad-requiring input on the card")
+    args = ssd_bwd_inputs(b, s, h, p, n, gen, dev, dtype=dtype, h0=h0,
+                          strided=strided, decay=decay)
+    before = ss.ssd_scan_bwd.launches
+    got = ss.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    check(ss.ssd_scan_bwd.launches == before + 1,
+          f"ssd_bwd {name}: not one counted launch")
+    again = ss.ssd_scan_bwd(*args, chunk=chunk)
+    want = ss.ssd_scan_bwd_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    out = dict(case=name, B=b, S=s, H=h, P=p, N=n, chunk=chunk, dtype=dtype,
+               h0=h0, strided=strided, decay=decay,
+               max_chunk_mean_abs_log_a=max_chunk_decay(args[3], chunk))
+    errs = []
+    for gname, g, g2, w in zip(("dx", "dB", "dC", "dlog_a", "ddt", "dh0"),
+                               got, again, want):
+        if w is None:
+            continue
+        check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()),
+              f"ssd_bwd {name}: {gname} not finite")
+        check(torch.equal(g, g2), f"ssd_bwd {name}: {gname} does not repeat "
+                                  f"bitwise")
+        tol = SSD_BWD_BF16_TOL if g.dtype == torch.bfloat16 else SSD_BWD_TOL
+        top = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        check(err <= tol * max(top, 1e-30),
+              f"ssd_bwd {name}: {gname} off by {err} (max {top})")
+        out[f"{gname}_max_rel_err"] = err / max(top, 1e-30)
+        errs.append(err)
+    out["max_abs_err"] = max(errs)
+    out["bitwise_repeat"] = True
+    del got, again, want
+    kern = lambda: ss.ssd_scan_bwd(*args, chunk=chunk)
+    split = device_split(kern, calls=5 if timed else 1)
+    check(split is not None and all(any(k in key for key in split)
+                                    for k in SSD_BWD_KERNELS),
+          f"ssd_bwd {name}: the profile lacks a kernel of {SSD_BWD_KERNELS}: "
+          f"{split}")
+    if timed:
+        lens = [min(chunk, s - c) for c in range(0, s, chunk)]
+        bf16 = dtype == "bfloat16"
+        flops = float(sum(b * l * (l + 1) * n
+                          + (3 if bf16 else 1) * b * h * (
+                              2 * l * (l + 1) * (p + n) + 10 * l * n * p)
+                          for l in lens))
+        el = args[0].element_size()
+        nbytes = (2 * el * (b * s * h * p + 2 * b * s * n)    # x, B, C; grads
+                  + 4 * 4 * b * s * h                         # log_a, dt; grads
+                  + 4 * b * s * h * p                         # dy
+                  + 4 * b * h * p * n * (1 + 2 * bool(h0)))   # dh_last, h0, dh0
+        plain = lambda: ss.ssd_scan_bwd_plain(*args, chunk=chunk)
+        out["ms"], out["device_ms"] = time_ms(kern, runs=3, calls=5), sum(
+            split.values()) / 1e3
+        out["device_us_by_kernel"] = split
+        out["plain_ms"] = time_ms(plain, runs=1, calls=1, warmup=1)
+        out["plain_device_ms"] = device_ms(plain, calls=1)
+        out["bound_ms"], out["bound_by"] = bound(
+            nbytes, flops, BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
+        out["library_ms"] = None
+    return out
+
+
+def ssd_bwd_cases(gen, dev):
+    """The ssd_bwd family: the reference's three test shapes
+    (``tests/test_kernels.py:62-66``, fp32), a ragged S with h0 and
+    model-drawn decays (bf16 strided, and fp32), S < chunk at P 48 (bf16),
+    S 1 with h0, then mamba2-1.3b's training shape as the path hands it
+    over (``main``: B 2, S 4096, H 64, P 64, N 128, chunk 128, bf16 column
+    slices, decays drawn as the model draws them, where chunks pass a mean
+    |log_a| of 1) and the prefill_32k length (``bench``: B 1, S 32768)."""
+    bf = dict(dtype="bfloat16")
+    out = [ssd_bwd_case(f"ref{i}", b, s, h, p, n, c, gen, dev, h0=h0)
+           for i, (b, s, h, p, n, c, h0) in enumerate([
+               (2, 200, 4, 64, 32, 64, True), (1, 256, 2, 32, 64, 128, False),
+               (2, 96, 8, 64, 128, 32, True)])]
+    out += [
+        ssd_bwd_case("ragged_h0_model_bf16", 2, 300, 8, 64, 128, 128, gen,
+                     dev, h0=True, strided=True, decay="model", **bf),
+        ssd_bwd_case("ragged_h0_model_fp32", 2, 300, 8, 64, 128, 128, gen,
+                     dev, h0=True, decay="model"),
+        ssd_bwd_case("p48_s_below_chunk_bf16", 1, 50, 2, 48, 16, 128, gen,
+                     dev, **bf),
+        ssd_bwd_case("s1_h0", 2, 1, 3, 64, 128, 128, gen, dev, h0=True),
+        ssd_bwd_case("main", 2, 4096, 64, 64, 128, 128, gen, dev,
+                     strided=True, decay="model", timed=True, **bf),
+        ssd_bwd_case("bench", 1, 32768, 64, 64, 128, 128, gen, dev,
+                     strided=True, decay="model", timed=True, **bf),
+    ]
+    main = next(r for r in out if r["case"] == "main")
+    check(main["max_chunk_mean_abs_log_a"] > 1.0,
+          f"ssd_bwd main: no chunk in the overflow regime "
+          f"({main['max_chunk_mean_abs_log_a']})")
+    out.append(dict(case="autograd", **ssd_grad_check(dev, gen)))
+    return out
+
+
+def ssd_grad_check(dev, gen):
+    """A grad-requiring input to ``ssd_scan`` on the card goes through
+    ``SsdScan``: one forward launch (``ssd_scan.launches``), one backward
+    launch (``ssd_scan_bwd.launches``) and gradients that are finite in
+    the overflow regime (model-drawn decays at chunk 128, one head at A =
+    16) and match autograd of the plain version (``SSD_BWD_TOL`` of each
+    one's max |g|)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    b, s, h, p, n = 1, 256, 2, 64, 128
+    x, bt, ct, _, _, _, dy, dhl = ssd_bwd_inputs(
+        b, s, h, p, n, gen, dev, dtype="float32", h0=False, strided=False,
+        decay="ref")
+    log_a, dt = model_decays(b, s, h, gen, dev)
+    log_a[..., 0] = -16.0 * dt[..., 0]
+    leaves = (x, bt, ct, log_a, dt)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in leaves]
+        y, hl = fn(*ins, chunk=128)
+        return torch.autograd.grad((y * dy).sum() + (hl * dhl).sum(), ins)
+    before = (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches)
+    got = grads(ss.ssd_scan)
+    torch.cuda.synchronize()
+    launches = (ss.ssd_scan.launches - before[0],
+                ss.ssd_scan_bwd.launches - before[1])
+    check(launches == (1, 1), f"ssd grad: launches (forward, backward) "
+                              f"{launches}, want (1, 1)")
+    want = grads(ss.ssd_scan_plain)
+    worst, worst_abs = 0.0, 0.0
+    for gname, g, w in zip(("dx", "dB", "dC", "dlog_a", "ddt"), got, want):
+        check(bool(torch.isfinite(g).all()), f"ssd grad: {gname} not finite")
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        check(err <= SSD_BWD_TOL * top, f"ssd grad: {gname} off by {err} "
+                                        f"(max {top})")
+        worst, worst_abs = max(worst, err / top), max(worst_abs, err)
+    return dict(launches=list(launches), max_rel_err=worst,
+                max_abs_err=worst_abs,
+                max_chunk_mean_abs_log_a=max_chunk_decay(log_a, 128))
 
 
 def scan_cases(gen, dev):
@@ -1474,7 +1702,6 @@ def scan_cases(gen, dev):
                (2, 200, 4, 64, 32, 64, True), (1, 256, 2, 32, 64, 128, False),
                (2, 96, 8, 64, 128, 32, True)])]
     ssd_refuses_misaligned(dev)
-    ssd_refuses_grad(dev)
     bf = dict(dtype="bfloat16")
     ssd += [
         ssd_case("ragged_h0_bf16", 2, 300, 8, 64, 128, 128, gen, dev,
@@ -1513,7 +1740,9 @@ def scan_cases(gen, dev):
         rglru_case("b1_s_ragged", 1, 1001, 96, gen, dev, h0=True),
         rglru_case("d98_simt", 2, 300, 98, gen, dev, h0=True),
         rglru_case("main", 2, 4096, 4096, gen, dev, timed=True),
-        rglru_case("bench", 4, 32768, 4096, gen, dev, timed=True),
+        # the plain version checks it once, untimed (the script's time)
+        rglru_case("bench", 4, 32768, 4096, gen, dev, timed=True,
+                   time_plain=False),
     ]
     return ssd, rgl
 
@@ -1630,13 +1859,15 @@ def phase_kernels(dev, seed):
     stamps.append(time.perf_counter())
     rgb = rglru_bwd_cases(gen, dev)
     stamps.append(time.perf_counter())
+    sbw = ssd_bwd_cases(gen, dev)
+    stamps.append(time.perf_counter())
     torch.cuda.empty_cache()
     names = ("dueling_select", "sgld_potential", "dueling_score",
              "sgld_mixed", "flash_attention", "flash_attention_bwd",
              "flash_attention_bwd_bf16", "ssd_scan+rglru_scan",
-             "rglru_scan_bwd")
+             "rglru_scan_bwd", "ssd_scan_bwd")
     seconds = {n: b - a for n, a, b in zip(names, stamps, stamps[1:])}
-    return sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb, seconds
+    return sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb, sbw, seconds
 
 
 # ---------------------------------------------------------------------------
@@ -3682,6 +3913,11 @@ LM_TRAIN_RUNS = {
     "seamless-m4t-medium": dict(batch=2, seq=4096),
     # vis_proj's gradient, 2880 patches + 1216 tokens: 1 of 60 units
     "llava-next-34b": dict(batch=1, seq=4096, cut=dict(n_units=1)),
+    # the SSD scan's backward, full depth (1.3 B parameters: ~16 GB of
+    # weights, gradients and fp32 moments; reckoned before its first run,
+    # the saved unit inputs 1.6 GB, the fp32 logits and their gradient
+    # ~3.3 GB, one unit's recompute and the backward's scratch ~2 GB)
+    "mamba2-1.3b": dict(batch=2, seq=4096),
 }
 # each run's kernel launches per training step (forward, the units'
 # rematerialised forward, backward): remat runs a unit's attention and
@@ -3697,12 +3933,15 @@ LM_TRAIN_PATHS = {
     "seamless-m4t-medium": {"flash_attention": 72,
                             "flash_attention_bwd": 36},
     "llava-next-34b": {"flash_attention": 2, "flash_attention_bwd": 1},
+    "mamba2-1.3b": {"ssd_scan": 96, "ssd_scan_bwd": 48},
 }
 # the training step's device time by kernel group (first match wins, by
 # substring: attention_bwd's names also match the Hopper design's
-# bwd_kv_kernel_sm90 and bwd_q_kernel_sm90; the optimizer is profiled on
-# its own)
+# bwd_kv_kernel_sm90 and bwd_q_kernel_sm90, and "ssd" comes first, since
+# ssd_bwd_reduce_kernel contains "bwd_reduce_kernel"; the optimizer is
+# profiled on its own)
 TRAIN_GROUPS = {
+    "ssd": ("ssd_kernel", "ssd_bwd_"),
     "attention_fwd": ("flash_attention_kernel",),
     "attention_bwd": ("bwd_kv_kernel", "bwd_q_kernel", "bwd_reduce_kernel",
                       "delta_kernel"),
@@ -3776,10 +4015,7 @@ def phase_lm_train(dev, seed):
     run also
     the state a unit adds (weight and gradient in the leaf's dtype, fp32
     moments, and the unit's saved bf16 input) and the depth that the
-    card's memory would hold at that rate (reckoned, not run).
-    mamba2-1.3b's step
-    must raise ``NotImplementedError`` (the SSD scan has no backward
-    kernel yet) before any launch."""
+    card's memory would hold at that rate (reckoned, not run)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.draws import TorchDraws
@@ -3870,22 +4106,6 @@ def phase_lm_train(dev, seed):
             out[name]["bwd_design_check"] = design
         del params, opt, batches, b_last, leaves, step
         torch.cuda.empty_cache()
-    # mamba2-1.3b: the SSD scan refuses a gradient on the card
-    cfg = lm_config("mamba2-1.3b").reduced()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = lm.init_params(gen, cfg, device=dev)
-    b = train_lib.synthetic_batch(TorchDraws(seed, dev), cfg, 1, 64, dev)
-    kernels.reset_launch_counts()
-    try:
-        steps_lib.loss_and_grads(params, b, cfg)
-    except NotImplementedError as e:
-        check(kernels.launch_counts()["ssd_scan"] == 0,
-              "lm_train mamba2-1.3b: ssd_scan launched before refusing")
-        out["mamba2-1.3b"] = dict(refused=str(e))
-    else:
-        raise CheckFailed("lm_train mamba2-1.3b: a training step ran with "
-                          "no SSD backward kernel")
     return out
 
 
@@ -4073,12 +4293,10 @@ def phase_lm_card_vs_cpu(dev, seed):
         torch.cuda.empty_cache()
     return out, train
 
-# the training check of the card against the CPU: LM_CPU_CUTS' models
-# but mamba2-1.3b (its SSD scan has no backward kernel), and granite-3-2b
-# at 2 units; batch and sequence (llava: its 64 cut patches + 32 tokens)
-LM_TRAIN_CPU_CUTS = dict(
-    {k: v for k, v in LM_CPU_CUTS.items() if k != "mamba2-1.3b"},
-    **{"granite-3-2b": dict(n_units=2)})
+# the training check of the card against the CPU: LM_CPU_CUTS' models and
+# granite-3-2b at 2 units; batch and sequence (llava: its 64 cut patches +
+# 32 tokens)
+LM_TRAIN_CPU_CUTS = dict(LM_CPU_CUTS, **{"granite-3-2b": dict(n_units=2)})
 LM_TRAIN_CPU_RUNS = {"llava-next-34b": (1, 96)}
 LM_TRAIN_CPU_RUN = (2, 32)
 
@@ -4167,11 +4385,16 @@ KERNELS = [
      "none: gradient of src/repro/models/rglru.py::linear_scan "
      "(lax.associative_scan), which the reference takes by XLA autodiff",
      "rglru_bwd", "", "lm_train:recurrentgemma-9b", "rglru_scan_bwd"),
+    ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+     "none: gradient of _ssd_kernel (src/repro/kernels/ssd_scan.py:109), "
+     "which the reference takes by XLA autodiff of "
+     "src/repro/models/ssd.py::ssd_chunked", "ssd_bwd", "",
+     "lm_train:mamba2-1.3b", "ssd_scan_bwd"),
 ]
 # the rows whose kernels the LM training paths launch (the bf16 attention
 # backward has its own row; the fp32 one is the encoder's)
 LM_TRAIN_ROWS = ("flash_attention", "flash_attention_bwd_bf16", "rglru_scan",
-                 "rglru_scan_bwd")
+                 "rglru_scan_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 # the bf16 cases of flash_attention timed beside its fp32 main and bench,
@@ -4253,6 +4476,10 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
             rows[-1]["lm_train_launches"] = on_train
         if name == "flash_attention_bwd_bf16":
             rows[-1]["design_ops_ms"] = m.get("design_ops_ms")
+        if name == "ssd_scan_bwd":
+            rows[-1].update(device_us_by_kernel=m["device_us_by_kernel"],
+                            bench_device_us_by_kernel=bch[
+                                "device_us_by_kernel"])
         if name in ("flash_attention_bwd", "flash_attention_bwd_bf16"):
             rows[-1].update(plan=m["plan"], bench_plan=bch["plan"],
                             device_us_by_kernel=m["device_us_by_kernel"],
@@ -4306,7 +4533,7 @@ def main() -> int:
                            libraries=sorted(_build.SIGNATURES))
     emit_phase(record["build"])
 
-    (sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb,
+    (sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb, sbw,
      family_s) = phase_kernels(dev, args.seed)
     record["kernels"] = dict(phase="kernels", dueling_select=sel,
                              sgld_potential=sg, dueling_score=sc,
@@ -4314,7 +4541,7 @@ def main() -> int:
                              flash_attention_bwd=atb,
                              flash_attention_bwd_bf16=atb16, ssd_scan=ssd,
                              rglru_scan=rgl, rglru_scan_bwd=rgb,
-                             seconds=family_s)
+                             ssd_scan_bwd=sbw, seconds=family_s)
     emit_phase(record["kernels"])
 
     runs = phase_slice(dev, args.seed)
@@ -4368,7 +4595,7 @@ def main() -> int:
     line = kernels_line(
         dict(select=sel, sgld=sg, score=sc, mixed=mx, attn=at,
              attn_bwd=atb, attn_bwd_bf16=atb16, ssd=ssd, rglru=rgl,
-             rglru_bwd=rgb),
+             rglru_bwd=rgb, ssd_bwd=sbw),
         dict(sync=runs["sync"]["launches"],
              train=record["train"]["launches"],
              autopilot=record["autopilot"]["launches"],

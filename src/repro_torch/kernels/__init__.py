@@ -30,6 +30,7 @@ WRAPPERS = {
     "flash_attention": _flash.flash_attention,
     "flash_attention_bwd": _flash.flash_attention_bwd,
     "ssd_scan": _ssd.ssd_scan,
+    "ssd_scan_bwd": _ssd.ssd_scan_bwd,
     "rglru_scan": _rglru.rglru_scan,
     "rglru_scan_bwd": _rglru.rglru_scan_bwd,
 }

@@ -96,12 +96,22 @@ SIGNATURES = {
         "ssd_scan_sm90_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
                                  *[L] * 13, P],
     },
+    "ssd_scan_bwd": {
+        # x, bt, ct, log_a, dt, h0, dy, dh_last, dx, dbt, dct, dlog_a, ddt,
+        # dh0, states and dstates scratches, per-head dB and dC scratches,
+        # B, S, H, P, N, chunk, (batch, seq, head) strides of x, (batch,
+        # seq) of bt and ct, (batch, seq, head) of log_a and dt, is_bf16,
+        # stream
+        "ssd_scan_bwd_launch": [*[P] * 18, I, I, I, I, I, I, *[L] * 13, I,
+                                P],
+    },
     "rglru_scan": {
         # log_a, x, h0, h, h_last, B, S, D, stream
         "rglru_scan_launch": [P, P, P, P, P, I, I, I, P],
         "rglru_scan_sm90_launch": [P, P, P, P, P, I, I, I, P],
         # log_a, x, h0, h, dh, dh_last, dlog_a, dx, dh0, B, S, D, stream
         "rglru_scan_bwd_launch": [*[P] * 9, I, I, I, P],
+        "rglru_scan_bwd_sm90_launch": [*[P] * 9, I, I, I, P],
     },
 }
 

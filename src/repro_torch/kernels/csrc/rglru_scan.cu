@@ -30,6 +30,10 @@
 // current PF steps: the loads never depend on h.
 //
 // Both compute each step with the same gates() and advance(), so they agree bitwise.
+//
+// The gradient (no TPU kernel: the reference differentiates its scan by XLA's autodiff)
+// is a reverse linear scan with the same two routes by the same rule: rglru_bwd_kernel_sm90
+// (the ring read in reverse) and rglru_bwd_kernel (a thread per channel), described below.
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
@@ -199,8 +203,10 @@ __global__ void __launch_bounds__(kThreads) rglru_kernel_sm90(
 // channel) walks S backwards with the carried a_{t+1} g_{t+1} in a
 // register, the next kBwdPF steps' loads (log_a, x, h_{t-1}, dh) in flight
 // while it computes the current ones, as rglru_kernel does forwards. Bound:
-// bytes (24 per element: four reads, two writes). 32 threads a block, so
-// B * D / 32 blocks (128 at B 1, D 4096) spread over the SMs.
+// bytes (24 per element: four reads, two writes). The first design, kept for
+// the shapes TMA cannot load (D % 4 != 0, misaligned inputs), as
+// rglru_kernel is: rglru_bwd_kernel_sm90 below takes the rest. 32 threads a
+// block, so B * D / 32 blocks spread over the SMs.
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdPF = 16;
@@ -262,6 +268,173 @@ __global__ void __launch_bounds__(kBwdThreads) rglru_bwd_kernel(
   if (dh0 != nullptr) dh0[(size_t)b * D + d] = carry;
 }
 
+// ---------------------------------------------------------------------------
+// rglru_bwd_kernel_sm90: the same gradient, with the forward's TMA ring read in
+// reverse (D a multiple of 4, 16-byte aligned log_a, x, h, dh: the wrapper's rule;
+// rglru_bwd_kernel above keeps the rest). The first design put a thread on each (batch,
+// channel) in blocks of 32: at B 1, D 4096 that is 128 one-warp blocks, about one warp
+// an SM with 16 steps of loads in flight, so it waited on memory's latency (0.63 ms
+// against a 0.12 ms bound at recurrentgemma-9b's B 1, S 4096, D 4096, NVIDIA H100 80GB
+// HBM3 at 700 W; B 2 took as long). Here a block owns 32 channels of one batch row and
+// the tiles (32 steps x 32 channels) arrive from the last backwards: a producer warp
+// streams log_a, x, h and dh through TMA into a ring of 4 stages (64 KB in flight a
+// block, whatever the thread count). Eight gate warps turn each stage's elements into
+// a_t, sqrt(max(1 - e_t, 0)) and the factor of dlog_a, a_t h_{t-1} - e_t x_t /
+// sqrt(max(1 - e_t, 0)) (h_{t-1}: the row above in the stage; for a tile's first step
+// one row of h read a tile ahead, or h0), written beside the TMA'd tiles: those need two
+// exponentials, a square root and a division per element but never the carry. The
+// consumer warp reads a tile's dh_t and a_t into registers, walks only the reverse
+// chain, g_t = dh_t + carry, carry = a_t g_t, writes dx_t = g_t sqrt(..) and dlog_a_t =
+// g_t (factor) over the stage's slots and hands the two tiles to TMA stores: the
+// consumer's shared-memory reads inside the walk, or its stores, paced the block, and
+// with those gone four gate warps did (tools/scan_bwd_variants.py). Bound: bytes, 24 per element and one row of h per tile
+// (1/32 of h's bytes) beyond it. Barriers per stage as the forward's: full (TMA bytes
+// landed), ready (the gate warps are done), empty (the tile's stores have read the
+// stage). The arithmetic is rglru_bwd_kernel's, term for term, and each output is
+// written by one thread in a fixed order.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdIn = 4;                                   // log_a, x, h, dh
+constexpr int kBwdSlots = kBwdIn + 1;                       // + the factor of dlog_a
+constexpr int kBwdStages = 4;
+constexpr int kBwdGateWarps = 8;
+constexpr int kBwdThreadsTma = 32 * (2 + kBwdGateWarps);    // consumer, gates, producer
+constexpr int kBwdStageBytes = kBwdIn * kTile * 4;          // TMA'd: 16 KB
+constexpr int kBwdSmem = kBwdStages * kBwdSlots * kTile * 4;   // 80 KB
+
+// grid (ceil(D / 32), B), kBwdThreadsTma threads: warp 0 consumes, warps 1 ..
+// kBwdGateWarps compute the gates, lane 0 of the last warp produces
+__global__ void __launch_bounds__(kBwdThreadsTma) rglru_bwd_kernel_sm90(
+    const __grid_constant__ CUtensorMap tla, const __grid_constant__ CUtensorMap tx,
+    const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tdh,
+    const __grid_constant__ CUtensorMap tdla, const __grid_constant__ CUtensorMap tdx,
+    const float* __restrict__ h0, const float* __restrict__ h,
+    const float* __restrict__ dh_last, float* __restrict__ dh0, int S, int D) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kBwdStages], ready[kBwdStages], empty[kBwdStages];
+  const int d0 = blockIdx.x * kCh, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (S + kSteps - 1) / kSteps;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&ready[s], kBwdGateWarps);
+      sm90::mbar_init(&empty[s], 1);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the k-th tile walked is tile n_tiles - 1 - k, in stage k % kBwdStages:
+  // [log_a | x | h | dh | factor], kTile floats each
+  if (warp == 1 + kBwdGateWarps) {
+    if (lane == 0) {
+      sm90::tma_prefetch(&tla);
+      sm90::tma_prefetch(&tx);
+      sm90::tma_prefetch(&th);
+      sm90::tma_prefetch(&tdh);
+      for (int k = 0; k < n_tiles; ++k) {
+        const int st = k % kBwdStages, t0 = (n_tiles - 1 - k) * kSteps;
+        sm90::mbar_wait(&empty[st], ((k / kBwdStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[st], kBwdStageBytes);
+        float* dst = ring + st * kBwdSlots * kTile;
+        sm90::tma_load_4d(dst, &tla, &full[st], d0, t0, b, 0);
+        sm90::tma_load_4d(dst + kTile, &tx, &full[st], d0, t0, b, 0);
+        sm90::tma_load_4d(dst + 2 * kTile, &th, &full[st], d0, t0, b, 0);
+        sm90::tma_load_4d(dst + 3 * kTile, &tdh, &full[st], d0, t0, b, 0);
+      }
+    }
+    return;
+  }
+
+  if (warp > 0) {
+    // gates: log_a -> a, x -> sqrt(max(1 - e, 0)), and the factor of dlog_a. Row 0 of a
+    // tile needs h_{t0-1}, the last row of the tile walked next: warp 1 (whose lane l
+    // owns element l, row 0) reads it from h one tile ahead, so the read's latency
+    // overlaps a tile's work.
+    const int dl = d0 + lane;
+    auto h_before = [&](int t0) {          // h_{t0-1} of channel dl, h0 (or 0) at t0 = 0
+      if (dl >= D) return 0.f;
+      if (t0 > 0) return h[((size_t)b * S + t0 - 1) * D + dl];
+      return h0 != nullptr ? h0[(size_t)b * D + dl] : 0.f;
+    };
+    float h_next = warp == 1 ? h_before((n_tiles - 1) * kSteps) : 0.f;
+    for (int k = 0; k < n_tiles; ++k) {
+      const int st = k % kBwdStages, t0 = (n_tiles - 1 - k) * kSteps;
+      const float h_row0 = h_next;
+      if (warp == 1 && t0 > 0) h_next = h_before(t0 - kSteps);
+      sm90::mbar_wait(&full[st], (k / kBwdStages) & 1);
+      float* la = ring + st * kBwdSlots * kTile;
+      float* xs = la + kTile;
+      const float* hs = la + 2 * kTile;
+      float* fs = la + 4 * kTile;
+#pragma unroll
+      for (int e = (warp - 1) * 32 + lane; e < kTile; e += 32 * kBwdGateWarps) {
+        const float hp = e < kCh ? h_row0 : hs[e - kCh];   // h_{t-1}
+        const float l = la[e], xv = xs[e];
+        const float a = expf(l);
+        const float ee = expf(2.f * l);
+        const float sq = sqrtf(fmaxf(1.f - ee, 0.f));
+        fs[e] = a * hp - ee * xv / sq;
+        la[e] = a;
+        xs[e] = sq;
+      }
+      sm90::fence_proxy_async();  // before the next TMA write to this stage
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&ready[st]);
+    }
+    return;
+  }
+
+  // the consumer: a tile's dh and a into registers first, so the walk is the chain of
+  // an add and a multiply a step and no shared-memory read waits inside it; then dx
+  // and dlog_a written over sqrt(..) and the factor in the stage, and stored by TMA
+  // (rows past S and channels past D are not written); a stage goes back to the
+  // producer once the next tile's stores are issued and its own have been read
+  const int d = d0 + lane;
+  const bool live = d < D;
+  float carry = live ? dh_last[(size_t)b * D + d] : 0.f;  // a_{t+1} g_{t+1}
+  for (int k = 0; k < n_tiles; ++k) {
+    const int st = k % kBwdStages, t0 = (n_tiles - 1 - k) * kSteps;
+    const int n_live = min(kSteps, S - t0);                 // steps past S: none
+    sm90::mbar_wait(&ready[st], (k / kBwdStages) & 1);
+    float* as = ring + st * kBwdSlots * kTile;
+    float* sqs = as + kTile;
+    const float* dhs = as + 3 * kTile;
+    float* fs = as + 4 * kTile;
+    float gv[kSteps], av[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      gv[u] = dhs[u * kCh + lane];
+      av[u] = as[u * kCh + lane];
+    }
+#pragma unroll
+    for (int u = kSteps - 1; u >= 0; --u) {
+      if (u < n_live) {
+        gv[u] += carry;           // g_t = dh_t + a_{t+1} g_{t+1}
+        carry = av[u] * gv[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int e = u * kCh + lane;
+      sqs[e] = gv[u] * sqs[e];    // dx_t
+      fs[e] = gv[u] * fs[e];      // dlog_a_t
+    }
+    sm90::fence_proxy_async();   // the writes, before TMA reads them
+    __syncwarp();
+    if (lane == 0) {
+      sm90::tma_store_4d(&tdx, sqs, d0, t0, b, 0);
+      sm90::tma_store_4d(&tdla, fs, d0, t0, b, 0);
+      sm90::bulk_commit();
+      sm90::bulk_wait_read<1>();  // the previous tile's stores have read its stage
+      if (k > 0) sm90::mbar_arrive(&empty[(k - 1) % kBwdStages]);
+    }
+  }
+  if (lane == 0) sm90::bulk_wait<0>();  // every store done before the block exits
+  if (dh0 != nullptr && live) dh0[(size_t)b * D + d] = carry;
+}
+
 }  // namespace
 
 extern "C" int rglru_scan_launch(const void* log_a, const void* x, const void* h0, void* h,
@@ -301,5 +474,33 @@ extern "C" int rglru_scan_bwd_launch(const void* log_a, const void* x, const voi
       (const float*)log_a, (const float*)x, (const float*)h0, (const float*)h,
       (const float*)dh, (const float*)dh_last, (float*)dlog_a, (float*)dx, (float*)dh0, S,
       D);
+  return (int)cudaGetLastError();
+}
+
+// the backward on the TMA ring: D % 4 == 0 and log_a, x, h, dh, dlog_a, dx 16-byte
+// aligned (contiguous (B,S,D)); the same arguments as rglru_scan_bwd_launch
+extern "C" int rglru_scan_bwd_sm90_launch(const void* log_a, const void* x, const void* h0,
+                                          const void* h, const void* dh,
+                                          const void* dh_last, void* dlog_a, void* dx,
+                                          void* dh0, int B, int S, int D, void* stream) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)B, 1};
+  const cuuint64_t row = (cuuint64_t)D * 4;
+  const cuuint64_t strides[3] = {row, row * S, row * S * B};
+  CUtensorMap tla, tx, th, tdh, tdla, tdx;
+  cudaError_t err = sm90::encode_f32_4d(&tla, log_a, dims, strides, kCh, kSteps);
+  if (err == cudaSuccess) err = sm90::encode_f32_4d(&tx, x, dims, strides, kCh, kSteps);
+  if (err == cudaSuccess) err = sm90::encode_f32_4d(&th, h, dims, strides, kCh, kSteps);
+  if (err == cudaSuccess) err = sm90::encode_f32_4d(&tdh, dh, dims, strides, kCh, kSteps);
+  if (err == cudaSuccess)
+    err = sm90::encode_f32_4d(&tdla, dlog_a, dims, strides, kCh, kSteps);
+  if (err == cudaSuccess) err = sm90::encode_f32_4d(&tdx, dx, dims, strides, kCh, kSteps);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rglru_bwd_kernel_sm90,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((D + kCh - 1) / kCh, B);
+  rglru_bwd_kernel_sm90<<<grid, kBwdThreadsTma, kBwdSmem, (cudaStream_t)stream>>>(
+      tla, tx, th, tdh, tdla, tdx, (const float*)h0, (const float*)h,
+      (const float*)dh_last, (float*)dh0, S, D);
   return (int)cudaGetLastError();
 }

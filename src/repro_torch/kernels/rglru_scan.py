@@ -26,9 +26,16 @@ on either: there is no block divisibility.
 
 Gradients: with grad mode on and an input that requires grad, a CUDA call
 runs through ``RglruScan``, an ``autograd.Function`` whose backward is
-``rglru_scan_bwd``: a reverse linear scan (``rglru_bwd_kernel`` in the same
-source), one thread per (batch, channel) walking S backwards with the
-carried gradient in a register. It replaces no TPU kernel: the reference
+``rglru_scan_bwd``: a reverse linear scan in the same source, chosen by
+the same rule (``uses_tma`` over log_a, x, h and dh).
+``rglru_bwd_kernel_sm90`` reads the forward's TMA ring in reverse: a block
+per 32 channels of a batch row, tiles of 32 steps streamed from the last
+backwards, eight gate warps computing every term but the carried
+gradient, one warp walking the carry, dx and dlog_a stored by TMA. ``rglru_bwd_kernel`` (the first design, for
+the shapes TMA cannot load) puts one thread on each (batch, channel),
+walking S backwards with the carried gradient in a register. Both compute
+each term alike, and each output is written by one thread in a fixed
+order, so results repeat bitwise. It replaces no TPU kernel: the reference
 trains through XLA's autodiff of ``lax.associative_scan``
 (``repro/models/rglru.py::linear_scan``), and this is that gradient. At a
 channel where 1 - exp(2 log_a) is 0 (log_a = 0, where the forward clamps)
@@ -59,12 +66,15 @@ def rglru_scan_plain(log_a: torch.Tensor, x_in: torch.Tensor,
     return torch.stack(hs, dim=1), h
 
 
-def uses_tma(log_a: torch.Tensor, x_in: torch.Tensor) -> bool:
-    """Whether a CUDA call of these contiguous (B,S,D) inputs runs the
-    Hopper kernel (TMA wants 16-byte row strides and bases), else the
-    first kernel: the dispatch rule."""
+def uses_tma(log_a: torch.Tensor, x_in: torch.Tensor,
+             *more: torch.Tensor) -> bool:
+    """Whether a CUDA call of these contiguous (B,S,D) inputs (the
+    backward's also h and dh, in ``more``) runs the Hopper kernel (TMA
+    wants 16-byte row strides and bases), else the first kernel: the
+    dispatch rule of the forward and of the backward."""
     d = x_in.shape[-1]
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (log_a, x_in))
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (log_a, x_in, *more))
 
 
 def rglru_scan_bwd_plain(log_a: torch.Tensor, x_in: torch.Tensor,
@@ -126,8 +136,8 @@ def rglru_scan_bwd(log_a: torch.Tensor, x_in: torch.Tensor,
                    dh: torch.Tensor, dh_last: torch.Tensor):
     """(dlog_a, dx, dh0 or None) of ``rglru_scan`` (see
     ``rglru_scan_bwd_plain``). CPU tensors take the plain version; CUDA
-    tensors launch ``rglru_bwd_kernel`` and count the launch in
-    ``rglru_scan_bwd.launches``."""
+    tensors launch one kernel (``uses_tma`` chooses which) and count the
+    launch in ``rglru_scan_bwd.launches``."""
     if x_in.device.type == "cpu":
         return rglru_scan_bwd_plain(log_a, x_in, h0, h, dh, dh_last)
     b, s, d = x_in.shape
@@ -141,9 +151,12 @@ def rglru_scan_bwd(log_a: torch.Tensor, x_in: torch.Tensor,
     lib = _build.library("rglru_scan")
     P = _build.ptr
     with torch.cuda.device(x_in.device):
-        code = lib.rglru_scan_bwd_launch(
-            P(log_a), P(x_in), P(h0), P(h), P(dh), P(dh_last), P(dlog_a),
-            P(dx), P(dh0), b, s, d, _build.stream(x_in.device))
+        launch = (lib.rglru_scan_bwd_sm90_launch
+                  if uses_tma(log_a, x_in, h, dh)
+                  else lib.rglru_scan_bwd_launch)
+        code = launch(P(log_a), P(x_in), P(h0), P(h), P(dh), P(dh_last),
+                      P(dlog_a), P(dx), P(dh0), b, s, d,
+                      _build.stream(x_in.device))
     _build.check(code, "rglru_scan_bwd")
     rglru_scan_bwd.launches += 1
     return dlog_a, dx, dh0

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import warnings
 from typing import Callable, Optional
 
@@ -494,7 +495,10 @@ class RouterService:
         raises; there is no eager retry. A call from another thread of the
         process that a global-mode capture forbids (a ``cudaMalloc``)
         leaves the capture whole; one that waits on the capturing stream
-        (a device-wide sync) still breaks it."""
+        (a device-wide sync) still breaks it. Python's cyclic collector is
+        off while capturing: a dropped service is cyclic garbage, and a
+        collection that destroyed its graphs inside the capture would
+        break it (``tools/capture_gc.py``)."""
         before = [t.clone() for t in self._live_leaves()]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -511,10 +515,17 @@ class RouterService:
             t.copy_(v)
         tape = None if plan is None else plan.buffers(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
-            src = None if plan is None else TapeDraws(plan, tape)
-            outs = body(None if src is None else BucketDraws(src, b, top))
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="thread_local"):
+                src = None if plan is None else TapeDraws(plan, tape)
+                outs = body(None if src is None
+                            else BucketDraws(src, b, top))
+        finally:
+            if collecting:
+                gc.enable()
         if src is not None and src.pos != len(tape):
             raise RuntimeError(
                 f"bucket {b}: the capture drew {src.pos} of the plan's "

@@ -831,14 +831,15 @@ def test_bwd_plan_forced_sm90_runs_where_it_can(dtype, d, cfg, ok):
                         torch.bfloat16).cfg != tfa.BWD_SM90
 
 
-def _sm90_variants_tool():
+def _variants_tool(name):
+    """``tools/<name>.py`` through the variant tools' harness, which
+    also applies a variant's patches as the tool does."""
     import importlib.util
-    path = (Path(__file__).resolve().parents[1] / "tools"
-            / "bwd_sm90_variants.py")
-    spec = importlib.util.spec_from_file_location("bwd_sm90_variants", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    path = Path(__file__).resolve().parents[1] / "tools" / "variant_build.py"
+    spec = importlib.util.spec_from_file_location("variant_build", path)
+    vb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vb)
+    return vb, vb.load(name)
 
 
 @pytest.mark.parametrize("variant", ["libm_exp2", "no_exp", "no_math"])
@@ -846,14 +847,25 @@ def test_sm90_variant_anchors_occur_once(variant):
     """``tools/bwd_sm90_variants.py`` patches the Hopper backward's source
     at text anchors: each must occur exactly once in the source as it
     stands, applied in order, or the tool stops on the card."""
-    tool = _sm90_variants_tool()
+    vb, tool = _variants_tool("bwd_sm90_variants")
     assert set(tool.PATCHES) == {"default", "libm_exp2", "no_exp",
                                  "no_math"}
-    src = (Path(kernels.__file__).resolve().parent / "csrc"
-           / f"{tool.SOURCE}.cu").read_text()
-    for anchor, repl in tool.PATCHES[variant]:
-        assert src.count(anchor) == 1, anchor
-        src = src.replace(anchor, repl)
+    vb.patched(vb.source_text(tool.SOURCE), tool.PATCHES[variant], variant)
+
+
+@pytest.mark.parametrize("variant", ["split_scores", "unroll_d2",
+                                     "large_double_buffer",
+                                     "dq_natural_order"])
+def test_simt_variant_anchors_occur_once(variant):
+    """``tools/bwd_variants.py`` patches the SIMT backward's source
+    (``csrc/flash_attention_bwd.cu``) at text anchors: each must occur
+    exactly once in the source as it stands, applied in order, or its
+    default run stops on the card."""
+    vb, tool = _variants_tool("bwd_variants")
+    assert set(tool.PATCHES) == {"default", "split_scores", "unroll_d2",
+                                 "large_double_buffer", "dq_natural_order"}
+    vb.patched(vb.source_text("flash_attention_bwd"), tool.PATCHES[variant],
+               variant)
 
 
 LOG2E = 1.4426950408889634

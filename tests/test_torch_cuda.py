@@ -36,10 +36,19 @@ dim, repeats bitwise and runs the plan's kernels by profiler name, the
 bf16 forward's lse matches the plain version's, and bf16 autograd goes
 through both kernels; the encoder's gradients on the card match the CPU's
 to 1e-4 of each leaf's largest magnitude. The RG-LRU gradient (its
-backward kernel) matches autograd of the plain recurrence to 1e-5, a
-grad-requiring ``ssd_scan`` input raises ``NotImplementedError``, and two
-training steps of reduced granite-3-2b and recurrentgemma-9b on the card
-match the CPU's. The SSD scan
+backward kernels: the TMA ring read in reverse where ``uses_tma`` holds,
+else the first design, each by profiler name) matches autograd of the
+plain recurrence and ``rglru_scan_bwd_plain`` to 1e-5, with the same
+non-finite values at a log_a = 0 channel, and repeats bitwise. The SSD
+backward (``ssd_scan_bwd``: three kernels by profiler name) matches
+``ssd_scan_bwd_plain`` to 1e-4 of each gradient's max (bf16-rounded
+gradients to 1e-2) at decays drawn as mamba2-1.3b draws them, finite
+where the reference's overflow, and repeats bitwise; a grad-requiring
+``ssd_scan`` input runs one forward and one backward launch (two forward
+under ``torch.utils.checkpoint``), and ``models/ssd.py::ssd_fwd``'s
+gradient on the card matches the CPU's. Two training steps of reduced
+granite-3-2b, recurrentgemma-9b and mamba2-1.3b on the card match the
+CPU's. The SSD scan
 matches to rtol = atol = 2e-4 and the RG-LRU scan to 1e-5 (the
 reference's kernel tolerances); each SSD case proves by the profiler's
 kernel names which kernel ran (bf16 at P 64, N 128, chunk 128: the Hopper
@@ -312,22 +321,54 @@ def _misaligned(v):
     return out
 
 
-def _device_kernels(fn):
-    """(name, launches) of every device kernel ``fn`` runs, from
-    ``torch.profiler`` (taken again, up to 3 times, if a profile records
-    none)."""
+# the kernel of ``torch.cuda._sleep``, which pads a profile's two ends,
+# and the host's wait before the window closes (``chip_smoke.py``'s
+# ``cuda_profile``)
+PROFILE_MARKER = "spin_kernel"
+PROFILE_DRAIN_S = 0.02
+
+
+def _profiled_events(fn, attempts=3):
+    """The device events of one run of ``fn`` under ``torch.profiler``, in
+    a window taken as ``chip_smoke.py``'s ``cuda_profile`` takes it: padded
+    at both ends by a marker kernel, the host waiting ``PROFILE_DRAIN_S``
+    before the window closes, then an empty session that catches records
+    CUPTI hands over late (a late record of an earlier call's kernels
+    would otherwise land in the next window). A window with no kernel of
+    ``fn`` or without its closing marker (the device event that starts
+    last) is taken again, up to ``attempts`` times. The markers are left
+    out of what is returned."""
+    import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = []
-    for _ in range(3):
+    for _ in range(attempts):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1 << 21)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        out = [(e.key, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        if out:
+            torch.cuda._sleep(1 << 21)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_DRAIN_S)
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        whole = bool(dev) and PROFILE_MARKER in max(
+            dev, key=lambda e: e.time_range.start).name
+        out = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and PROFILE_MARKER not in e.key]
+        if out and whole:
             break
     return out
+
+
+def _device_kernels(fn):
+    """(name, launches) of every device kernel ``fn`` runs, from
+    ``torch.profiler`` (``_profiled_events``)."""
+    return [(e.key, e.count) for e in _profiled_events(fn)]
 
 
 @pytest.mark.parametrize("m,k,d", [(64, 16, 768), (301, 300, 64)])
@@ -660,18 +701,8 @@ def test_flash_attention_kernel_refuses_what_it_cannot_run(cuda_device):
 
 def _kernel_names(fn, family="flash_attention_kernel"):
     """Names of the ``family`` kernels ``fn`` launches, from
-    ``torch.profiler`` (taken again, up to 3 times, if a profile records no
-    device kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-    names = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() if family in e.key]
-        if names:
-            break
-    return names
+    ``torch.profiler`` (``_profiled_events``)."""
+    return [e.key for e in _profiled_events(fn) if family in e.key]
 
 
 @pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap", [
@@ -1200,29 +1231,245 @@ def test_rglru_scan_grad_matches_plain_autograd(cuda_device, b, s, d,
     assert bool(torch.isfinite(got[1]).all())
 
 
-def test_ssd_scan_refuses_grad_requiring_inputs(cuda_device):
-    """``ssd_scan`` has no backward kernel yet: a CUDA call with an input
-    that requires grad raises ``NotImplementedError`` (its outputs would
-    carry no gradient); under ``torch.no_grad`` it runs."""
-    rng = np.random.default_rng(0)
+# the RG-LRU backward by the dispatch rule: the TMA ring read in reverse
+# (D a multiple of 4, aligned) across ragged tiles (S 77, 33, 300, 1),
+# D 4100 (a ragged channel tile), a log_a = 0 channel; D 98 and a
+# misaligned view take the first design
+@pytest.mark.parametrize("b,s,d,with_h0,clamp,misalign", [
+    (1, 77, 64, True, True, False), (2, 300, 512, True, False, False),
+    (1, 33, 4100, False, False, False), (2, 1, 96, True, False, False),
+    (2, 50, 98, True, True, False), (1, 65, 128, True, False, True),
+])
+def test_rglru_scan_bwd_kernels_match_plain(cuda_device, b, s, d, with_h0,
+                                            clamp, misalign):
+    """``rglru_scan_bwd`` from the forward kernel's h against
+    ``rglru_scan_bwd_plain``: the same non-finite values (log_a = 0), the
+    rest within 1e-5 of each gradient's largest finite magnitude, a second
+    call bitwise equal, one launch, and the kernel ``uses_tma`` names by
+    its profiler name."""
+    rng = np.random.default_rng(s + d)
     f = lambda *shape: torch.from_numpy(rng.standard_normal(
         shape, dtype=np.float32)).to(cuda_device)
-    x, bt, ct = f(1, 64, 2, 32), f(1, 64, 16), f(1, 64, 16)
-    log_a, dt = -f(1, 64, 2).abs(), f(1, 64, 2).abs()
-    before = tss.ssd_scan.launches
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tss.ssd_scan(x.requires_grad_(True), bt, ct, log_a, dt, chunk=32)
-    assert tss.ssd_scan.launches == before
+    log_a, x = -f(b, s, d).abs() * 0.1, f(b, s, d)
+    if clamp:
+        log_a[:, :, 3] = 0.0
+    if misalign:
+        log_a = _misaligned(log_a)
+    h0 = f(b, d) if with_h0 else None
     with torch.no_grad():
-        y, _ = tss.ssd_scan(x, bt, ct, log_a, dt, chunk=32)
-    assert y.shape == (1, 64, 2, 32)
+        h, _ = trg.rglru_scan(log_a, x, h0)
+    dh, dl = f(b, s, d), f(b, d)
+    args = (log_a, x, h0, h, dh, dl)
+    before = trg.rglru_scan_bwd.launches
+    got = trg.rglru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert trg.rglru_scan_bwd.launches == before + 1
+    again = trg.rglru_scan_bwd(*args)
+    want = trg.rglru_scan_bwd_plain(*args)
+    for a, a2, w in zip(got, again, want):
+        if w is None:
+            assert a is None and a2 is None
+            continue
+        assert torch.equal(a.isnan(), a2.isnan())
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(a2))
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(a), fin)
+        assert torch.equal(a[~fin].isnan(), w[~fin].isnan())
+        assert torch.equal(a[~fin & ~w.isnan()], w[~fin & ~w.isnan()])
+        top = float(w[fin].abs().max())
+        assert float((a[fin] - w[fin]).abs().max()) <= 1e-5 * top
+    tma = trg.uses_tma(log_a, x, h, dh)
+    assert tma == (d % 4 == 0 and not misalign)
+    names = _kernel_names(lambda: trg.rglru_scan_bwd(*args),
+                          family="rglru_bwd_kernel")
+    assert len(names) == 1, names
+    assert ("rglru_bwd_kernel_sm90" in names[0]) == tma, names
 
 
-@pytest.mark.parametrize("name", ["granite-3-2b", "recurrentgemma-9b"])
+def _model_decays(rng, b, s, h, dev):
+    """(log_a, dt) as mamba2-1.3b draws them at its init: A ~ U(1, 16) and
+    dt_bias = log(expm1(U(1e-3, 0.1))) per head, dt = softplus(normal +
+    dt_bias), log_a = -A dt (chunks of 128 past a mean |log_a| of 0.7
+    overflow exp(cum_i - cum_j) above the diagonal)."""
+    a = rng.uniform(1.0, 16.0, h).astype(np.float32)
+    bias = np.log(np.expm1(rng.uniform(1e-3, 0.1, h))).astype(np.float32)
+    raw = rng.standard_normal((b, s, h), dtype=np.float32)
+    dt = np.logaddexp(raw + bias, 0.0).astype(np.float32)
+    return (torch.from_numpy(-a * dt).to(dev), torch.from_numpy(dt).to(dev))
+
+
+SSD_BWD_CASES = [
+    (2, 200, 4, 64, 32, 64, True, "ref"),
+    (1, 256, 2, 32, 64, 128, False, "ref"),
+    (2, 96, 8, 64, 128, 32, True, "ref"),
+    (2, 300, 3, 64, 128, 128, True, "model"),   # ragged, mamba2's P, N, L
+    (1, 50, 2, 48, 16, 128, False, "ref"),      # S < chunk, P 48
+    (2, 1, 2, 32, 8, 32, True, "ref"),          # S = 1
+    (1, 640, 4, 64, 128, 128, True, "model"),   # 5 chunks
+    (1, 130, 3, 32, 64, 16, False, "model"),    # chunk 16
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,decay", SSD_BWD_CASES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
+                                           with_h0, decay, dtype):
+    """``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against
+    ``ssd_scan_bwd_plain`` on the same inputs, x, B and C as column slices
+    of one (B,S,H*P+2N) tensor in ``dtype``: every gradient finite, fp32
+    ones within 1e-4 of their max |g|, the bf16-rounded dx, dB, dC within
+    1e-2, a second call bitwise equal, one counted launch of its three
+    kernels (by profiler name); decays as the reference's test draws them
+    or as mamba2-1.3b's init does (the overflow regime)."""
+    rng = np.random.default_rng(s + p + n + chunk)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    xbc = f(b, s, h * p + 2 * n).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bt, ct = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    if decay == "model":
+        log_a, dt = _model_decays(rng, b, s, h, cuda_device)
+    else:
+        dt = torch.nn.functional.softplus(f(b, s, h))
+        log_a = -0.1 * dt
+    h0 = f(b, h, p, n) if with_h0 else None
+    args = (x, bt, ct, log_a, dt, h0, f(b, s, h, p), f(b, h, p, n))
+    before = tss.ssd_scan_bwd.launches
+    got = tss.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tss.ssd_scan_bwd.launches == before + 1
+    again = tss.ssd_scan_bwd(*args, chunk=chunk)
+    want = tss.ssd_scan_bwd_plain(*args, chunk=chunk)
+    for a, a2, w, like in zip(got, again, want, (x, bt, ct, log_a, dt, h0)):
+        if like is None:
+            assert a is None and w is None
+            continue
+        assert a.dtype == w.dtype == like.dtype and a.shape == like.shape
+        assert torch.equal(a, a2)
+        assert bool(torch.isfinite(a).all()) and bool(
+            torch.isfinite(w).all())
+        tol = 1e-2 if a.dtype == torch.bfloat16 else 1e-4
+        top = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= tol * max(
+            top, 1e-30)
+    names = _kernel_names(lambda: tss.ssd_scan_bwd(*args, chunk=chunk),
+                          family="ssd_bwd_")
+    assert len(names) == 3, names
+    for kernel in ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
+                   "ssd_bwd_reduce_kernel"):
+        assert sum(kernel in n for n in names) == 1, names
+
+
+def test_ssd_scan_grad_goes_through_both_kernels(cuda_device):
+    """With an input that requires grad, ``ssd_scan`` on the card runs
+    through ``SsdScan``: one forward and one backward launch, and every
+    gradient (x, B, C, log_a, dt, h0) within 1e-4 of autograd of the plain
+    version, finite at decays past the overflow (one head at A = 16). A
+    ``None`` cotangent of h_last is zero; under ``torch.no_grad`` no
+    backward is recorded."""
+    rng = np.random.default_rng(5)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    b, s, h, p, n = 1, 300, 2, 64, 128
+    log_a, dt = _model_decays(rng, b, s, h, cuda_device)
+    log_a[..., 0] = -16.0 * dt[..., 0]
+    leaves = (f(b, s, h, p), f(b, s, n), f(b, s, n), log_a, dt,
+              f(b, h, p, n))
+    wy = f(b, s, h, p)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in leaves]
+        y, _ = fn(*ins, chunk=128)
+        return torch.autograd.grad((y * wy).sum(), ins)
+    before = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches)
+    got = grads(tss.ssd_scan)
+    torch.cuda.synchronize()
+    assert (tss.ssd_scan.launches - before[0],
+            tss.ssd_scan_bwd.launches - before[1]) == (1, 1)
+    want = grads(tss.ssd_scan_plain)
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        top = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-4 * top
+    with torch.no_grad():
+        y, _ = tss.ssd_scan(*[t.clone().requires_grad_(True)
+                              for t in leaves], chunk=128)
+    assert y.grad_fn is None
+
+
+def test_ssd_scan_under_checkpoint_runs_forward_twice(cuda_device):
+    """``torch.utils.checkpoint`` (non-reentrant, as ``lm.forward``'s
+    remat) around a unit with one SSD scan launches the forward kernel
+    twice (the forward, then the recompute) and the backward once, and the
+    gradient equals the unrematerialised one bitwise."""
+    from torch.utils.checkpoint import checkpoint
+    rng = np.random.default_rng(6)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    b, s, h, p, n = 2, 200, 2, 32, 64
+    log_a, dt = _model_decays(rng, b, s, h, cuda_device)
+    x, bt, ct = f(b, s, h, p), f(b, s, n), f(b, s, n)
+
+    def unit(xx):
+        y, _ = tss.ssd_scan(xx * 2.0, bt, ct, log_a, dt, chunk=64)
+        return (y * y).sum()
+
+    def grad(remat):
+        xx = x.clone().requires_grad_(True)
+        before = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches)
+        loss = (checkpoint(unit, xx, use_reentrant=False) if remat
+                else unit(xx))
+        g, = torch.autograd.grad(loss, xx)
+        torch.cuda.synchronize()
+        return g, (tss.ssd_scan.launches - before[0],
+                   tss.ssd_scan_bwd.launches - before[1])
+    g_remat, n_remat = grad(True)
+    g_plain, n_plain = grad(False)
+    assert n_remat == (2, 1) and n_plain == (1, 1)
+    assert torch.equal(g_remat, g_plain)
+
+
+def test_ssd_fwd_gradient_on_the_card_matches_the_cpu(cuda_device):
+    """``models/ssd.py::ssd_fwd`` (in_proj, conv, the scan through
+    ``SsdScan``, the gated norm, out_proj) at a reduced width with mamba2's
+    chunk of 128, from its own init (one CPU generator) and a unit-RMS
+    input of 256 tokens: the gradient of every parameter and of the input
+    on the card within 1e-4 of each one's max |g| on the CPU, all finite,
+    one forward and one backward SSD launch."""
+    import dataclasses
+    from repro_torch.models import ssd as tssd
+    cfg = dataclasses.replace(ARCHS["mamba2-1.3b"].reduced(), ssm_chunk=128,
+                              ssm_head_dim=64, ssm_state=128)
+    params = tssd.init_ssd(torch.Generator().manual_seed(3), cfg,
+                           torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 256, cfg.d_model), dtype=np.float32))
+
+    def grads(dev):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        xx = x.to(dev).requires_grad_(True)
+        out = tssd.ssd_fwd(p, xx, cfg)
+        g = torch.autograd.grad((out * out).sum(), [*p.values(), xx])
+        return [t.cpu() for t in g]
+    before = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches)
+    got = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert (tss.ssd_scan.launches - before[0],
+            tss.ssd_scan_bwd.launches - before[1]) == (1, 1)
+    want = grads("cpu")
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all()) and bool(
+            torch.isfinite(w).all())
+        top = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-4 * max(top, 1e-30)
+
+
+@pytest.mark.parametrize("name", ["granite-3-2b", "recurrentgemma-9b",
+                                  "mamba2-1.3b"])
 def test_train_steps_on_the_card_match_the_cpu(cuda_device, name):
     """Two ``make_train_step``s of a reduced model (fp32, 2 units; the
-    attention backward and, for recurrentgemma, the RG-LRU backward on the
-    card) from the same weights on the same batches as the CPU: the first
+    attention backward, the RG-LRU backward for recurrentgemma, the SSD
+    backward for mamba2, on the card) from the same weights on the same batches as the CPU: the first
     step's gradients within 1e-4 of each leaf's largest magnitude, both
     steps' losses within 1e-5 relative, finite."""
     from repro_torch.launch import steps as tsteps
@@ -1898,6 +2145,45 @@ def test_stream_capture_error_mode_is_thread_local(cuda_device):
 
     with pytest.raises(RuntimeError):
         svc._capture(host_sync, 8, 8, False)
+
+
+def test_stream_capture_holds_with_a_dropped_service_in_the_garbage(
+        cuda_device):
+    """A dropped streaming service is cyclic garbage that holds captured
+    graphs, and destroying them inside another capture breaks it
+    (``tools/capture_gc.py``). ``_capture`` keeps the cyclic collector off
+    while it captures: a body that collects whenever the collector is on,
+    as an automatic collection may, captures whole and replays with
+    another service's graphs waiting in the garbage; the collector is on
+    again after, and frees that service."""
+    import gc
+    import weakref
+    from repro_torch.core.draws import KeyedDraws
+    dropped = _service(cuda_device, KeyedDraws(5), buckets=(8,))
+    alive = weakref.ref(dropped)
+    del dropped
+    svc = _service(cuda_device, KeyedDraws(4), buckets=(8,))
+    x = torch.arange(8.0, device=cuda_device)
+    out = torch.zeros_like(x)
+    seen = []
+
+    def collects_when_on(_):
+        torch.mul(x, 2.0, out=out)
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+            if gc.isenabled():
+                gc.collect()
+        torch.add(out, 1.0, out=out)
+        return []
+    assert gc.isenabled() and alive() is not None
+    prog = svc._capture(collects_when_on, 8, 8, False)
+    assert seen == [False] and gc.isenabled()
+    out.zero_()
+    prog()
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2.0 * x + 1.0)
+    gc.collect()
+    assert alive() is None
 
 
 # ---------------------------------------------------------------------------

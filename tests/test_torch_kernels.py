@@ -1029,6 +1029,9 @@ def test_cpu_tensors_never_count_launches():
     z = torch.zeros
     tk.WRAPPERS["ssd_scan"](z((1, 5, 2, 8)), z((1, 5, 4)), z((1, 5, 4)),
                             z((1, 5, 2)), z((1, 5, 2)), chunk=16)
+    tk.WRAPPERS["ssd_scan_bwd"](z((1, 5, 2, 8)), z((1, 5, 4)), z((1, 5, 4)),
+                                z((1, 5, 2)), z((1, 5, 2)), None,
+                                z((1, 5, 2, 8)), None, chunk=16)
     tk.WRAPPERS["rglru_scan"](z((1, 5, 8)), z((1, 5, 8)))
     tk.WRAPPERS["rglru_scan_bwd"](z((1, 5, 8)), z((1, 5, 8)), None,
                                   z((1, 5, 8)), z((1, 5, 8)), z((1, 8)))
@@ -1041,5 +1044,6 @@ def test_cpu_tensors_never_count_launches():
                                   "flash_attention": 0,
                                   "flash_attention_bwd": 0,
                                   "ssd_scan": 0,
+                                  "ssd_scan_bwd": 0,
                                   "rglru_scan": 0,
                                   "rglru_scan_bwd": 0}

@@ -56,7 +56,10 @@ def test_port_imports_neither_jax_nor_reference():
                                     "tools/bwd_variants.py",
                                     "tools/fill_variants.py",
                                     "tools/bwd_sm90_variants.py",
-                                    "tools/capture_after_profile.py"])
+                                    "tools/capture_after_profile.py",
+                                    "tools/scan_bwd_variants.py",
+                                    "tools/variant_build.py",
+                                    "tools/capture_gc.py"])
 def test_card_scripts_import_neither_jax_nor_reference(script):
     """The scripts that run the port on the card import no JAX either: the
     machine with the card has none."""

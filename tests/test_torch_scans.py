@@ -250,3 +250,30 @@ def test_scan_wrappers_refuse_other_devices():
                      m(1, 4, 2))
     with pytest.raises(ValueError, match="cpu or cuda"):
         trg.rglru_scan(m(1, 4, 8), m(1, 4, 8))
+
+
+def test_scan_bwd_refuses_other_devices():
+    m = lambda *shape: torch.zeros(shape, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tss.ssd_scan_bwd(m(1, 4, 2, 8), m(1, 4, 8), m(1, 4, 8), m(1, 4, 2),
+                         m(1, 4, 2), None, m(1, 4, 2, 8), None, chunk=16)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        trg.rglru_scan_bwd(m(1, 4, 8), m(1, 4, 8), None, m(1, 4, 8),
+                           m(1, 4, 8), m(1, 8))
+
+
+@pytest.mark.parametrize("variant", ["stores_batched", "stores_in_line",
+                                     "chain_in_line", "gates4", "stages8",
+                                     "no_gate_math", "no_stores"])
+def test_scan_bwd_variant_anchors_occur_once(variant):
+    """``tools/scan_bwd_variants.py`` patches the RG-LRU backward's source
+    at text anchors: each must occur exactly once in the source as it
+    stands, applied in order, or the tool stops on the card."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "variant_build.py"
+    spec = importlib.util.spec_from_file_location("variant_build", path)
+    vb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vb)
+    tool = vb.load("scan_bwd_variants")
+    vb.patched(vb.source_text(tool.SOURCE), tool.PATCHES[variant], variant)

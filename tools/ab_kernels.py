@@ -2,7 +2,8 @@
 """Time the port's timed kernel cases in two checkouts, in turns.
 
     python3 tools/ab_kernels.py --other DIR [--out FILE] [--prefill] [--paths]
-                                [--only attn_bwd | --only attn_bwd_bf16]
+                                [--only attn_bwd | attn_bwd_bf16 |
+                                        rglru_bwd | ssd_bwd]
 
 ``DIR`` is another checkout of this repository (for example the parent
 commit unpacked with ``git archive`` into the ignored ``build/``). Four
@@ -34,7 +35,13 @@ functions:
   chains, K 16, d 768) and ``bench`` (B 4096, K 1024, J 2);
 - ``dueling_select`` ``main`` (the routing batch: B 256, K 16 with 11
   live, d 768), ``bench`` (B 4096, K 1024) and ``serve`` (a RouterService
-  batch: B 4096 over the same 16 slots).
+  batch: B 4096 over the same 16 slots);
+- ``rglru_scan_bwd`` ``main`` (recurrentgemma-9b's training shape: B 1,
+  S 4096, D 4096) and ``bench`` (B 2), from the forward's h;
+- ``ssd_scan_bwd`` ``main`` (mamba2-1.3b's training shape: B 2, S 4096,
+  H 64, P 64, N 128, chunk 128, bf16 column slices, decays drawn as the
+  model draws them) and ``bench`` (B 1, S 32768), where the checkout has
+  it (its ``chip_smoke`` has ``ssd_bwd_case``; absent keys are skipped).
 
 With ``--prefill`` each worker also times mamba2-1.3b's and
 recurrentgemma-9b's ``lm.prefill`` (random bf16 weights, B 2 x 4096
@@ -57,7 +64,8 @@ recurrentgemma-9b's local layer (``recurrentgemma``: B 1, H 16, KV 1,
 S = T 4096, D 256, window 2048) and qwen2-7b's (``qwen2``: B 2, H 28,
 KV 4, S = T 4096, D 128, causal; these three 3 calls a measurement), each
 with SDPA's backward beside it where it computes the same function, its
-plan and its device time by kernel name;
+plan and its device time by kernel name; ``--only rglru_bwd`` and
+``--only ssd_bwd`` time those two families alone;
 ``--worker DIR`` runs one worker on checkout ``DIR`` and prints its
 record. Needs one CUDA card.
 """
@@ -95,6 +103,10 @@ ATTN_BWD_BF16 = {
                                                        calls=3)),
     "qwen2": (2, 28, 4, 4096, 4096, 128, dict(calls=3))}
 RGLRU = {"main": (2, 4096, 4096), "bench": (4, 32768, 4096)}
+RGLRU_BWD = {"main": (1, 4096, 4096), "bench": (2, 4096, 4096)}
+SSD_BWD = {"main": (2, 4096, 64, 64, 128, 128),
+           "bench": (1, 32768, 64, 64, 128, 128)}
+ONLY = ("attn_bwd", "attn_bwd_bf16", "rglru_bwd", "ssd_bwd")
 SELECT = {"main": (256, 16, 768, dict(mask_kind="k", live=11)),
           "bench": (4096, 1024, 768, dict()),
           "serve": (4096, 16, 768, dict(mask_kind="k", live=11))}
@@ -141,6 +153,8 @@ def worker(root: Path, prefill: bool, paths: bool, only: str | None) -> dict:
     _build.build_all()
     out = dict(root=str(root), build_s=time.perf_counter() - t0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if only in ("rglru_bwd", "ssd_bwd"):
+        return dict(out, **scan_bwd(cs, gen, dev, only))
     if only == "attn_bwd_bf16":
         for name, (b, h, kv, s, t, d, kw) in ATTN_BWD_BF16.items():
             r = cs.attn_bwd_case(name, b, h, kv, s, t, d, gen, dev,
@@ -185,6 +199,8 @@ def worker(root: Path, prefill: bool, paths: bool, only: str | None) -> dict:
         out[f"select_{name}"] = dict(
             {k: v for k, v in r.items() if k.endswith(("_ms", "_err"))},
             plan=r.get("plan"))
+    for fam in ("rglru_bwd", "ssd_bwd"):
+        out.update(scan_bwd(cs, gen, dev, fam))
     if prefill:
         out.update(prefill_times(dev))
     if paths:
@@ -197,6 +213,25 @@ def worker(root: Path, prefill: bool, paths: bool, only: str | None) -> dict:
                 ms=run["ms_per_tick"],
                 device_busy_ms=r["profile"]["device_busy_ms_per_tick"],
                 device_idle_share=r["profile"]["device_idle_share"])
+    return out
+
+
+def scan_bwd(cs, gen, dev, family: str) -> dict:
+    """The timed ``rglru_bwd`` or ``ssd_bwd`` cases of checkout ``cs``
+    (empty where its ``chip_smoke`` has no such family)."""
+    out = {}
+    if family == "rglru_bwd":
+        for name, (b, s, d) in RGLRU_BWD.items():
+            r = cs.rglru_bwd_case(name, b, s, d, gen, dev, timed=True)
+            out[f"rglru_bwd_{name}"] = {k: r.get(k) for k in KEYS}
+    elif hasattr(cs, "ssd_bwd_case"):
+        for name, (b, s, h, p, n, c) in SSD_BWD.items():
+            r = cs.ssd_bwd_case(name, b, s, h, p, n, c, gen, dev,
+                                dtype="bfloat16", strided=True,
+                                decay="model", timed=True)
+            out[f"ssd_bwd_{name}"] = dict(
+                {k: r.get(k) for k in KEYS},
+                kernels_us=r.get("device_us_by_kernel"))
     return out
 
 
@@ -251,7 +286,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the records here (JSON)")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--paths", action="store_true")
-    ap.add_argument("--only", choices=["attn_bwd", "attn_bwd_bf16"])
+    ap.add_argument("--only", choices=ONLY)
     ap.add_argument("--worker", help="run one worker on this checkout")
     args = ap.parse_args()
     if args.worker:
@@ -282,17 +317,20 @@ def main() -> int:
         records.append(rec)
         print(json.dumps(rec), flush=True)
     summary = {}
-    for key in records[0]:
-        if isinstance(records[0][key], dict):
-            for f in records[0][key]:
+    keys = list(dict.fromkeys(k for r in records for k in r))
+    for key in keys:
+        first = next(r[key] for r in records if key in r)
+        if isinstance(first, dict):
+            for f in first:
                 if not f.endswith("ms") or f.endswith("bound_ms"):
                     continue
                 summary[f"{key}.{f}"] = {
-                    lab: [r[key][f] for r in records if r["label"] == lab]
+                    lab: [r[key][f] for r in records
+                          if r["label"] == lab and key in r]
                     for lab in ("other", "this")}
         elif key.endswith("_ms"):
             summary[key] = {lab: [r[key] for r in records
-                                  if r["label"] == lab]
+                                  if r["label"] == lab and key in r]
                             for lab in ("other", "this")}
     print(json.dumps({"summary": summary, "card": records[0]["card"]}),
           flush=True)

@@ -30,11 +30,12 @@ power limit. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import variant_build
 
 HERE = Path(__file__).resolve().parents[1]
 SOURCE = "flash_attention_bwd_sm90"
@@ -66,48 +67,6 @@ SHAPES = {
     "seamless_cross": ((2, 16, 16, 4096, 1024, 64), dict(causal=False)),
     "qwen2": ((2, 28, 4, 4096, 4096, 128), dict(causal=True)),
 }
-
-
-def build(names: list[str]) -> dict[str, Path]:
-    """A library per variant, its source patched; one nvcc each, together."""
-    from repro_torch.kernels import _build
-    out_dir = _build.BUILD_DIR.parent / "bwd_sm90_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    base = (_build.CSRC / f"{SOURCE}.cu").read_text()
-    procs = {}
-    for name in names:
-        src = base
-        for anchor, repl in PATCHES[name]:
-            if src.count(anchor) != 1:
-                raise SystemExit(f"bwd_sm90_variants: {name}: anchor found "
-                                 f"{src.count(anchor)} times: {anchor!r}")
-            src = src.replace(anchor, repl)
-        cu = out_dir / f"{SOURCE}_{name}.cu"
-        cu.write_text(src)
-        lib = out_dir / f"lib{SOURCE}_{name}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"bwd_sm90_variants: nvcc failed for {name}:\n"
-                             f"{log.decode()}")
-        libs[name] = lib
-    return libs
-
-
-def install(path: Path) -> None:
-    """Make ``flash_attention_bwd`` launch the library at ``path``."""
-    from repro_torch.kernels import _build
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _build.SIGNATURES[SOURCE].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _build._libs[SOURCE] = lib
 
 
 def timed(dev, dims, kw, check=True) -> dict:
@@ -159,11 +118,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     _build.build_all()
     dev = torch.device("cuda")
-    libs = build(args.variants)
+    libs = variant_build.build("bwd_sm90_variants", SOURCE, PATCHES,
+                               args.variants)
     records = []
     for rnd in range(args.rounds):
         for name, path in libs.items():
-            install(path)
+            variant_build.install(SOURCE, path)
             rec = dict(round=rnd, variant=name)
             for shape, (dims, kw) in SHAPES.items():
                 rec[shape] = timed(dev, dims, kw, name not in KNOCKOUTS)

@@ -37,11 +37,12 @@ power limit. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import variant_build
 
 HERE = Path(__file__).resolve().parents[1]
 
@@ -88,17 +89,17 @@ PATCHES = {
         ("  auto issue = [&](int step) {\n"
          "    const int h = head_of(step), i0 = row_of(step);\n"
          "    const long long bh = (long long)b * a.H + h;\n"
-         "    load_rows<DP, kBlock>(Qs, ",
+         "    stage_rows<DP, kBlock>(Qs, ",
          "  auto issue = [&](int step, int stage = 0) {\n"
          "    const int h = head_of(step), i0 = row_of(step);\n"
          "    const long long bh = (long long)b * a.H + h;\n"
-         "    load_rows<DP, kBlock>(stage ? Q1 : Qs, "),
-        ("    load_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1], a.st.g[2],\n"
-         "                          i0, BQ, a.S, a.dim, 0, a.vec);\n"
+         "    stage_rows<DP, kBlock>(stage ? Q1 : Qs, "),
+        ("    stage_rows<DP, kBlock>(Gs, a.g + b * a.st.g[0] + h * a.st.g[1],\n"
+         "                           a.st.g[2], i0, BQ, a.S, a.dim, a.vec);\n"
          "    load_col<kBlock>(Ls, a.lse + bh * a.S, i0, BQ, a.S);\n"
          "    if (!FUSED) load_col<kBlock>(Es, a.delta + bh * a.S, i0, BQ, a.S);\n",
-         "    load_rows<DP, kBlock>(stage ? G1 : Gs, a.g + b * a.st.g[0] + h * a.st.g[1],\n"
-         "                          a.st.g[2], i0, BQ, a.S, a.dim, 0, a.vec);\n"
+         "    stage_rows<DP, kBlock>(stage ? G1 : Gs, a.g + b * a.st.g[0] + h * a.st.g[1],\n"
+         "                           a.st.g[2], i0, BQ, a.S, a.dim, a.vec);\n"
          "    load_col<kBlock>(stage ? L1 : Ls, a.lse + bh * a.S, i0, BQ, a.S);\n"
          "    if (!FUSED)\n"
          "      load_col<kBlock>(stage ? E1 : Es, a.delta + bh * a.S, i0, BQ, a.S);\n"),
@@ -149,48 +150,6 @@ LONG = {"bench": ((1, 28, 4, 2048, 2048, 128), dict(causal=True)),
 PART_STEPS = (4, 8, 16, 32, 64, 128, 256, UNCUT)
 
 
-def build(names: list[str]) -> dict[str, Path]:
-    """A library per variant, its source patched; one nvcc each, together."""
-    from repro_torch.kernels import _build
-    out_dir = _build.BUILD_DIR.parent / "bwd_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    base = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    procs = {}
-    for name in names:
-        src = base
-        for anchor, repl in PATCHES[name]:
-            if src.count(anchor) != 1:
-                raise SystemExit(f"bwd_variants: {name}: anchor found "
-                                 f"{src.count(anchor)} times: {anchor!r}")
-            src = src.replace(anchor, repl)
-        cu = out_dir / f"flash_attention_bwd_{name}.cu"
-        cu.write_text(src)
-        lib = out_dir / f"libflash_attention_bwd_{name}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"bwd_variants: nvcc failed for {name}:\n"
-                             f"{log.decode()}")
-        libs[name] = lib
-    return libs
-
-
-def install(path: Path) -> None:
-    """Make ``flash_attention_bwd`` launch the library at ``path``."""
-    from repro_torch.kernels import _build
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _build.SIGNATURES["flash_attention_bwd"].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _build._libs["flash_attention_bwd"] = lib
-
-
 def timed(dev, dims, kw, cfg=None, steps_per_part=None, check=True) -> dict:
     """One shape under the plan, or the configuration and part length
     forced: its plan, device us per call by kernel name and in all, and
@@ -229,11 +188,12 @@ def timed(dev, dims, kw, cfg=None, steps_per_part=None, check=True) -> dict:
 
 
 def variants(dev, names, rounds) -> list[dict]:
-    libs = build(names)
+    libs = variant_build.build("bwd_variants", "flash_attention_bwd", PATCHES,
+                               names)
     records = []
     for rnd in range(rounds):
         for name, path in libs.items():
-            install(path)
+            variant_build.install("flash_attention_bwd", path)
             rec = dict(round=rnd, variant=name)
             for shape, (dims, kw, cfg, whole) in SHAPES.items():
                 rec[shape] = timed(dev, dims, kw, cfg,

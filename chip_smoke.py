@@ -104,17 +104,20 @@ in each line's ``wall_s``):
    at 1e-5 of each gradient's max (B 1 and 2, S 4096, D 4096, timed
    against the plain reverse loop; h0, D 98, S 1, a channel with log_a = 0
    and its non-finite values), each case's kernel checked by profiler
-   name. The ssd_bwd family holds ``ssd_scan_bwd``
-   (``csrc/ssd_scan_bwd.cu``) to ``ssd_scan_bwd_plain``: fp32 gradients
-   within 1e-4 of each one's max |g|, bf16-rounded ones within 1e-2,
-   all finite, repeated bitwise, its three kernels by profiler name, on
-   the reference's three test shapes, a ragged S with h0 (bf16 strided and
-   fp32), S < chunk at P 48, S 1, mamba2-1.3b's training shape (``main``:
-   B 2, S 4096, bf16 column slices) and B 1 x S 32768 (``bench``), the
-   decays drawn as the model draws them (chunks past a mean |log_a| of 1,
-   where the reference's gradient overflows); and a grad-requiring
-   ``ssd_scan`` input runs one forward and one backward launch with
-   finite gradients equal to plain autograd's.
+   name. The ssd_bwd family holds ``ssd_scan_bwd`` to
+   ``ssd_scan_bwd_plain``: fp32 gradients within 1e-4 of each one's max
+   |g|, bf16-rounded ones within 1e-2, all finite, repeated bitwise, each
+   case's route by profiler name (bf16 at P 64, N 128, chunk 128: the six
+   kernels of ``csrc/ssd_scan_bwd_sm90.cu``; fp32 and other shapes: the
+   three of ``csrc/ssd_scan_bwd.cu``), on the reference's three test
+   shapes, a ragged S with h0 (bf16 strided and fp32), 20 heads (a ragged
+   head group), S < chunk at P 48, S 1, mamba2-1.3b's training shape
+   (``main``: B 2, S 4096, bf16 column slices) and B 1 x S 32768
+   (``bench``), the decays drawn as the model draws them (chunks past a
+   mean |log_a| of 1, where the reference's gradient overflows);
+   misaligned bf16 slices are refused; and a grad-requiring ``ssd_scan``
+   input runs one forward and one backward launch with finite gradients
+   equal to plain autograd's.
 2. paths, at full width (B = 256, T = H = 4096: 16 ticks, 20 SGLD steps,
    8 chains, minibatch 64):
    - slice: ``env.run`` with the FGTS.CDB policy on a pooled ``ModelPool``
@@ -231,7 +234,8 @@ in each line's ``wall_s``):
      own; granite-3-2b's loss and gradients under the bf16 attention
      backward's Hopper design against the same step forced to Large (the
      SIMT kernels): equal losses, every leaf within 2e-2 of its max;
-     mamba2-1.3b at full depth (B 2 x 4096) through the SSD backward.
+     mamba2-1.3b at full depth (B 2 x 4096) through the SSD backward,
+     whose Hopper kernels its profile must show by name.
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
    versions) from one numpy-made draw set, for the FGTS slice, for the
    autopilot (a control tick every 2 acts) and for the ccft path (whose
@@ -1479,6 +1483,10 @@ def rglru_bwd_cases(gen, dev):
 SSD_BWD_TOL, SSD_BWD_BF16_TOL = 1e-4, 1e-2
 SSD_BWD_KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
                    "ssd_bwd_reduce_kernel")
+# the Hopper route's kernels (bf16 at P 64, N 128, chunk 128)
+SSD_BWD_SM90_KERNELS = ("ssd_bwd_cb_sm90", "ssd_bwd_states_sm90",
+                        "ssd_bwd_dc_sm90", "ssd_bwd_dx_sm90",
+                        "ssd_bwd_reduce_sm90")
 
 
 def model_decays(b, s, h, gen, dev):
@@ -1531,12 +1539,16 @@ def max_chunk_decay(log_a, chunk):
 
 
 def ssd_bwd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
-                 h0=False, strided=False, decay="ref", timed=False):
-    """``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against its plain
-    version ``ssd_scan_bwd_plain`` on the same inputs: every gradient
-    finite and within ``SSD_BWD_TOL`` of its max |g| (``SSD_BWD_BF16_TOL``
-    for the bf16-rounded dx, dB, dC), a second call bitwise equal, one
-    counted launch, and its three kernels by profiler name. Timed cases add
+                 h0=False, strided=False, decay="ref", timed=False,
+                 sm90=None):
+    """``ssd_scan_bwd`` against its plain version ``ssd_scan_bwd_plain`` on
+    the same inputs: every gradient finite and within ``SSD_BWD_TOL`` of
+    its max |g| (``SSD_BWD_BF16_TOL`` for the bf16-rounded dx, dB, dC), a
+    second call bitwise equal, one counted launch, and the route's kernels
+    by profiler name: ``sm90`` (None: by ``ssd_scan.uses_sm90``) the
+    Hopper kernels ``SSD_BWD_SM90_KERNELS`` (``csrc/ssd_scan_bwd_sm90.cu``)
+    and none of the first design's, else the first design's three
+    (``csrc/ssd_scan_bwd.cu``) and none of the Hopper's. Timed cases add
     call and device ms (by kernel) and the bound: the operations the
     gradient needs, per (batch, head, chunk) of l live steps 2 l (l + 1)
     (P + N) for the causal L x L products (dy x^T and W^T dy over P, dCB B
@@ -1586,10 +1598,16 @@ def ssd_bwd_case(name, b, s, h, p, n, chunk, gen, dev, *, dtype="float32",
     del got, again, want
     kern = lambda: ss.ssd_scan_bwd(*args, chunk=chunk)
     split = device_split(kern, calls=5 if timed else 1)
-    check(split is not None and all(any(k in key for key in split)
-                                    for k in SSD_BWD_KERNELS),
-          f"ssd_bwd {name}: the profile lacks a kernel of {SSD_BWD_KERNELS}: "
-          f"{split}")
+    if sm90 is None:
+        sm90 = ss.uses_sm90(args[0].dtype, p, n, chunk)
+    want, other = ((SSD_BWD_SM90_KERNELS, SSD_BWD_KERNELS) if sm90
+                   else (SSD_BWD_KERNELS, SSD_BWD_SM90_KERNELS))
+    check(split is not None
+          and all(any(k in key for key in split) for k in want)
+          and not any(k in key for key in split for k in other),
+          f"ssd_bwd {name}: want the kernels {want} and none of {other}, "
+          f"profiled {split}")
+    out["kernel"] = "sm90" if sm90 else "simt"
     if timed:
         lens = [min(chunk, s - c) for c in range(0, s, chunk)]
         bf16 = dtype == "bfloat16"
@@ -1629,23 +1647,58 @@ def ssd_bwd_cases(gen, dev):
                (2, 96, 8, 64, 128, 32, True)])]
     out += [
         ssd_bwd_case("ragged_h0_model_bf16", 2, 300, 8, 64, 128, 128, gen,
-                     dev, h0=True, strided=True, decay="model", **bf),
+                     dev, h0=True, strided=True, decay="model", sm90=True,
+                     **bf),
         ssd_bwd_case("ragged_h0_model_fp32", 2, 300, 8, 64, 128, 128, gen,
-                     dev, h0=True, decay="model"),
+                     dev, h0=True, decay="model", sm90=False),
+        ssd_bwd_case("ragged_groups_h0_bf16", 1, 700, 20, 64, 128, 128, gen,
+                     dev, h0=True, strided=True, decay="model", sm90=True,
+                     **bf),
         ssd_bwd_case("p48_s_below_chunk_bf16", 1, 50, 2, 48, 16, 128, gen,
-                     dev, **bf),
-        ssd_bwd_case("s1_h0", 2, 1, 3, 64, 128, 128, gen, dev, h0=True),
+                     dev, sm90=False, **bf),
+        ssd_bwd_case("s1_h0", 2, 1, 3, 64, 128, 128, gen, dev, h0=True,
+                     sm90=False),
+        ssd_bwd_case("s1_h0_bf16", 2, 1, 3, 64, 128, 128, gen, dev, h0=True,
+                     strided=True, sm90=True, **bf),
         ssd_bwd_case("main", 2, 4096, 64, 64, 128, 128, gen, dev,
-                     strided=True, decay="model", timed=True, **bf),
+                     strided=True, decay="model", timed=True, sm90=True,
+                     **bf),
         ssd_bwd_case("bench", 1, 32768, 64, 64, 128, 128, gen, dev,
-                     strided=True, decay="model", timed=True, **bf),
+                     strided=True, decay="model", timed=True, sm90=True,
+                     **bf),
     ]
     main = next(r for r in out if r["case"] == "main")
     check(main["max_chunk_mean_abs_log_a"] > 1.0,
           f"ssd_bwd main: no chunk in the overflow regime "
           f"({main['max_chunk_mean_abs_log_a']})")
     out.append(dict(case="autograd", **ssd_grad_check(dev, gen)))
+    ssd_bwd_refuses_misaligned(dev)
     return out
+
+
+def ssd_bwd_refuses_misaligned(dev):
+    """The Hopper backward loads bf16 x, B and C through TMA, as the
+    forward does: slices one element off a 16-byte boundary, or with a row
+    stride that is not a multiple of 8 elements, raise ValueError and
+    launch nothing."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    b, s, h, p, n = 1, 64, 2, 64, 128
+    width = h * p + 2 * n
+    xbc = torch.zeros((b, s, width + 4), device=dev, dtype=torch.bfloat16)
+    dt = torch.ones((b, s, h), device=dev)
+    dy = torch.zeros((b, s, h, p), device=dev)
+    before, refused = ss.ssd_scan_bwd.launches, 0
+    for t in (xbc[..., 1:1 + width], xbc[..., :width]):
+        x = t[..., :h * p].unflatten(-1, (h, p))
+        try:
+            ss.ssd_scan_bwd(x, t[..., h * p:h * p + n], t[..., h * p + n:],
+                            -0.1 * dt, dt, None, dy, None)
+        except ValueError:
+            refused += 1
+    check(refused == 2 and ss.ssd_scan_bwd.launches == before,
+          "ssd_bwd: a misaligned bf16 slice was not refused")
+    return refused
 
 
 def ssd_grad_check(dev, gen):
@@ -1999,18 +2052,23 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
     kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
     busy_ms = sum(us for _, us, _ in kern) / 1e3 / ticks
     launches = sum(n for _, _, n in kern) / ticks
-    by_group = n_group = None
+    by_group = n_group = names = None
     if groups:
         by_group = dict.fromkeys([*groups, "other"], 0.0)
         n_group = dict.fromkeys([*groups, "other"], 0.0)
+        names = {g: set() for g in (*groups, "other")}
         for key, us, n in kern:
             g = next((g for g, subs in groups.items()
                       if any(x in key for x in subs)), "other")
             by_group[g] += us / 1e3 / ticks
             n_group[g] += n / ticks
+            names[g].add(key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0])
+        names = {g: sorted(v) for g, v in names.items()}
     return dict(ticks=ticks, profiled_ms_per_tick=wall_ms / ticks,
                 device_ms_per_tick_by_group=by_group,
                 device_kernels_per_tick_by_group=n_group,
+                kernel_names_by_group=names,
                 unprofiled_ms_per_tick=ms_per_tick,
                 device_busy_ms_per_tick=busy_ms,
                 device_idle_share=1.0 - busy_ms / ms_per_tick,
@@ -3953,6 +4011,8 @@ TRAIN_GROUPS = {
 # the model whose training step is run once more with the bf16 attention
 # backward forced to the SIMT kernels' Large configuration
 BWD_DESIGN_CHECK = "granite-3-2b"
+# the models whose training step must run the SSD backward's Hopper kernels
+SSD_BWD_SM90_CHECK = ("mamba2-1.3b",)
 
 
 def bwd_design_check(params, batch, cfg):
@@ -4068,6 +4128,15 @@ def phase_lm_train(dev, seed):
             lambda n: adamw_update_(params, grads[-1], opt, 3e-4,
                                     weight_decay=0.1), step_ms, ticks=1)
         del grads
+        ssd_names = None
+        if name in SSD_BWD_SM90_CHECK:
+            ssd_names = fwd_bwd["kernel_names_by_group"]["ssd"]
+            check(all(any(k in key for key in ssd_names)
+                      for k in SSD_BWD_SM90_KERNELS)
+                  and not any(k in key for key in ssd_names
+                              for k in SSD_BWD_KERNELS),
+                  f"lm_train {name}: the SSD group ran {ssd_names}, want "
+                  f"the Hopper backward {SSD_BWD_SM90_KERNELS}")
         design = (bwd_design_check(params, b_last, cfg)
                   if name == BWD_DESIGN_CHECK else None)
         busy = (fwd_bwd["device_busy_ms_per_tick"]
@@ -4104,6 +4173,8 @@ def phase_lm_train(dev, seed):
             launches=counts)
         if design:
             out[name]["bwd_design_check"] = design
+        if ssd_names:
+            out[name]["ssd_kernels"] = ssd_names
         del params, opt, batches, b_last, leaves, step
         torch.cuda.empty_cache()
     return out
@@ -4385,7 +4456,7 @@ KERNELS = [
      "none: gradient of src/repro/models/rglru.py::linear_scan "
      "(lax.associative_scan), which the reference takes by XLA autodiff",
      "rglru_bwd", "", "lm_train:recurrentgemma-9b", "rglru_scan_bwd"),
-    ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+    ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd_sm90.cu",
      "none: gradient of _ssd_kernel (src/repro/kernels/ssd_scan.py:109), "
      "which the reference takes by XLA autodiff of "
      "src/repro/models/ssd.py::ssd_chunked", "ssd_bwd", "",

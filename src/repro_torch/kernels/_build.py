@@ -105,6 +105,13 @@ SIGNATURES = {
         "ssd_scan_bwd_launch": [*[P] * 18, I, I, I, I, I, I, *[L] * 13, I,
                                 P],
     },
+    "ssd_scan_bwd_sm90": {
+        # bf16 x, bt, ct, fp32 log_a, dt, h0, dy, dh_last, dx, dbt, dct,
+        # dlog_a, ddt, dh0, the cb, H, dH and dy pieces, <H, dH>, row-term
+        # and dC, dB partials scratches, B, S, H, heads a group, the 13
+        # strides, stream; bf16 at P 64, N 128, chunk 128
+        "ssd_scan_bwd_sm90_launch": [*[P] * 22, I, I, I, I, *[L] * 13, P],
+    },
     "rglru_scan": {
         # log_a, x, h0, h, h_last, B, S, D, stream
         "rglru_scan_launch": [P, P, P, P, P, I, I, I, P],

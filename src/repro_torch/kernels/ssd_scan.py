@@ -41,10 +41,15 @@ One wrapper call counts one launch, whichever kernels it runs.
 
 Gradients: with grad mode on and an input that requires grad, a CUDA call
 runs through ``SsdScan``, an ``autograd.Function`` whose forward is the
-kernel above and whose backward is ``ssd_scan_bwd`` (``csrc/
-ssd_scan_bwd.cu``: the chunk states forwards and their gradients
-backwards, then a block per (batch, chunk, head), then dB and dC summed
-over the heads in order; deterministic). It replaces no TPU kernel: the
+kernel above and whose backward is ``ssd_scan_bwd``, chosen by the same
+rule: bf16 at P 64, N 128, chunk 128 takes ``csrc/ssd_scan_bwd_sm90.cu``
+(C.B^T once per (batch, chunk), the chunk states both ways on wgmma, then
+a block per (batch, chunk, group of heads) for dC and one for dB, dx and
+dlog_a, dB and dC summed over each group's heads in registers and over
+the groups in order); everything else ``csrc/ssd_scan_bwd.cu`` (the
+states on the CUDA cores, a block per (batch, chunk, head), dB and dC
+summed over the heads in order). Both are deterministic. It replaces no
+TPU kernel: the
 reference trains through XLA's autodiff of ``repro/models/ssd.py::
 ssd_chunked``, and this is that gradient, with one departure: the
 reference forms exp(cum_i - cum_j) above the diagonal too and masks the
@@ -68,6 +73,7 @@ MAX_CHUNK = 128         # the kernel's shared-memory tiles
 MAX_STATE = 128
 DTYPES = (torch.float32, torch.bfloat16)
 SM90_TILE = (64, 128, 128)   # (P, N, chunk) of the bf16 Hopper kernels
+SM90_BWD_GROUP = 16          # heads a block of the Hopper backward's chunk kernels
 
 
 def uses_sm90(dtype, p: int, n: int, chunk: int) -> bool:
@@ -301,13 +307,20 @@ def ssd_scan_bwd(x: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor,
                  chunk: int = DEFAULT_CHUNK):
     """(dx, dB, dC, dlog_a, ddt, dh0 or None) of ``ssd_scan`` (see
     ``ssd_scan_bwd_plain``). CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/ssd_scan_bwd.cu`` (three kernels) and count one
-    launch in ``ssd_scan_bwd.launches``. It takes every input the forward
-    takes (fp32 or bf16 x/B/C through their strides, chunks of 16 to 128,
-    N <= 128, ragged S, h0) and raises ``ValueError`` for the rest before
-    any launch. Scratch on the card: the chunk states and their gradients,
-    2 x B * ceil(S / chunk) * H * P * N fp32, and each head's dB and dC,
-    2 x B * S * H * N fp32 (810 MB at mamba2-1.3b's B 2, S 4096)."""
+    tensors launch, by ``uses_sm90``, ``csrc/ssd_scan_bwd_sm90.cu`` (bf16
+    at P 64, N 128, chunk 128; six kernels; x, B and C must meet the TMA
+    rule, else ``ValueError``) or ``csrc/ssd_scan_bwd.cu`` (three kernels),
+    and count one launch in ``ssd_scan_bwd.launches``. It takes every input
+    the forward takes (fp32 or bf16 x/B/C through their strides, chunks of
+    16 to 128, N <= 128, ragged S, h0) and raises ``ValueError`` for the
+    rest before any launch. Scratch on the card, with nc = ceil(S / chunk):
+    the Hopper kernels keep the chunk-entry states, their gradients and dy
+    as three bf16 pieces each, 3 x 3 x B * nc * H * 128 * 64 bf16, C.B^T
+    twice, 2 x B * nc * 128 * 128 fp32, and dB and dC per group of
+    ``SM90_BWD_GROUP`` heads, 2 x B * S * ceil(H / 16) * N fp32 (603, 8
+    and 34 MB at mamba2-1.3b's B 2, S 4096); the first design the states
+    and their gradients, 2 x B * nc * H * P * N fp32, and each head's dB
+    and dC, 2 x B * S * H * N fp32."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, bt, ct, log_a, dt, h0, dy, dh_last,
                                   chunk=chunk)
@@ -327,9 +340,16 @@ def ssd_scan_bwd(x: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor,
                             for t in (x, bt, ct, log_a, dt))
     h0, dy, dh_last = (None if t is None else t.contiguous()
                        for t in (h0, dy, dh_last))
+    sm90 = uses_sm90(x.dtype, p, n, chunk)
     outer = []
-    for t, axes in ((x, 3), (bt, 2), (ct, 2)):
-        outer += _outer_strides(t, False, axes)
+    for name, t, axes in (("x", x, 3), ("bt", bt, 2), ("ct", ct, 2)):
+        if sm90:
+            _check_tma(name, t, axes)
+        outer += _outer_strides(t, sm90, axes)
+    if sm90 and dy.data_ptr() % 16:
+        # TMA reads dy from a 16-byte aligned address: an offset view of an
+        # upstream gradient is copied, not refused
+        dy = torch.empty_like(dy).copy_(dy)
     L = ctypes.c_longlong
     strides = [L(st) for st in (*outer, *log_a.stride()[:3],
                                 *dt.stride()[:3])]
@@ -341,10 +361,29 @@ def ssd_scan_bwd(x: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor,
     dla = torch.empty((b, s, h), dtype=f32, device=dev)
     ddt = torch.empty((b, s, h), dtype=f32, device=dev)
     dh0 = None if h0 is None else torch.empty_like(h0)
+    P = _build.ptr
+    if sm90:
+        groups = -(-h // SM90_BWD_GROUP)
+        cb = torch.empty((2, b, nc, chunk, chunk), dtype=f32, device=dev)
+        pieces = torch.empty((3, b, nc, h, 3, chunk, p), dtype=torch.bfloat16,
+                             device=dev)
+        hd = torch.empty((b, nc, h), dtype=f32, device=dev)
+        rows = torch.empty((b, s, h), dtype=f32, device=dev)
+        parts = torch.empty((2, b, groups, s, n), dtype=f32, device=dev)
+        lib = _build.library("ssd_scan_bwd_sm90")
+        with torch.cuda.device(dev):
+            code = lib.ssd_scan_bwd_sm90_launch(
+                P(x), P(bt), P(ct), P(log_a), P(dt), P(h0), P(dy),
+                P(dh_last), P(dx), P(dbt), P(dct), P(dla), P(ddt), P(dh0),
+                P(cb), P(pieces[0]), P(pieces[1]), P(pieces[2]), P(hd),
+                P(rows), P(parts[0]), P(parts[1]), b, s, h, SM90_BWD_GROUP,
+                *strides, _build.stream(dev))
+        _build.check(code, "ssd_scan_bwd")
+        ssd_scan_bwd.launches += 1
+        return dx, dbt, dct, dla, ddt, dh0
     states = torch.empty((2, b, nc, h, p, n), dtype=f32, device=dev)
     parts = torch.empty((2, b, s, h, n), dtype=f32, device=dev)
     lib = _build.library("ssd_scan_bwd")
-    P = _build.ptr
     with torch.cuda.device(dev):
         code = lib.ssd_scan_bwd_launch(
             P(x), P(bt), P(ct), P(log_a), P(dt), P(h0), P(dy), P(dh_last),

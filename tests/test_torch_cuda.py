@@ -1314,13 +1314,15 @@ SSD_BWD_CASES = [
 @pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,decay", SSD_BWD_CASES)
 def test_ssd_scan_bwd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
                                            with_h0, decay, dtype):
-    """``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against
-    ``ssd_scan_bwd_plain`` on the same inputs, x, B and C as column slices
-    of one (B,S,H*P+2N) tensor in ``dtype``: every gradient finite, fp32
-    ones within 1e-4 of their max |g|, the bf16-rounded dx, dB, dC within
-    1e-2, a second call bitwise equal, one counted launch of its three
-    kernels (by profiler name); decays as the reference's test draws them
-    or as mamba2-1.3b's init does (the overflow regime)."""
+    """``ssd_scan_bwd`` against ``ssd_scan_bwd_plain`` on the same inputs,
+    x, B and C as column slices of one (B,S,H*P+2N) tensor in ``dtype``:
+    every gradient finite, fp32 ones within 1e-4 of their max |g|, the
+    bf16-rounded dx, dB, dC within 1e-2, a second call bitwise equal, one
+    counted launch of the route's kernels by profiler name (bf16 at P 64,
+    N 128, chunk 128: the five of ``csrc/ssd_scan_bwd_sm90.cu``, the
+    states kernel twice; else the three of ``csrc/ssd_scan_bwd.cu``);
+    decays as the reference's test draws them or as mamba2-1.3b's init
+    does (the overflow regime)."""
     rng = np.random.default_rng(s + p + n + chunk)
     f = lambda *shape: torch.from_numpy(rng.standard_normal(
         shape, dtype=np.float32)).to(cuda_device)
@@ -1354,10 +1356,60 @@ def test_ssd_scan_bwd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
             top, 1e-30)
     names = _kernel_names(lambda: tss.ssd_scan_bwd(*args, chunk=chunk),
                           family="ssd_bwd_")
-    assert len(names) == 3, names
-    for kernel in ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
-                   "ssd_bwd_reduce_kernel"):
-        assert sum(kernel in n for n in names) == 1, names
+    if tss.uses_sm90(dtype, p, n, chunk):
+        want = {"ssd_bwd_cb_sm90": 1, "ssd_bwd_states_sm90": 2,
+                "ssd_bwd_dc_sm90": 1, "ssd_bwd_dx_sm90": 1,
+                "ssd_bwd_reduce_sm90": 1}
+    else:
+        want = {"ssd_bwd_states_kernel": 1, "ssd_bwd_chunk_kernel": 1,
+                "ssd_bwd_reduce_kernel": 1}
+    assert len(names) == sum(want.values()), names
+    for kernel, count in want.items():
+        assert sum(kernel in n for n in names) == count, names
+
+
+@pytest.mark.parametrize("b,s,h,with_h0", [
+    (1, 700, 20, True),     # 6 chunks, head groups of 16 and 4
+    (2, 260, 3, False),     # one ragged group, a ragged last chunk
+])
+def test_ssd_scan_bwd_hopper_route_matches_plain(cuda_device, b, s, h,
+                                                 with_h0):
+    """The Hopper backward (``csrc/ssd_scan_bwd_sm90.cu``) at mamba2-1.3b's
+    P 64, N 128, chunk 128 in bf16, at a reduced S and H with ragged head
+    groups: against ``ssd_scan_bwd_plain`` (fp32 gradients to 1e-4 of
+    their max, bf16 ones to 1e-2), finite, and a second call bitwise
+    equal; a slice one element off TMA's 16-byte rule raises
+    ``ValueError`` and launches nothing."""
+    p, n = 64, 128
+    rng = np.random.default_rng(s + h)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+    xbc = f(b, s, h * p + 2 * n + 8).to(torch.bfloat16)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bt, ct = xbc[..., h * p:h * p + n], xbc[..., h * p + n:h * p + 2 * n]
+    log_a, dt = _model_decays(rng, b, s, h, cuda_device)
+    h0 = f(b, h, p, n) if with_h0 else None
+    args = (x, bt, ct, log_a, dt, h0, f(b, s, h, p), f(b, h, p, n))
+    assert tss.uses_sm90(x.dtype, p, n, 128)
+    got = tss.ssd_scan_bwd(*args, chunk=128)
+    again = tss.ssd_scan_bwd(*args, chunk=128)
+    want = tss.ssd_scan_bwd_plain(*args, chunk=128)
+    for a, a2, w in zip(got, again, want):
+        if w is None:
+            assert a is None
+            continue
+        assert torch.equal(a, a2)
+        assert bool(torch.isfinite(a).all())
+        tol = 1e-2 if a.dtype == torch.bfloat16 else 1e-4
+        top = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= tol * top
+    off = xbc[..., 1:1 + h * p + 2 * n]
+    before = tss.ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="TMA"):
+        tss.ssd_scan_bwd(off[..., :h * p].reshape(b, s, h, p),
+                         off[..., h * p:h * p + n], off[..., h * p + n:],
+                         *args[3:], chunk=128)
+    assert tss.ssd_scan_bwd.launches == before
 
 
 def test_ssd_scan_grad_goes_through_both_kernels(cuda_device):

@@ -58,6 +58,7 @@ def test_port_imports_neither_jax_nor_reference():
                                     "tools/bwd_sm90_variants.py",
                                     "tools/capture_after_profile.py",
                                     "tools/scan_bwd_variants.py",
+                                    "tools/ssd_bwd_variants.py",
                                     "tools/variant_build.py",
                                     "tools/capture_gc.py"])
 def test_card_scripts_import_neither_jax_nor_reference(script):

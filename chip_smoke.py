@@ -788,7 +788,7 @@ LIB_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
 
 def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
               causal=True, window=0, cap=0.0, strided=False, unaligned=False,
-              timed=False):
+              timed=False, plain_calls=20):
     """One ``flash_attention`` case against the plain version on the card:
     |kernel - plain| <= atol + rtol * |plain| elementwise (fp32 2e-5, bf16
     2e-2). ``strided`` passes q, k, v as ``transpose(1, 2)`` views of
@@ -800,7 +800,8 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
     soft cap is set, the time of ``scaled_dot_product_attention`` on the
     same inputs as the library yardstick (within ``LIB_TOL`` of the kernel:
     the same function), with a window as a dense boolean mask from
-    ``live_mask``."""
+    ``live_mask``. ``plain_calls`` cuts the plain version's timed calls
+    where each takes tens of milliseconds."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
@@ -847,9 +848,10 @@ def attn_case(name, b, h, kv, s, t, d, gen, dev, *, dtype="float32",
         peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
         kern = lambda: fa.flash_attention(q, k, v, **kw)
         plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
-        out["ms"], out["plain_ms"] = time_ms(kern), time_ms(plain)
-        out["device_ms"], out["plain_device_ms"] = (device_ms(kern),
-                                                    device_ms(plain))
+        out["ms"] = time_ms(kern)
+        out["plain_ms"] = time_ms(plain, calls=plain_calls)
+        out["device_ms"] = device_ms(kern)
+        out["plain_device_ms"] = device_ms(plain, calls=plain_calls)
         out["bound_ms"], out["bound_by"] = bound(
             nbytes, 4.0 * b * h * live * d, peak)
         out["library_ms"] = None
@@ -925,13 +927,23 @@ def attn_cases(gen, dev):
         # the encoder's attention at the ccft path's batch: EncoderConfig()
         attn_case("main", 256, 4, 4, 64, 64, 64, gen, dev, causal=False,
                   timed=True),
+        # the paper examples' encoder (d 128 over 4 heads) at a fine-tuning
+        # side's 64 queries, and at mixinstruct's encode of its kept queries
+        attn_case("examples_d32", 64, 4, 4, 32, 32, 32, gen, dev,
+                  causal=False, timed=True),
+        attn_case("examples_d32_encode", 148, 4, 4, 32, 32, 32, gen, dev,
+                  causal=False),
         # qwen2-7b's heads
         attn_case("bench", 1, 28, 4, 2048, 2048, 128, gen, dev, timed=True),
         attn_case("qwen2_bf16", 1, 28, 4, 2048, 2048, 128, gen, dev,
                   timed=True, **bf),
-        # gemma2-9b's heads: soft cap, and a window that bites
+        # gemma2-9b's heads at the lm path's prefill (B 1 x 8192): soft
+        # cap, and in the local layers a window that bites
         attn_case("gemma2_bf16", 1, 16, 8, 8192, 8192, 256, gen, dev,
-                  window=4096, cap=50.0, **bf),
+                  window=4096, cap=50.0, timed=True, strided=True,
+                  plain_calls=2, **bf),
+        attn_case("gemma2_global_bf16", 1, 16, 8, 8192, 8192, 256, gen, dev,
+                  cap=50.0, timed=True, strided=True, plain_calls=2, **bf),
         # recurrentgemma-9b's local layers at the lm path's prefill
         attn_case("recurrentgemma_bf16", 2, 16, 1, 4096, 4096, 256, gen, dev,
                   window=2048, timed=True, **bf),
@@ -956,6 +968,15 @@ def attn_cases(gen, dev):
                   causal=False, timed=True, strided=True, **bf),
         attn_case("cross_ragged_bf16", 2, 16, 16, 333, 1000, 64, gen, dev,
                   causal=False, strided=True, **bf),
+        # the dense models' layers at the lm path's prefill (B 2 x 4096):
+        # granite-3-2b, qwen2-7b (7 query heads a kv head) and
+        # mistral-large-123b (12)
+        attn_case("granite_3_2b_bf16", 2, 32, 8, 4096, 4096, 64, gen, dev,
+                  timed=True, strided=True, plain_calls=2, **bf),
+        attn_case("qwen2_7b_bf16", 2, 28, 4, 4096, 4096, 128, gen, dev,
+                  timed=True, strided=True, plain_calls=2, **bf),
+        attn_case("mistral_bf16", 2, 96, 8, 4096, 4096, 128, gen, dev,
+                  timed=True, strided=True, plain_calls=2, **bf),
     ]
     return cases
 
@@ -1838,6 +1859,12 @@ def phase_kernels(dev, seed):
         select_case("duplicate_arms_first_index_large", 256, 16, 768, gen,
                     dev, distinct=False, dup=True, cfg=1),
         select_case("k1_large", 64, 1, 768, gen, dev, cfg=1),
+        # the paper examples' act: one query over the 11 models, d 142
+        # (quickstart: 128 features, the ones and the metadata) and 128
+        # (mixinstruct)
+        select_case("examples_quickstart", 1, 11, 142, gen, dev,
+                    timed=True),
+        select_case("examples_mixinstruct", 1, 11, 128, gen, dev),
     ]
     stamps.append(time.perf_counter())
     sg = [
@@ -1854,6 +1881,12 @@ def phase_kernels(dev, seed):
                   ties=True),
         sgld_case("ties_across_tiles_j2", 3, 301, 300, 64, 500, gen, dev,
                   ties=True, j=2),
+        # the paper examples' SGLD step: one chain, a minibatch of 64 over
+        # the 11 models, quickstart's 300-duel ring at d 142 and
+        # mixinstruct's 380 at d 128
+        sgld_case("examples_quickstart", 1, 64, 11, 142, 300, gen, dev,
+                  timed=True),
+        sgld_case("examples_mixinstruct", 1, 64, 11, 128, 380, gen, dev),
     ]
     stamps.append(time.perf_counter())
     sc = [
@@ -3633,6 +3666,171 @@ def refresh_card_vs_cpu(dev, seed, log, params, enc_cfg, offline, costs):
 
 
 # ---------------------------------------------------------------------------
+# phase examples: the paper's two examples on the card
+# ---------------------------------------------------------------------------
+
+# each example's size: its online rounds (quickstart) or queries before
+# the 8% removal (mixinstruct), cut from 300 and 500; both run one epoch of
+# 5 fine-tuning steps (the examples: 4 x 30, 4 x 25) and their own SGLD
+# steps
+EXAMPLE_RUNS = {"quickstart_torch": dict(rounds=60),
+                "mixinstruct_preferences_torch": dict(queries=160)}
+EXAMPLE_STEPS = dict(epochs=1, steps_per_epoch=5)
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_launches(mod, out):
+    """The launches an example's run makes, reckoned from what its ``main``
+    returns: per fine-tuning step two encodes (the pairs' two sides), each
+    one forward and one backward attention launch a layer; per encode call
+    (``encoded``: its queries) one forward a layer for each batch of up to
+    ``pipeline.ENCODE_BATCH``; per online round one selection and, for each
+    of the two samples, one SGLD gradient launch a step."""
+    from repro_torch.data import pipeline
+    layers = mod.ENC_CFG.n_layers
+    steps = EXAMPLE_STEPS["epochs"] * EXAMPLE_STEPS["steps_per_epoch"]
+    batches = sum(-(-n // pipeline.ENCODE_BATCH) for n in out["encoded"])
+    return {"flash_attention": 2 * layers * steps + layers * batches,
+            "flash_attention_bwd": 2 * layers * steps,
+            "sgld_potential_grad": 2 * mod.SGLD_STEPS * out["rounds"],
+            "dueling_select": out["rounds"]}
+
+
+def phase_examples(dev, seed):
+    """``examples/quickstart_torch.py`` and
+    ``examples/mixinstruct_preferences_torch.py``, imported and run through
+    their ``main`` on the card at ``EXAMPLE_RUNS``' sizes (their printing
+    sent to stderr). Per example: the launch counts, reset before, must
+    equal ``example_launches`` exactly (no other kernel); the regret curve
+    must be finite, one value a round; its wall seconds (``main``'s own,
+    from the world's making to the regret curve on the host)."""
+    import contextlib
+    from repro_torch import kernels
+    out = {}
+    for name, size in EXAMPLE_RUNS.items():
+        mod = load_example(name)
+        argv = [a for k, v in dict(size, **EXAMPLE_STEPS).items()
+                for a in (f"--{k.replace('_', '-')}", str(v))]
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            got = mod.main([*argv, "--device", str(dev), "--seed",
+                            str(seed)])
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = example_launches(mod, got)
+        check(counts == want, f"examples {name}: launches {counts}, want "
+                              f"{want}")
+        check(got["rounds"] == len(got["regret"]) > 0
+              and all(math.isfinite(r) for r in got["regret"])
+              and all(math.isfinite(x) for x in got["losses"]),
+              f"examples {name}: {len(got['regret'])} regrets over "
+              f"{got['rounds']} rounds / a regret or a loss is not finite")
+        out[name] = dict(
+            size, **EXAMPLE_STEPS, rounds=got["rounds"],
+            regret=got["regret"][-1], slope_ratio=got["slope_ratio"],
+            losses=got["losses"], picks=got.get("picks"),
+            shares=got.get("shares"), kept=got.get("kept"),
+            encoded=got["encoded"], launches=counts, wall_s=got["wall_s"])
+    return out
+
+
+def phase_examples_card_vs_cpu(dev, seed):
+    """Each example's ``run`` at ``EXAMPLE_RUNS``' sizes on the card and on
+    the CPU from one world and one set of encoder weights (``make_world`` of
+    the seed on each device) and one host-mode ``KeyedDraws``, so both see
+    the same fine-tuning pairs and SGLD and feedback draws. Held: the
+    fine-tuning's epoch losses to rtol 1e-5; the model embeddings and the
+    online features to 1e-4 of their largest magnitude; round by round the
+    routed pair equal outside near-ties (``compare_pairs`` on the CPU's
+    features, embeddings and chain-mean thetas) and the cumulative regret
+    to 1e-5 + rtol 1e-5. A near-tie routed differently ends the round
+    comparison there, since the two runs' histories part
+    (``rounds_compared``). mixinstruct: the ambiguity scores to 1e-6, the
+    kept queries and their labels equal. quickstart: where every round was
+    compared, the last rounds' picks equal outside near-ties of the CPU's
+    final scores."""
+    import torch
+    from repro_torch.core.ccft import scores_all
+    from repro_torch.core.draws import KeyedDraws
+    cpu = torch.device("cpu")
+    out = {}
+    for name, size in EXAMPLE_RUNS.items():
+        mod = load_example(name)
+        got, ref = [mod.run(*mod.make_world(seed, where, **size),
+                            KeyedDraws(seed, host=True), **EXAMPLE_STEPS)
+                    for where in (dev, cpu)]
+        got = {k: v.cpu() if torch.is_tensor(v) else v
+               for k, v in got.items()}
+        rec = {}
+        for a, b in zip(got["losses"], ref["losses"]):
+            check(abs(a - b) <= 1e-5 * abs(b),
+                  f"examples card vs cpu {name}: losses {got['losses']} "
+                  f"against {ref['losses']}")
+        rec["losses"] = dict(card=got["losses"], cpu=ref["losses"])
+        for k in ("a_emb", "x"):
+            top = rec[f"{k}_largest"] = float(ref[k].abs().max())
+            rec[f"{k}_max_abs_err"] = float((got[k] - ref[k]).abs().max())
+            check(rec[f"{k}_max_abs_err"] <= 1e-4 * top,
+                  f"examples card vs cpu {name}: {k} differs by "
+                  f"{rec[f'{k}_max_abs_err']} (largest {top})")
+        if "kept" in ref:
+            rec["ambiguity_max_abs_err"] = float(
+                (got["ambiguity"] - ref["ambiguity"]).abs().max())
+            check(rec["ambiguity_max_abs_err"] <= 1e-6
+                  and torch.equal(got["kept"], ref["kept"])
+                  and torch.equal(got["labels"], ref["labels"]),
+                  f"examples card vs cpu {name}: ambiguity off by "
+                  f"{rec['ambiguity_max_abs_err']} or the kept queries or "
+                  f"their labels differ")
+        t = ref["pairs"].shape[0]
+        compared, ties = t, 0
+        for r in range(t):
+            bad, tie, _ = compare_pairs(
+                ref["x"][r:r + 1], ref["a_emb"], ref["thetas"][r], None,
+                None, True, tuple(got["pairs"][r:r + 1].T),
+                tuple(ref["pairs"][r:r + 1].T))
+            check(bad == 0, f"examples card vs cpu {name}: round {r} "
+                            f"routed {got['pairs'][r].tolist()}, the CPU "
+                            f"{ref['pairs'][r].tolist()}, outside a "
+                            f"near-tie")
+            if tie:
+                compared, ties = r, 1
+                break
+        err = (got["cum"][:compared] - ref["cum"][:compared]).abs()
+        rec["cum_max_abs_err"] = float(err.max()) if compared else 0.0
+        check(bool((err <= 1e-5 + 1e-5 * ref["cum"][:compared].abs()).all()),
+              f"examples card vs cpu {name}: cumulative regret differs by "
+              f"{rec['cum_max_abs_err']} over {compared} rounds")
+        if compared:
+            rec["theta_max_abs_err"] = float(
+                (got["thetas"][:compared] - ref["thetas"][:compared])
+                .abs().max())
+        if "picks" in ref and compared == t:
+            i0 = t - ref["picks"].shape[0]
+            s = torch.stack([scores_all(ref["x"][i], ref["a_emb"],
+                                        ref["thetas"][-1, 0])
+                             for i in range(i0, t)])
+            tie = top2_gap(s) <= NEAR_TIE * float(s.abs().max())
+            off = (got["picks"] != ref["picks"]) & ~tie
+            check(not bool(off.any()),
+                  f"examples card vs cpu {name}: picks "
+                  f"{got['picks'].tolist()}, the CPU "
+                  f"{ref['picks'].tolist()}, outside near-ties")
+            rec["picks_equal"] = torch.equal(got["picks"], ref["picks"])
+        out[name] = dict(rec, rounds=t, rounds_compared=compared,
+                         near_tie_stop=ties)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 2 and 3: the candidate LMs' generation path
 # ---------------------------------------------------------------------------
 
@@ -3648,9 +3846,24 @@ LM_RUNS = {
     "arctic-480b": dict(batch=2, tokens=4096, cut=dict(n_units=1)),
     "seamless-m4t-medium": dict(batch=2, tokens=4096, frames=1024),
     "llava-next-34b": dict(batch=1, tokens=1216, patches=2880),
+    "granite-3-2b": dict(batch=2, tokens=4096),
+    "qwen2-7b": dict(batch=2, tokens=4096),
+    # B 1 x 8192, as its training run: the prompt passes the 4096-token
+    # window, so the local layers' prefill keeps the last 4096 tokens at
+    # their ring slots and decode wraps the ring at its full size
+    "gemma2-9b": dict(batch=1, tokens=8192),
+    # 2.77 GB of bf16 weights a unit, 244 GB at its 88 units: 8 units keep
+    # the script short (init peaks at the stack plus one unit: 30.3 GB on
+    # an NVIDIA H100 80GB HBM3 at 700 W);
+    # the record's units_fit_reckoned says how deep 80 GB would go. The
+    # config's fsdp=True is a sharding hint of the reference's mesh
+    # dry-run; nothing of the port reads it, and on one card it does
+    # nothing. Full depth needs several cards (ROADMAP item 5)
+    "mistral-large-123b": dict(batch=2, tokens=4096, cut=dict(n_units=8)),
 }
 # the kernels of each model's prefill, with their launches per prefill
-# (seamless: 12 encoder, 12 self and 12 cross attention layers)
+# (seamless: 12 encoder, 12 self and 12 cross attention layers; gemma2:
+# 21 local and 21 global layers)
 LM_PATHS = {
     "mamba2-1.3b": {"ssd_scan": 48},
     "recurrentgemma-9b": {"rglru_scan": 26, "flash_attention": 12},
@@ -3658,6 +3871,10 @@ LM_PATHS = {
     "arctic-480b": {"flash_attention": 1},
     "seamless-m4t-medium": {"flash_attention": 36},
     "llava-next-34b": {"flash_attention": 60},
+    "granite-3-2b": {"flash_attention": 40},
+    "qwen2-7b": {"flash_attention": 28},
+    "gemma2-9b": {"flash_attention": 42},
+    "mistral-large-123b": {"flash_attention": 8},
 }
 # the models whose every moe_ffn call (prefill and decode) runs under
 # set_sync_debug_mode("error") in the warm-up
@@ -3713,6 +3930,41 @@ def greedy_steps(params, cache, logits, cfg, start, n):
     for i in range(n):
         logits, cache = lm.decode_step(params, cache, logits.argmax(-1),
                                        start + i, cfg)
+
+
+def check_slot_pos(cache, cfg, end, what):
+    """Every attention layer's ``slot_pos`` after positions [0, end) went
+    through the cache: a full-context layer holds position i at slot i and
+    -1 past ``end``; a local layer's ring of ``clen`` slots, once ``end``
+    passed it, the last ``clen`` positions p at slot p % clen (the window's
+    validity in ``decode_attention`` reads these). Returns the number of
+    local layers whose ring wrapped."""
+    import torch
+    from repro_torch.models.config import (MIXER_CROSS_ATTN,
+                                           MIXER_GLOBAL_ATTN,
+                                           MIXER_LOCAL_ATTN)
+    stacks = [(cache["units"], cfg.pattern)]      # leaves (n_units, ...)
+    if cfg.remainder:
+        stacks.append((cache["remainder"], cfg.remainder))
+    wrapped = 0
+    for layers, specs in stacks:
+        for j, spec in enumerate(specs):
+            if spec.mixer not in (MIXER_GLOBAL_ATTN, MIXER_LOCAL_ATTN,
+                                  MIXER_CROSS_ATTN):
+                continue
+            got = layers[str(j)]["kv"]["slot_pos"]
+            clen = got.shape[-1]
+            want = torch.full((clen,), -1, dtype=torch.int32)
+            if spec.mixer == MIXER_LOCAL_ATTN and end > clen:
+                pos = torch.arange(end - clen, end, dtype=torch.int32)
+                want[pos.long() % clen] = pos
+                wrapped += got.shape[0] if got.dim() == 2 else 1
+            else:
+                want[:end] = torch.arange(end, dtype=torch.int32)
+            check(bool((got.cpu() == want).all()),
+                  f"{what}: layer {j} ({spec.mixer}) slot_pos after "
+                  f"{end} positions is not the expected ring")
+    return wrapped
 
 
 def lm_config(name, cut=None):
@@ -3837,7 +4089,11 @@ def phase_lm(dev, seed):
     are read after the prefill and after the decode: each kernel of the
     model's prefill exactly ``LM_PATHS`` times, nothing from decode. One
     more prefill and two more decode steps run under the profiler (device
-    activity only); for an MoE model, its FFNs once more on the kept
+    activity only). After the timed decode every attention layer's
+    ``slot_pos`` must be what ``check_slot_pos`` expects (a local layer's
+    ring wrapped where the prompt passed its window); a cut run records
+    the depth the card's memory would hold at its peak (reckoned, not
+    run). For an MoE model, its FFNs once more on the kept
     inputs, profiled by kernel group, and per layer the tokens per expert
     and the dropped share at capacity factor 1.25."""
     import torch
@@ -3899,6 +4155,22 @@ def phase_lm(dev, seed):
         toks = torch.stack(generated, dim=1)
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
               f"lm {name}: generated tokens out of range")
+        wrapped = check_slot_pos(cache, cfg, s + LM_STEPS, f"lm {name}")
+        depth = {}
+        if run.get("cut"):
+            # a unit's weights and its decode cache (twice: the prefill
+            # stacks the units' caches into a new tree)
+            unit_gb = (sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params["units"]))
+                       + 2 * sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(cache["units"]))
+                       ) / cfg.n_units / 1e9
+            card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+            full = lm_config(name).n_units
+            depth = dict(
+                n_units=cfg.n_units, full_n_units=full, unit_gb=unit_gb,
+                units_fit_reckoned=min(full, cfg.n_units + int(
+                    (card_gb - peak / 1e9) // unit_gb)))
         prefill_ms = 1e3 * (t1 - t0)
         out[name] = dict(
             params=sum(t.numel() for t in leaves),
@@ -3911,7 +4183,8 @@ def phase_lm(dev, seed):
             decode_steps=LM_STEPS, prefill_ms=prefill_ms,
             prompt_tokens_per_s=b * s / (t1 - t0),
             decode_ms_per_token=1e3 * (t2 - t1) / LM_STEPS,
-            peak_memory_gb=peak / 1e9, launches_per_prefill=per,
+            peak_memory_gb=peak / 1e9, **depth, window=cfg.window,
+            ring_layers_wrapped=wrapped, launches_per_prefill=per,
             launches=counts, generated=toks.tolist(),
             profile=profile_prefill(
                 lambda: lm.prefill(params, batch, cfg, cache_len),
@@ -4181,19 +4454,28 @@ def phase_lm_train(dev, seed):
 
 
 # full width in fp32 at a smaller depth, for the card against the CPU
-# (arctic-480b also at 16 of its 128 experts, so the CPU can run it)
+# (arctic-480b also at 16 of its 128 experts, so the CPU can run it;
+# gemma2-9b's one local and one global layer with the window cut to 64,
+# so the CPU's prompt of 128 passes it and decode wraps the ring;
+# mistral-large-123b's one unit is ~8.8 GB in fp32 on each side)
 LM_CPU_CUTS = {"mamba2-1.3b": dict(n_units=2),
                "recurrentgemma-9b": dict(n_units=1, remainder=()),
                "granite-moe-3b-a800m": dict(n_units=2),
                "arctic-480b": dict(n_units=1, n_experts=16),
                "seamless-m4t-medium": dict(n_units=2, enc_n_units=2,
                                            enc_frames=256),
-               "llava-next-34b": dict(n_units=1, n_frontend_tokens=64)}
+               "llava-next-34b": dict(n_units=1, n_frontend_tokens=64),
+               "granite-3-2b": dict(n_units=2),
+               "qwen2-7b": dict(n_units=2),
+               "gemma2-9b": dict(n_units=1, window=64),
+               "mistral-large-123b": dict(n_units=1)}
 # batch and prompt tokens of each card-vs-CPU run (S 500: a ragged SSD
 # tail for the recurrent models)
 LM_CPU_RUNS = {"mamba2-1.3b": (2, 500), "recurrentgemma-9b": (2, 500),
                "granite-moe-3b-a800m": (2, 128), "arctic-480b": (2, 128),
-               "seamless-m4t-medium": (2, 128), "llava-next-34b": (1, 128)}
+               "seamless-m4t-medium": (2, 128), "llava-next-34b": (1, 128),
+               "granite-3-2b": (2, 128), "qwen2-7b": (2, 128),
+               "gemma2-9b": (2, 128), "mistral-large-123b": (2, 128)}
 
 
 def moe_layer_check(name, cfg, g_records, c_records, dev):
@@ -4272,10 +4554,10 @@ def phase_lm_card_vs_cpu(dev, seed):
     model also runs ``moe_layer_check`` on every MoE call; where the card's
     own run flipped an expert at a near-tie (not a fault), the logit and
     cache limits are reported, not applied, and the record names the
-    calls. Each model of ``LM_TRAIN_CPU_CUTS`` then runs
-    ``lm_train_check`` on the same weights (the others, granite-3-2b, on
-    their own). Returns (the prefill and decode records, the training
-    records)."""
+    calls. The CPU's cache must also pass ``check_slot_pos`` (gemma2-9b's
+    local ring wraps its cut window). Each model of ``LM_TRAIN_CPU_CUTS``
+    then runs ``lm_train_check`` on the same weights. Returns (the prefill
+    and decode records, the training records)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import tree_map
@@ -4283,6 +4565,7 @@ def phase_lm_card_vs_cpu(dev, seed):
     cpu = torch.device("cpu")
     out, train = {}, {}
     for name, cut in LM_CPU_CUTS.items():
+        start = time.perf_counter()
         cfg = lm_config(name, dict(cut, dtype="float32"))
         b, n_tok = LM_CPU_RUNS[name]
         gen = torch.Generator(device=dev)
@@ -4326,6 +4609,8 @@ def phase_lm_card_vs_cpu(dev, seed):
         check(not strict or bad == 0,
               f"lm card vs cpu {name}: {bad} greedy tokens differ outside "
               f"near-ties")
+        wrapped = check_slot_pos(c_cache, cfg, s + steps,
+                                 f"lm card vs cpu {name}")
         cache_err = 0.0
         for g, c in zip(tree_leaves(g_cache), tree_leaves(c_cache)):
             g = g.to(cpu)
@@ -4344,30 +4629,24 @@ def phase_lm_card_vs_cpu(dev, seed):
                          max_rel_cache_err=cache_err, token_mismatches=bad,
                          near_ties=ties, moe_layer_check=moe_rows,
                          moe_near_tie_flips_e2e=flips,
-                         limits_applied=strict)
+                         limits_applied=strict, window=cfg.window,
+                         ring_layers_wrapped=wrapped,
+                         seconds=time.perf_counter() - start)
         del g_cache, c_cache, g_spy, c_spy
         if name in LM_TRAIN_CPU_CUTS:
             train[name] = lm_train_check(name, cfg, params, cparams, seed,
                                          dev)
         del params, cparams
         torch.cuda.empty_cache()
-    for name, cut in LM_TRAIN_CPU_CUTS.items():
-        if name in train:
-            continue
-        cfg = lm_config(name, dict(cut, dtype="float32"))
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = lm.init_params(gen, cfg, device=dev)
-        cparams = tree_map(lambda t: t.to(cpu), params)
-        train[name] = lm_train_check(name, cfg, params, cparams, seed, dev)
-        del params, cparams
-        torch.cuda.empty_cache()
     return out, train
 
-# the training check of the card against the CPU: LM_CPU_CUTS' models and
-# granite-3-2b at 2 units; batch and sequence (llava: its 64 cut patches +
-# 32 tokens)
-LM_TRAIN_CPU_CUTS = dict(LM_CPU_CUTS, **{"granite-3-2b": dict(n_units=2)})
+# the training check of the card against the CPU, at LM_CPU_CUTS' depths:
+# the models that train in phase lm_train at full depth or with a
+# recurrent, MoE, encoder or vision part; batch and sequence (llava: its
+# 64 cut patches + 32 tokens)
+LM_TRAIN_CPU_CUTS = {n: LM_CPU_CUTS[n] for n in (
+    "mamba2-1.3b", "recurrentgemma-9b", "granite-moe-3b-a800m",
+    "arctic-480b", "seamless-m4t-medium", "llava-next-34b", "granite-3-2b")}
 LM_TRAIN_CPU_RUNS = {"llava-next-34b": (1, 96)}
 LM_TRAIN_CPU_RUN = (2, 32)
 
@@ -4473,17 +4752,24 @@ LM_TRAIN_ROWS = ("flash_attention", "flash_attention_bwd_bf16", "rglru_scan",
 # the serve case of dueling_select beside its main and bench
 ATTN_BF16_TIMED = ("qwen2_bf16", "recurrentgemma_bf16", "granite_moe_bf16",
                    "arctic_bf16", "llava_bf16", "seamless_enc_bf16",
-                   "seamless_self_bf16", "seamless_cross_bf16")
+                   "seamless_self_bf16", "seamless_cross_bf16",
+                   "granite_3_2b_bf16", "qwen2_7b_bf16", "gemma2_bf16",
+                   "gemma2_global_bf16", "mistral_bf16")
 SSD_FP32_TIMED = ("main_fp32",)
 SELECT_TIMED = ("serve",)
 # the timed attn_bwd cases beside main and bench
 ATTN_BWD_TIMED = ("main_large", "e5b", "minilm_d24")
 ATTN_BWD_BF16_TIMED = ("main_large", "recurrentgemma", "qwen2",
                        "seamless_enc", "seamless_cross")
+# each family's timed case at the paper examples' shapes (the fp32 forward
+# of their encoder, quickstart's act and SGLD step), under ``examples`` of
+# its rows
+EXAMPLES_TIMED = dict(attn="examples_d32", select="examples_quickstart",
+                      sgld="examples_quickstart")
 
 
 def kernels_line(cases, launches, serve_launches, lm_launches,
-                 train_launches):
+                 train_launches, ex_launches):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
@@ -4504,7 +4790,10 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
     (phase ``lm``), under ``lm_launches`` of each kernel that model's
     prefill launches; ``train_launches`` each lm_train model's launches
     per training step, under ``lm_train_launches`` of the rows in
-    ``LM_TRAIN_ROWS``. The bf16 attention backward's and the RG-LRU
+    ``LM_TRAIN_ROWS``; ``ex_launches`` each example's launches (phase
+    ``examples``), under ``examples_launches`` of the rows whose counter
+    it names, and the timed case of ``EXAMPLES_TIMED`` under
+    ``examples``. The bf16 attention backward's and the RG-LRU
     backward's ``launches`` are those of the granite-3-2b and the
     recurrentgemma-9b training runs (3 steps), and the bf16 backward row
     carries its other timed cases under ``more``. The two forward kernels
@@ -4545,6 +4834,16 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
                     if c.get(counter)}
         if name in LM_TRAIN_ROWS and on_train:
             rows[-1]["lm_train_launches"] = on_train
+        on_ex = {ex: c[counter] for ex, c in ex_launches.items()
+                 if c.get(counter) and name != "flash_attention_bwd_bf16"}
+        if on_ex:
+            rows[-1]["examples_launches"] = on_ex
+        ex_case = [r for r in fam_cases
+                   if r["case"] == EXAMPLES_TIMED.get(fam)]
+        if ex_case:
+            rows[-1]["examples"] = {k: ex_case[0].get(pre + k) for k in (
+                "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms", "plain_ms", "plain_device_ms")}
         if name == "flash_attention_bwd_bf16":
             rows[-1]["design_ops_ms"] = m.get("design_ops_ms")
         if name == "ssd_scan_bwd":
@@ -4638,6 +4937,9 @@ def main() -> int:
     record["refresh"] = dict(phase="refresh",
                              **phase_refresh(dev, args.seed, params_ft))
     emit_phase(record["refresh"])
+    record["examples"] = dict(phase="examples",
+                              **phase_examples(dev, args.seed))
+    emit_phase(record["examples"])
     record["lm"] = dict(phase="lm", **phase_lm(dev, args.seed))
     emit_phase(record["lm"])
     record["lm_train"] = dict(phase="lm_train",
@@ -4656,6 +4958,7 @@ def main() -> int:
     cvc["train"] = part("train", phase_train_card_vs_cpu, params_ft)
     cvc["ccft"] = part("ccft", phase_ccft_card_vs_cpu, params_ft)
     cvc["serve"] = part("serve", phase_serve_card_vs_cpu, params_ft)
+    cvc["examples"] = part("examples", phase_examples_card_vs_cpu)
     # lm_train's share of "lm" is the sum of its records' check_s
     cvc["lm"], cvc["lm_train"] = part("lm", phase_lm_card_vs_cpu)
     record["card_vs_cpu"] = dict(cvc, seconds=part_s)
@@ -4682,7 +4985,9 @@ def main() -> int:
              refresh=record["refresh"]["cycles"][0]["launches"]),
         {n: r["launches_per_prefill"] for n, r in record["lm"].items()
          if isinstance(r, dict)},
-        {n: r["launches_per_step"] for n, r in trained.items()})
+        {n: r["launches_per_step"] for n, r in trained.items()},
+        {n: r["launches"] for n, r in record["examples"].items()
+         if isinstance(r, dict)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -2358,20 +2358,27 @@ def _lm_batch(cfg, n_tok, seed):
     return out
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "arctic-480b",
-                                  "seamless-m4t-medium", "llava-next-34b"])
-def test_lm_new_paths_on_the_card_match_the_cpu(cuda_device, name):
+@pytest.mark.parametrize("name, n_tok", [
+    ("granite-moe-3b-a800m", 120), ("arctic-480b", 120),
+    ("seamless-m4t-medium", 120), ("llava-next-34b", 120),
+    ("granite-3-2b", 120), ("qwen2-7b", 120), ("gemma2-9b", 200),
+    ("mistral-large-123b", 120)])
+def test_lm_new_paths_on_the_card_match_the_cpu(cuda_device, name, n_tok):
     """A reduced fp32 model from one CPU generator: prefill of 120 tokens
-    (llava: 16 patches before them) and 2 greedy decode steps, logits and
-    every cache leaf to 2e-4; one attention launch per attention layer of
-    the prefill (seamless: 2 encoder, 2 self, 2 cross), none from
-    decode."""
+    (llava: 16 patches before them; gemma2: 200, past its reduced window
+    of 128, with both soft caps, so the local ring wraps) and 2 greedy
+    decode steps, logits and every cache leaf to 2e-4; one attention
+    launch per attention layer of the prefill (seamless: 2 encoder, 2
+    self, 2 cross), none from decode."""
     cfg = ARCHS[name].reduced(max_units=2)
+    if name == "gemma2-9b":
+        assert cfg.window == 128 < n_tok
+        assert cfg.attn_softcap and cfg.logit_softcap
     params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
     card = tenc.tree_map(lambda w: w.to(cuda_device), params)
-    batch = _lm_batch(cfg, 120, 9)
-    s = 120 + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0)
+    batch = _lm_batch(cfg, n_tok, 9)
+    s = n_tok + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0)
     runs = {}
     for where, p in ((torch.device("cpu"), params), (cuda_device, card)):
         kernels.reset_launch_counts()

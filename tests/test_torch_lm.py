@@ -10,7 +10,7 @@ d_model 256):
   so the local-attention cache is filled as a ring) with every cache leaf;
   then 3 ``lm.decode_step``s; for mamba2-1.3b and recurrentgemma-9b, for
   qwen2-7b (global attention, QKV bias), gemma2-9b (local and global
-  attention, soft caps) and granite-3-2b, and for granite-moe-3b-a800m
+  attention, soft caps), granite-3-2b and mistral-large-123b, and for granite-moe-3b-a800m
   (MoE FFNs, sparse prefill, dense decode), arctic-480b (MoE beside a
   dense residual MLP), seamless-m4t-medium (the encoder over ``frames``,
   cross attention, the memory's K/V in the cache) and llava-next-34b
@@ -50,8 +50,8 @@ from repro_torch.models.layers import tree_map
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-4, atol=2e-4)
 PORTED = ("mamba2-1.3b", "recurrentgemma-9b", "qwen2-7b", "gemma2-9b",
-          "granite-3-2b", "granite-moe-3b-a800m", "arctic-480b",
-          "seamless-m4t-medium", "llava-next-34b")
+          "granite-3-2b", "mistral-large-123b", "granite-moe-3b-a800m",
+          "arctic-480b", "seamless-m4t-medium", "llava-next-34b")
 MOE = ("granite-moe-3b-a800m", "arctic-480b")
 S, CACHE_LEN, STEPS = 200, 208, 3
 

@@ -53,6 +53,9 @@ def test_port_imports_neither_jax_nor_reference():
                                     "tools/score_sweep.py",
                                     "examples/train_encoder_e2e_torch.py",
                                     "examples/routed_serving_e2e_torch.py",
+                                    "examples/quickstart_torch.py",
+                                    "examples/"
+                                    "mixinstruct_preferences_torch.py",
                                     "tools/bwd_variants.py",
                                     "tools/fill_variants.py",
                                     "tools/bwd_sm90_variants.py",

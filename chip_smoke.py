@@ -215,6 +215,26 @@ in each line's ``wall_s``):
      the table to 1e-4 of its largest magnitude, the encoder's step to
      ``REFRESH_STEP_TOL`` of its own, against a control with uniform row
      weights that must land more than 10 x that limit away.
+   - mesh: ``RouterService(mesh=...)`` on an NCCL world of one (the
+     ``--mesh 1,1`` of the serving launcher): 16 ticks of B 256 over the
+     serve world (prefs, late / shuffled / duplicated / lost votes,
+     expiry) and a streaming run of 8 formed batches on buckets (32, 64,
+     128, 256), each against an unsharded twin bitwise (pairs, tickets,
+     folded counts, posterior, ring); launches per act (1
+     ``dueling_select``, 40 ``sgld_potential`` gradients, also in a
+     replayed route program); the collectives (``routing_rules.tally``)
+     per ``route_batch``, ``feedback_batch``, ``route_stream`` and
+     ``feedback_stream``, none called while the streaming programs are
+     captured, with or without the autopilot (6 formed batches under it
+     against an unsharded twin bitwise, the controller too); host ms per
+     call for both services; the world destroyed. Before the world, the
+     router dry-run (``launch/router_dryrun.py``): the per-rank reckoning
+     of the 16 x 16 and 2 x 16 x 16 meshes on fake worlds, and one rank's
+     share of each step timed on the card (device ms by kernel, each
+     step's kernel required in its profile, launches, peak memory, the
+     kernel beside its bound); phase 1 holds and times
+     ``dueling_select``, the SGLD gradient and the fp32 attention at the
+     dry-run's per-rank shapes (``DRYRUN_TIMED``).
    Each run resets the launch counts just before it and reads them just
    after: every kernel of its path must have launched (attention exactly
    once per layer per encode batch). Two more ticks of each loop (and two
@@ -339,94 +359,26 @@ def time_ms(fn, runs=5, calls=20, warmup=3):
     return statistics.median(times)
 
 
-# the kernel of ``torch.cuda._sleep``, which pads a profile's two ends,
-# and the host's wait before the window closes
-PROFILE_MARKER = "spin_kernel"
-PROFILE_DRAIN_S = 0.02
-
-
-@contextlib.contextmanager
-def cuda_profile():
-    """``torch.profiler`` over the card's activity only, padded at both
-    ends by a marker kernel (``PROFILE_MARKER``, about a millisecond of
-    spinning, synced), the host waiting ``PROFILE_DRAIN_S`` before the
-    window closes, then an empty session. CUPTI hands its activity records
-    over late: on an H100 a window closed right after its last sync could
-    lose the records of its last milliseconds (a whole CUDA graph replay
-    of phase ``stream``'s pass, or part of one), and the first marker's
-    record is lost in most windows, which is why the run waits behind it.
-    ``_window_whole`` says whether a profile holds its closing marker, and
-    so everything before it. Records handed over after a session has
-    ended land in the empty session, not in the next measured one: they
-    showed up as stale kernels in the next session's launch counts, and
-    the late hand-over as a CUDA graph capture invalidated from another
-    thread."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1 << 21)
-        torch.cuda.synchronize()
-        yield prof
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1 << 21)
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_DRAIN_S)
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.cuda.synchronize()
-
-
-def _device_events(prof):
-    """The profile's events on the device only (so a host op and its kernel
-    are not both counted), by name."""
-    from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-
-
-def _window_whole(prof):
-    """Whether the profile recorded ``cuda_profile``'s closing marker: the
-    device event that starts last is a marker."""
-    from torch.autograd import DeviceType
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return bool(dev) and PROFILE_MARKER in max(
-        dev, key=lambda e: e.time_range.start).name
-
-
-def _kernel_events(prof):
-    """(name, device us, launches) of every device kernel in a profile,
-    ``cuda_profile``'s markers left out."""
-    out = []
-    for e in _device_events(prof):
-        if PROFILE_MARKER in e.key:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            out.append((e.key, us, e.count))
-    return out
-
-
 def device_ms(fn, calls=20, attempts=3):
     """Device time per call of ``fn`` (all the kernels it launches) from
     ``torch.profiler``'s CUDA activity. A profile that records no device
     activity (seen once in a run of this script on an H100), or not its
-    closing marker (``_window_whole``), is taken again, up to ``attempts``
-    times; None when none records any."""
+    closing marker (``profiling.window_whole``), is taken again, up to
+    ``attempts`` times; None when none records any."""
     import torch
+    from repro_torch import profiling
     fn()
     torch.cuda.synchronize()
     ms = None
     for _ in range(attempts):
-        with cuda_profile() as prof:
+        with profiling.cuda_profile() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(us for _, us, _ in _kernel_events(prof))
+        total = sum(us for _, us, _ in profiling.kernel_events(prof))
         if total > 0:
             ms = total / calls / 1e3
-            if _window_whole(prof):
+            if profiling.window_whole(prof):
                 break
     return ms
 
@@ -931,6 +883,12 @@ def attn_cases(gen, dev):
         # side's 64 queries, and at mixinstruct's encode of its kept queries
         attn_case("examples_d32", 64, 4, 4, 32, 32, 32, gen, dev,
                   causal=False, timed=True),
+        # the router dry-run's encoder (d 768 over 12 heads, 128 tokens)
+        # on one rank's rows of the 16 x 16 and 2 x 16 x 16 meshes
+        attn_case("dryrun_16x16", 4096, 12, 12, 128, 128, 64, gen, dev,
+                  causal=False, timed=True),
+        attn_case("dryrun_2x16x16", 2048, 12, 12, 128, 128, 64, gen, dev,
+                  causal=False, timed=True),
         attn_case("examples_d32_encode", 148, 4, 4, 32, 32, 32, gen, dev,
                   causal=False),
         # qwen2-7b's heads
@@ -1032,22 +990,23 @@ def device_split(fn, calls=20, attempts=3):
     profile that records no device activity, or not its closing marker,
     is taken again, as in ``device_ms``)."""
     import torch
+    from repro_torch import profiling
     fn()
     torch.cuda.synchronize()
     out = None
     for _ in range(attempts):
-        with cuda_profile() as prof:
+        with profiling.cuda_profile() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         split = {}
-        for key, us, _ in _kernel_events(prof):
+        for key, us, _ in profiling.kernel_events(prof):
             name = key.replace("void ", "").replace(
                 "(anonymous namespace)::", "").split("(")[0]
             split[name] = split.get(name, 0.0) + us / calls
         if split:
             out = split
-            if _window_whole(prof):
+            if profiling.window_whole(prof):
                 break
     return out
 
@@ -1865,6 +1824,10 @@ def phase_kernels(dev, seed):
         select_case("examples_quickstart", 1, 11, 142, gen, dev,
                     timed=True),
         select_case("examples_mixinstruct", 1, 11, 128, gen, dev),
+        # one rank's act in the router dry-run: K 10 arms at DIM 782, a
+        # global batch of 65536 over 16 (2048 over 32) batch shards
+        select_case("dryrun_16x16", 4096, 10, 782, gen, dev, timed=True),
+        select_case("dryrun_2x16x16", 2048, 10, 782, gen, dev, timed=True),
     ]
     stamps.append(time.perf_counter())
     sg = [
@@ -1887,6 +1850,9 @@ def phase_kernels(dev, seed):
         sgld_case("examples_quickstart", 1, 64, 11, 142, 300, gen, dev,
                   timed=True),
         sgld_case("examples_mixinstruct", 1, 64, 11, 128, 380, gen, dev),
+        # the router dry-run's refresh step: 16 chains, minibatch 256, K
+        # 10 at DIM 782 over a 65536-duel replay ring
+        sgld_case("dryrun", 16, 256, 10, 782, 65536, gen, dev, timed=True),
     ]
     stamps.append(time.perf_counter())
     sc = [
@@ -2076,13 +2042,14 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
     names, first match wins, the rest "other") adds device ms per tick by
     group."""
     import torch
+    from repro_torch import profiling
     torch.cuda.synchronize()
-    with cuda_profile() as prof:
+    with profiling.cuda_profile() as prof:
         t0 = time.perf_counter()
         run(ticks)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
+    kern = sorted(profiling.kernel_events(prof), key=lambda e: -e[1])
     busy_ms = sum(us for _, us, _ in kern) / 1e3 / ticks
     launches = sum(n for _, _, n in kern) / ticks
     by_group = n_group = names = None
@@ -2112,23 +2079,14 @@ def profile_ticks(run, ms_per_tick, sgld_steps=None, ticks=2, groups=None):
                                          for k, us, n in kern[:6]])
 
 
-def replay_launches(run, attempts=3):
+def replay_launches(run):
     """Kernel launches by wrapper over ``run()``, counted by
     ``torch.profiler``'s kernel names (``SERVE_GROUPS``: wrapper ->
     substrings of its kernels' names): a CUDA graph's replay makes no
-    Python call, so the wrappers do not count it. A profile that records
-    no device activity at all (see ``device_ms``), or not its closing
-    marker (``_window_whole``), is taken again, ``run()`` with it, up to
-    ``attempts`` times."""
-    import torch
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with cuda_profile() as prof:
-            run()
-            torch.cuda.synchronize()
-        kern = _kernel_events(prof)
-        if kern and _window_whole(prof):
-            break
+    Python call, so the wrappers do not count it. The window is a whole
+    one (``profiling.whole_profile``)."""
+    from repro_torch import profiling
+    kern = profiling.kernel_events(profiling.whole_profile(run))
     out = dict.fromkeys(SERVE_GROUPS, 0)
     for key, _, n in kern:
         g = next((g for g, subs in SERVE_GROUPS.items()
@@ -2785,7 +2743,7 @@ SERVE_GROUPS = {
 
 
 def serve_setup(seed, dev, draws, params=None, autopilot=False,
-                t_total=HORIZON + BATCH, **cfg_kw):
+                t_total=HORIZON + BATCH, mesh=None, **cfg_kw):
     """A ``RouterService`` over the synthetic CCFT world of ``slice_setup``
     (11 live arms in 16 slots, d 768; the dominated world under the
     autopilot), with ``t_total`` queries: the stream, then the last 256
@@ -2809,7 +2767,7 @@ def serve_setup(seed, dev, draws, params=None, autopilot=False,
         autopilot=(ap.AutopilotConfig(**AP_KW) if autopilot else None),
         **cfg_kw)
     svc = RouterService(entries, params, EncoderConfig(), scfg, device=dev,
-                        draws=draws)
+                        draws=draws, mesh=mesh)
     return svc, envd, pool, cfg, entries + [arrival]
 
 
@@ -3673,6 +3631,272 @@ def refresh_card_vs_cpu(dev, seed, log, params, enc_cfg, offline, costs):
 # the 8% removal (mixinstruct), cut from 300 and 500; both run one epoch of
 # 5 fine-tuning steps (the examples: 4 x 30, 4 x 25) and their own SGLD
 # steps
+# ---------------------------------------------------------------------------
+# phase 2: the mesh service on an NCCL world of one, and the router dry-run
+# ---------------------------------------------------------------------------
+
+MESH_TICKS = 16
+MESH_STREAM_SIZES = (256, 77, 128, 5, 200, 64, 256, 33)
+
+
+def timed_call(fn):
+    """(fn's result, host ms of the call ending in a sync)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def mesh_tick_batch(dev, seed, params, mesh):
+    """16 ticks of the serve world through the mesh service and an
+    unsharded twin: pairs, tickets, folded and expired counts bitwise
+    alike every tick, posterior and ring at the end; launches per act of
+    the mesh service; host ms per call of both; the collectives of one
+    route and one feedback (``routing_rules.tally``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.sharding import routing_rules as rr
+    fb = KeyedDraws(seed + 303)
+    plain, envd, pool, cfg, _ = serve_setup(seed, dev, None, params)
+    meshed = serve_setup(seed, dev, None, params, mesh=mesh)[0]
+    grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
+    svcs = dict(plain=plain, mesh=meshed)
+    ms = {k: dict(route=[], feedback=[]) for k in svcs}
+    counts = dict(dueling_select=0, sgld_potential_grad=0, dueling_score=0)
+    issued = {}
+    for s in range(MESH_TICKS):
+        x = envd.x[s * BATCH:(s + 1) * BATCH]
+        u = envd.utils[s * BATCH:(s + 1) * BATCH]
+        prefs = grid[(torch.arange(BATCH, device=dev) + s) % 3]
+        out = {}
+        for name, svc in svcs.items():
+            kernels.reset_launch_counts()
+            out[name], t = timed_call(lambda: svc.route_batch(x,
+                                                              prefs=prefs))
+            ms[name]["route"].append(t)
+            if name == "mesh":
+                got = kernels.launch_counts()
+                for k in counts:
+                    counts[k] += got[k]
+        check(all(torch.equal(p, q) for p, q in zip(out["plain"],
+                                                    out["mesh"])),
+              f"mesh: tick {s} routes differently from the unsharded twin")
+        a1, a2, tk = out["mesh"]
+        issued[s] = (tk, serve_votes(fb, s, u, a1, a2))
+        if s >= SERVE_DELAY:
+            tk_d, y_d = late_delivery(fb, s, *issued.pop(s - SERVE_DELAY))
+            n = {}
+            for name, svc in svcs.items():
+                n[name], t = timed_call(lambda: svc.feedback_batch(tk_d, y_d))
+                ms[name]["feedback"].append(t)
+            check(torch.equal(n["plain"], n["mesh"]),
+                  f"mesh: tick {s} folds {int(n['mesh'])}, the twin "
+                  f"{int(n['plain'])}")
+        e = [svc.expire_pending() for svc in svcs.values()]
+        check(e[0] == e[1], f"mesh: tick {s} expires {e}")
+    same_service(plain, meshed, "mesh")
+    st = [svc.service_stats() for svc in svcs.values()]
+    check(st[0] == st[1], f"mesh: service_stats {st}")
+    check(counts == dict(dueling_select=MESH_TICKS,
+                         sgld_potential_grad=2 * cfg.sgld_steps * MESH_TICKS,
+                         dueling_score=0),
+          f"mesh: launch counts {counts} over {MESH_TICKS} acts")
+    x, u = envd.x[:BATCH], envd.utils[:BATCH]
+    with rr.tally() as coll_route:
+        a1, a2, tk = meshed.route_batch(x)
+    y = serve_votes(fb, MESH_TICKS, u, a1, a2)
+    with rr.tally() as coll_fb:
+        meshed.feedback_batch(tk, y)
+    check(coll_route == {"all_gather": {"bytes": BATCH * 8, "count": 1}}
+          and list(coll_fb) == ["all_reduce"],
+          f"mesh: collectives {coll_route} a route, {coll_fb} a feedback")
+    return dict(
+        collectives_per_route_batch=coll_route,
+        collectives_per_feedback_batch=coll_fb,
+        ticks=MESH_TICKS, batch=BATCH, launches=counts,
+        launches_per_act={k: v / MESH_TICKS for k, v in counts.items()},
+        route_batch_ms=statistics.median(ms["mesh"]["route"][1:]),
+        feedback_batch_ms=statistics.median(ms["mesh"]["feedback"][1:]),
+        unsharded_route_batch_ms=statistics.median(ms["plain"]["route"][1:]),
+        unsharded_feedback_batch_ms=statistics.median(
+            ms["plain"]["feedback"][1:]),
+        service_stats=st[1])
+
+
+def mesh_stream(dev, seed, params, mesh):
+    """The streaming mesh service (one CUDA graph per bucket and program)
+    against an unsharded streaming twin: every formed batch's pairs,
+    tickets and folded count bitwise alike, posterior and ring at the
+    end, graph counts flat; no collective called while the graphs were
+    captured, the collectives of one ``route_stream`` and one
+    ``feedback_stream``, and the launches of each serving kernel in one
+    replay of the top bucket's route program (by the profiler's kernel
+    names: a replay makes no Python call)."""
+    import torch
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.sharding import routing_rules as rr
+    votes = KeyedDraws(seed + 304)
+    n_req = sum(MESH_STREAM_SIZES)
+    plain, envd, pool, cfg, _ = serve_setup(
+        seed, dev, None, params, t_total=n_req + BATCH,
+        buckets=STREAM_BUCKETS)
+    # the captures run every program's body once: the collectives they
+    # call are the programs' own
+    with rr.tally() as coll_capture:
+        meshed = serve_setup(seed, dev, None, params, t_total=n_req + BATCH,
+                             buckets=STREAM_BUCKETS, mesh=mesh)[0]
+    check(coll_capture == {}, f"mesh: the captured streaming programs "
+          f"call collectives: {coll_capture}")
+    nb = len(STREAM_BUCKETS)
+    graphs = meshed.compiled_program_counts()
+    check(graphs == dict(s_route=nb, s_route_pref=nb, s_feedback=nb,
+                         s_resolve=nb, captures=4 * nb),
+          f"mesh: stream graph counts {graphs}")
+    grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
+    svcs = dict(plain=plain, mesh=meshed)
+    ms = {k: dict(route=[], feedback=[]) for k in svcs}
+    row, issued = 0, None
+    for i, n in enumerate(MESH_STREAM_SIZES):
+        x, u = envd.x[row:row + n], envd.utils[row:row + n]
+        row += n
+        prefs = grid[(torch.arange(n, device=dev) + i) % 3]
+        out = {}
+        for name, svc in svcs.items():
+            out[name], t = timed_call(lambda: svc.route_stream(x,
+                                                               prefs=prefs))
+            ms[name]["route"].append(t)
+        check(all(torch.equal(p, q) for p, q in zip(out["plain"],
+                                                    out["mesh"])),
+              f"mesh: stream batch {i} (n {n}) routes differently")
+        y = serve_votes(votes, i, u, *out["mesh"][:2])
+        if issued is not None:
+            got = {}
+            for name, svc in svcs.items():
+                got[name], t = timed_call(
+                    lambda: svc.feedback_stream(*issued))
+                ms[name]["feedback"].append(t)
+            check(torch.equal(got["plain"], got["mesh"]),
+                  f"mesh: stream batch {i} folds differently")
+        issued = (out["mesh"][2], y)
+    same_service(plain, meshed, "mesh stream")
+    check(meshed.compiled_program_counts() == graphs,
+          "mesh: stream graphs captured anew")
+    x = envd.x[:STREAM_BUCKETS[-1]]
+    with rr.tally() as coll_route:
+        tk = meshed.route_stream(x)[2]
+    with rr.tally() as coll_fb:
+        meshed.feedback_stream(tk, torch.ones(tk.shape, device=dev))
+    check(list(coll_route) == ["all_gather"]
+          and list(coll_fb) == ["all_gather"],
+          f"mesh: collectives {coll_route} a route_stream, {coll_fb} a "
+          f"feedback_stream")
+    prog = meshed._s_route[STREAM_BUCKETS[-1]]
+    by = replay_launches(lambda: prog(meshed._next_key()))
+    check(by == dict(dueling_select=1,
+                     sgld_potential_grad=2 * cfg.sgld_steps,
+                     dueling_score=0),
+          f"mesh: a replayed route program launched {by}")
+    return dict(
+        batches=len(MESH_STREAM_SIZES), graphs=graphs,
+        collectives_in_captured_programs=coll_capture,
+        collectives_per_route_stream=coll_route,
+        collectives_per_feedback_stream=coll_fb,
+        replayed_route_launches=by,
+        route_stream_ms=statistics.median(ms["mesh"]["route"][1:]),
+        feedback_stream_ms=statistics.median(ms["mesh"]["feedback"][1:]),
+        unsharded_route_stream_ms=statistics.median(
+            ms["plain"]["route"][1:]),
+        unsharded_feedback_stream_ms=statistics.median(
+            ms["plain"]["feedback"][1:]))
+
+
+def mesh_stream_autopilot(dev, seed, params, mesh):
+    """A streaming mesh service under the autopilot against an unsharded
+    twin: no collective called while its graphs were captured (the cost
+    EMA is folded after the route's gather), every formed batch's pairs
+    and tickets, the controller and the posterior bitwise alike."""
+    import numpy as np
+    import torch
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.sharding import routing_rules as rr
+    votes = KeyedDraws(seed + 305)
+    sizes = MESH_STREAM_SIZES[:6]
+    kw = dict(autopilot=True, t_total=sum(sizes) + BATCH,
+              buckets=STREAM_BUCKETS)
+    plain, envd = serve_setup(seed, dev, None, params, **kw)[:2]
+    with rr.tally() as coll_capture:
+        meshed = serve_setup(seed, dev, None, params, mesh=mesh, **kw)[0]
+    check(coll_capture == {}, f"mesh autopilot: the captured streaming "
+          f"programs call collectives: {coll_capture}")
+    row, issued = 0, None
+    for i, n in enumerate(sizes):
+        x, u = envd.x[row:row + n], envd.utils[row:row + n]
+        row += n
+        out = [svc.route_stream(x) for svc in (plain, meshed)]
+        check(all(torch.equal(p, q) for p, q in zip(*out)),
+              f"mesh autopilot: stream batch {i} (n {n}) routes "
+              f"differently")
+        if issued is not None:
+            for svc in (plain, meshed):
+                svc.feedback_stream(*issued)
+        issued = (out[1][2], serve_votes(votes, i, u, *out[1][:2]))
+    st = [svc.autopilot_status() for svc in (plain, meshed)]
+    for k, v in st[0].items():
+        check(np.array_equal(np.asarray(v), np.asarray(st[1][k])),
+              f"mesh autopilot: controller {k} {st[1][k]}, the twin {v}")
+    same_service(plain, meshed, "mesh autopilot")
+    return dict(batches=len(sizes),
+                collectives_in_captured_programs=coll_capture,
+                tick=st[1]["tick"], lam=st[1]["lambda"],
+                cost_ema=st[1]["cost_ema"])
+
+
+def phase_mesh(dev, seed, params):
+    """The mesh service on an NCCL world of one, then the router dry-run
+    (see the module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import router_dryrun as rd
+    # the dry-run first: it needs no world (its fake one is its own)
+    t0 = time.perf_counter()
+    reckoning = rd.reckon()
+    check(len(reckoning) == 8
+          and all(r["rows"] == rd.SHARE_ROWS[r["mesh"]] for r in reckoning),
+          "mesh: the dry-run's rows per rank")
+    shares = rd.time_shares(dev, seed=seed)
+    want = dict(route_step=1, update_step=rd.SGLD["sgld_steps"],
+                encode_route_step=rd.ENC_CFG.n_layers)
+    for r in shares:
+        if r["kernel"] is not None:
+            check(r["kernel_launches"] == want[r["step"]]
+                  and r["kernel_device_ms"] > 0,
+                  f"mesh: dry-run share {r['step']} x {r['mesh']}: "
+                  f"launches {r['launches']}, kernels profiled "
+                  f"{sorted(r['device_ms_by_kernel'])}")
+    record = dict(dryrun=dict(reckoning=reckoning, card=shares,
+                              seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    mesh_lib.init_world(dev)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"mesh: a {dist.get_backend()} world of "
+              f"{dist.get_world_size()}")
+        mesh = mesh_lib.make_debug_mesh(1, 1, dev)
+        record.update(
+            backend=dist.get_backend(), world=1,
+            tick=mesh_tick_batch(dev, seed, params, mesh),
+            stream=mesh_stream(dev, seed, params, mesh),
+            stream_autopilot=mesh_stream_autopilot(dev, seed, params, mesh))
+    finally:
+        mesh_lib.close_world()
+    check(not dist.is_initialized(), "mesh: the world was not destroyed")
+    record["service_s"] = time.perf_counter() - t0
+    return record
+
+
 EXAMPLE_RUNS = {"quickstart_torch": dict(rounds=60),
                 "mixinstruct_preferences_torch": dict(queries=160)}
 EXAMPLE_STEPS = dict(epochs=1, steps_per_epoch=5)
@@ -3904,11 +4128,12 @@ def profile_prefill(run, prefill_ms, wrappers):
     prefill, and the share of busy time of each port kernel, of the GEMMs
     (cuBLAS / CUTLASS kernels) and of the heaviest kernels."""
     import torch
+    from repro_torch import profiling
     torch.cuda.synchronize()
-    with cuda_profile() as prof:
+    with profiling.cuda_profile() as prof:
         run()
         torch.cuda.synchronize()
-    kern = sorted(_kernel_events(prof), key=lambda e: -e[1])
+    kern = sorted(profiling.kernel_events(prof), key=lambda e: -e[1])
     busy = sum(us for _, us, _ in kern) / 1e3
     share = lambda pred: (sum(us for k, us, _ in kern if pred(k)) / 1e3
                           / busy if busy else None)
@@ -4059,14 +4284,15 @@ def moe_profile(records, cfg, busy_ms):
     over all the layers, and each group's share of the prefill's busy
     time."""
     import torch
+    from repro_torch import profiling
     from repro_torch.models import moe
     torch.cuda.synchronize()
-    with cuda_profile() as prof:
+    with profiling.cuda_profile() as prof:
         for p, x, impl in records:
             moe.moe_ffn(p, x, cfg, impl)
         torch.cuda.synchronize()
     ms = dict.fromkeys([*MOE_GROUPS, "other"], 0.0)
-    for key, us, _ in _kernel_events(prof):
+    for key, us, _ in profiling.kernel_events(prof):
         g = next((g for g, subs in MOE_GROUPS.items()
                   if any(x in key.lower() for x in subs)), "other")
         ms[g] += us / 1e3
@@ -4766,10 +4992,15 @@ ATTN_BWD_BF16_TIMED = ("main_large", "recurrentgemma", "qwen2",
 # its rows
 EXAMPLES_TIMED = dict(attn="examples_d32", select="examples_quickstart",
                       sgld="examples_quickstart")
+# each family's timed cases at the router dry-run's per-rank shapes, under
+# ``dryrun_shapes`` of its rows
+DRYRUN_TIMED = dict(select=("dryrun_16x16", "dryrun_2x16x16"),
+                    sgld=("dryrun",),
+                    attn=("dryrun_16x16", "dryrun_2x16x16"))
 
 
 def kernels_line(cases, launches, serve_launches, lm_launches,
-                 train_launches, ex_launches):
+                 train_launches, ex_launches, shares=()):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
@@ -4793,7 +5024,10 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
     ``LM_TRAIN_ROWS``; ``ex_launches`` each example's launches (phase
     ``examples``), under ``examples_launches`` of the rows whose counter
     it names, and the timed case of ``EXAMPLES_TIMED`` under
-    ``examples``. The bf16 attention backward's and the RG-LRU
+    ``examples``. ``shares`` are the router dry-run's steps timed on the
+    card (one rank's share), under ``mesh_dryrun`` of the row of each
+    step's kernel, by mesh; the kernel's own phase-1 cases at those
+    shapes (``DRYRUN_TIMED``) under ``dryrun_shapes``. The bf16 attention backward's and the RG-LRU
     backward's ``launches`` are those of the granite-3-2b and the
     recurrentgemma-9b training runs (3 steps), and the bf16 backward row
     carries its other timed cases under ``more``. The two forward kernels
@@ -4844,6 +5078,19 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
             rows[-1]["examples"] = {k: ex_case[0].get(pre + k) for k in (
                 "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
                 "library_device_ms", "plain_ms", "plain_device_ms")}
+        dry = {r["case"]: {k: r.get(pre + k) for k in (
+            "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "plain_ms", "plain_device_ms")}
+            for r in fam_cases if r["case"] in DRYRUN_TIMED.get(fam, ())}
+        if dry and name in ("dueling_select", "sgld_potential_grad",
+                            "flash_attention"):
+            rows[-1]["dryrun_shapes"] = dry
+        on_share = {r["mesh"]: {k: r.get(k) for k in (
+            "step", "rows", "kernel_launches", "kernel_device_ms",
+            "bound_ms", "bound_by", "ms", "device_ms", "peak_bytes")}
+            for r in shares if r["kernel"] == counter}
+        if on_share:
+            rows[-1]["mesh_dryrun"] = on_share
         if name == "flash_attention_bwd_bf16":
             rows[-1]["design_ops_ms"] = m.get("design_ops_ms")
         if name == "ssd_scan_bwd":
@@ -4937,6 +5184,9 @@ def main() -> int:
     record["refresh"] = dict(phase="refresh",
                              **phase_refresh(dev, args.seed, params_ft))
     emit_phase(record["refresh"])
+    record["mesh"] = dict(phase="mesh", **phase_mesh(dev, args.seed,
+                                                     params_ft))
+    emit_phase(record["mesh"])
     record["examples"] = dict(phase="examples",
                               **phase_examples(dev, args.seed))
     emit_phase(record["examples"])
@@ -4982,12 +5232,14 @@ def main() -> int:
              serve_autopilot=record["serve"]["autopilot"]["launches"],
              stream=record["stream"]["launches"],
              stream_autopilot=record["stream"]["autopilot"]["launches"],
-             refresh=record["refresh"]["cycles"][0]["launches"]),
+             refresh=record["refresh"]["cycles"][0]["launches"],
+             mesh=record["mesh"]["tick"]["launches"]),
         {n: r["launches_per_prefill"] for n, r in record["lm"].items()
          if isinstance(r, dict)},
         {n: r["launches_per_step"] for n, r in trained.items()},
         {n: r["launches"] for n, r in record["examples"].items()
-         if isinstance(r, dict)})
+         if isinstance(r, dict)},
+        record["mesh"]["dryrun"]["card"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -95,15 +95,17 @@ def init_controller(active0: torch.Tensor) -> ControllerState:
 
 
 def step(ctrl: ControllerState, posterior: torch.Tensor | None,
-         pool: mp.ModelPool, cfg: AutopilotConfig):
+         pool: mp.ModelPool, cfg: AutopilotConfig, *,
+         use_kernel: bool = True):
     """One control transition: (ctrl, posterior (S, d) or None, pool) ->
     (ctrl', decisions). None disables dominance (quota and budget still
-    run)."""
+    run); ``use_kernel=False`` scores the posterior with the plain
+    version."""
     full = pool.active & ~ctrl.candidate           # voting/retirable members
     if posterior is None:
         dominated = torch.zeros_like(pool.active)
     else:
-        dom = dominance_matrix(posterior, pool)
+        dom = dominance_matrix(posterior, pool, use_kernel=use_kernel)
         dominated = dominated_by_cheaper(dom, pool.costs, full, full,
                                          cfg.tau)
     ticks = torch.where(dominated, ctrl.dominated_ticks + 1, 0)
@@ -181,11 +183,28 @@ def _pick(on: torch.Tensor, new, old):
     return type(old)(*(torch.where(on, a, b) for a, b in zip(new, old)))
 
 
+def fold_cost(state: AutopilotState, a1: torch.Tensor, a2: torch.Tensor,
+              cfg: AutopilotConfig) -> AutopilotState:
+    """The act's last step, the realized-cost EMA over a batch's pairs
+    (both duelled arms answer the query)."""
+    ctrl = state.ctrl
+    costs = mp.get_pool(state.inner).costs
+    c = torch.mean(0.5 * (costs[a1.long()] + costs[a2.long()]))
+    ema = torch.where(ctrl.tick == 1, c,
+                      (1.0 - cfg.cost_alpha) * ctrl.cost_ema
+                      + cfg.cost_alpha * c)
+    return AutopilotState(state.inner, ctrl._replace(cost_ema=ema))
+
+
 def wrap(pol: RoutingPolicy, cfg: AutopilotConfig, *,
-         posterior_fn: Callable | None = None) -> RoutingPolicy:
+         posterior_fn: Callable | None = None, use_kernel: bool = True,
+         act_folds_cost: bool = True) -> RoutingPolicy:
     """The autopiloted twin of a pool-backed policy with an ``act_masked``
     path. ``posterior_fn(inner_state) -> (S, d)`` overrides
-    ``POSTERIOR_FNS``."""
+    ``POSTERIOR_FNS``; ``use_kernel=False`` takes the dominance matrix's
+    plain version. ``act_folds_cost=False`` leaves the realized-cost EMA
+    to the caller, ``fold_cost`` on the whole batch's pairs: the mesh
+    service, whose act sees only its rank's rows."""
     if pol.act_masked is None:
         raise ValueError(
             f"policy '{pol.name}' has no act_masked path: the autopilot "
@@ -220,7 +239,7 @@ def wrap(pol: RoutingPolicy, cfg: AutopilotConfig, *,
 
         # 2. the control tick every cfg.every acts, selected on the device
         post = None if posterior_fn is None else posterior_fn(inner)
-        stepped, dec = step(ctrl, post, pool, cfg)
+        stepped, dec = step(ctrl, post, pool, cfg, use_kernel=use_kernel)
         on = ctrl.tick % cfg.every == 0
         new_pool = apply_decisions(pool, dec)
         ctrl = _pick(on, stepped, ctrl)
@@ -244,12 +263,11 @@ def wrap(pol: RoutingPolicy, cfg: AutopilotConfig, *,
             inner, a1, a2 = pol.act_pref(k_act, inner, x, row_mask,
                                          pref + ctrl.lam)
 
-        # 5. realized-cost EMA (both duelled arms answer the query)
-        c = torch.mean(0.5 * (pool.costs[a1.long()] + pool.costs[a2.long()]))
-        ema = torch.where(ctrl.tick == 1, c,
-                          (1.0 - cfg.cost_alpha) * ctrl.cost_ema
-                          + cfg.cost_alpha * c)
-        return AutopilotState(inner, ctrl._replace(cost_ema=ema)), a1, a2
+        # 5. realized-cost EMA
+        state = AutopilotState(inner, ctrl)
+        if act_folds_cost:
+            state = fold_cost(state, a1, a2, cfg)
+        return state, a1, a2
 
     def act(draws, state, x):
         return _act(draws, state, x)

@@ -127,14 +127,15 @@ class EpsGreedyState(NamedTuple):
 
 def eps_greedy_policy(a_emb: torch.Tensor | ModelPool, cfg: EpsGreedyConfig,
                       *, tilt: torch.Tensor | None = None,
-                      cost_tilt: float = 0.0) -> RoutingPolicy:
+                      cost_tilt: float = 0.0,
+                      use_kernel: bool = True) -> RoutingPolicy:
     """SGD-MAP on the preference loss with epsilon-uniform exploration.
 
     ``tilt``: an optional (K,) serve-time score penalty. With a
     ``ModelPool`` the greedy argmax and the exploration draw range over
     active arms only; pass ``cost_tilt`` there to penalize by live costs.
     Selection goes through ``select_pair`` (the ``dueling_select`` kernel
-    on CUDA tensors)."""
+    on CUDA tensors; its plain version with ``use_kernel=False``)."""
     pooled = isinstance(a_emb, ModelPool)
     pool0 = a_emb if pooled else None
     if cost_tilt != 0.0 and not pooled:
@@ -160,7 +161,8 @@ def eps_greedy_policy(a_emb: torch.Tensor | ModelPool, cfg: EpsGreedyConfig,
             eff_tilt = cost_tilt * state.pool.costs
         eff_tilt = merge_tilt(eff_tilt, extra_tilt)
         a1_g, a2_g = select_pair(x, emb, inner.theta, inner.theta,
-                                 tilt=eff_tilt, mask=mask, distinct=True)
+                                 tilt=eff_tilt, mask=mask, distinct=True,
+                                 use_kernel=use_kernel)
         explore = k_e.uniform((b,), x.device) < cfg.eps
         if pooled:
             # exploration honours the same per-row gate as the greedy path

@@ -471,3 +471,51 @@ class BucketDraws:
 
     def sgld(self, n_chains: int | None, n_steps: int):
         return self.src.sgld(n_chains, n_steps)
+
+
+class ShardDraws:
+    """The draws of one mesh rank's rows [lo, lo + rows) of a batch of
+    ``total`` rows: a per-row draw (leading dimension ``rows``) is made for
+    all ``total`` rows and cut to the rank's, so every rank draws the
+    numbers the unsharded batch gives its rows, whatever the mesh size.
+    SGLD draws (per chain) pass through unchanged, so every rank refreshes
+    the posterior from the same numbers. It carries the draws an act makes,
+    as ``BucketDraws`` does."""
+
+    def __init__(self, src, rows: int, total: int, lo: int):
+        self.src, self.rows, self.total, self.lo = src, rows, total, lo
+
+    def _cut(self, v):
+        return v[self.lo:self.lo + self.rows]
+
+    def split(self, n: int):
+        return [ShardDraws(c, self.rows, self.total, self.lo)
+                for c in self.src.split(n)]
+
+    def fold_in(self, i: int):
+        return ShardDraws(self.src.fold_in(i), self.rows, self.total,
+                          self.lo)
+
+    def _per_row(self, name, shape, device):
+        shape = tuple(shape)
+        if not shape or shape[0] != self.rows:
+            return getattr(self.src, name)(shape, device)
+        wide = (self.total,) + shape[1:]
+        return self._cut(getattr(self.src, name)(wide, device))
+
+    def normal(self, shape, device):
+        return self._per_row("normal", shape, device)
+
+    def uniform(self, shape, device):
+        return self._per_row("uniform", shape, device)
+
+    def gumbel(self, shape, device):
+        return self._per_row("gumbel", shape, device)
+
+    def distinct_pair(self, b: int, n: int, device):
+        if b != self.rows:
+            return self.src.distinct_pair(b, n, device)
+        return self._cut(self.src.distinct_pair(self.total, n, device))
+
+    def sgld(self, n_chains: int | None, n_steps: int):
+        return self.src.sgld(n_chains, n_steps)

@@ -146,15 +146,18 @@ def _refresh(draws, inner, a_emb, cfg, arm_mask=None, costs=None):
 
 
 def fgts_policy(a_emb, cfg: fgts.FGTSConfig, *, costs=None,
-                cost_tilt: float = 0.0) -> RoutingPolicy:
+                cost_tilt: float = 0.0,
+                use_kernel: bool = True) -> RoutingPolicy:
     """FGTS.CDB (paper Alg. 1) on the batched protocol.
 
     Each ``act`` runs cfg.n_chains SGLD chains per posterior sample (the
     chain mean is the round's theta^j), then selects every query's pair.
     A ``ModelPool`` as ``a_emb`` makes the arm set dynamic (state is a
-    ``PooledState``; ``costs`` is then taken from the pool)."""
+    ``PooledState``; ``costs`` is then taken from the pool).
+    ``use_kernel=False`` selects with ``dueling_select_plain``."""
     if isinstance(a_emb, ModelPool):
-        return _fgts_policy_pooled(a_emb, cfg, cost_tilt=cost_tilt)
+        return _fgts_policy_pooled(a_emb, cfg, cost_tilt=cost_tilt,
+                                   use_kernel=use_kernel)
     tilt = cost_tilt_vector(costs, cost_tilt)
 
     def init(draws):
@@ -165,7 +168,8 @@ def fgts_policy(a_emb, cfg: fgts.FGTSConfig, *, costs=None,
         a1, a2 = select_pair(x, a_emb, state.theta1.mean(dim=0),
                              state.theta2.mean(dim=0),
                              tilt=merge_tilt(tilt, extra_tilt),
-                             distinct=cfg.force_distinct)
+                             distinct=cfg.force_distinct,
+                             use_kernel=use_kernel)
         return state, a1, a2
 
     def act(draws, state, x):
@@ -198,7 +202,8 @@ def fgts_policy(a_emb, cfg: fgts.FGTSConfig, *, costs=None,
 
 
 def _fgts_policy_pooled(pool0: ModelPool, cfg: fgts.FGTSConfig, *,
-                        cost_tilt: float = 0.0) -> RoutingPolicy:
+                        cost_tilt: float = 0.0,
+                        use_kernel: bool = True) -> RoutingPolicy:
     """FGTS.CDB over a dynamic ``ModelPool`` carried in the state;
     ``cfg.n_models`` is the capacity K_max."""
 
@@ -216,7 +221,8 @@ def _fgts_policy_pooled(pool0: ModelPool, cfg: fgts.FGTSConfig, *,
             else row_mask & pool.active[None, :]
         a1, a2 = select_pair(x, pool.a_emb, inner.theta1.mean(dim=0),
                              inner.theta2.mean(dim=0), tilt=tilt, mask=mask,
-                             distinct=cfg.force_distinct)
+                             distinct=cfg.force_distinct,
+                             use_kernel=use_kernel)
         return PooledState(inner, pool), a1, a2
 
     def act(draws, state, x):

@@ -21,12 +21,24 @@ onto the ``--buckets`` ladder and routed through ``route_stream`` (one
 CUDA graph per bucket on the card); it reports routed queries per second
 and p50 / p99 latency (event-time wait plus measured route time).
 ``--refresh-every`` runs the online representation refresh loop. It runs
-on the CUDA card unless ``--device cpu`` is given. ``--mesh`` exits with
-the ROADMAP item that brings it.
+on the CUDA card unless ``--device cpu`` is given.
+
+``--mesh DATA,MODEL`` serves through the mesh service
+(``RouterService(mesh=...)``) on a (data, model) mesh of DATA x MODEL
+ranks, each running this same program over the global batch. With
+``--device cpu`` and no launcher it starts its own gloo world of that many
+processes (rank 0 prints); under ``torchrun`` it joins the world torchrun
+started; on the card a world of one, ``--mesh 1,1``, runs on NCCL:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh 2,2 --rounds 3 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 1,1
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
@@ -42,6 +54,7 @@ from repro_torch.data.pool import synthetic_pool
 from repro_torch.data.synth import CorpusConfig, make_split, sample_queries
 from repro_torch.device import resolve_device
 from repro_torch.encoder import EncoderConfig, init_encoder
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.serving import stream
 from repro_torch.serving.router_service import (RouterService,
@@ -51,8 +64,11 @@ from repro_torch.serving.router_service import (RouterService,
 # static service or the ModelPool of a dynamic one (k_max set); every
 # constructor takes either.
 POLICIES = {
+    # cfg.use_kernel arrives resolved from the service (False only when
+    # the caller asks for the plain selection)
     "fgts": lambda arms, costs, cfg: fgts_policy(
-        arms, cfg.fgts, costs=costs, cost_tilt=cfg.cost_tilt),
+        arms, cfg.fgts, costs=costs, cost_tilt=cfg.cost_tilt,
+        use_kernel=cfg.use_kernel),
     # dynamic pools get cost_tilt= (live pool costs, hot adds included)
     # instead of a construction-time tilt vector
     "eps_greedy": lambda arms, costs, cfg: baselines.eps_greedy_policy(
@@ -60,7 +76,7 @@ POLICIES = {
                                         dim=cfg.fgts.dim),
         tilt=None if isinstance(arms, mp.ModelPool)
         else cost_tilt_vector(costs, cfg.cost_tilt),
-        cost_tilt=cfg.cost_tilt),
+        cost_tilt=cfg.cost_tilt, use_kernel=cfg.use_kernel),
     "linucb": lambda arms, costs, cfg: baselines.linucb_duel_policy(
         arms, baselines.LinUCBConfig(n_models=cfg.fgts.n_models,
                                      dim=cfg.fgts.dim),
@@ -76,13 +92,6 @@ POLICIES = {
 # vector drives the synthetic preferences).
 DEFAULT_POOL = ["granite-3-2b", "qwen2-7b", "mamba2-1.3b",
                 "recurrentgemma-9b", "gemma2-9b"]
-
-# flags of the reference whose paths the port has not yet, and the
-# ROADMAP item that brings each
-NOT_YET = {
-    "--mesh": "multi-device serving, ROADMAP Queue 1 item 5",
-}
-
 
 def greedy_decode(cfg, params, prompt, n_new: int):
     """Prefill, then ``n_new - 1`` greedy decode steps; the new tokens."""
@@ -157,14 +166,49 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
-    for flag in NOT_YET:
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    for flag, why in NOT_YET.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            raise SystemExit(f"[serve] {flag} is not in the port yet: "
-                             f"{why}")
-    return args
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve mesh-sharded over a (data, model) mesh of "
+                         "DATA x MODEL ranks — e.g. 2,2 with --device cpu, "
+                         "1,1 on one card; --batch must divide over DATA")
+    return ap.parse_args(argv)
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+    try:
+        data, model = (int(v) for v in spec.split(","))
+    except ValueError:
+        raise SystemExit(
+            f"--mesh expects two comma-separated sizes DATA,MODEL (e.g. "
+            f"2,2), got {spec!r}") from None
+    if data < 1 or model < 1:
+        raise SystemExit(f"--mesh sizes must be positive, got {spec!r}")
+    return data, model
+
+
+def _open_mesh(args, argv, dev):
+    """``--mesh``: None and the DeviceMesh, or, when this process starts
+    its own gloo world, rank 0's result and None."""
+    import torch.distributed as dist
+    data, model = parse_mesh(args.mesh)
+    if args.batch % data:
+        raise SystemExit(f"--batch {args.batch} must divide over the "
+                         f"mesh's data axis ({data})")
+    n = data * model
+    if dev.type == "cpu" and n > 1 and not dist.is_initialized() \
+            and "WORLD_SIZE" not in os.environ:
+        print(f"[serve] starting a gloo world of {n} processes")
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return mesh_lib.spawn_world(main, n, (argv,), timeout=None)[0], None
+    mesh_lib.init_world(dev)
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    if dist.get_world_size() != n:
+        raise SystemExit(f"--mesh {args.mesh} needs a world of {n} ranks, "
+                         f"not {dist.get_world_size()}")
+    mesh = mesh_lib.make_debug_mesh(data, model, dev)
+    print(f"[serve] mesh {data}x{model} ('data', 'model') over "
+          f"{n} {dist.get_backend()} ranks")
+    return None, mesh
 
 
 def make_pref_sampler(spec):
@@ -197,6 +241,11 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     pref_sampler = make_pref_sampler(args.pref_dist)
+    mesh = None
+    if args.mesh:
+        done, mesh = _open_mesh(args, argv, dev)
+        if mesh is None:
+            return done
 
     buckets = spec = None
     if args.arrival:
@@ -267,7 +316,7 @@ def main(argv=None):
                             stale_half_life=args.stale_half_life,
                             k_max=k_max, autopilot=ap_cfg, refresh=rcfg,
                             buckets=buckets, seed=args.seed),
-        device=dev)
+        device=dev, mesh=mesh)
 
     gen_models = {}
     if args.with_generation:

@@ -129,14 +129,22 @@ def init_pending(capacity: int, dim: int, device=None,
 def enqueue(q: PendingDuels, x: torch.Tensor, a1: torch.Tensor,
             a2: torch.Tensor, now, pref: torch.Tensor | None = None,
             prop: torch.Tensor | None = None,
-            cat: torch.Tensor | None = None):
+            cat: torch.Tensor | None = None, *,
+            share: tuple[int, int] | None = None):
     """Issue B duels: one scatter per field; returns (ring', tickets (B,)).
 
     A full ring overwrites its oldest duels. When B itself exceeds the
     capacity only the last C rows survive: the earlier tickets are issued
     already expired (as ``fgts.ring_slots`` keeps the indices unique).
-    ``pref`` is the preference each duel was served under (None = zeros)."""
-    b, cap, dev = x.shape[0], q.x.shape[0], q.x.device
+    ``pref`` is the preference each duel was served under (None = zeros).
+
+    ``share=(lo, capacity)``: ``q`` holds only slots [lo, lo + len(q.x))
+    of a ring of ``capacity`` slots (a mesh rank's share); the tickets are
+    the whole ring's and only the rows whose slots lie in the share are
+    written."""
+    b, dev = x.shape[0], q.x.device
+    n_local = q.x.shape[0]
+    cap = n_local if share is None else share[1]
     tickets = q.next_ticket + torch.arange(b, dtype=torch.int32, device=dev)
     drop, idx = ring_slots(q.next_ticket, cap, b)
     now = as_i32(now, dev)
@@ -146,25 +154,30 @@ def enqueue(q: PendingDuels, x: torch.Tensor, a1: torch.Tensor,
         prop = torch.ones((b,), dtype=torch.float32, device=dev)
     if cat is None:
         cat = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    if share is None:
+        def put(buf, v):
+            return None if buf is None else \
+                buf.index_put((idx,), v[drop:].to(buf.dtype))
+    else:
+        local = idx - share[0]
+        local = torch.where((local >= 0) & (local < n_local), local, n_local)
 
-    def put(buf, v):
-        return buf.index_put((idx,), v[drop:].to(buf.dtype))
-    keep = b - drop
+        def put(buf, v):                          # index n_local: dropped
+            return None if buf is None else \
+                scatter_drop(buf, local, v[drop:])
     return q._replace(
         x=put(q.x, x), a1=put(q.a1, a1), a2=put(q.a2, a2),
         ticket=put(q.ticket, tickets),
-        issued_at=q.issued_at.index_put((idx,), now.expand(keep)),
-        valid=q.valid.index_put(
-            (idx,), torch.ones((keep,), dtype=torch.bool, device=dev)),
+        issued_at=put(q.issued_at, now.expand(b)),
+        valid=put(q.valid, torch.ones((b,), dtype=torch.bool, device=dev)),
         next_ticket=q.next_ticket + b,
-        pref=None if q.pref is None else put(q.pref, pref),
-        prop=None if q.prop is None else put(q.prop, prop),
-        cat=None if q.cat is None else put(q.cat, cat),
+        pref=put(q.pref, pref), prop=put(q.prop, prop), cat=put(q.cat, cat),
     ), tickets
 
 
 def resolve(q: PendingDuels, tickets: torch.Tensor, y: torch.Tensor, now,
-            max_age: int | None = None):
+            max_age: int | None = None, *,
+            share: tuple[int, int] | None = None):
     """Look up a batch of tickets and clear the slots that validate;
     returns (ring', ``ResolvedDuels``).
 
@@ -176,16 +189,29 @@ def resolve(q: PendingDuels, tickets: torch.Tensor, y: torch.Tensor, now,
     over slot collisions keeps the first matching row per slot. Ages are
     modular int32 differences, so a duel issued before the 2^31 tick
     boundary ages normally across it; a negative age means older than 2^31
-    ticks, and such a row never validates."""
-    cap, dev = q.x.shape[0], q.x.device
+    ticks, and such a row never validates.
+
+    ``share=(lo, capacity)``: ``q`` is a mesh rank's share of the ring (as
+    in ``enqueue``). Rows whose slots lie outside it never validate and
+    come back all zeros (``y`` aside), so summing the ranks' batches word
+    by word gives the whole ring's batch."""
+    n_local, dev = q.x.shape[0], q.x.device
     tickets = tickets.to(torch.int32)
     now = as_i32(now, dev)
-    slots = torch.remainder(tickets, cap).long()    # floors, as jnp's %
+    own = None
+    if share is None:
+        slots = torch.remainder(tickets, n_local).long()  # floors, as jnp's %
+    else:
+        slots = torch.remainder(tickets, share[1]) - share[0]
+        own = (slots >= 0) & (slots < n_local)
+        slots = torch.where(own, slots, 0).long()
     age = now - q.issued_at[slots]                  # int32: wraps
     matched = q.valid[slots] & (q.ticket[slots] == tickets)
+    if own is not None:
+        matched = matched & own
     b = tickets.shape[0]
     rows = torch.arange(b, dtype=torch.int32, device=dev)
-    first = torch.full((cap,), b, dtype=torch.int32, device=dev) \
+    first = torch.full((n_local,), b, dtype=torch.int32, device=dev) \
         .scatter_reduce(0, slots, torch.where(matched, rows, b), "amin",
                         include_self=True)
     matched = matched & (first[slots] == rows)
@@ -193,14 +219,22 @@ def resolve(q: PendingDuels, tickets: torch.Tensor, y: torch.Tensor, now,
     if max_age is not None:
         ok = ok & (age <= max_age)
     # scatter-max marks consumed slots, whatever the order of collisions
-    hit = torch.zeros((cap,), dtype=torch.int32, device=dev) \
+    hit = torch.zeros((n_local,), dtype=torch.int32, device=dev) \
         .scatter_reduce(0, slots, matched.to(torch.int32), "amax",
                         include_self=True)
+
+    def take(buf):
+        if buf is None:
+            return None
+        v = buf[slots]
+        if own is None:
+            return v
+        return torch.where(own if v.dim() == 1 else own[:, None], v,
+                           torch.zeros((), dtype=v.dtype, device=dev))
     batch = ResolvedDuels(
-        x=q.x[slots], a1=q.a1[slots], a2=q.a2[slots], y=y, age=age, ok=ok,
-        pref=None if q.pref is None else q.pref[slots],
-        prop=None if q.prop is None else q.prop[slots],
-        cat=None if q.cat is None else q.cat[slots])
+        x=take(q.x), a1=take(q.a1), a2=take(q.a2), y=y,
+        age=age if own is None else torch.where(own, age, 0), ok=ok,
+        pref=take(q.pref), prop=take(q.prop), cat=take(q.cat))
     return q._replace(valid=q.valid & (hit == 0)), batch
 
 

@@ -1,5 +1,5 @@
 """Batched routing service: the production wrapper around a RoutingPolicy
-(counterpart of ``repro/serving/router_service.py`` on one device).
+(counterpart of ``repro/serving/router_service.py``).
 
 A deployment keeps one ``RouterService`` per model pool. Requests arrive
 in batches; the service embeds them (encoder), then drives a batched
@@ -34,6 +34,26 @@ propensity and query category through the ring, and every fold also
 appends the resolved duels to an exportable ``refresh.DuelLog``;
 ``export_log`` / ``refresh_due`` / ``apply_table`` run the cycle.
 
+Mesh (``mesh=``, a ``DeviceMesh`` from ``launch.mesh``): SPMD, one
+process per rank, every rank running the same host program over the
+global batch (``sharding/routing_rules.py``). Each rank acts on its own
+rows, B / S of them for S batch shards, with the policy state replicated:
+the SGLD refresh is recomputed from the same draws on every rank, and a
+per-row draw is made for the whole batch and cut to the rank's rows
+(``core.draws.ShardDraws``), so the pairs are the unsharded service's
+whatever the mesh. The tick-batch ring splits its capacity over the
+ranks with the unsharded tickets: ``route_batch`` gathers the routed
+pairs over the batch ranks and each rank writes the rows whose slots it
+holds; ``feedback_batch`` resolves every vote against each rank's share
+and sums the shares' batches word by word (``routing_rules.sum_rows``),
+so every rank folds the unsharded resolved batch in the unsharded order.
+The streaming ring is shard-local (ticket = seq * S + shard): the route
+program holds no collective (``route_stream`` gathers its outputs after
+it), and the feedback gathers its shard-local resolve over the batch
+ranks between a resolve program and a fold program. Every rank launches
+the kernels: ``dueling_select`` on its rows, the ``sgld_potential``
+gradient on the replicated refresh.
+
 Host syncs: ``route_batch``, the masked and pref folds of
 ``feedback_batch``, ``route_stream``, the fused ``feedback_stream``,
 ``feedback_direct``, ``spend`` and ``seed_replay`` never read the card
@@ -50,17 +70,19 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import os
 import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import autopilot as ap
 from repro_torch.core import fgts
 from repro_torch.core import model_pool as mp
 from repro_torch.core.draws import (BucketDraws, KeyedDraws, PlanRecorder,
-                                    TapeDraws)
+                                    ShardDraws, TapeDraws)
 from repro_torch.core.policy import (RoutingPolicy, fgts_policy,
                                      staleness_weight, with_staleness)
 from repro_torch.data.pool import PoolEntry
@@ -69,6 +91,8 @@ from repro_torch.encoder.model import EncoderConfig, encode
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.refresh import duel_log as dl
 from repro_torch.refresh.trainer import RefreshConfig
+
+from repro_torch.sharding import routing_rules as rr
 
 from . import feedback_queue as fq
 from . import stream
@@ -86,10 +110,18 @@ class RouterServiceConfig:
     # (arms, costs, cfg) -> RoutingPolicy; None = FGTS.CDB with cost tilt.
     policy_factory: Optional[Callable] = None
     # The selection kernel (True or None: dispatched by the tensors'
-    # device). The reference turns it off only under a mesh; False comes
-    # with the mesh paths.
+    # device, on every rank of a mesh too); False selects with its plain
+    # version, dueling_select_plain (and the autopilot's dominance with
+    # posterior_scores' plain version). Factories receive the resolved
+    # bool.
     use_kernel: Optional[bool] = None
-    # Mesh act mechanism of the reference; the port has no mesh yet.
+    # Mesh act draws. True: each rank draws its own rows' per-row numbers
+    # from the replicated source, so every shard repeats the same draws
+    # (the reference's shard_map). False: per-row draws are made for the
+    # whole batch and cut to the rank's rows (ShardDraws), equal to the
+    # unsharded stream. None = auto: True for the built-in FGTS default
+    # (its act draws nothing per row), False for factory policies and the
+    # autopilot (whose quota gate is a per-row draw).
     act_shard_map: Optional[bool] = None
     # -- async feedback -----------------------------------------------------
     feedback_capacity: int = 1024  # max in-flight duels (ring: oldest expire)
@@ -134,27 +166,37 @@ class RouterServiceConfig:
 
 class RouterService:
     """Online routing service state: host-side orchestration over tensor
-    programs on one device.
+    programs on one device, or on every rank of a mesh.
 
     ``device`` None means the card. ``draws`` is the service's draw source
     (``core.draws``), split once per act as the reference splits its key;
     None means ``KeyedDraws(cfg.seed)`` in device mode. It must checkpoint
-    (``key_leaf`` / ``from_leaf``) for ``save`` / ``restore``."""
+    (``key_leaf`` / ``from_leaf``) for ``save`` / ``restore``. ``mesh`` is
+    a ``DeviceMesh`` over the started world (``launch.mesh``) whose device
+    type is ``device``'s: every rank constructs the service with the same
+    arguments."""
 
     def __init__(self, pool: list[PoolEntry], enc_params,
                  enc_cfg: EncoderConfig, cfg: RouterServiceConfig, *,
                  mesh=None, device=None, draws=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RouterService(mesh=...): the mesh paths come with "
-                "multi-device serving (ROADMAP Queue 1 item 5)")
-        if cfg.use_kernel is False:
-            raise NotImplementedError(
-                "RouterServiceConfig(use_kernel=False): the plain selection "
-                "serves the mesh paths, which come with multi-device "
-                "serving (ROADMAP Queue 1 item 5)")
         self.device = resolve_device(device)
         dev = self.device
+        self.mesh = mesh
+        self._n_shards, self._shard, self._group = 1, 0, None
+        if mesh is not None:
+            if mesh.device_type != dev.type:
+                raise ValueError(
+                    f"a {mesh.device_type} mesh for a service on {dev}: "
+                    f"build the mesh over the service's device type")
+            self._n_shards = rr.n_batch_shards(mesh)
+            self._shard = rr.shard_index(mesh)
+            self._group = rr.batch_group(mesh)
+        cfg = dataclasses.replace(cfg, use_kernel=cfg.use_kernel is not False)
+        # mesh acts cut per-row draws from the whole batch's (ShardDraws)
+        # unless the act draws each rank's rows itself (act_shard_map)
+        shard_map = cfg.act_shard_map if cfg.act_shard_map is not None \
+            else (cfg.policy_factory is None and cfg.autopilot is None)
+        self._cut_draws = mesh is not None and not shard_map
         self.dynamic = cfg.k_max is not None
         if self.dynamic:
             if len(pool) > cfg.k_max:
@@ -191,14 +233,17 @@ class RouterService:
                 arms, self.costs, cfg)
         else:
             self.policy = fgts_policy(arms, cfg.fgts, costs=self.costs,
-                                      cost_tilt=cfg.cost_tilt)
+                                      cost_tilt=cfg.cost_tilt,
+                                      use_kernel=cfg.use_kernel)
         if cfg.autopilot is not None:
             if not self.dynamic:
                 raise ValueError(
                     "autopilot manages pool membership: construct the "
                     "service with RouterServiceConfig(k_max=...) so the "
                     "policy carries a ModelPool it can retire into")
-            self.policy = ap.wrap(self.policy, cfg.autopilot)
+            self.policy = ap.wrap(
+                self.policy, cfg.autopilot, use_kernel=cfg.use_kernel,
+                act_folds_cost=mesh is None)
         self._staleness_wrapped = (cfg.stale_half_life is not None
                                    and self.policy.update_delayed is None)
         if self._staleness_wrapped:
@@ -212,16 +257,22 @@ class RouterService:
                 f"be a PooledState) — build it from the ModelPool first "
                 f"argument the factory receives")
         # the ring's wrapping slot arithmetic needs a power-of-two
-        # capacity: round the configured one up
-        capacity = fq.next_pow2(cfg.feedback_capacity)
+        # capacity (dividing over a mesh's batch shards): round the
+        # configured one up. Under a mesh self.pending is this rank's
+        # share: C / S rows.
+        capacity = fq.next_pow2(cfg.feedback_capacity) if mesh is None \
+            else rr.round_capacity(cfg.feedback_capacity, mesh)
+        share = capacity // self._n_shards
+        self._share = None if mesh is None \
+            else (self._shard * share, capacity)
         dim = self.a_emb.shape[1]
         self.streaming = cfg.buckets is not None
         if self.streaming:
-            self.buckets = stream.validate_buckets(cfg.buckets)
-            self.pending = fq.init_pending(capacity, dim, device=dev,
-                                           shards=1)
+            self.buckets = stream.validate_buckets(cfg.buckets,
+                                                   self._n_shards)
+            self.pending = fq.init_pending(share, dim, device=dev, shards=1)
         else:
-            self.pending = fq.init_pending(capacity, dim, device=dev)
+            self.pending = fq.init_pending(share, dim, device=dev)
         self.tick = 0                  # route calls (the clock)
         self.n_routed = 0
         # online representation refresh: the exportable duel log rides next
@@ -385,7 +436,15 @@ class RouterService:
         Padding never changes a live row: padded rows are masked out of
         the ring, the fold and the log, and every per-row draw is made at
         the ladder's top bucket and cut (``BucketDraws``). On a card each
-        program is captured once here as a CUDA graph (``_capture``)."""
+        program is captured once here as a CUDA graph (``_capture``).
+
+        Under a mesh each rank's programs read and write its rows of the
+        padded batch and its share of the shard-local ring; the feedback
+        is two programs, the shard-local resolve and the fold, with the
+        resolved rows gathered over the batch ranks between them
+        (``feedback_stream``), and the autopilot's realized-cost EMA
+        is folded after the route's gather (``_fold_cost``), so no
+        captured graph holds a collective."""
         dev, cfg = self.device, self.cfg
         on_card = dev.type == "cuda"
         if on_card and not isinstance(self._draws, KeyedDraws):
@@ -398,14 +457,29 @@ class RouterService:
         self._tick_dev = fq.as_i32(self.tick, dev)
         self._costs_dev = self.costs.clone()
         d = self.a_emb.shape[1]
-        self._inputs = {b: dict(
-            x=torch.zeros((b, d), dtype=torch.float32, device=dev),
-            mask=torch.zeros((b,), dtype=torch.bool, device=dev),
-            pref=torch.zeros((b,), dtype=torch.float32, device=dev),
-            cat=torch.full((b,), -1, dtype=torch.int32, device=dev),
-            tickets=torch.full((b,), -1, dtype=torch.int32, device=dev),
-            y=torch.zeros((b,), dtype=torch.float32, device=dev),
-            rows=torch.arange(b, device=dev)) for b in self.buckets}
+        mesh = self.mesh is not None
+
+        def f32(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def i32(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=dev)
+        # each bucket's staged inputs: this rank's rows of the padded batch
+        # (``rows``: their positions in it)
+        self._inputs = {}
+        for b in self.buckets:
+            lo, n = self._rows(b)
+            self._inputs[b] = dict(
+                x=f32(n, d), mask=torch.zeros((n,), dtype=torch.bool,
+                                              device=dev),
+                pref=f32(n), cat=i32(n, fill=-1), tickets=i32(n, fill=-1),
+                y=f32(n), rows=torch.arange(lo, lo + n, device=dev))
+        # under a mesh: each bucket's gathered resolved batch, which the
+        # fold program reads
+        self._gathered = {b: fq.ResolvedDuels(
+            x=f32(b, d), a1=i32(b), a2=i32(b), y=f32(b), age=i32(b),
+            ok=torch.zeros((b,), dtype=torch.bool, device=dev), pref=f32(b),
+            prop=f32(b), cat=i32(b)) for b in self.buckets} if mesh else {}
 
         if self._update_pref is not None:
             # preference-conditioned fold: each duel under the pref it was
@@ -423,12 +497,16 @@ class RouterService:
         def resolve(b):
             inp = self._inputs[b]
             return fq.resolve_stream(self.pending, inp["tickets"], inp["y"],
-                                     inp["mask"], self._tick_dev, 0, 1,
+                                     inp["mask"], self._tick_dev,
+                                     self._shard, self._n_shards,
                                      max_age=cfg.feedback_expiry)
 
         def route(b, draws, with_pref):
             inp = self._inputs[b]
             x, mask, pref = inp["x"], inp["mask"], inp["pref"]
+            if draws is not None:
+                lo, n = self._rows(b)
+                draws = self._act_draws(draws, n, b, lo)
             if with_pref:
                 state, a1, a2 = self._act_pref(draws, self.state, x, pref)
             else:
@@ -438,8 +516,8 @@ class RouterService:
                 prop, cat = self._prop(state, x, a1, a2), inp["cat"]
             now = self._tick_dev + 1
             pending, tickets = fq.enqueue_stream(
-                self.pending, x, a1, a2, now, pref, mask, 0, 1, prop=prop,
-                cat=cat)
+                self.pending, x, a1, a2, now, pref, mask, self._shard,
+                self._n_shards, prop=prop, cat=cat)
             costs = self._costs_dev
             live = torch.where(mask, costs[a1.long()] + costs[a2.long()],
                                0.0)
@@ -447,16 +525,20 @@ class RouterService:
                          duel_cost=self._duel_cost + torch.sum(live))
             return a1, a2, tickets
 
-        def feedback(b, draws):
-            pending, res = resolve(b)
+        def fold(res, **new):
             n_ok = torch.sum(res.ok, dtype=torch.int32)
-            new = {}
             if self.refresh_on:
                 new["log"] = self._fold_log(self.duel_log, res,
                                             self._tick_dev)
-            self._commit(state=fb_fold(self.state, res), pending=pending,
+            self._commit(state=fb_fold(self.state, res),
                          n_folded=self._n_folded + n_ok, **new)
             return (n_ok,)
+
+        def feedback(b, draws):
+            if mesh:                      # the fold of the gathered batch
+                return fold(self._gathered[b])
+            pending, res = resolve(b)
+            return fold(res, pending=pending)
 
         def resolve_only(b, draws):
             pending, res = resolve(b)
@@ -538,14 +620,16 @@ class RouterService:
         return [t for tree in self._live().values() for t in tree_leaves(tree)]
 
     def _stage(self, b: int, n: int, **rows) -> None:
-        """Write a formed batch of ``n`` rows into bucket ``b``'s input
-        buffers (padding rows zeroed) and set its mask. No host sync for
-        device tensors."""
+        """Write this rank's rows of a formed batch of ``n`` rows into
+        bucket ``b``'s input buffers (padding rows zeroed) and set its
+        mask. No host sync for device tensors."""
         inp = self._inputs[b]
+        lo, width = self._rows(b)
+        live = min(max(n - lo, 0), width)
         for name, v in rows.items():
             buf = inp[name]
-            buf[:n].copy_(v)
-            buf[n:].zero_()
+            buf[:live].copy_(v[lo:lo + live])
+            buf[live:].zero_()
         torch.lt(inp["rows"], n, out=inp["mask"])
 
     def route_stream(self, x, prefs=None, cats=None):
@@ -588,7 +672,9 @@ class RouterService:
         self._stage(b, n, **rows)
         draws = self._next_key()
         self.tick += 1                 # host mirror of the device clock
-        a1, a2, tickets = prog(draws)
+        # under a mesh: this rank's rows, then the whole batch's
+        a1, a2, tickets = self._gather(prog(draws))
+        self._fold_cost(a1, a2)
         self.n_routed += n
         return a1[:n].clone(), a2[:n].clone(), tickets[:n].clone()
 
@@ -614,11 +700,22 @@ class RouterService:
         n = tickets.shape[0]
         b = stream.bucket_for(n, self.buckets)
         self._stage(b, n, tickets=tickets, y=y)
-        if self._s_feedback is not None:
+        if self.mesh is not None:
+            # the shard-local resolve, its rows gathered over the batch
+            # ranks, then (masked fold) the fold program on the gathered
+            # batch
+            res = self._gather_resolved(self._s_resolve[b]())
+            if self._s_feedback is not None:
+                for dst, src in zip(self._gathered[b], res):
+                    dst.copy_(src)
+                (n_ok,) = self._s_feedback[b]()
+                return n_ok.clone()
+        elif self._s_feedback is not None:
             (n_ok,) = self._s_feedback[b]()
             return n_ok.clone()
-        res = fq.ResolvedDuels(*(None if t is None else t.clone()
-                                 for t in self._s_resolve[b]()))
+        else:
+            res = fq.ResolvedDuels(*(None if t is None else t.clone()
+                                     for t in self._s_resolve[b]()))
         if self.refresh_on:
             self._commit(log=self._fold_log(self.duel_log, res,
                                             self._tick_dev))
@@ -641,6 +738,73 @@ class RouterService:
         counts["s_resolve"] = len(self._s_resolve)
         counts["captures"] = self._n_captures
         return counts
+
+    # -- the mesh: this rank's rows and the gathers over the batch ranks ----
+
+    def _check_divides(self, n: int, what: str) -> None:
+        if n % self._n_shards:
+            raise ValueError(
+                f"{what} size {n} does not divide over the mesh's "
+                f"{self._n_shards} batch shards — pad or rebatch")
+
+    def _rows(self, b: int) -> tuple[int, int]:
+        """(first row, row count) of this rank's share of a b-row batch."""
+        rows = b // self._n_shards
+        return self._shard * rows, rows
+
+    def _act_draws(self, draws, rows: int, total: int, lo: int):
+        """The act's draw source for this rank's rows [lo, lo + rows) of a
+        ``total``-row batch."""
+        return ShardDraws(draws, rows, total, lo) if self._cut_draws \
+            else draws
+
+    def _gather(self, cols) -> list:
+        """Per-row columns of this rank's rows -> the whole batch's, in
+        row order: one all-gather over the batch ranks of their 4-byte
+        words (identity without a mesh)."""
+        if self.mesh is None:
+            return list(cols)
+        packed = rr.gather_rows(rr.pack_rows(cols), self._group,
+                                self._n_shards)
+        return rr.unpack_rows(packed, cols)
+
+    def _gather_col(self, col: torch.Tensor) -> torch.Tensor:
+        return self._gather([col])[0]
+
+    def _fold_cost(self, a1: torch.Tensor, a2: torch.Tensor) -> None:
+        """Under a mesh with the autopilot: its realized-cost EMA over the
+        whole batch's pairs, once they are gathered (each rank's act saw
+        only its own rows)."""
+        if self.mesh is not None and self.cfg.autopilot is not None:
+            self._commit(state=ap.fold_cost(self.state, a1, a2,
+                                            self.cfg.autopilot))
+
+    def _gather_resolved(self, res: fq.ResolvedDuels) -> fq.ResolvedDuels:
+        """A resolved batch of this rank's rows -> the whole batch's."""
+        return fq.ResolvedDuels(*self._gather(list(res)))
+
+    def _sum_shares(self, res: fq.ResolvedDuels) -> fq.ResolvedDuels:
+        """The tick-batch ring's resolved batch from the ranks' shares:
+        each row is held by one rank and zeros by the others, so one sum
+        of their words over the batch ranks is the unsharded batch (the
+        votes ``y`` are every rank's already)."""
+        if self.mesh is None:
+            return res
+        cols = [res.x, res.a1, res.a2, res.age, res.ok, res.pref, res.prop,
+                res.cat]
+        x, a1, a2, age, ok, pref, prop, cat = rr.unpack_rows(
+            rr.sum_rows(rr.pack_rows(cols), self._group), cols)
+        return fq.ResolvedDuels(x=x, a1=a1, a2=a2, y=res.y, age=age, ok=ok,
+                                pref=pref, prop=prop, cat=cat)
+
+    def _sum_count(self, n: torch.Tensor) -> int:
+        """A count over the batch ranks' shares on the host. Syncs: one
+        transfer (after one all-reduce under a mesh)."""
+        n = n.to(torch.int32).reshape(1)
+        if self.mesh is not None:
+            n = rr.sum_rows(n.clone(), self._group)
+        n = n.cpu()
+        return int(n[0])
 
     def _clock(self) -> torch.Tensor:
         """The service tick as a wrapping int32 device scalar, made by a
@@ -668,15 +832,23 @@ class RouterService:
         pref, so the fold conditions on it. ``cats`` (B,) int are the
         query categories the refresh log records (-1 = unknown); with
         refresh off they are ignored. In streaming mode this delegates to
-        ``route_stream``. No host sync."""
+        ``route_stream``. No host sync.
+
+        Under a mesh every rank passes the whole batch (B must divide over
+        the batch shards), acts on its own rows and gets the whole batch's
+        pairs and tickets back, the unsharded service's (one all-gather of
+        the pairs over the batch ranks)."""
         if self.streaming:
             return self.route_stream(x, prefs=prefs, cats=cats)
         dev = self.device
         x = as_f32(x, dev)
         b = x.shape[0]
+        self._check_divides(b, "route_batch")
+        lo, rows = self._rows(b)
+        xl = x[lo:lo + rows]
+        draws = self._act_draws(self._next_key(), rows, b, lo)
         if prefs is None:
-            key = self._next_key()
-            self.state, a1, a2 = self.policy.act(key, self.state, x)
+            self.state, a1, a2 = self.policy.act(draws, self.state, xl)
             pref_row = torch.zeros((b,), dtype=torch.float32, device=dev)
         else:
             if self._act_pref is None:
@@ -689,8 +861,8 @@ class RouterService:
                 raise ValueError(
                     f"prefs shape {tuple(pref_row.shape)} != ({b},) — one "
                     f"scalar cost weight per query row")
-            self.state, a1, a2 = self._act_pref(self._next_key(),
-                                                self.state, x, pref_row)
+            self.state, a1, a2 = self._act_pref(draws, self.state, xl,
+                                                pref_row[lo:lo + rows])
         # clock first, then issue at the new tick: feedback redeemed before
         # the next routing round reports age 0
         self.tick += 1
@@ -698,10 +870,15 @@ class RouterService:
         if self.refresh_on:
             # the act-time propensity and the category ride the ring with
             # the duel, into the log when it resolves
-            prop = self._prop(self.state, x, a1, a2)
+            a1, a2, prop = self._gather(
+                [a1, a2, self._prop(self.state, xl, a1, a2)])
             cat_row = self._cat_row(cats, b)
+        else:
+            a1, a2 = self._gather([a1, a2])
+        self._fold_cost(a1, a2)
         self.pending, tickets = fq.enqueue(
-            self.pending, x, a1, a2, self._clock(), pref_row, prop, cat_row)
+            self.pending, x, a1, a2, self._clock(), pref_row, prop, cat_row,
+            share=self._share)
         self.n_routed += b
         self._duel_cost = self._duel_cost + self.spend(a1) + self.spend(a2)
         return a1, a2, tickets
@@ -717,7 +894,11 @@ class RouterService:
         the return value is then the folded count as a 0-d device tensor.
         Policies without one take ``_fold_compact`` (a host sync, host
         int). With refresh the resolved duels also fold into the duel log.
-        In streaming mode this delegates to ``feedback_stream``."""
+        In streaming mode this delegates to ``feedback_stream``.
+
+        Under a mesh every rank passes the whole batch and resolves it
+        against its share of the ring; one all-reduce over the batch ranks
+        assembles the unsharded resolved batch, which every rank folds."""
         if self.streaming:
             return self.feedback_stream(tickets, y)
         dev = self.device
@@ -728,9 +909,12 @@ class RouterService:
                 f"feedback_batch: tickets shape {tuple(tickets.shape)} != "
                 f"votes shape {tuple(y.shape)} — one vote per delivered "
                 f"ticket")
+        self._check_divides(tickets.shape[0], "feedback_batch")
         self.pending, res = fq.resolve(self.pending, tickets, y,
                                        self._clock(),
-                                       max_age=self.cfg.feedback_expiry)
+                                       max_age=self.cfg.feedback_expiry,
+                                       share=self._share)
+        res = self._sum_shares(res)
         if self.refresh_on:
             self.duel_log = self._fold_log(self.duel_log, res, self._clock())
         n_ok = torch.sum(res.ok, dtype=torch.int32)    # lazy device count
@@ -786,9 +970,11 @@ class RouterService:
         """Fold a feedback batch in directly, bypassing the ring (callers
         that kept the duel data, e.g. offline replay). Pass the batch's
         ``tickets`` to also clear its ring slots (in streaming mode through
-        the bucket's resolve program). No host sync."""
+        the bucket's resolve program). No host sync. Under a mesh every
+        rank passes the whole batch and folds it."""
         dev = self.device
         y = as_f32(y, dev)
+        self._check_divides(y.shape[0], "feedback_direct")
         if tickets is not None:
             t = torch.as_tensor(tickets, device=dev).to(torch.int32)
             if self.streaming:
@@ -799,16 +985,15 @@ class RouterService:
             else:
                 self.pending, _ = fq.resolve(
                     self.pending, t, y, self._clock(),
-                    max_age=self.cfg.feedback_expiry)
+                    max_age=self.cfg.feedback_expiry, share=self._share)
         self._commit(state=self.policy.update(
             self.state, as_f32(x, dev), torch.as_tensor(a1, device=dev),
             torch.as_tensor(a2, device=dev), y))
 
     def pending_count(self) -> int:
-        """In-flight duels (issued, unresolved, unexpired). Syncs: one
-        transfer of the count."""
-        n = fq.pending_count(self.pending).cpu()
-        return int(n)
+        """In-flight duels (issued, unresolved, unexpired), over every
+        share of the ring. Syncs: one transfer of the count."""
+        return self._sum_count(fq.pending_count(self.pending))
 
     def expire_pending(self) -> int:
         """Age out pending duels past ``cfg.feedback_expiry`` (no-op when
@@ -819,8 +1004,7 @@ class RouterService:
         pending, dropped = fq.expire(self.pending, self._clock(),
                                      self.cfg.feedback_expiry)
         self._commit(pending=pending)
-        dropped = dropped.cpu()
-        return int(dropped)
+        return self._sum_count(dropped)
 
     def spend(self, arms, tokens_out: int = 1000) -> torch.Tensor:
         """Cost of a batch of dispatches, a 0-d device tensor (no sync)."""
@@ -830,13 +1014,17 @@ class RouterService:
     def service_stats(self) -> dict:
         """The traffic accumulators on the host: routed and folded duel
         counts, realized duel cost (both sides of every issued pair), the
-        in-flight count. Syncs: one transfer of each accumulator."""
+        in-flight count. Syncs: one transfer of each accumulator. A
+        streaming mesh service's ranks each add their own rows' costs:
+        their sum is taken here (one all-reduce)."""
         n_folded = self._n_folded.cpu()
-        duel_cost = self._duel_cost.cpu()
-        pending = fq.pending_count(self.pending).cpu()
+        duel_cost = self._duel_cost.reshape(1).clone()
+        if self.streaming and self.mesh is not None:
+            duel_cost = rr.sum_rows(duel_cost, self._group)
+        duel_cost = duel_cost.cpu()
         out = {"tick": self.tick, "n_routed": self.n_routed,
-               "n_folded": int(n_folded), "duel_cost": float(duel_cost),
-               "pending": int(pending)}
+               "n_folded": int(n_folded), "duel_cost": float(duel_cost[0]),
+               "pending": self.pending_count()}
         if self.refresh_on:
             logged = self.duel_log.count.cpu()
             out["duels_logged"] = int(logged)
@@ -904,7 +1092,7 @@ class RouterService:
 
     def active_mask(self) -> np.ndarray:
         """The pool's active mask on the host. Syncs: one transfer."""
-        return self.model_pool().active.cpu().numpy()
+        return self.model_pool().active.to("cpu", copy=True).numpy()
 
     def controller_state(self) -> "ap.ControllerState":
         """The live autopilot controller state (device tensors)."""
@@ -917,9 +1105,11 @@ class RouterService:
     def autopilot_status(self) -> dict:
         """Host snapshot of the control loops: governor lambda, realized
         cost EMA, candidate slots and their duel tallies, dominance
-        streaks. Syncs: one transfer of each controller field."""
+        streaks. Syncs: one transfer of each controller field (a copy on
+        the CPU too: a streaming service writes its live tensors in
+        place)."""
         ctrl = type(self.controller_state())(
-            *(t.cpu() for t in self.controller_state()))
+            *(t.to("cpu", copy=True) for t in self.controller_state()))
         return {
             "lambda": float(ctrl.lam),
             "cost_ema": float(ctrl.cost_ema),
@@ -1027,10 +1217,38 @@ class RouterService:
 
     # -- persistence (posterior, ring and key survive restarts) --------------
 
+    def _ring_whole(self) -> fq.PendingDuels:
+        """The whole pending ring in the unsharded layout: under a mesh the
+        ranks' shares gathered over the batch ranks (the streaming ring's
+        per-shard counters too)."""
+        q = self.pending
+        if self.mesh is None:
+            return q
+        cols = [q.x, q.a1, q.a2, q.ticket, q.issued_at, q.valid, q.pref,
+                q.prop, q.cat]
+        x, a1, a2, ticket, issued_at, valid, pref, prop, cat = \
+            self._gather(cols)
+        nt = self._gather_col(q.next_ticket) if self.streaming \
+            else q.next_ticket
+        return fq.PendingDuels(x=x, a1=a1, a2=a2, ticket=ticket,
+                               issued_at=issued_at, valid=valid,
+                               next_ticket=nt, pref=pref, prop=prop, cat=cat)
+
+    def _ring_share(self, q: fq.PendingDuels) -> fq.PendingDuels:
+        """This rank's share of a whole ring (``_ring_whole``'s inverse)."""
+        if self.mesh is None:
+            return q
+        lo, n = self._share[0], self.pending.x.shape[0]
+        nt = q.next_ticket
+        if self.streaming:
+            nt = nt[self._shard:self._shard + 1]
+        return fq.PendingDuels(*(t[lo:lo + n] for t in q[:6]), nt,
+                               *(t[lo:lo + n] for t in q[7:]))
+
     def _payload(self) -> dict:
         payload = {"state": self.state,
                    "key": self._draws.key_leaf(),
-                   "pending": self.pending,
+                   "pending": self._ring_whole(),
                    "tick": torch.tensor(self.tick, dtype=torch.int32),
                    "n_routed": torch.tensor(self.n_routed,
                                             dtype=torch.int32)}
@@ -1047,15 +1265,24 @@ class RouterService:
     def save(self, path: str, step: int | None = None) -> str:
         """Checkpoint the state, the draw source's key, the pending ring,
         the clock and the routed count (and the slot history) in the
-        reference's msgpack layout."""
+        reference's msgpack layout. Under a mesh every rank calls it: the
+        ring's shares are gathered into the unsharded layout, the world's
+        rank 0 writes, and every rank returns once the file is there."""
         from repro_torch.checkpoint import save_checkpoint
-        return save_checkpoint(path, step if step is not None
-                               else self.n_routed, self._payload())
+        step = step if step is not None else self.n_routed
+        payload = self._payload()
+        if self.mesh is None:
+            return save_checkpoint(path, step, payload)
+        if dist.get_rank() == 0:
+            save_checkpoint(path, step, payload)
+        dist.barrier()
+        return os.path.join(path, f"ckpt_{step:08d}.msgpack")
 
     def restore(self, path: str, step: int | None = None) -> int:
         """Load a checkpoint of this service's structure (the reference's
-        or the port's); returns its step. Syncs: the clock and the slot
-        history come back to the host."""
+        or the port's, sharded or not); returns its step. Under a mesh
+        every rank calls it and keeps its share of the ring. Syncs: the
+        clock and the slot history come back to the host."""
         from repro_torch.checkpoint import latest_step, restore_checkpoint
         step = latest_step(path) if step is None else step
         try:
@@ -1068,7 +1295,8 @@ class RouterService:
         self._draws = self._draws.from_leaf(payload["key"])
         self.tick = int(payload["tick"])
         self.n_routed = int(payload["n_routed"])
-        restored = dict(state=payload["state"], pending=payload["pending"])
+        restored = dict(state=payload["state"],
+                        pending=self._ring_share(payload["pending"]))
         if self.streaming:
             # re-seat the device clock behind the restored host tick
             restored["tick"] = fq.as_i32(self.tick, self.device)

@@ -321,48 +321,14 @@ def _misaligned(v):
     return out
 
 
-# the kernel of ``torch.cuda._sleep``, which pads a profile's two ends,
-# and the host's wait before the window closes (``chip_smoke.py``'s
-# ``cuda_profile``)
-PROFILE_MARKER = "spin_kernel"
-PROFILE_DRAIN_S = 0.02
-
-
-def _profiled_events(fn, attempts=3):
+def _profiled_events(fn):
     """The device events of one run of ``fn`` under ``torch.profiler``, in
-    a window taken as ``chip_smoke.py``'s ``cuda_profile`` takes it: padded
-    at both ends by a marker kernel, the host waiting ``PROFILE_DRAIN_S``
-    before the window closes, then an empty session that catches records
-    CUPTI hands over late (a late record of an earlier call's kernels
-    would otherwise land in the next window). A window with no kernel of
-    ``fn`` or without its closing marker (the device event that starts
-    last) is taken again, up to ``attempts`` times. The markers are left
-    out of what is returned."""
-    import time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    out = []
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1 << 21)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1 << 21)
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_DRAIN_S)
-        with profile(activities=[ProfilerActivity.CUDA]):
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        whole = bool(dev) and PROFILE_MARKER in max(
-            dev, key=lambda e: e.time_range.start).name
-        out = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and PROFILE_MARKER not in e.key]
-        if out and whole:
-            break
-    return out
+    a whole window (``repro_torch.profiling.whole_profile``: padded at
+    both ends by a marker kernel, drained, followed by an empty session,
+    taken again while it records no kernel or not its closing marker),
+    the markers left out."""
+    from repro_torch import profiling
+    return profiling.device_events(profiling.whole_profile(fn))
 
 
 def _device_kernels(fn):
@@ -2411,3 +2377,56 @@ def test_lm_new_paths_on_the_card_match_the_cpu(cuda_device, name, n_tok):
         else:
             np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
                                        atol=2e-4)
+
+
+@pytest.mark.parametrize("buckets", [None, (16, 32)])
+def test_mesh_world_of_one_matches_unsharded_on_the_card(cuda_device,
+                                                         buckets):
+    """``RouterService(mesh=...)`` on an NCCL world of one (a (1, 1) mesh)
+    routes, resolves and folds bitwise as the unsharded service on the
+    card, tick batch and streaming (its CUDA graphs) alike; the world is
+    destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.core import fgts
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.data.pool import PoolEntry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serving import RouterService, RouterServiceConfig
+    d, k, b = 64, 6, 32
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((k, d)).astype(np.float32)
+    entries = [PoolEntry(f"m{i}", "granite-3-2b", 0.1 * (i + 1), emb[i])
+               for i in range(k)]
+    cfg = RouterServiceConfig(
+        fgts=fgts.FGTSConfig(n_models=k, dim=d, horizon=256, sgld_steps=4,
+                             sgld_minibatch=16, n_chains=4),
+        feedback_capacity=128, buckets=buckets)
+    mesh_lib.init_world(cuda_device)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = mesh_lib.make_debug_mesh(1, 1, cuda_device)
+        svcs = [RouterService(entries, None, None, cfg, device=cuda_device,
+                              draws=KeyedDraws(3), mesh=m)
+                for m in (None, mesh)]
+        lag = None
+        for r in range(5):
+            x = torch.from_numpy(rng.standard_normal((b - r, d))
+                                 .astype(np.float32)).to(cuda_device)
+            if buckets is None:
+                x = x[:16]
+            outs = [s.route_batch(x) for s in svcs]
+            for p, q in zip(*outs):
+                assert torch.equal(p, q)
+            y = torch.ones(outs[0][0].shape, device=cuda_device)
+            if lag is not None:
+                n = [s.feedback_batch(*lag) for s in svcs]
+                assert torch.equal(n[0], n[1]) and int(n[0]) > 0
+            lag = (outs[0][2], y)
+        for u, v in zip(tree_leaves(svcs[0].state),
+                        tree_leaves(svcs[1].state)):
+            assert torch.equal(u, v)
+        assert svcs[0].pending_count() == svcs[1].pending_count()
+    finally:
+        mesh_lib.close_world()
+    assert not dist.is_initialized()

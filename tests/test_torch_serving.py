@@ -15,6 +15,7 @@ states are equal), the launcher and the example.
 """
 import os
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -383,13 +384,26 @@ def test_service_guard_rails():
 
 @pytest.mark.parametrize("what", ["mesh", "use_kernel"])
 def test_paths_not_yet_ported_name_their_roadmap_item(what):
-    fcfg = tfgts.FGTSConfig(n_models=K, dim=D, horizon=8)
-    pool = _entries(tpool.PoolEntry, *_pool_data(0, K))
-    cfg = trs.RouterServiceConfig(
-        fgts=fcfg, use_kernel=False if what == "use_kernel" else None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        trs.RouterService(pool, None, None, cfg, device="cpu",
-                          mesh=object() if what == "mesh" else None)
+    """Both paths are in the port now: ``use_kernel=False`` serves the
+    plain selection as the reference's XLA path does (same pairs and
+    posterior), and a mesh over another device type than the service's
+    is refused (the gloo worlds of ``test_torch_mesh.py`` serve meshes)."""
+    if what == "mesh":
+        fcfg = tfgts.FGTSConfig(n_models=K, dim=D, horizon=8)
+        pool = _entries(tpool.PoolEntry, *_pool_data(0, K))
+        cfg = trs.RouterServiceConfig(fgts=fcfg)
+        with pytest.raises(ValueError, match="mesh for a service"):
+            trs.RouterService(pool, None, None, cfg, device="cpu",
+                              mesh=types.SimpleNamespace(device_type="cuda"))
+        return
+    js, ts = _services(use_kernel=False)
+    assert ts.cfg.use_kernel is False
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        x = rng.standard_normal((B, D)).astype(np.float32)
+        _, _, tk = _route(js, ts, x)
+        _feed(js, ts, tk, _votes(rng, B))
+    _close(js.state, ts.state)
 
 
 # ---------------------------------------------------------------------------
@@ -747,10 +761,15 @@ def test_greedy_decode_runs_every_default_pool_family(arch):
     assert len(out) == 3 and all(0 <= t < cfg.vocab_size for t in out)
 
 
-@pytest.mark.parametrize("flag", sorted(tserve.NOT_YET))
+@pytest.mark.parametrize("flag", ["--mesh"])
 def test_serve_launcher_names_missing_paths(flag):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item"):
-        tserve.parse_args(["--device", "cpu", flag, "1"])
+    """Every flag of the reference is in the port: ``--mesh`` serves (the
+    gloo world in ``test_torch_mesh.py``) and refuses a malformed mesh and
+    a batch that does not divide over its data axis."""
+    with pytest.raises(SystemExit, match="DATA,MODEL"):
+        tserve.main(["--device", "cpu", flag, "1"])
+    with pytest.raises(SystemExit, match="divide"):
+        tserve.main(["--device", "cpu", "--batch", "4", flag, "3,1"])
 
 
 def test_routed_serving_example_runs_on_cpu(capsys):

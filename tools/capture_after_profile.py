@@ -4,7 +4,7 @@ broken from another thread, by the capture's error mode.
 
     python3 tools/capture_after_profile.py [--rounds N] [--out FILE]
 
-Each round opens ``chip_smoke.cuda_profile`` (the script's profiler window:
+Each round opens ``repro_torch.profiling.cuda_profile`` (the profiler window:
 markers, a drain, an empty session after it) over replays of a captured
 graph and eager kernels, as phase ``stream`` profiles its passes, and then
 at once captures a chain of small kernels, in the global error mode on
@@ -44,6 +44,7 @@ def main() -> int:
         print("capture_after_profile: no CUDA card", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from repro_torch import profiling
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((16, 64), generator=gen, device="cuda")
     w = torch.randn((64, 64), generator=gen, device="cuda") / 8
@@ -59,7 +60,7 @@ def main() -> int:
     failed = {m: 0 for m in MODES}
     first = {m: None for m in MODES}
     for rnd in range(args.rounds):
-        with cs.cuda_profile():
+        with profiling.cuda_profile():
             for _ in range(20):
                 profiled.replay()
                 chain(x, w)

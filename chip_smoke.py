@@ -256,6 +256,24 @@ in each line's ``wall_s``):
      SIMT kernels): equal losses, every leaf within 2e-2 of its max;
      mamba2-1.3b at full depth (B 2 x 4096) through the SSD backward,
      whose Hopper kernels its profile must show by name.
+   - lm_dryrun: ``launch/dryrun.py``'s reckoning of one rank of 16 x 16
+     at train_4k for granite-3-2b, seamless-m4t-medium, mamba2-1.3b and
+     recurrentgemma-9b (a fake world, destroyed after), each share's
+     kernel calls held to the wrappers' shape rules and the Hopper routes
+     (``check_plan``), then each share on the card (no world): one unit of
+     the rank program forward and backward at the local shapes (B 16,
+     S 4096; granite: attention after the head_dim gather, H 32, KV 8,
+     D 64; seamless: one head a rank, an encoder and a decoder unit;
+     mamba2: the SSD scan whole; recurrentgemma: RG-LRU width 256 and the
+     local attention after the gather, H 16, KV 1, D 256), collectives
+     stood in for. Launches must equal the plan's, each kernel must show
+     device time in a profile window of at least 50 ms of calls, the
+     shards' bytes must equal the reckoning's (counted from the model's
+     own unit under the whole model's specs), and the share's outputs and
+     every gradient must lie within 2e-2 of the same share on the plain
+     versions (same inputs, each tensor's largest magnitude; the plain
+     attention a few batch rows at a time); device ms by kernel, peak
+     memory, each kernel's bound and SDPA's forward and backward time.
 3. card vs CPU: 4 ticks at full width on the card and on the CPU (plain
    versions) from one numpy-made draw set, for the FGTS slice, for the
    autopilot (a control tick every 2 acts) and for the ccft path (whose
@@ -4679,6 +4697,217 @@ def phase_lm_train(dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm_dryrun: one rank's share of the LM mesh programs on the card
+# ---------------------------------------------------------------------------
+
+def share_call_bound(call):
+    """(bound ms, "bytes" or "operations") of one kernel call of a dry-run
+    share's plan: its operations as the plan counts them (``call["flops"]``:
+    attention 4 D a live pair, backward 10 D; the SSD scan's chunked
+    products; none for the elementwise RG-LRU), the bf16 SSD backward's
+    per-head products 3x as phase 1 counts them (fp32 operands); q / k /
+    v / o (and dO, dq, dk, dv, lse), x / B / C / log_a / dt / y, the
+    RG-LRU's 12 (backward 24) bytes an element moved once."""
+    from repro_torch.launch import dryrun as dr
+    kernel, a = call["kernel"], call["args"]
+    n = lambda x: math.prod(x["shape"])
+    bf16 = a[0]["dtype"] == "bfloat16"
+    el = 2 if bf16 else 4
+    peak = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
+    flops = call["flops"]
+    if kernel.startswith("flash_attention"):
+        b, h, s, d = a[0]["shape"]
+        if kernel == "flash_attention":
+            return bound(el * (2 * n(a[0]) + 2 * n(a[1])), flops, peak)
+        return bound(el * (4 * n(a[0]) + 4 * n(a[1])) + 4 * b * h * s,
+                     flops, peak)
+    if kernel.startswith("ssd_scan"):
+        b, s, h, p = a[0]["shape"]
+        nn = a[1]["shape"][-1]
+        if kernel == "ssd_scan":
+            nbytes = (el * (b * s * h * p + 2 * b * s * nn) + 8 * b * s * h
+                      + 4 * b * s * h * p + 4 * b * h * p * nn)
+        else:
+            if bf16:        # the per-head part 3x: all less C.B^T's
+                shared = dr.ssd_flops(b, s, 0, p, nn, call["chunk"])
+                flops = shared + 3 * (flops - shared)
+            nbytes = (2 * el * (b * s * h * p + 2 * b * s * nn)
+                      + 16 * b * s * h + 4 * b * s * h * p
+                      + 4 * b * h * p * nn)
+        return bound(nbytes, flops, peak)
+    b, s, d = a[1]["shape"]
+    if kernel == "rglru_scan":
+        return bound(12 * b * s * d + 4 * b * d, flops)
+    return bound(24 * b * s * d + 4 * b * d, flops)
+
+
+def share_call_ms(call, dev):
+    """CUDA-event ms of one kernel call of a dry-run share's plan, alone,
+    on random inputs of its shapes, strides and dtypes (decays drawn as
+    the models draw them: log_a = -softplus(x) scaled)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def make(a, scale=1.0):
+        t = torch.empty_strided(a["shape"], a["stride"],
+                                dtype=getattr(torch, a["dtype"]), device=dev)
+        t.copy_(scale * torch.randn(a["shape"], generator=gen, device=dev))
+        return t
+    kernel, a = call["kernel"], call["args"]
+    timed = lambda fn: time_ms(fn, runs=3, calls=5)
+    if kernel.startswith("flash_attention"):
+        q, k, v = (make(x) for x in a[:3])
+        kw = dict(causal=call["causal"], window=call["window"],
+                  softcap=call["softcap"])
+        if kernel == "flash_attention":
+            return timed(lambda: fa.flash_attention(q, k, v, **kw))
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        do = make(a[4])
+        return timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw))
+    if kernel.startswith("ssd_scan"):
+        x, bt, ct = (make(y) for y in a[:3])
+        dt = torch.nn.functional.softplus(make(a[4]))
+        log_a = -0.5 * dt
+        if kernel == "ssd_scan":
+            return timed(lambda: ss.ssd_scan(x, bt, ct, log_a, dt,
+                                             chunk=call["chunk"]))
+        dy = make(a[5])
+        return timed(lambda: ss.ssd_scan_bwd(
+            x, bt, ct, log_a, dt, None, dy, None, chunk=call["chunk"]))
+    log_a = -torch.nn.functional.softplus(make(a[0])) * 0.1
+    x = make(a[1])
+    if kernel == "rglru_scan":
+        return timed(lambda: rg.rglru_scan(log_a, x))
+    h, h_last = rg.rglru_scan(log_a, x)
+    dh = make(a[3])
+    return timed(lambda: rg.rglru_scan_bwd(log_a, x, None, h, dh,
+                                           torch.ones_like(h_last)))
+
+
+def share_library(calls, dev):
+    """SDPA's forward and backward ms (CUDA events) over a share's bf16
+    attention calls, on random inputs of their shapes and masks (a window
+    as a dense boolean mask), or None where a call has a soft cap."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    fwd = bwd = 0.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for c in calls:
+        if c["kernel"] != "flash_attention":
+            continue
+        if c["softcap"]:
+            return None, None
+        q_s, k_s = c["args"][0]["shape"], c["args"][1]["shape"]
+        mk = lambda shape: torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        q, k, v = mk(q_s), mk(k_s), mk(k_s)
+        kw = dict(enable_gqa=q_s[1] != k_s[1])
+        if c["window"]:
+            kw["attn_mask"] = fa.live_mask(q_s[2], k_s[2], causal=True,
+                                           window=c["window"], device=dev)
+        elif c["causal"]:
+            kw["is_causal"] = True
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, **kw)
+        o = sdpa()
+        do = torch.randn_like(o)
+        fwd += time_ms(lambda: sdpa().detach(), runs=3, calls=5)
+        bwd += time_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), do, retain_graph=True), runs=3, calls=5)
+        del o, q, k, v, do
+    return fwd, bwd
+
+
+# a share against itself on the plain versions, outputs and each gradient
+# relative to its largest plain magnitude: the bf16 attention's and its
+# backward's tolerance (ATTN_TOL, ATTN_BWD_BF16_TOL), the loosest of the
+# shares' kernels
+SHARE_TOL = 2e-2
+
+
+def phase_lm_dryrun(dev, seed):
+    """``launch/dryrun.py``: the reckoning of ``SHARES``' archs at
+    train_4k on 16 x 16 (a fake world, destroyed after), each share's
+    plan held to the kernels' shape rules (``check_plan``) before any
+    launch, then one rank's share of each timed on the card
+    (``time_shares``): launches exactly the plan's, each kernel with
+    device time in its profile window (``WINDOW_MS``), the shards' bytes
+    the reckoning's (counted apart: ``unit_share_bytes``), the share's
+    outputs and every gradient within ``SHARE_TOL`` of the same share run
+    on the plain versions (same inputs, every kernel at the share's own
+    shapes, strides and masks); each kernel's bound (the sum over its
+    calls of ``share_call_bound``) and SDPA's time where it computes the
+    same function; each kernel's calls timed alone (CUDA events, summed
+    over the share's calls of it: ``ms``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as dr
+    t0 = time.perf_counter()
+    recs = dr.reckon_shares()
+    check(not dist.is_initialized(), "lm_dryrun: the fake world was left")
+    reckon_s = time.perf_counter() - t0
+    routes = {a: dr.check_plan(dr.plan(r)) for a, r in recs.items()}
+    check(all(set(v) == {"sm90"} for v in routes.values()),
+          f"lm_dryrun: a share's kernel call leaves the Hopper routes "
+          f"{routes}")
+    t1 = time.perf_counter()
+    shares = dr.time_shares(recs, dev, seed=seed)
+    out = {}
+    for sh in shares:
+        arch = sh["arch"]
+        check(sh["launches"] == sh["plan_launches"],
+              f"lm_dryrun {arch}: launches {sh['launches']}, the plan's "
+              f"{sh['plan_launches']}")
+        check(all(sh["kernel_device_ms"].get(k, 0.0) > 0
+                  for k in sh["plan_launches"]),
+              f"lm_dryrun {arch}: a kernel with no device time in "
+              f"{sorted(sh['device_ms_by_kernel'])}")
+        check(sh["param_bytes"] == sh["reckoned_param_bytes"],
+              f"lm_dryrun {arch}: shard bytes {sh['param_bytes']}, the "
+              f"reckoning's {sh['reckoned_param_bytes']}")
+        pl = sh["plain"]
+        check(pl["finite"] and pl["out_rel_err"] <= SHARE_TOL
+              and pl["grad_rel_err"] <= SHARE_TOL,
+              f"lm_dryrun {arch}: against the plain versions {pl}")
+        calls = sh.pop("plan")
+        kernels = {}
+        for k, launches in sh["plan_launches"].items():
+            bounds = [share_call_bound(c) for c in calls
+                      if c["kernel"] == k]
+            total = sum(b for b, _ in bounds)
+            kernels[k] = dict(
+                launches=sh["launches"][k], device_ms=sh["kernel_device_ms"][
+                    k], bound_ms=total, bound_by=max(
+                    bounds, key=lambda x: x[0])[1],
+                ms=sum(share_call_ms(c, dev) for c in calls
+                       if c["kernel"] == k),
+                # the share's against its plain run (all its kernels)
+                out_rel_err=pl["out_rel_err"],
+                grad_rel_err=pl["grad_rel_err"],
+                shapes=[c["args"][0]["shape"] for c in calls
+                        if c["kernel"] == k])
+        lib_fwd, lib_bwd = share_library(calls, dev)
+        if "flash_attention" in kernels:
+            kernels["flash_attention"]["library_ms"] = lib_fwd
+            kernels["flash_attention_bwd"]["library_ms"] = lib_bwd
+        rec = recs[arch]
+        out[arch] = dict(
+            sh, kernels=kernels, peak_memory_gb=sh["peak_bytes"] / 1e9,
+            reckoning=dict(bytes=rec["bytes"], flops=rec["flops"],
+                           unit_flops=rec["unit_flops"],
+                           collectives=rec["collectives"],
+                           collective_bytes=rec["collective_bytes"]))
+        torch.cuda.empty_cache()
+    return dict(shares=out, reckon_s=reckon_s,
+                card_s=time.perf_counter() - t1,
+                seconds=time.perf_counter() - t0)
+
+
 # full width in fp32 at a smaller depth, for the card against the CPU
 # (arctic-480b also at 16 of its 128 experts, so the CPU can run it;
 # gemma2-9b's one local and one global layer with the window cut to 64,
@@ -5000,7 +5229,7 @@ DRYRUN_TIMED = dict(select=("dryrun_16x16", "dryrun_2x16x16"),
 
 
 def kernels_line(cases, launches, serve_launches, lm_launches,
-                 train_launches, ex_launches, shares=()):
+                 train_launches, ex_launches, shares=(), lm_shares=None):
     """``cases``: phase-1 case lists by family; ``launches``: the launch
     counts of each path run by its name. ``library_ms`` is the time of
     ``scaled_dot_product_attention`` for ``flash_attention`` (same inputs),
@@ -5027,7 +5256,10 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
     ``examples``. ``shares`` are the router dry-run's steps timed on the
     card (one rank's share), under ``mesh_dryrun`` of the row of each
     step's kernel, by mesh; the kernel's own phase-1 cases at those
-    shapes (``DRYRUN_TIMED``) under ``dryrun_shapes``. The bf16 attention backward's and the RG-LRU
+    shapes (``DRYRUN_TIMED``) under ``dryrun_shapes``. ``lm_shares`` are
+    phase ``lm_dryrun``'s shares by arch, under ``lm_dryrun`` of the row
+    of each kernel they launch (the bf16 attention backward's row for
+    ``flash_attention_bwd``): launches, device ms, bound, SDPA's ms. The bf16 attention backward's and the RG-LRU
     backward's ``launches`` are those of the granite-3-2b and the
     recurrentgemma-9b training runs (3 steps), and the bf16 backward row
     carries its other timed cases under ``more``. The two forward kernels
@@ -5091,6 +5323,12 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
             for r in shares if r["kernel"] == counter}
         if on_share:
             rows[-1]["mesh_dryrun"] = on_share
+        on_lm_share = {arch: sh["kernels"][counter]
+                       for arch, sh in (lm_shares or {}).items()
+                       if counter in sh["kernels"]
+                       and name != "flash_attention_bwd"}
+        if on_lm_share:
+            rows[-1]["lm_dryrun"] = on_lm_share
         if name == "flash_attention_bwd_bf16":
             rows[-1]["design_ops_ms"] = m.get("design_ops_ms")
         if name == "ssd_scan_bwd":
@@ -5195,6 +5433,9 @@ def main() -> int:
     record["lm_train"] = dict(phase="lm_train",
                               **phase_lm_train(dev, args.seed))
     emit_phase(record["lm_train"])
+    record["lm_dryrun"] = dict(phase="lm_dryrun",
+                               **phase_lm_dryrun(dev, args.seed))
+    emit_phase(record["lm_dryrun"])
 
     part_s = {}
 
@@ -5239,7 +5480,7 @@ def main() -> int:
         {n: r["launches_per_step"] for n, r in trained.items()},
         {n: r["launches"] for n, r in record["examples"].items()
          if isinstance(r, dict)},
-        record["mesh"]["dryrun"]["card"])
+        record["mesh"]["dryrun"]["card"], record["lm_dryrun"]["shares"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -207,6 +207,12 @@ def _check_cuda(q, k, v, window) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    check_args(q, k, v, window)
+
+
+def check_args(q, k, v, window) -> None:
+    """Raise for the shapes, dtypes and windows the CUDA kernels do not
+    take, on any device (``meta`` tensors too)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: want (B,H,S,D), (B,KV,T,D) x2")

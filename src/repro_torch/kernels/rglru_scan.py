@@ -111,6 +111,12 @@ def _check_cuda(name, log_a, x_in, h0, *more):
     tensor, shape) to check."""
     if x_in.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x_in.device}")
+    check_args(log_a, x_in, h0, *more)
+
+
+def check_args(log_a, x_in, h0, *more):
+    """Raise for the shapes and dtypes the CUDA kernels do not take, on any
+    device (``meta`` tensors too); ``more`` as ``_check_cuda``'s."""
     if x_in.dim() != 3 or log_a.shape != x_in.shape:
         raise ValueError(f"shapes log_a {tuple(log_a.shape)}, x_in "
                          f"{tuple(x_in.shape)}: want (B,S,D) twice")

@@ -231,6 +231,12 @@ def _check_cuda(x, bt, ct, log_a, dt, h0, chunk):
     """Raise ``ValueError`` for what the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    check_args(x, bt, ct, log_a, dt, h0, chunk)
+
+
+def check_args(x, bt, ct, log_a, dt, h0, chunk):
+    """Raise ``ValueError`` for the shapes, dtypes and chunks the kernels
+    do not take, on any device (``meta`` tensors too)."""
     if x.dim() != 4 or bt.dim() != 3 or ct.shape != bt.shape:
         raise ValueError(f"shapes x {tuple(x.shape)}, bt {tuple(bt.shape)}, "
                          f"ct {tuple(ct.shape)}: want (B,S,H,P), (B,S,N) x2")

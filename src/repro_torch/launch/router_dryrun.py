@@ -41,9 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
-import time
 
 import torch
 import torch.distributed as dist
@@ -277,37 +275,6 @@ def reckon(global_batch: int = GLOBAL_BATCH, horizon: int = HORIZON,
 # One rank's share on the card
 # ---------------------------------------------------------------------------
 
-# the least host time a profiled window holds: one-call windows of the
-# route share (0.1 ms) recorded no event at all in most tries on an H100,
-# padded or not, where windows of 10 ms and more kept theirs
-WINDOW_MS = 50.0
-
-
-def _timed(fn, calls: int = 5) -> dict:
-    """Host ms a call (ending in a sync); device ms by kernel a call, the
-    mean over a whole profiler window (``profiling.whole_profile``) of as
-    many calls as fill ``WINDOW_MS``; the peak memory of a call."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / calls
-    peak = torch.cuda.max_memory_allocated()
-    n = max(1, math.ceil(WINDOW_MS / ms))
-
-    def run():
-        for _ in range(n):
-            fn()
-    by_kernel = {k: us / 1e3 / n for k, us, _ in
-                 profiling.kernel_events(profiling.whole_profile(run))}
-    return {"ms": ms, "device_ms": sum(by_kernel.values()),
-            "device_ms_by_kernel": by_kernel, "peak_bytes": peak,
-            "profiled_calls": n}
-
-
 # each step's kernel: (wrapper, substring of its kernels' names)
 SHARE_KERNELS = {"route_step": ("dueling_select", "select_"),
                  "update_step": ("sgld_potential_grad", "fgts_kernel"),
@@ -404,7 +371,8 @@ def time_shares(device=None, seed: int = 0) -> list:
                         if v}
             wrapper, sub = SHARE_KERNELS[name]
             rec = dict(step=name, mesh=mesh_name, rows=rows,
-                       launches=launches, **_timed(fn))
+                       launches=launches,
+                       **profiling.timed(fn))
             rec["kernel"] = wrapper
             rec["bound_ms"], rec["bound_by"] = share_bound(name, rows)
             if wrapper is not None:

@@ -11,19 +11,37 @@ in: a functional update would hold two copies of the parameters and both
 moments at once. ``make_prefill_step`` and ``make_decode_step`` wrap
 ``lm.prefill`` and ``lm.decode_step``.
 
-The reference's ``ShapeDtypeStruct`` and sharding helpers (``batch_specs``
-through ``input_specs``) lower the steps onto TPU pod meshes for its
-dry-runs; they belong to the dry-run port (ROADMAP Queue 1 item 5) and are
-not here.
+The input specs (``batch_specs`` through ``input_specs``) are the
+reference's ``ShapeDtypeStruct`` trees as tensors on the ``meta`` device:
+shapes and dtypes, no storage. ``input_specs`` returns each step's
+arguments, their ``sharding/rules.py`` spec trees and the port's step
+function, the currency of ``launch/dryrun.py``. The reference's
+``tree_shardings`` (``NamedSharding`` trees for ``jax.jit``) has no
+counterpart: the dry-run reads the specs through
+``routing_rules.local_shape``.
+
+VLM note: for ``train_4k`` the 4096-token budget includes the anyres patch
+prefix (2880 patch embeddings + 1216 text tokens); decode shapes assume
+the image prefix is already in the KV cache. Audio note: the encoder
+consumes ``cfg.enc_frames`` frame embeddings; decoder length = the shape's
+seq_len.
 """
 from __future__ import annotations
 
+import functools
+import math
+from typing import Any
+
 import torch
 
+from repro_torch.configs.shapes import InputShape
+from repro_torch.models import blocks as blk
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import tree_leaves, tree_unflatten
-from repro_torch.optim import adamw_update_
+from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim import adamw_init, adamw_update_
+from repro_torch.sharding import rules
+from repro_torch.sharding.routing_rules import P
 
 
 def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig,
@@ -85,3 +103,134 @@ def make_decode_step(cfg: ModelConfig, unroll: bool = False):
     def decode_step(params, cache, tokens, pos):
         return lm.decode_step(params, cache, tokens, pos, cfg)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs on the meta device (no allocation: the dry-run's currency)
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """A shape and dtype without storage (``jax.ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """The model inputs of a train or prefill step: tokens (and labels),
+    a vision model's patches, an encoder-decoder model's frames."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = lm._dtype(cfg)
+    out: dict[str, Any] = {}
+    text = s
+    if cfg.frontend == "vision":
+        text = s - cfg.n_frontend_tokens
+        out["patches"] = _sds((b, cfg.n_frontend_tokens, cfg.d_model), dt)
+    if cfg.is_encdec:
+        out["frames"] = _sds((b, cfg.enc_frames, cfg.d_model), dt)
+    out["tokens"] = _sds((b, text), torch.int32)
+    if shape.kind == "train":
+        out["labels"] = _sds((b, text), torch.int32)
+    return out
+
+
+def _meta(tree):
+    return tree_map(lambda t: _sds(t.shape, t.dtype), tree)
+
+
+@functools.lru_cache(maxsize=32)
+def _unit_sds(cfg: ModelConfig, specs: tuple) -> dict:
+    """One unit of ``specs``' parameters (``blocks.init_unit`` under
+    ``FakeTensorMode``: shapes only) on the meta device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        unit = blk.init_unit(torch.Generator(), cfg, specs, lm._dtype(cfg),
+                             "cpu")
+    return _meta(unit)
+
+
+def unit_params_specs(cfg: ModelConfig, specs) -> dict:
+    """One unit's parameter tree on the meta device (no stacked axis)."""
+    return _meta(_unit_sds(cfg, tuple(specs)))
+
+
+def _stacked(unit: dict, n: int) -> dict:
+    return tree_map(lambda t: _sds((n, *t.shape), t.dtype), unit)
+
+
+def params_specs(cfg: ModelConfig) -> dict:
+    """``lm.init_params``' tree on the meta device, reckoned from one unit
+    of each stack (``init_params`` itself would draw every weight)."""
+    dt = lm._dtype(cfg)
+    d, f32 = cfg.d_model, torch.float32
+    p: dict = {
+        "embed": _sds((cfg.vocab_size, d), dt),
+        "units": _stacked(_unit_sds(cfg, cfg.pattern), cfg.n_units),
+        "final_norm": _sds((d,), f32),
+    }
+    if cfg.remainder:
+        p["remainder"] = unit_params_specs(cfg, cfg.remainder)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _sds((cfg.vocab_size, d), dt)
+    if cfg.frontend == "vision":
+        p["vis_proj"] = _sds((d, d), dt)
+    if cfg.is_encdec:
+        p["enc_units"] = _stacked(_unit_sds(cfg, cfg.enc_pattern),
+                                  cfg.enc_n_units)
+        p["enc_norm"] = _sds((d,), f32)
+    return p
+
+
+def opt_specs(params_sds) -> dict:
+    """``optim.adamw_init``'s state on the meta device."""
+    return adamw_init(params_sds)
+
+
+def cache_sds(cfg: ModelConfig, batch: int, cache_len: int,
+              enc_len: int = 0) -> dict:
+    """``lm.init_cache``'s tree on the meta device."""
+    return lm.init_cache(batch, cfg, cache_len, enc_len, device="meta")
+
+
+def step_batch_axes(shape: InputShape, mesh) -> tuple:
+    """The batch axes of ``shape``'s inputs on ``mesh``: a global batch
+    that does not divide over them (long_500k's batch 1) is replicated."""
+    bx = rules.batch_axes(mesh)
+    sizes = rules.mesh_axis_sizes(mesh)
+    if shape.global_batch % math.prod(sizes[a] for a in bx):
+        return ()
+    return bx
+
+
+def _batch_spec_tree(batch: dict, bx: tuple) -> dict:
+    return {k: P(bx, *((None,) * (t.dim() - 1))) for k, t in batch.items()}
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, mesh,
+                unroll: bool = False):
+    """(args, in_specs, out_specs, step_fn) of ``shape``'s step on
+    ``mesh``: the step's arguments on the meta device, the spec trees of
+    its inputs and outputs, and the port's step function. ``unroll`` is
+    handed to the step, which accepts it and changes nothing."""
+    psp = rules.param_specs(cfg, mesh)
+    params = params_specs(cfg)
+    bx = step_batch_axes(shape, mesh)
+    if shape.kind == "train":
+        batch = batch_specs(cfg, shape)
+        osp = rules.opt_state_specs(psp)
+        args = (params, opt_specs(params), batch)
+        in_sh = (psp, osp, _batch_spec_tree(batch, bx))
+        out_sh = (psp, osp, {"loss": P(), "nll": P(), "aux": P()})
+        return args, in_sh, out_sh, make_train_step(cfg, unroll=unroll)
+    if shape.kind == "prefill":
+        batch = batch_specs(cfg, shape)
+        csp = rules.cache_specs(cfg, mesh, bx=bx)
+        step = make_prefill_step(cfg, cache_len=shape.seq_len, unroll=unroll)
+        return ((params, batch), (psp, _batch_spec_tree(batch, bx)),
+                (P(bx, None), csp), step)
+    enc_len = cfg.enc_frames if cfg.is_encdec else 0
+    cache = cache_sds(cfg, shape.global_batch, shape.seq_len, enc_len)
+    csp = rules.cache_specs(cfg, mesh, bx=bx)
+    tokens = _sds((shape.global_batch,), torch.int32)
+    pos = _sds((), torch.int32)
+    step = make_decode_step(cfg, unroll=unroll)
+    return ((params, cache, tokens, pos), (psp, csp, P(bx), P()),
+            (P(bx, None), csp), step)

@@ -51,6 +51,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .config import ModelConfig
+from .hooks import LOCAL
 from .layers import apply_rope, normal, softcap
 
 
@@ -92,54 +93,63 @@ def _mask(mode: str, window: int) -> tuple[bool, int]:
     raise ValueError(f"unknown attention mode {mode!r}")
 
 
+def _attend(params, q, k, v, cfg, hooks, *, causal, window):
+    """The flash wrapper over q, k, v (B,S,heads,hd), then ``wo``."""
+    out = hooks.impl(flash_attention)(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, softcap=cfg.attn_softcap,
+        scale=cfg.hd ** -0.5)
+    out = torch.einsum("bshk,hkd->bsd", hooks.head_out(out.transpose(1, 2)),
+                       params["wo"])
+    return hooks.leave(out, "wo")
+
+
 def self_attention_kv(params: dict, x: torch.Tensor,
                       positions: torch.Tensor, cfg: ModelConfig, *,
-                      mode: str, window: int = 0):
+                      mode: str, window: int = 0, hooks=LOCAL):
     """Self-attention of x (B,S,d) at ``positions`` (B,S) on the flash
     wrapper. Returns (out (B,S,d), k, v): the roped keys and the values
     (B,S,KV,hd) it attended to, which prefill writes into the cache."""
     causal, win = _mask(mode, window)
-    q, k, v = _project_qkv(params, x, x, cfg)
+    x = hooks.enter(x, "wq")
+    q, k, v = hooks.heads(*_project_qkv(params, x, x, cfg))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=win,
-                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
-    out = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+    out = _attend(params, q, k, v, cfg, hooks, causal=causal, window=win)
     return out, k, v
 
 
 def cross_attention_kv(params: dict, x: torch.Tensor,
-                       kv_src: torch.Tensor, cfg: ModelConfig):
+                       kv_src: torch.Tensor, cfg: ModelConfig, *,
+                       hooks=LOCAL):
     """Attention of x (B,S,d) over the memory ``kv_src`` (B,T,d) on the
     flash wrapper: no RoPE, no mask, the soft cap. Returns (out (B,S,d),
     k, v): the memory's keys and values (B,T,KV,hd), biases included,
     which prefill writes into the cross cache."""
-    q, k, v = _project_qkv(params, x, kv_src, cfg)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=False, window=0,
-                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
-    out = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+    x, kv_src = hooks.enter(x, "wq"), hooks.enter(kv_src, "wk")
+    q, k, v = hooks.heads(*_project_qkv(params, x, kv_src, cfg))
+    out = _attend(params, q, k, v, cfg, hooks, causal=False, window=0)
     return out, k, v
 
 
 def full_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, *, mode: str, window: int = 0,
                    kv_src: torch.Tensor | None = None,
-                   kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+                   kv_positions: torch.Tensor | None = None,
+                   hooks=LOCAL) -> torch.Tensor:
     """Full-sequence attention of x (B,S,d) at ``positions`` (B,S); mode
     'causal' | 'local' | 'bidir' (self-attention) or 'cross' (over the
     memory ``kv_src`` (B,T,d), whose ``kv_positions`` mask nothing).
-    Returns (B,S,d)."""
+    ``hooks``: ``models/hooks.py``. Returns (B,S,d)."""
     if mode == "cross":
         if kv_src is None:
             raise ValueError("mode 'cross' needs kv_src")
-        return cross_attention_kv(params, x, kv_src, cfg)[0]
+        return cross_attention_kv(params, x, kv_src, cfg, hooks=hooks)[0]
     if kv_src is not None or kv_positions is not None:
         raise ValueError(f"mode {mode!r} is self-attention: kv_src and "
                          f"kv_positions belong to mode 'cross'")
     return self_attention_kv(params, x, positions, cfg, mode=mode,
-                             window=window)[0]
+                             window=window, hooks=hooks)[0]
 
 
 def _gqa_scores(q, k):

@@ -22,6 +22,7 @@ from .config import (FFN_MLP, FFN_MOE, FFN_MOE_DENSE, FFN_NONE,
                      MIXER_BIDIR_ATTN, MIXER_CROSS_ATTN, MIXER_GLOBAL_ATTN,
                      MIXER_LOCAL_ATTN, MIXER_RGLRU, MIXER_SSD, LayerSpec,
                      ModelConfig)
+from .hooks import LOCAL
 from .layers import gated_mlp, init_mlp, rms_norm
 
 # the self-attention mode of each attention mixer (a cross-attention
@@ -67,15 +68,17 @@ def init_unit(gen: torch.Generator, cfg: ModelConfig, specs, dtype,
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
-def _ffn(params, x, cfg, spec, moe_impl):
+def _ffn(params, x, cfg, spec, moe_impl, hooks=LOCAL):
     """x plus the block's FFN of its norm, and the FFN's aux loss (None
-    without an MoE)."""
+    without an MoE). ``hooks``: the FFN's (``models/hooks.py``)."""
     if spec.ffn == FFN_NONE:
         return x, None
     h = rms_norm(x, params["norm2"], cfg.norm_eps)
     if spec.ffn == FFN_MLP:
-        return x + gated_mlp(params["ffn"], h), None
-    f, aux = moe_lib.moe_ffn(params["ffn"], h, cfg, impl=moe_impl)
+        f = gated_mlp(params["ffn"], hooks.enter(h, "w2"))
+        return x + hooks.leave(f, "w2"), None
+    f, aux = hooks.impl(moe_lib.moe_ffn)(params["ffn"], h, cfg,
+                                         impl=moe_impl)
     return x + f, aux
 
 
@@ -88,26 +91,29 @@ def _memory_positions(enc_memory):
 def block_fwd(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, spec: LayerSpec, *,
               enc_memory: torch.Tensor | None = None,
-              moe_impl: str | None = None):
+              moe_impl: str | None = None, hooks=LOCAL):
     """Returns (x, aux_loss): the MoE's load-balance loss, 0 for other
-    FFNs. ``moe_impl`` None defers to ``cfg.moe_impl``."""
+    FFNs. ``moe_impl`` None defers to ``cfg.moe_impl``. ``hooks``: one
+    device, or one rank of a sharded program (``models/hooks.py``)."""
     moe_impl = moe_impl or cfg.moe_impl
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    mh = hooks.sub("mixer")
     if spec.mixer == MIXER_RGLRU:
-        m = rglru_lib.rglru_fwd(params["mixer"], h, cfg)
+        m = rglru_lib.rglru_fwd(params["mixer"], h, cfg, mh)
     elif spec.mixer == MIXER_SSD:
-        m = ssd_lib.ssd_fwd(params["mixer"], h, cfg)
+        m = ssd_lib.ssd_fwd(params["mixer"], h, cfg, mh)
     else:
         m = attn_lib.full_attention(params["mixer"], h, positions, cfg,
                                     mode=_MODES[spec.mixer],
-                                    window=cfg.window)
+                                    window=cfg.window, hooks=mh)
     x = x + m
     if spec.mixer == MIXER_CROSS_ATTN:
         h = rms_norm(x, params["norm_x"], cfg.norm_eps)
         x = x + attn_lib.full_attention(
             params["xattn"], h, positions, cfg, mode="cross",
-            kv_src=enc_memory, kv_positions=_memory_positions(enc_memory))
-    x, aux = _ffn(params, x, cfg, spec, moe_impl)
+            kv_src=enc_memory, kv_positions=_memory_positions(enc_memory),
+            hooks=hooks.sub("xattn"))
+    x, aux = _ffn(params, x, cfg, spec, moe_impl, hooks.sub("ffn"))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux

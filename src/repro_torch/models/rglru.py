@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 from .config import ModelConfig
+from .hooks import LOCAL
 from .layers import causal_conv, normal
 
 C_GATE = 8.0
@@ -55,12 +56,14 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     }
 
 
-def _gates(params, u):
-    """u: (..., dr) -> (log_a, x_in), both float32."""
+def _gates(params, u, u_gates=None):
+    """u: (..., dr) -> (log_a, x_in), both float32. The gates read
+    ``u_gates`` where given (a rank's gates read every channel of u)."""
     f32 = torch.float32
     uf = u.to(f32)
-    r = torch.sigmoid(uf @ params["wa"].to(f32) + params["ba"])
-    i = torch.sigmoid(uf @ params["wi"].to(f32) + params["bi"])
+    ug = uf if u_gates is None or u_gates is u else u_gates.to(f32)
+    r = torch.sigmoid(ug @ params["wa"].to(f32) + params["ba"])
+    i = torch.sigmoid(ug @ params["wi"].to(f32) + params["bi"])
     log_a = C_GATE * r * F.logsigmoid(params["lambda"])
     return log_a, i * uf
 
@@ -73,28 +76,32 @@ def _causal_conv(params, u, conv_state=None):
 
 
 def linear_scan(log_a: torch.Tensor, x_in: torch.Tensor,
-                h0: torch.Tensor | None = None):
+                h0: torch.Tensor | None = None, hooks=LOCAL):
     """h_t = a_t h_{t-1} + sqrt(1-a_t^2) x_t over axis 1 on the
     ``rglru_scan`` wrapper. log_a, x_in: (B,S,dr) float32. Returns
     (h (B,S,dr), h_last (B,dr))."""
-    return rglru_scan(log_a, x_in, h0)
+    return hooks.impl(rglru_scan)(log_a, x_in, h0)
 
 
-def rglru_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def rglru_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  hooks=LOCAL):
     """Full-sequence forward that also returns the decode cache
-    ({"h": h_last, "conv": the last W-1 conv inputs})."""
+    ({"h": h_last, "conv": the last W-1 conv inputs}). ``hooks``:
+    ``models/hooks.py``."""
     f32 = torch.float32
+    x = hooks.enter(x, "wx")
     y = gelu(x @ params["wy"])
     u, conv_state = _causal_conv(params, x @ params["wx"])
-    log_a, x_in = _gates(params, u)
-    h, h_last = linear_scan(log_a, x_in)
-    out = ((y.to(f32) * h) @ params["wo"].to(f32)).to(x.dtype)
-    return out, {"h": h_last, "conv": conv_state}
+    log_a, x_in = _gates(params, u, hooks.channels(u))
+    h, h_last = linear_scan(log_a, x_in, hooks=hooks)
+    out = hooks.leave((y.to(f32) * h) @ params["wo"].to(f32), "wo")
+    return out.to(x.dtype), {"h": h_last, "conv": conv_state}
 
 
-def rglru_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def rglru_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              hooks=LOCAL) -> torch.Tensor:
     """Full-sequence forward. x: (B,S,d) -> (B,S,d)."""
-    return rglru_prefill(params, x, cfg)[0]
+    return rglru_prefill(params, x, cfg, hooks)[0]
 
 
 def init_rglru_cache(batch: int, cfg: ModelConfig, dtype, device) -> dict:

@@ -22,6 +22,7 @@ from repro_torch.kernels.sgld_update import softplus
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 from .config import ModelConfig
+from .hooks import LOCAL
 from .layers import causal_conv, normal
 
 
@@ -59,7 +60,7 @@ def _causal_conv(w, u, conv_state=None):
     return F.silu(out).to(u.dtype), state
 
 
-def ssd_chunked(xh, bt, ct, log_a, dt, chunk: int, h0=None):
+def ssd_chunked(xh, bt, ct, log_a, dt, chunk: int, h0=None, hooks=LOCAL):
     """Chunked SSD core on the ``ssd_scan`` wrapper.
 
     xh:    (B, S, H, P)  inputs per head
@@ -69,8 +70,9 @@ def ssd_chunked(xh, bt, ct, log_a, dt, chunk: int, h0=None):
     Returns (y (B,S,H,P), h_last (B,H,P,N)), float32.
     """
     f32 = torch.float32
-    return ssd_scan(xh, bt, ct, log_a.to(f32), dt.to(f32),
-                    None if h0 is None else h0.to(f32), chunk=chunk)
+    return hooks.impl(ssd_scan)(xh, bt, ct, log_a.to(f32), dt.to(f32),
+                                None if h0 is None else h0.to(f32),
+                                chunk=chunk)
 
 
 def _gated_norm(params, y, z):
@@ -80,10 +82,12 @@ def _gated_norm(params, y, z):
     return y * torch.rsqrt(var + 1e-6) * (1.0 + params["norm_z"])
 
 
-def ssd_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def ssd_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                hooks=LOCAL):
     """Full-sequence Mamba-2 block that also returns the decode cache
     ({"h": h_last, "conv": the last W-1 conv inputs}); the reference's
-    ``blocks._ssd_prefill``, which ``ssd_fwd`` repeats without the cache."""
+    ``blocks._ssd_prefill``, which ``ssd_fwd`` repeats without the cache.
+    ``hooks``: ``models/hooks.py``."""
     b, s, _ = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     f32 = torch.float32
@@ -93,16 +97,18 @@ def ssd_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig):
     bt, ct = xbc[..., di:di + n], xbc[..., di + n:]
     dt = softplus(dt_raw.to(f32) + params["dt_bias"])          # (B,S,H)
     log_a = -torch.exp(params["a_log"]) * dt
-    y, h_last = ssd_chunked(xs, bt, ct, log_a, dt, cfg.ssm_chunk)
+    y, h_last = ssd_chunked(xs, bt, ct, log_a, dt, cfg.ssm_chunk,
+                            hooks=hooks)
     y = y + params["d_skip"][:, None] * xs.to(f32)
-    y = _gated_norm(params, y.reshape(b, s, di), z)
-    out = (y @ params["out_proj"].to(f32)).to(x.dtype)
-    return out, {"h": h_last, "conv": conv_state}
+    y = hooks.keep(_gated_norm(params, y.reshape(b, s, di), z), "out_proj")
+    out = hooks.leave(y @ params["out_proj"].to(f32), "out_proj")
+    return out.to(x.dtype), {"h": h_last, "conv": conv_state}
 
 
-def ssd_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ssd_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            hooks=LOCAL) -> torch.Tensor:
     """Full-sequence Mamba-2 block. x: (B,S,d) -> (B,S,d)."""
-    return ssd_prefill(params, x, cfg)[0]
+    return ssd_prefill(params, x, cfg, hooks)[0]
 
 
 def init_ssd_cache(batch: int, cfg: ModelConfig, dtype, device) -> dict:

@@ -1,6 +1,6 @@
 """Kernel device time on the card from ``torch.profiler`` windows that keep
-their records (``chip_smoke.py``, ``launch/router_dryrun.py``, the card
-tests and the tools take their profiles here).
+their records (``chip_smoke.py``, the dry-runs, the card tests and the
+tools take their profiles here).
 
 CUPTI hands its activity records over late. On an H100 a window closed
 right after its last sync lost, at random, the records of its last
@@ -15,6 +15,7 @@ again while it is not whole.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 
 import torch
@@ -87,3 +88,35 @@ def whole_profile(run, attempts: int = 3):
         if kernel_events(prof) and window_whole(prof):
             break
     return prof
+
+
+# the least host time a profiled window holds: one-call windows of the
+# router dry-run's route share (0.1 ms) recorded no event at all in most
+# tries on an H100, padded or not, where windows of 10 ms and more kept
+# theirs
+WINDOW_MS = 50.0
+
+
+def timed(fn, calls: int = 5) -> dict:
+    """Host ms a call of ``fn`` (ending in a sync); device ms by kernel a
+    call, the mean over a whole profiler window (``whole_profile``) of as
+    many calls as fill ``WINDOW_MS``; the peak memory of a call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    peak = torch.cuda.max_memory_allocated()
+    n = max(1, math.ceil(WINDOW_MS / ms))
+
+    def run():
+        for _ in range(n):
+            fn()
+    by_kernel = {k: us / 1e3 / n for k, us, _ in
+                 kernel_events(whole_profile(run))}
+    return {"ms": ms, "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel, "peak_bytes": peak,
+            "profiled_calls": n}

@@ -48,7 +48,11 @@ class P(tuple):
 
 
 def _sizes(mesh) -> dict:
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    """{axis name: size} of a ``DeviceMesh``, or of any object with
+    ``axis_names`` and a ``shape`` mapping names to sizes."""
+    if getattr(mesh, "mesh_dim_names", None) is not None:
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(mesh.shape)
 
 
 def batch_axes(mesh) -> tuple:

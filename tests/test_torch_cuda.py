@@ -2177,31 +2177,38 @@ def test_stream_capture_holds_with_a_dropped_service_in_the_garbage(
     import gc
     import weakref
     from repro_torch.core.draws import KeyedDraws
-    dropped = _service(cuda_device, KeyedDraws(5), buckets=(8,))
-    alive = weakref.ref(dropped)
-    del dropped
-    svc = _service(cuda_device, KeyedDraws(4), buckets=(8,))
-    x = torch.arange(8.0, device=cuda_device)
-    out = torch.zeros_like(x)
-    seen = []
+    # no automatic collection may free the dropped service before the
+    # capture, whose body collects in its place
+    threshold = gc.get_threshold()
+    gc.set_threshold(1 << 30)
+    try:
+        dropped = _service(cuda_device, KeyedDraws(5), buckets=(8,))
+        alive = weakref.ref(dropped)
+        del dropped
+        svc = _service(cuda_device, KeyedDraws(4), buckets=(8,))
+        x = torch.arange(8.0, device=cuda_device)
+        out = torch.zeros_like(x)
+        seen = []
 
-    def collects_when_on(_):
-        torch.mul(x, 2.0, out=out)
-        if torch.cuda.is_current_stream_capturing():
-            seen.append(gc.isenabled())
-            if gc.isenabled():
-                gc.collect()
-        torch.add(out, 1.0, out=out)
-        return []
-    assert gc.isenabled() and alive() is not None
-    prog = svc._capture(collects_when_on, 8, 8, False)
-    assert seen == [False] and gc.isenabled()
-    out.zero_()
-    prog()
-    torch.cuda.synchronize()
-    assert torch.equal(out, 2.0 * x + 1.0)
-    gc.collect()
-    assert alive() is None
+        def collects_when_on(_):
+            torch.mul(x, 2.0, out=out)
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(gc.isenabled())
+                if gc.isenabled():
+                    gc.collect()
+            torch.add(out, 1.0, out=out)
+            return []
+        assert gc.isenabled() and alive() is not None
+        prog = svc._capture(collects_when_on, 8, 8, False)
+        assert seen == [False] and gc.isenabled()
+        out.zero_()
+        prog()
+        torch.cuda.synchronize()
+        assert torch.equal(out, 2.0 * x + 1.0)
+        gc.collect()
+        assert alive() is None
+    finally:
+        gc.set_threshold(*threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -2430,3 +2437,39 @@ def test_mesh_world_of_one_matches_unsharded_on_the_card(cuda_device,
     finally:
         mesh_lib.close_world()
     assert not dist.is_initialized()
+
+
+# the LM dry-run's shares: one unit of the rank program forward and
+# backward on the card, at a cut batch and length with the local heads,
+# widths and head dims of the train_4k shares on 16 x 16
+SHARE_CUT = dict(batch=2, seq=512)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "seamless-m4t-medium",
+                                  "mamba2-1.3b", "recurrentgemma-9b"])
+def test_lm_dryrun_share_matches_its_plain_version(cuda_device, arch,
+                                                   dtype):
+    """A dry-run share (``launch/dryrun.py::build_share``: the model's
+    unit through the rank's hooks, its collectives stood in for) launches
+    the kernels its plan names, as many times (``unit_plan`` at the same
+    shapes), and matches itself on the plain versions on the card
+    (``compare_share``): outputs and every gradient within 1e-4 of their
+    largest magnitude in fp32, 2e-2 in bf16 (the bf16 attention and its
+    backward's tolerance)."""
+    from repro_torch.configs import SHAPES as TSHAPES
+    from repro_torch.launch import dryrun as tdr
+    run, _, _ = tdr.build_share(arch, cuda_device, dtype=dtype, **SHARE_CUT)
+    kernels.reset_launch_counts()
+    got = tdr.compare_share(run)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    cfg = tdr.share_config(arch, dtype)
+    shape = TSHAPES[tdr.SHARE_SHAPE]
+    cut = type(shape)("cut", SHARE_CUT["seq"], 16 * SHARE_CUT["batch"],
+                      "train")
+    assert launches == tdr.plan_launches(
+        tdr.unit_plan(cfg, cut, tdr.plain_mesh(tdr.SHARE_MESH)))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert got["finite"], got
+    assert got["out_rel_err"] <= tol and got["grad_rel_err"] <= tol, got

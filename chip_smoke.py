@@ -4,9 +4,15 @@
     python3 chip_smoke.py [--seed N] [--out FILE]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel) and runs three phases, printing one JSON
+``nvcc`` per source, in parallel), lints the port (phase ``lint``: ``python
+-m repro_torch.analysis --json --fail-on-new`` over ``src/repro_torch`` on
+this machine's Python, whose line counts the modules scanned, the new,
+baselined and stale findings and the seconds; any new finding or stale
+baseline entry fails the run) and runs three phases, printing one JSON
 line per phase (phase 2 prints one per path; the wall time since start is
-in each line's ``wall_s``):
+in each line's ``wall_s``). The streaming, refresh and mesh paths hold
+their CUDA graph counts flat through the port's ``assert_flat``
+(``repro_torch.analysis.retrace``):
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K = 16 pool slots with 11 live RouterBench
@@ -309,6 +315,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -349,6 +356,35 @@ def emit_phase(record):
     if PHASE_LOG is not None:
         with open(PHASE_LOG, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+def phase_lint():
+    """The port's repro-lint over ``src/repro_torch`` on this machine's
+    Python (``python -m repro_torch.analysis --json --fail-on-new``, the
+    gate ``tests/test_torch_analysis.py`` holds on the CPU): no new
+    finding, no stale baseline entry."""
+    root = Path(__file__).resolve().parent
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + (
+        os.pathsep + path if path else ""))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json",
+         "--fail-on-new"], cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(run.stdout.strip().startswith("{"),
+          f"lint: no report (exit {run.returncode}): {run.stderr[-2000:]}")
+    out = json.loads(run.stdout)
+    new, stale = out["new"], out["stale_baseline_entries"]
+    check(run.returncode == 0 and not new,
+          f"lint: exit {run.returncode}, {len(new)} new finding(s): "
+          + "; ".join(f"{f['path']}:{f['line']}: [{f['rule']}] "
+                      f"{f['symbol']}" for f in new[:20]))
+    check(not stale, f"lint: stale baseline entries {stale}")
+    return dict(modules=out["modules_scanned"], passes=out["passes"],
+                new=len(new), baselined=len(out["suppressed"]),
+                stale=len(stale), seconds=seconds)
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -3201,6 +3237,7 @@ def phase_stream(dev, seed, params):
     import shutil
     import numpy as np
     import torch
+    from repro_torch.analysis.retrace import assert_flat
     from repro_torch.core import model_pool as mp
     from repro_torch.core.draws import KeyedDraws
     votes = KeyedDraws(seed + 201)
@@ -3217,91 +3254,91 @@ def phase_stream(dev, seed, params):
     check(graphs == dict(s_route=nb, s_route_pref=nb, s_feedback=nb,
                          s_resolve=nb, captures=4 * nb),
           f"stream: graph counts {graphs}")
-    grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
-    x_off, u_off = envd.x[n_req:], envd.utils[n_req:]
-    ckpt = Path(__file__).resolve().parent / "build" / "stream_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    restored, issued, folded, buckets_used = None, None, [], {}
-    for i, (row, fb, _) in enumerate(batches):
-        if i == STREAM_SWAP:
-            for s in (svc, twin):
-                s.retire_model(BAD)
-                slot = s.add_model(entries[-1], replay=mp.warm_start_duels(
-                    KeyedDraws(seed + 7), x_off, u_off, ARRIVAL,
-                    s.active_mask(), feedback_scale=8.0))
-                check(slot == ARRIVAL, f"stream: the arrival took {slot}")
-        if i == STREAM_SAVE:
-            svc.save(str(ckpt))
-            restored = serve_setup(seed, dev, None, params,
-                                   t_total=n_req + BATCH,
-                                   buckets=STREAM_BUCKETS)[0]
-            restored.restore(str(ckpt))
-            check(restored.tick == svc.tick
-                  and int(restored._tick_dev) == svc.tick,
-                  "stream: the restored clock differs")
-        live = restored is not None and i < STREAM_SAVE + RESTORE_TICKS
-        x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
-        prefs = grid[(torch.arange(fb.n, device=dev) + i) % 3]
-        buckets_used[fb.bucket] = buckets_used.get(fb.bucket, 0) + 1
-        with no_sync("route_stream"):
-            a1, a2, tk = svc.route_stream(x, prefs=prefs)
-        b1, b2, tb = twin.route_batch(x, prefs=prefs)
-        check(torch.equal(a1, b1) and torch.equal(a2, b2)
-              and torch.equal(tk, tb),
-              f"stream: batch {i} (n {fb.n}, bucket {fb.bucket}) routes "
-              f"differently from route_batch")
-        if live:
-            with no_sync("route_stream (restored)"):
-                r = restored.route_stream(x, prefs=prefs)
-            check(all(torch.equal(p, q) for p, q in zip(r, (a1, a2, tk))),
-                  f"stream: batch {i} after the restore routes differently")
-        y = serve_votes(votes, i, u, a1, a2)
-        if issued is not None:
-            with no_sync("feedback_stream"):
-                n_ok = svc.feedback_stream(*issued)
-            n_twin = twin.feedback_batch(*issued)
-            check(torch.equal(n_ok, n_twin), f"stream: batch {i} folded "
-                  f"{int(n_ok)}, route_batch's twin {int(n_twin)}")
-            folded.append((n_ok, issued[0].shape[0]))
+    with assert_flat(svc, note="stream: the timed passes") as flat:
+        grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
+        x_off, u_off = envd.x[n_req:], envd.utils[n_req:]
+        ckpt = Path(__file__).resolve().parent / "build" / "stream_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        restored, issued, folded, buckets_used = None, None, [], {}
+        for i, (row, fb, _) in enumerate(batches):
+            if i == STREAM_SWAP:
+                for s in (svc, twin):
+                    s.retire_model(BAD)
+                    slot = s.add_model(entries[-1], replay=mp.warm_start_duels(
+                        KeyedDraws(seed + 7), x_off, u_off, ARRIVAL,
+                        s.active_mask(), feedback_scale=8.0))
+                    check(slot == ARRIVAL, f"stream: the arrival took {slot}")
+            if i == STREAM_SAVE:
+                svc.save(str(ckpt))
+                restored = serve_setup(seed, dev, None, params,
+                                       t_total=n_req + BATCH,
+                                       buckets=STREAM_BUCKETS)[0]
+                restored.restore(str(ckpt))
+                check(restored.tick == svc.tick
+                      and int(restored._tick_dev) == svc.tick,
+                      "stream: the restored clock differs")
+            live = restored is not None and i < STREAM_SAVE + RESTORE_TICKS
+            x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
+            prefs = grid[(torch.arange(fb.n, device=dev) + i) % 3]
+            buckets_used[fb.bucket] = buckets_used.get(fb.bucket, 0) + 1
+            with no_sync("route_stream"):
+                a1, a2, tk = svc.route_stream(x, prefs=prefs)
+            b1, b2, tb = twin.route_batch(x, prefs=prefs)
+            check(torch.equal(a1, b1) and torch.equal(a2, b2)
+                  and torch.equal(tk, tb),
+                  f"stream: batch {i} (n {fb.n}, bucket {fb.bucket}) routes "
+                  f"differently from route_batch")
             if live:
-                with no_sync("feedback_stream (restored)"):
-                    n_r = restored.feedback_stream(*issued)
-                check(torch.equal(n_r, n_ok), "stream: the restored "
-                      "service folds differently")
-        issued = (tk, y)
-    shutil.rmtree(ckpt, ignore_errors=True)
-    check(restored is not None, "stream: the restore did not run")
-    del restored
-    check(svc.compiled_program_counts() == graphs,
-          f"stream: graphs captured anew: {svc.compiled_program_counts()}")
-    check(all(int(n) == m for n, m in folded),
-          "stream: a late delivery did not fold in full")
-    same_service(svc, twin, "stream vs route_batch")
-    check(svc.tick == twin.tick == len(batches) == int(svc._tick_dev),
-          "stream: the device tick left its host mirror")
-    active = svc.active_mask()
-    check(not active[BAD] and active[ARRIVAL],
-          f"stream: membership {active.tolist()}")
+                with no_sync("route_stream (restored)"):
+                    r = restored.route_stream(x, prefs=prefs)
+                check(all(torch.equal(p, q) for p, q in zip(r, (a1, a2, tk))),
+                      f"stream: batch {i} after the restore routes "
+                      f"differently")
+            y = serve_votes(votes, i, u, a1, a2)
+            if issued is not None:
+                with no_sync("feedback_stream"):
+                    n_ok = svc.feedback_stream(*issued)
+                n_twin = twin.feedback_batch(*issued)
+                check(torch.equal(n_ok, n_twin), f"stream: batch {i} folded "
+                      f"{int(n_ok)}, route_batch's twin {int(n_twin)}")
+                folded.append((n_ok, issued[0].shape[0]))
+                if live:
+                    with no_sync("feedback_stream (restored)"):
+                        n_r = restored.feedback_stream(*issued)
+                    check(torch.equal(n_r, n_ok), "stream: the restored "
+                          "service folds differently")
+            issued = (tk, y)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        check(restored is not None, "stream: the restore did not run")
+        del restored
+        flat.check("stream: the batches, add_model and a restore")
+        check(all(int(n) == m for n, m in folded),
+              "stream: a late delivery did not fold in full")
+        same_service(svc, twin, "stream vs route_batch")
+        check(svc.tick == twin.tick == len(batches) == int(svc._tick_dev),
+              "stream: the device tick left its host mirror")
+        active = svc.active_mask()
+        check(not active[BAD] and active[ARRIVAL],
+              f"stream: membership {active.tolist()}")
 
-    # the launches of the replays: every formed batch once more through the
-    # graphs, counted by the profiler's kernel names
-    launches = replay_launches(lambda: stream_pass(
-        svc, envd, batches, grid, votes, svc.route_stream,
-        svc.feedback_stream))
-    check(launches == dict(sgld_potential_grad=2 * cfg.sgld_steps
-                           * len(batches), dueling_select=len(batches),
-                           dueling_score=0),
-          f"stream: replayed launches {launches}")
+        # the launches of the replays: every formed batch once more through the
+        # graphs, counted by the profiler's kernel names
+        launches = replay_launches(lambda: stream_pass(
+            svc, envd, batches, grid, votes, svc.route_stream,
+            svc.feedback_stream))
+        check(launches == dict(sgld_potential_grad=2 * cfg.sgld_steps
+                               * len(batches), dueling_select=len(batches),
+                               dueling_score=0),
+              f"stream: replayed launches {launches}")
 
-    # the timed passes: the graphs, then the eager twin, on the same batches
-    route_ms, fb_ms, lat, wall = stream_pass(
-        svc, envd, batches, grid, votes, svc.route_stream,
-        svc.feedback_stream, guard=False)
-    t_route, t_fb, t_lat, t_wall = stream_pass(
-        twin, envd, batches, grid, votes, twin.route_batch,
-        twin.feedback_batch)
-    check(svc.compiled_program_counts() == graphs,
-          "stream: the timed pass captured anew")
+        # the timed passes: the graphs, then the eager twin, on the same
+        # batches
+        route_ms, fb_ms, lat, wall = stream_pass(
+            svc, envd, batches, grid, votes, svc.route_stream,
+            svc.feedback_stream, guard=False)
+        t_route, t_fb, t_lat, t_wall = stream_pass(
+            twin, envd, batches, grid, votes, twin.route_batch,
+            twin.feedback_batch)
     by_bucket = {}
     for (_, fb, _), ms in zip(batches, route_ms):
         by_bucket.setdefault(fb.bucket, []).append(ms)
@@ -3427,10 +3464,10 @@ def stream_autopilot(dev, seed, params, votes, batches):
     ``sgld_potential_grad`` 40 times per replayed route graph."""
     import contextlib
     import torch
+    from repro_torch.analysis.retrace import assert_flat
     svc, envd, _, cfg, _ = serve_setup(seed, dev, None, params,
                                        autopilot=True,
                                        buckets=STREAM_BUCKETS)
-    graphs = svc.compiled_program_counts()
 
     def run(guard):
         issued = None
@@ -3442,19 +3479,18 @@ def stream_autopilot(dev, seed, params, votes, batches):
                 with guard("feedback_stream (autopilot)"):
                     svc.feedback_stream(*issued)
             issued = (tk, serve_votes(votes, i, u, a1, a2))
-    run(no_sync)
-    torch.cuda.synchronize()
-    n = len(batches)
-    st = svc.autopilot_status()
-    check(int(st["tick"]) == n and math.isfinite(st["lambda"]),
-          f"stream autopilot: controller tick {st['tick']}")
-    launches = replay_launches(lambda: run(
-        lambda what: contextlib.nullcontext()))
-    check(launches == dict(sgld_potential_grad=2 * cfg.sgld_steps * n,
-                           dueling_select=n, dueling_score=n),
-          f"stream autopilot: replayed launches {launches}")
-    check(svc.compiled_program_counts() == graphs,
-          "stream autopilot: graphs captured anew")
+    with assert_flat(svc, note="stream autopilot"):
+        run(no_sync)
+        torch.cuda.synchronize()
+        n = len(batches)
+        st = svc.autopilot_status()
+        check(int(st["tick"]) == n and math.isfinite(st["lambda"]),
+              f"stream autopilot: controller tick {st['tick']}")
+        launches = replay_launches(lambda: run(
+            lambda what: contextlib.nullcontext()))
+        check(launches == dict(sgld_potential_grad=2 * cfg.sgld_steps * n,
+                               dueling_select=n, dueling_score=n),
+              f"stream autopilot: replayed launches {launches}")
     return dict(batches=n, launches=launches, lam=st["lambda"],
                 cost_ema=st["cost_ema"])
 
@@ -3486,6 +3522,7 @@ def phase_refresh(dev, seed, params):
     card against CPU on the exported log."""
     import torch
     from repro_torch import kernels
+    from repro_torch.analysis.retrace import assert_flat
     from repro_torch.core import fgts
     from repro_torch.core import model_pool as mp
     from repro_torch.core.draws import KeyedDraws
@@ -3506,51 +3543,51 @@ def phase_refresh(dev, seed, params):
         refresh=rcfg), device=dev)
     graphs = svc.compiled_program_counts()
     votes = KeyedDraws(seed + 401)
-    batches = stream_batches(seed, (("poisson:12800", REFRESH_REQUESTS),))
-    offline = (split.offline_tokens, split.offline_mask, split.offline_cats)
-    cats = split.online_cats.to(dev)
-    issued, cycles, regrets, exported = None, [], [], None
-    for i, (row, fb, _) in enumerate(batches):
-        x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
-        with no_sync("route_stream (refresh)"):
-            a1, a2, tk = svc.route_stream(x, cats=cats[row:row + fb.n])
-        rows = torch.arange(fb.n, device=dev)
-        regrets.append(torch.mean(u.amax(-1) - 0.5 * (
-            u[rows, a1.long()] + u[rows, a2.long()])))
-        if issued is not None:
-            with no_sync("feedback_stream (refresh)"):
-                svc.feedback_stream(*issued)
-        issued = (tk, serve_votes(votes, i, u, a1, a2))
-        if svc.refresh_due():
-            kernels.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            log = svc.export_log()
-            table, info = refresh_table(KeyedDraws(seed + 9), log, params,
-                                        enc_cfg, offline, rcfg, K_MAX,
-                                        costs=svc.costs)
-            svc.apply_table(table)
-            torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            # 2 encodes a step and one of the offline split, a launch a
-            # layer each
-            steps = rcfg.epochs * rcfg.steps_per_epoch
-            fwd = (2 * steps + 1) * enc_cfg.n_layers
-            check(counts["flash_attention_bwd"] == 2 * enc_cfg.n_layers
-                  * steps and counts["flash_attention"] == fwd,
-                  f"refresh: attention launches {counts} in {steps} steps")
-            check(torch.equal(mp.get_pool(svc.state).a_emb, table)
-                  and bool(torch.isfinite(table).all()),
-                  "refresh: the refreshed table is not the pool's")
-            cycles.append(dict(batch=i, seconds=time.perf_counter() - t0,
-                               n_duels=info["n_duels"], log_count=log[
-                                   "count"], losses=info["losses"],
-                               launches={k: v for k, v in counts.items()
-                                         if v}, mix=info["mix"].tolist()))
-            exported = log
-    check(len(cycles) == 1, f"refresh: {len(cycles)} cycles, not 1")
-    check(svc.compiled_program_counts() == graphs,
-          f"refresh: graphs captured anew {svc.compiled_program_counts()}")
+    with assert_flat(svc, note="refresh"):
+        batches = stream_batches(seed, (("poisson:12800", REFRESH_REQUESTS),))
+        offline = (split.offline_tokens, split.offline_mask,
+                   split.offline_cats)
+        cats = split.online_cats.to(dev)
+        issued, cycles, regrets, exported = None, [], [], None
+        for i, (row, fb, _) in enumerate(batches):
+            x, u = envd.x[row:row + fb.n], envd.utils[row:row + fb.n]
+            with no_sync("route_stream (refresh)"):
+                a1, a2, tk = svc.route_stream(x, cats=cats[row:row + fb.n])
+            rows = torch.arange(fb.n, device=dev)
+            regrets.append(torch.mean(u.amax(-1) - 0.5 * (
+                u[rows, a1.long()] + u[rows, a2.long()])))
+            if issued is not None:
+                with no_sync("feedback_stream (refresh)"):
+                    svc.feedback_stream(*issued)
+            issued = (tk, serve_votes(votes, i, u, a1, a2))
+            if svc.refresh_due():
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                log = svc.export_log()
+                table, info = refresh_table(KeyedDraws(seed + 9), log, params,
+                                            enc_cfg, offline, rcfg, K_MAX,
+                                            costs=svc.costs)
+                svc.apply_table(table)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                # 2 encodes a step and one of the offline split, a launch a
+                # layer each
+                steps = rcfg.epochs * rcfg.steps_per_epoch
+                fwd = (2 * steps + 1) * enc_cfg.n_layers
+                check(counts["flash_attention_bwd"] == 2 * enc_cfg.n_layers
+                      * steps and counts["flash_attention"] == fwd,
+                      f"refresh: attention launches {counts} in {steps} steps")
+                check(torch.equal(mp.get_pool(svc.state).a_emb, table)
+                      and bool(torch.isfinite(table).all()),
+                      "refresh: the refreshed table is not the pool's")
+                cycles.append(dict(batch=i, seconds=time.perf_counter() - t0,
+                                   n_duels=info["n_duels"], log_count=log[
+                                       "count"], losses=info["losses"],
+                                   launches={k: v for k, v in counts.items()
+                                             if v}, mix=info["mix"].tolist()))
+                exported = log
+        check(len(cycles) == 1, f"refresh: {len(cycles)} cycles, not 1")
     stats = svc.service_stats()
     check(stats["table_swaps"] == 1 and stats["n_routed"]
           == REFRESH_REQUESTS, f"refresh: service_stats {stats}")
@@ -3754,6 +3791,7 @@ def mesh_stream(dev, seed, params, mesh):
     replay of the top bucket's route program (by the profiler's kernel
     names: a replay makes no Python call)."""
     import torch
+    from repro_torch.analysis.retrace import assert_flat
     from repro_torch.core.draws import KeyedDraws
     from repro_torch.sharding import routing_rules as rr
     votes = KeyedDraws(seed + 304)
@@ -3773,35 +3811,34 @@ def mesh_stream(dev, seed, params, mesh):
     check(graphs == dict(s_route=nb, s_route_pref=nb, s_feedback=nb,
                          s_resolve=nb, captures=4 * nb),
           f"mesh: stream graph counts {graphs}")
-    grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
-    svcs = dict(plain=plain, mesh=meshed)
-    ms = {k: dict(route=[], feedback=[]) for k in svcs}
-    row, issued = 0, None
-    for i, n in enumerate(MESH_STREAM_SIZES):
-        x, u = envd.x[row:row + n], envd.utils[row:row + n]
-        row += n
-        prefs = grid[(torch.arange(n, device=dev) + i) % 3]
-        out = {}
-        for name, svc in svcs.items():
-            out[name], t = timed_call(lambda: svc.route_stream(x,
-                                                               prefs=prefs))
-            ms[name]["route"].append(t)
-        check(all(torch.equal(p, q) for p, q in zip(out["plain"],
-                                                    out["mesh"])),
-              f"mesh: stream batch {i} (n {n}) routes differently")
-        y = serve_votes(votes, i, u, *out["mesh"][:2])
-        if issued is not None:
-            got = {}
+    with assert_flat(meshed, note="mesh stream"):
+        grid = torch.tensor([0.0, 0.5, 2.0], device=dev)
+        svcs = dict(plain=plain, mesh=meshed)
+        ms = {k: dict(route=[], feedback=[]) for k in svcs}
+        row, issued = 0, None
+        for i, n in enumerate(MESH_STREAM_SIZES):
+            x, u = envd.x[row:row + n], envd.utils[row:row + n]
+            row += n
+            prefs = grid[(torch.arange(n, device=dev) + i) % 3]
+            out = {}
             for name, svc in svcs.items():
-                got[name], t = timed_call(
-                    lambda: svc.feedback_stream(*issued))
-                ms[name]["feedback"].append(t)
-            check(torch.equal(got["plain"], got["mesh"]),
-                  f"mesh: stream batch {i} folds differently")
-        issued = (out["mesh"][2], y)
-    same_service(plain, meshed, "mesh stream")
-    check(meshed.compiled_program_counts() == graphs,
-          "mesh: stream graphs captured anew")
+                out[name], t = timed_call(
+                    lambda: svc.route_stream(x, prefs=prefs))
+                ms[name]["route"].append(t)
+            check(all(torch.equal(p, q) for p, q in zip(out["plain"],
+                                                        out["mesh"])),
+                  f"mesh: stream batch {i} (n {n}) routes differently")
+            y = serve_votes(votes, i, u, *out["mesh"][:2])
+            if issued is not None:
+                got = {}
+                for name, svc in svcs.items():
+                    got[name], t = timed_call(
+                        lambda: svc.feedback_stream(*issued))
+                    ms[name]["feedback"].append(t)
+                check(torch.equal(got["plain"], got["mesh"]),
+                      f"mesh: stream batch {i} folds differently")
+            issued = (out["mesh"][2], y)
+        same_service(plain, meshed, "mesh stream")
     x = envd.x[:STREAM_BUCKETS[-1]]
     with rr.tally() as coll_route:
         tk = meshed.route_stream(x)[2]
@@ -4742,14 +4779,18 @@ def share_call_bound(call):
     return bound(24 * b * s * d + 4 * b * d, flops)
 
 
-def share_call_ms(call, dev):
+def share_call_ms(call, dev, plain=False):
     """CUDA-event ms of one kernel call of a dry-run share's plan, alone,
     on random inputs of its shapes, strides and dtypes (decays drawn as
-    the models draw them: log_a = -softplus(x) scaled)."""
+    the models draw them: log_a = -softplus(x) scaled). ``plain``: the
+    same call on the kernel's plain version (the attention a few batch
+    rows at a time, as the share's plain run takes it: ``dr.PLAIN_SCORES``
+    scores a chunk), timed over fewer calls."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import dryrun as dr
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def make(a, scale=1.0):
@@ -4758,15 +4799,26 @@ def share_call_ms(call, dev):
         t.copy_(scale * torch.randn(a["shape"], generator=gen, device=dev))
         return t
     kernel, a = call["kernel"], call["args"]
-    timed = lambda fn: time_ms(fn, runs=3, calls=5)
+    timed = (lambda fn: time_ms(fn, runs=1, calls=3, warmup=1)) if plain \
+        else (lambda fn: time_ms(fn, runs=3, calls=5))
     if kernel.startswith("flash_attention"):
         q, k, v = (make(x) for x in a[:3])
         kw = dict(causal=call["causal"], window=call["window"],
                   softcap=call["softcap"])
+        if plain:
+            b, h, s, _ = q.shape
+            n = max(1, dr.PLAIN_SCORES // (h * s * k.shape[2]))
+            rows = [slice(i, i + n) for i in range(0, b, n)]
         if kernel == "flash_attention":
+            if plain:
+                return timed(lambda: [fa.flash_attention_plain(
+                    q[r], k[r], v[r], **kw) for r in rows])
             return timed(lambda: fa.flash_attention(q, k, v, **kw))
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         do = make(a[4])
+        if plain:
+            return timed(lambda: [fa.flash_attention_bwd_plain(
+                q[r], k[r], v[r], o[r], lse[r], do[r], **kw) for r in rows])
         return timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
                                                     **kw))
     if kernel.startswith("ssd_scan"):
@@ -4774,19 +4826,23 @@ def share_call_ms(call, dev):
         dt = torch.nn.functional.softplus(make(a[4]))
         log_a = -0.5 * dt
         if kernel == "ssd_scan":
-            return timed(lambda: ss.ssd_scan(x, bt, ct, log_a, dt,
-                                             chunk=call["chunk"]))
+            fwd = ss.ssd_scan_plain if plain else ss.ssd_scan
+            return timed(lambda: fwd(x, bt, ct, log_a, dt,
+                                     chunk=call["chunk"]))
         dy = make(a[5])
-        return timed(lambda: ss.ssd_scan_bwd(
-            x, bt, ct, log_a, dt, None, dy, None, chunk=call["chunk"]))
+        bwd = ss.ssd_scan_bwd_plain if plain else ss.ssd_scan_bwd
+        return timed(lambda: bwd(x, bt, ct, log_a, dt, None, dy, None,
+                                 chunk=call["chunk"]))
     log_a = -torch.nn.functional.softplus(make(a[0])) * 0.1
     x = make(a[1])
     if kernel == "rglru_scan":
-        return timed(lambda: rg.rglru_scan(log_a, x))
+        fwd = rg.rglru_scan_plain if plain else rg.rglru_scan
+        return timed(lambda: fwd(log_a, x))
     h, h_last = rg.rglru_scan(log_a, x)
     dh = make(a[3])
-    return timed(lambda: rg.rglru_scan_bwd(log_a, x, None, h, dh,
-                                           torch.ones_like(h_last)))
+    bwd = rg.rglru_scan_bwd_plain if plain else rg.rglru_scan_bwd
+    return timed(lambda: bwd(log_a, x, None, h, dh,
+                             torch.ones_like(h_last)))
 
 
 def share_library(calls, dev):
@@ -4843,7 +4899,8 @@ def phase_lm_dryrun(dev, seed):
     shapes, strides and masks); each kernel's bound (the sum over its
     calls of ``share_call_bound``) and SDPA's time where it computes the
     same function; each kernel's calls timed alone (CUDA events, summed
-    over the share's calls of it: ``ms``)."""
+    over the share's calls of it: ``ms``), and on its plain version
+    (``plain_ms``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import dryrun as dr
@@ -4886,6 +4943,8 @@ def phase_lm_dryrun(dev, seed):
                     bounds, key=lambda x: x[0])[1],
                 ms=sum(share_call_ms(c, dev) for c in calls
                        if c["kernel"] == k),
+                plain_ms=sum(share_call_ms(c, dev, plain=True)
+                             for c in calls if c["kernel"] == k),
                 # the share's against its plain run (all its kernels)
                 out_rel_err=pl["out_rel_err"],
                 grad_rel_err=pl["grad_rel_err"],
@@ -5259,7 +5318,8 @@ def kernels_line(cases, launches, serve_launches, lm_launches,
     shapes (``DRYRUN_TIMED``) under ``dryrun_shapes``. ``lm_shares`` are
     phase ``lm_dryrun``'s shares by arch, under ``lm_dryrun`` of the row
     of each kernel they launch (the bf16 attention backward's row for
-    ``flash_attention_bwd``): launches, device ms, bound, SDPA's ms. The bf16 attention backward's and the RG-LRU
+    ``flash_attention_bwd``): launches, device ms, bound, the plain
+    version's ms, SDPA's ms. The bf16 attention backward's and the RG-LRU
     backward's ``launches`` are those of the granite-3-2b and the
     recurrentgemma-9b training runs (3 steps), and the bf16 backward row
     carries its other timed cases under ``more``. The two forward kernels
@@ -5387,6 +5447,8 @@ def main() -> int:
     record["build"] = dict(phase="build", seconds=time.perf_counter() - t0,
                            libraries=sorted(_build.SIGNATURES))
     emit_phase(record["build"])
+    record["lint"] = dict(phase="lint", **phase_lint())
+    emit_phase(record["lint"])
 
     (sel, sg, sc, mx, at, atb, atb16, ssd, rgl, rgb, sbw,
      family_s) = phase_kernels(dev, args.seed)

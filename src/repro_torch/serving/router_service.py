@@ -501,7 +501,7 @@ class RouterService:
                                      self._shard, self._n_shards,
                                      max_age=cfg.feedback_expiry)
 
-        def route(b, draws, with_pref):
+        def route(b, draws, with_pref: bool):
             inp = self._inputs[b]
             x, mask, pref = inp["x"], inp["mask"], inp["pref"]
             if draws is not None:
@@ -551,7 +551,7 @@ class RouterService:
 
         top = self.buckets[-1]
 
-        def build(body, draws):
+        def build(body, draws: bool):
             """One program per bucket: eager on the CPU, a CUDA graph on a
             card (``draws``: the body takes the act's draw source)."""
             progs = {}
@@ -880,7 +880,8 @@ class RouterService:
             self.pending, x, a1, a2, self._clock(), pref_row, prop, cat_row,
             share=self._share)
         self.n_routed += b
-        self._duel_cost = self._duel_cost + self.spend(a1) + self.spend(a2)
+        self._commit(duel_cost=self._duel_cost + self.spend(a1)
+                     + self.spend(a2))
         return a1, a2, tickets
 
     def feedback_batch(self, tickets, y):
@@ -923,12 +924,12 @@ class RouterService:
             self.state = self._update_pref(
                 self.state, res.x, res.a1, res.a2, res.y, res.age, res.ok,
                 res.pref)
-            self._n_folded = self._n_folded + n_ok
+            self._commit(n_folded=self._n_folded + n_ok)
             return n_ok
         if self._update_masked is not None:
             self.state = self._update_masked(
                 self.state, res.x, res.a1, res.a2, res.y, res.age, res.ok)
-            self._n_folded = self._n_folded + n_ok
+            self._commit(n_folded=self._n_folded + n_ok)
             return n_ok
         return self._fold_compact(res)
 
